@@ -1,0 +1,221 @@
+"""Text-based audio editing CLI (``--mode ours``) on PyTorch.
+
+Counterpart of ``audioeditingcode_tpu/cli/run.py``, with the same flags and
+results layout. Run it as ``python -m audioeditingcode_tpu_torch.cli.run``.
+It runs on the CUDA card ``--device_num`` unless ``--device cpu`` is given;
+a missing card is an error. Flags this port does not cover yet raise an
+error that names the ROADMAP item that adds them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+import warnings
+
+import numpy as np
+import torch
+
+from ..editing.cfg import build_cfg_tensors
+from ..editing.invert import inversion_forward_process, inversion_reverse_process
+from ..models.registry import load_model, resolve_spec
+from ..utils.audio_io import load_audio, write_wav
+from ..utils.device import resolve_device
+from .common import (
+    dump_run_summary,
+    edit_image_name,
+    edit_save_path,
+    save_spectrogram_png,
+    set_reproducibility,
+)
+
+MODEL_CHOICES = [
+    "cvssp/audioldm-s-full-v2",
+    "cvssp/audioldm-l-full",
+    "cvssp/audioldm2",
+    "cvssp/audioldm2-large",
+    "cvssp/audioldm2-music",
+    "declare-lab/tango-full-ft-audio-music-caps",
+    "declare-lab/tango-full-ft-audiocaps",
+    "stabilityai/stable-audio-open-1.0",
+    "test/tiny-audioldm",
+    "test/tiny-audioldm2",
+    "test/tiny-stable-audio",
+]
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Run text-based audio editing.")
+    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                   help="run on a CUDA card (default) or on the CPU")
+    p.add_argument("--device_num", type=int, default=0, help="CUDA card number")
+    p.add_argument("-s", "--seed", type=int, default=None)
+    p.add_argument("--model_id", type=str, choices=MODEL_CHOICES,
+                   default="cvssp/audioldm2-music")
+    p.add_argument("--init_aud", type=str, required=True)
+    p.add_argument("--cfg_src", type=float, nargs="+", default=[3])
+    p.add_argument("--cfg_tar", type=float, nargs="+", default=[12])
+    p.add_argument("--num_diffusion_steps", type=int, default=200)
+    p.add_argument("--target_prompt", type=str, nargs="+", default=[""], required=True)
+    p.add_argument("--source_prompt", type=str, nargs="+", default=[""])
+    p.add_argument("--target_neg_prompt", type=str, nargs="+", default=[""])
+    p.add_argument("--tstart", type=int, nargs="+", default=[100])
+    p.add_argument("--results_path", type=str, default="results")
+    p.add_argument("--cutoff_points", type=float, nargs="*", default=None)
+    p.add_argument("--mode", default="ours", choices=["ours", "ddim"])
+    p.add_argument("--fix_alpha", type=float, default=0.1)
+    p.add_argument("--first_order", action="store_true", default=False,
+                   help="Force the Stable Audio solver to first order")
+    p.add_argument("--weights_dir", type=str, default=None,
+                   help="Directory of converted weights")
+    p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"])
+    # accepted for flag compatibility; wandb logging is always off (the
+    # reference's --wandb_disable defaults to True)
+    p.add_argument("--wandb_name", type=str, default=None)
+    p.add_argument("--wandb_group", type=str, default=None)
+    p.add_argument("--wandb_disable", action="store_true", default=True)
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="capture a profiler trace of the edit into this dir")
+    p.add_argument("--selfcheck", action="store_true", default=False,
+                   help="reconstruction self-test: invert, then reverse with "
+                        "the SOURCE prompt/cfg and report the latent "
+                        "reconstruction SNR ('ours' mode: >= 40 dB)")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel ways")
+    p.add_argument("--dp", type=int, default=1, help="data-parallel ways")
+    p.add_argument("--sp", type=int, default=None, help="sequence-parallel ways")
+    return p
+
+
+def parse_args(argv=None):
+    """Parse, then apply the reference's fixed post-parse args
+    (eta=1, numerical_fix=True, test_rand_gen=False)."""
+    args = build_parser().parse_args(argv)
+    args.eta = 1.0
+    args.numerical_fix = True
+    args.test_rand_gen = False
+    return args
+
+
+def _reject_unported(args) -> None:
+    resolve_spec(args.model_id)  # raises for model families not ported yet
+    if args.mode == "ddim":
+        raise NotImplementedError("--mode ddim is not ported to PyTorch yet "
+                                  "(ROADMAP Queue A item 8)")
+    if args.dp != 1 or args.tp != 1 or args.sp not in (None, 0, 1):
+        raise NotImplementedError("--dp/--tp/--sp are not ported to PyTorch yet "
+                                  "(ROADMAP Queue A item 12)")
+    if args.weights_dir is not None:
+        raise NotImplementedError("--weights_dir is not ported to PyTorch yet "
+                                  "(ROADMAP Queue A item 13)")
+    if args.profile_dir is not None:
+        raise NotImplementedError("--profile_dir is not ported to PyTorch yet "
+                                  "(ROADMAP Queue A item 14)")
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if not os.path.exists(args.init_aud):
+        raise FileNotFoundError(f"--init_aud: no such file: {args.init_aud}")
+    _reject_unported(args)
+    device = resolve_device(args.device, args.device_num)
+    seed = set_reproducibility(args.seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    warnings.warn("--weights_dir not given: running with RANDOM weights "
+                  "(smoke-test mode, outputs are not meaningful audio).")
+
+    if len(args.tstart) != len(args.target_prompt):
+        if len(args.tstart) == 1:
+            args.tstart = args.tstart * len(args.target_prompt)
+        else:
+            raise ValueError("T-start amount and target prompt amount don't match.")
+    tstart = np.asarray(args.tstart, dtype=np.int64)
+    skip = args.num_diffusion_steps - tstart
+
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    pipe = load_model(args.model_id, args.num_diffusion_steps, device=device,
+                      dtype=dtype, seed=seed)
+
+    x0_np, sr, duration = load_audio(args.init_aud, pipe.mel_config,
+                                     model_sr=pipe.get_sr(), device=device)
+    x0 = torch.as_tensor(x0_np, device=device)
+    w0 = pipe.vae_encode(x0)
+
+    uncond = pipe.encode_text(args.target_neg_prompt, negative=True)
+    has_src = len(args.source_prompt) > 1 or args.source_prompt[0] != ""
+    src = pipe.encode_text(args.source_prompt) if has_src else None
+    tgt = pipe.encode_text(args.target_prompt)
+    empty = pipe.encode_text([""], negative=True)
+
+    cfg_src_t, _ = build_cfg_tensors(w0.shape, args.source_prompt, list(args.cfg_src),
+                                     cutoff_points=args.cutoff_points,
+                                     zero_empty_prompts=True, device=device)
+    cfg_tar_t, masks = build_cfg_tensors(w0.shape, args.target_prompt, list(args.cfg_tar),
+                                         cutoff_points=args.cutoff_points, device=device)
+
+    T = int(args.num_diffusion_steps - skip.min())
+    multi = len(args.target_prompt) > 1
+    fwd_den = pipe.make_denoiser(empty, src, cfg_src_t)
+    rev_den = fwd_den if args.selfcheck else pipe.make_denoiser(uncond, tgt, cfg_tar_t)
+
+    n_steps = int(args.num_diffusion_steps + T)  # UNet forwards of the edit
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    _, zs, xts = inversion_forward_process(
+        pipe.sched, fwd_den, w0, gen, eta=args.eta,
+        numerical_fix=args.numerical_fix,
+        # selfcheck measures the numerics, so it keeps zs[0]
+        zero_first=not args.selfcheck,
+    )
+    w_edit = inversion_reverse_process(
+        pipe.sched, rev_den, xts, zs[:T], eta=args.eta,
+        tstart=torch.as_tensor(tstart, device=device) if multi else None,
+        fix_alpha=args.fix_alpha, masks=masks if multi else None,
+    )
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    edit_s = time.perf_counter() - t0
+    print(f"[edit] {edit_s:.3f} s for {n_steps} UNet steps "
+          f"({n_steps / edit_s:.2f} steps/s) on {device}")
+
+    x_dec = pipe.vae_decode(w_edit)
+    audio = pipe.decode_to_mel(x_dec).float().cpu().numpy()
+    orig_audio = pipe.decode_to_mel(x0).float().cpu().numpy()
+    if not np.all(np.isfinite(audio)):
+        raise FloatingPointError("the edit produced non-finite audio")
+
+    selfcheck_snr = None
+    if args.selfcheck:
+        # the 'ours' inversion is exact by construction (zs are the recorded
+        # residuals): reversing with the source conditioning must reproduce
+        # the recorded trajectory start xts[0] up to float error
+        ref = xts[0].double().cpu().numpy()
+        err = w_edit.double().cpu().numpy() - ref
+        sig = float(np.mean(np.square(ref)))
+        selfcheck_snr = float(10.0 * np.log10(sig / max(float(np.mean(np.square(err))), 1e-30)))
+        verdict = "PASS" if selfcheck_snr >= 40.0 else "WEAK"
+        print(f"[selfcheck] latent reconstruction SNR: {selfcheck_snr:.1f} dB ({verdict})")
+
+    save_path = edit_save_path(args.results_path, args.model_id, args.init_aud,
+                               args.source_prompt, args.target_prompt,
+                               args.target_neg_prompt)
+    os.makedirs(save_path, exist_ok=True)
+    name = edit_image_name(args.mode, args.cfg_src, args.cfg_tar, skip,
+                           args.num_diffusion_steps)
+    if args.selfcheck:
+        name = "selfcheck_" + name
+
+    save_spectrogram_png(os.path.join(save_path, name + ".png"), x_dec.float().cpu().numpy())
+    write_wav(os.path.join(save_path, name + ".wav"), audio, sr)
+    write_wav(os.path.join(save_path, "orig.wav"), orig_audio, sr)
+    dump_run_summary(save_path, args, {
+        "seed": seed, "duration": duration, "selfcheck_snr_db": selfcheck_snr,
+        "device": str(device), "edit_seconds": edit_s, "unet_steps": n_steps,
+    })
+    print(f"[+] saved {os.path.join(save_path, name + '.wav')}")
+    return os.path.join(save_path, name + ".wav")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,252 @@
+// Blocked non-causal self-attention for Hopper (sm_90a), plain C interface.
+//
+// Replaces audioeditingcode_tpu/ops/flash_attention.py::_attn_kernel (body
+// _attn_core; host wrapper _blocked_attention). It computes the same
+// function: o = softmax(q k^T / sqrt(D)) v for every (batch, head), with
+//   - q * scale computed in f32 and rounded back to the input dtype,
+//   - scores, softmax and the output accumulator in f32,
+//   - p rounded to v's dtype before the PV product,
+//   - keys at index >= kv_len masked out of the softmax,
+//   - grouped-query attention: q head h reads kv head h / (H / H_kv).
+// Inputs are (B, S, H, D) tensors addressed through their strides (the
+// last dim must be contiguous), so no transpose copy is made. f32 and bf16,
+// D a multiple of 8 up to 128.
+//
+// Blocking. The TPU kernel keeps the whole K/V of one head in VMEM and does
+// a one-pass softmax; a Hopper block has at most 227 KB of shared memory,
+// so this kernel streams K/V tiles of BN keys through shared memory and
+// keeps an online softmax (running max m, running sum l, f32 accumulator
+// in registers). One thread owns one query row; a block of BM = 128 rows
+// handles one (batch*head, query tile). Each k/v element is read from
+// shared memory as a float4 broadcast, so a warp issues one shared load per
+// four FMAs.
+//
+// What bounds it on an H100. At the main UNet shape (B*H = 16, S = 4096,
+// D = 16) the function is 4*16*4096^2*16 = 17.2 GFLOP and 268 M
+// exponentials on 8.4 MB of q/k/v/o in f32: it is bound by operations, not
+// bytes. This first kernel runs the products on the CUDA cores in f32 (for
+// bf16 too, after an exact widening), so its bound is the f32 FMA rate
+// (67 TFLOP/s, 0.26 ms at that shape); the bf16 tensor-core bound would be
+// set by the exponentials (MUFU). The design keeps the FMA pipe fed: all
+// loops over D and over the BN keys of a tile are unrolled at compile time
+// (D and BN are template arguments), scores of a tile stay in registers,
+// and the only shared-memory traffic is the broadcast float4 loads.
+// wgmma, TMA and warp specialisation are left for a later kernel.
+//
+// Launch errors are returned as cudaGetLastError() to the caller.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BM = 128;  // query rows (= threads) per block
+
+template <typename T>
+struct Io;
+
+template <>
+struct Io<float> {
+  static __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+  static __device__ __forceinline__ float round(float x) { return x; }
+  static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+};
+
+template <>
+struct Io<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
+    return __bfloat162float(__ldg(p));
+  }
+  // round-to-nearest-even, as XLA's astype(bfloat16)
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+    *p = __float2bfloat16(x);
+  }
+};
+
+// keys per shared-memory tile: the tile's scores live in registers beside
+// the q row and the accumulator (D + D + BN floats per thread)
+template <int D>
+struct Tile {
+  static constexpr int BN = D <= 32 ? 64 : (D <= 64 ? 32 : 16);
+};
+
+struct Strides {
+  int64_t b, s, h;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BM)
+attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, T* __restrict__ o, int H, int rep,
+                int Sq, int kv_len, float scale, Strides qs, Strides ks,
+                Strides vs, Strides os) {
+  constexpr int BN = Tile<D>::BN;
+  __shared__ __align__(16) float k_tile[BN * D];
+  __shared__ __align__(16) float v_tile[BN * D];
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int hk = h / rep;
+  const int row = blockIdx.y * BM + threadIdx.x;
+  const bool active = row < Sq;
+
+  const T* kp = k + b * ks.b + hk * ks.h;
+  const T* vp = v + b * vs.b + hk * vs.h;
+
+  float qr[D];
+  float acc[D];
+  {
+    const T* qp = q + b * qs.b + (int64_t)(active ? row : 0) * qs.s + h * qs.h;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      qr[d] = active ? Io<T>::round(Io<T>::load(qp + d) * scale) : 0.f;
+      acc[d] = 0.f;
+    }
+  }
+  float m = -INFINITY;
+  float l = 0.f;
+
+  for (int n0 = 0; n0 < kv_len; n0 += BN) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int e = threadIdx.x; e < BN * D; e += BM) {
+      const int j = e / D;
+      const int d = e - j * D;
+      const int n = n0 + j;
+      float kv = 0.f, vv = 0.f;
+      if (n < kv_len) {
+        kv = Io<T>::load(kp + (int64_t)n * ks.s + d);
+        vv = Io<T>::load(vp + (int64_t)n * vs.s + d);
+      }
+      k_tile[e] = kv;
+      v_tile[e] = vv;
+    }
+    __syncthreads();
+
+    float s[BN];
+    float mt = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BN; ++j) {
+      float a = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        const float4 kk = *reinterpret_cast<const float4*>(&k_tile[j * D + d]);
+        a = fmaf(qr[d], kk.x, a);
+        a = fmaf(qr[d + 1], kk.y, a);
+        a = fmaf(qr[d + 2], kk.z, a);
+        a = fmaf(qr[d + 3], kk.w, a);
+      }
+      s[j] = (n0 + j < kv_len) ? a : -INFINITY;
+      mt = fmaxf(mt, s[j]);
+    }
+    // the tile holds at least one real key, so mn is finite
+    const float mn = fmaxf(m, mt);
+    const float alpha = __expf(m - mn);  // 0 on the first tile
+    l *= alpha;
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+#pragma unroll
+    for (int j = 0; j < BN; ++j) {
+      const float p = __expf(s[j] - mn);
+      l += p;
+      const float pr = Io<T>::round(p);
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        const float4 vv = *reinterpret_cast<const float4*>(&v_tile[j * D + d]);
+        acc[d] = fmaf(pr, vv.x, acc[d]);
+        acc[d + 1] = fmaf(pr, vv.y, acc[d + 1]);
+        acc[d + 2] = fmaf(pr, vv.z, acc[d + 2]);
+        acc[d + 3] = fmaf(pr, vv.w, acc[d + 3]);
+      }
+    }
+    m = mn;
+  }
+
+  if (active) {
+    T* op = o + b * os.b + (int64_t)row * os.s + h * os.h;
+#pragma unroll
+    for (int d = 0; d < D; ++d) Io<T>::store(op + d, acc[d] / l);
+  }
+}
+
+template <typename T, int D>
+void launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+            int rep, int Sq, int kv_len, float scale, Strides qs, Strides ks,
+            Strides vs, Strides os, cudaStream_t stream) {
+  const dim3 grid(B * H, (Sq + BM - 1) / BM);
+  attn_fwd_kernel<T, D><<<grid, BM, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), H, rep, Sq, kv_len, scale,
+      qs, ks, vs, os);
+}
+
+template <typename T>
+bool dispatch(int D, const void* q, const void* k, const void* v, void* o,
+              int B, int H, int rep, int Sq, int kv_len, float scale,
+              Strides qs, Strides ks, Strides vs, Strides os,
+              cudaStream_t stream) {
+#define AEC_CASE(DD)                                                         \
+  case DD:                                                                   \
+    launch<T, DD>(q, k, v, o, B, H, rep, Sq, kv_len, scale, qs, ks, vs, os, \
+                  stream);                                                   \
+    return true;
+  switch (D) {
+    AEC_CASE(8)
+    AEC_CASE(16)
+    AEC_CASE(24)
+    AEC_CASE(32)
+    AEC_CASE(40)
+    AEC_CASE(48)
+    AEC_CASE(56)
+    AEC_CASE(64)
+    AEC_CASE(72)
+    AEC_CASE(80)
+    AEC_CASE(88)
+    AEC_CASE(96)
+    AEC_CASE(104)
+    AEC_CASE(112)
+    AEC_CASE(120)
+    AEC_CASE(128)
+    default:
+      return false;
+  }
+#undef AEC_CASE
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last dim
+// of every tensor must be contiguous. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for arguments the kernel does not take).
+extern "C" int aec_flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    int H, int H_kv, int Sq, int kv_len, int D, float scale, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh, void* stream) {
+  if (B < 1 || H < 1 || H_kv < 1 || H % H_kv != 0 || Sq < 1 || kv_len < 1 ||
+      (Sq + BM - 1) / BM > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
+      vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
+  const int rep = H / H_kv;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bool ok;
+  if (dtype == 0) {
+    ok = dispatch<float>(D, q, k, v, o, B, H, rep, Sq, kv_len, scale, qs, ks,
+                         vs, os, st);
+  } else if (dtype == 1) {
+    ok = dispatch<__nv_bfloat16>(D, q, k, v, o, B, H, rep, Sq, kv_len, scale,
+                                 qs, ks, vs, os, st);
+  } else {
+    ok = false;
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,107 @@
+"""Model specs of the port: the AudioLDM family.
+
+The port's own copies of ``audioeditingcode_tpu/models/configs.py`` entries
+for ``cvssp/audioldm-s-full-v2`` and ``test/tiny-audioldm``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from ..ops.stft import MelConfig
+from ..schedulers.ddim import DDIMConfig
+from .hifigan import HifiGanConfig
+from .unet2d import UNet2DConditionConfig
+from .vae import AutoencoderKLConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    model_id: str
+    family: str
+    unet: UNet2DConditionConfig
+    vae: AutoencoderKLConfig
+    vocoder: HifiGanConfig
+    scheduler: DDIMConfig
+    mel: MelConfig
+    sample_rate: int = 16000
+    text_encoder: str = "clap"  # 'clap' (needs a checkpoint) | 'null'
+    text_embed_dim: int = 512
+    recommended_steps: int = 200
+
+
+_AUDIOLDM_SCHED = DDIMConfig(
+    num_train_timesteps=1000, beta_start=0.0015, beta_end=0.0195,
+    beta_schedule="scaled_linear", prediction_type="epsilon",
+    set_alpha_to_one=False, steps_offset=1,
+)
+
+_MEL_16K = MelConfig(
+    filter_length=1024, hop_length=160, win_length=1024,
+    n_mel_channels=64, sampling_rate=16000, mel_fmin=0.0, mel_fmax=8000.0,
+)
+
+_HIFIGAN_16K_64 = HifiGanConfig(
+    model_in_dim=64, upsample_initial_channel=1024,
+    upsample_rates=(5, 4, 2, 2, 2), upsample_kernel_sizes=(16, 16, 8, 4, 4),
+    resblock_kernel_sizes=(3, 7, 11),
+    resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
+    sampling_rate=16000, normalize_before=False,
+)
+
+_AUDIOLDM_VAE = AutoencoderKLConfig(
+    in_channels=1, out_channels=1, latent_channels=8,
+    block_out_channels=(128, 256, 512), layers_per_block=2,
+    scaling_factor=0.9227914,
+)
+
+TINY_UNET = UNet2DConditionConfig(
+    in_channels=4, out_channels=4,
+    down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+    up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+    block_out_channels=(32, 64),
+    layers_per_block=1, norm_num_groups=8,
+    cross_attention_dim=None, num_attention_heads=4,
+    class_embed_type="simple_projection",
+    projection_class_embeddings_input_dim=32,
+    class_embeddings_concat=True,
+)
+
+TINY_VAE = AutoencoderKLConfig(
+    in_channels=1, out_channels=1, latent_channels=4,
+    block_out_channels=(16, 32), layers_per_block=1, norm_num_groups=8,
+    scaling_factor=0.5,
+)
+
+TINY_HIFIGAN = HifiGanConfig(
+    model_in_dim=64, upsample_initial_channel=32,
+    upsample_rates=(5, 4, 2, 2, 2), upsample_kernel_sizes=(16, 16, 8, 4, 4),
+    resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3),),
+)
+
+MODEL_SPECS = {
+    "cvssp/audioldm-s-full-v2": ModelSpec(
+        model_id="cvssp/audioldm-s-full-v2", family="audioldm",
+        unet=UNet2DConditionConfig(
+            in_channels=8, out_channels=8,
+            down_block_types=("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",),
+            up_block_types=("UpBlock2D",) + ("CrossAttnUpBlock2D",) * 3,
+            block_out_channels=(128, 256, 384, 640),
+            layers_per_block=2,
+            cross_attention_dim=None,  # attn2 degrades to self-attn (FiLM-only text)
+            num_attention_heads=8,
+            class_embed_type="simple_projection",
+            projection_class_embeddings_input_dim=512,
+            class_embeddings_concat=True,
+        ),
+        vae=_AUDIOLDM_VAE, vocoder=_HIFIGAN_16K_64,
+        scheduler=_AUDIOLDM_SCHED, mel=_MEL_16K,
+        text_encoder="clap", text_embed_dim=512, recommended_steps=100,
+    ),
+    "test/tiny-audioldm": ModelSpec(
+        model_id="test/tiny-audioldm", family="audioldm",
+        unet=TINY_UNET, vae=TINY_VAE, vocoder=TINY_HIFIGAN,
+        scheduler=_AUDIOLDM_SCHED, mel=_MEL_16K,
+        text_encoder="null", text_embed_dim=32, recommended_steps=20,
+    ),
+}

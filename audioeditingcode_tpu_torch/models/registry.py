@@ -1,0 +1,100 @@
+"""Model factory: model_id -> LatentAudioPipeline (AudioLDM family).
+
+Counterpart of ``audioeditingcode_tpu/models/registry.py``. Without a
+checkpoint the modules get a seeded random init of the JAX package's
+magnitudes: norm scales one, biases zero, weights N(0, 1/fan_in).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+from torch import nn
+
+from ..schedulers.ddim import make_schedule
+from .configs import MODEL_SPECS, ModelSpec
+from .hifigan import HifiGanGenerator
+from .pipeline import LatentAudioPipeline
+from .text_encoders import NullTextEncoder
+from .unet2d import UNet2DConditionModel
+from .vae import AutoencoderKL
+
+# model ids of the JAX package that this port does not cover yet, with the
+# ROADMAP item that adds them
+_NOT_PORTED = {
+    "cvssp/audioldm-l-full": "Queue A item 7 (AudioLDM-l)",
+    "cvssp/audioldm2": "Queue A item 7 (AudioLDM2)",
+    "cvssp/audioldm2-large": "Queue A item 7 (AudioLDM2)",
+    "cvssp/audioldm2-music": "Queue A item 7 (AudioLDM2)",
+    "declare-lab/tango-full-ft-audio-music-caps": "Queue A item 7 (TANGO)",
+    "declare-lab/tango-full-ft-audiocaps": "Queue A item 7 (TANGO)",
+    "stabilityai/stable-audio-open-1.0": "Queue A item 9 (Stable Audio)",
+    "test/tiny-audioldm2": "Queue A item 7 (AudioLDM2)",
+    "test/tiny-stable-audio": "Queue A item 9 (Stable Audio)",
+}
+
+
+def resolve_spec(model_id: str) -> ModelSpec:
+    if model_id in MODEL_SPECS:
+        return MODEL_SPECS[model_id]
+    if model_id in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{model_id} is not ported to PyTorch yet: ROADMAP {_NOT_PORTED[model_id]}")
+    raise KeyError(f"unknown model_id {model_id!r}; known: {sorted(MODEL_SPECS)}")
+
+
+@torch.no_grad()
+def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights in place, drawn on the CPU in parameter order
+    (so a seed gives the same weights on every device)."""
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "bias":
+            p.zero_()
+        elif p.dim() == 1:  # norm weights (and the vocoder's mean/scale stats)
+            p.fill_(0.0 if leaf == "mean" else 1.0)
+        else:
+            # fan-in of the Flax kernel: every dim but its output one
+            # (ConvTranspose1d keeps (in, out, k) in torch)
+            owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
+            fan_in = p.numel() // (p.shape[1] if isinstance(owner, nn.ConvTranspose1d)
+                                   else p.shape[0])
+            w = torch.randn(p.shape, generator=generator) / fan_in ** 0.5
+            p.copy_(w)
+    return module
+
+
+def load_model(
+    model_id: str,
+    num_diffusion_steps: int,
+    device: Union[str, torch.device] = "cpu",
+    dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    weights_dir: Optional[str] = None,
+) -> LatentAudioPipeline:
+    """Build the pipeline for ``model_id`` on ``device`` with seeded random
+    weights (converted checkpoints are not supported yet)."""
+    spec = resolve_spec(model_id)
+    if weights_dir is not None:
+        raise NotImplementedError(
+            "--weights_dir: loading converted checkpoints into the PyTorch port "
+            "is not supported yet (ROADMAP Queue A item 13)")
+    g = torch.Generator().manual_seed(seed)
+    unet = random_init_(UNet2DConditionModel(spec.unet), g)
+    vae = random_init_(AutoencoderKL(spec.vae), g)
+    vocoder = random_init_(HifiGanGenerator(spec.vocoder), g)
+    for m in (unet, vae, vocoder):
+        m.to(device=device, dtype=dtype).eval().requires_grad_(False)
+    return LatentAudioPipeline(
+        model_id=model_id,
+        sched=make_schedule(spec.scheduler, num_diffusion_steps, device=device),
+        unet=unet,
+        vae=vae,
+        vocoder=vocoder,
+        text_encoder=NullTextEncoder(
+            class_dim=spec.unet.projection_class_embeddings_input_dim, device=device),
+        mel_config=spec.mel,
+        sample_rate=spec.sample_rate,
+        vae_pad_multiple=spec.vae.downscale_factor,
+    )

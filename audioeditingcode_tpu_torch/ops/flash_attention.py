@@ -1,0 +1,158 @@
+"""Self-attention dispatcher with a hand-written CUDA kernel for Hopper.
+
+Counterpart of ``audioeditingcode_tpu/ops/flash_attention.py``. Layouts are
+the JAX package's: q is (B, Sq, H, D), k and v are (B, Skv, H_kv, D).
+
+- ``flash_attention_cuda``: the kernel (``csrc/flash_attention.cu``), which
+  replaces the Pallas ``_attn_kernel``. It streams K/V tiles through shared
+  memory with an online softmax instead of keeping a whole head in fast
+  memory. Each launch adds one to ``flash_attention_cuda.launches``.
+- ``attention_reference``: the kernel's plain PyTorch version, with the same
+  two roundings (q*scale back to the input dtype, p to v's dtype before PV).
+  CPU tensors take it; on the card it is only a yardstick.
+- ``fused_attention``: the dispatcher. Eligible calls go to the kernel on a
+  CUDA tensor (no fallback) and to ``attention_reference`` on a CPU tensor;
+  other calls take plain matmul + f32 softmax.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+# the JAX dispatcher's threshold (flash_attention.py:36): below it the
+# plain path is used on every device
+_MIN_SEQ_FOR_KERNEL = 1024
+_MAX_KERNEL_HEAD_DIM = 128
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_FN = None
+
+
+def _kernel_fn():
+    global _FN
+    if _FN is None:
+        from .build import load
+
+        fn = load("flash_attention").aec_flash_attention_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_float] + [ctypes.c_longlong] * 12
+                       + [ctypes.c_void_p])
+        _FN = fn
+    return _FN
+
+
+def _check_kernel_args(q, k, v):
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("flash_attention_cuda takes CUDA tensors")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v must be on one device")
+    if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"flash_attention_cuda takes float32 or bfloat16 "
+                         f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"expected (B, S, H, D) tensors, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, H, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
+        raise ValueError(f"k/v shape {tuple(k.shape)} does not fit q {tuple(q.shape)}")
+    if D % 8 or not 8 <= D <= _MAX_KERNEL_HEAD_DIM:
+        raise ValueError(f"head dim {D}: the kernel takes multiples of 8 up to "
+                         f"{_MAX_KERNEL_HEAD_DIM}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("the head dim of q, k and v must be contiguous")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len: Optional[int] = None) -> torch.Tensor:
+    """Launch the CUDA kernel on (B, Sq, H, D) x (B, Skv, H_kv, D); keys at
+    index >= ``kv_len`` (default Skv) are masked. Raises on what it does not
+    take; never falls back."""
+    _check_kernel_args(q, k, v)
+    B, Sq, H, D = q.shape
+    kv_len = k.shape[1] if kv_len is None else int(kv_len)
+    if not 1 <= kv_len <= k.shape[1]:
+        raise ValueError(f"kv_len {kv_len} outside 1..{k.shape[1]}")
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _kernel_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        _DTYPE_CODES[q.dtype], B, H, k.shape[2], Sq, kv_len, D,
+        1.0 / (D ** 0.5),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+    flash_attention_cuda.launches += 1
+    return o
+
+
+flash_attention_cuda.launches = 0
+
+
+def _repeat_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
+    rep = heads // x.shape[2]
+    return x if rep == 1 else x.repeat_interleave(rep, dim=2)
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_len: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the kernel (and of the Pallas ``_attn_core``): q is
+    scaled in f32 and rounded to its dtype, scores and softmax are f32, and
+    p is rounded to v's dtype before the PV product."""
+    B, Sq, H, D = q.shape
+    scale = 1.0 / (D ** 0.5)
+    qs = (q.float() * scale).to(q.dtype).float().transpose(1, 2)  # (B, H, Sq, D)
+    kt = _repeat_kv(k, H).float().transpose(1, 2)
+    vt = _repeat_kv(v, H).transpose(1, 2)
+    s = torch.matmul(qs, kt.transpose(-1, -2))  # (B, H, Sq, Skv) f32
+    if kv_len is not None and kv_len < s.shape[-1]:
+        s[..., kv_len:] = -1e30
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), vt.float())
+    return (o / denom).to(q.dtype).transpose(1, 2)
+
+
+def _plain_attention(q, k, v, bias=None):
+    """The dispatcher's path for calls the kernel does not take (masked or
+    cross attention, short sequences): f32 logits scaled after the QK
+    product, additive bias, f32 softmax, probabilities in v's dtype — the
+    semantics of ``jax.nn.dot_product_attention`` that the JAX dispatcher
+    falls back to."""
+    H, D = q.shape[2], q.shape[3]
+    qt = q.transpose(1, 2)
+    kt = _repeat_kv(k, H).transpose(1, 2)
+    vt = _repeat_kv(v, H).transpose(1, 2)
+    logits = torch.matmul(qt.float(), kt.float().transpose(-1, -2)) * (D ** -0.5)
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(probs, vt).to(q.dtype).transpose(1, 2)
+
+
+def kernel_eligible(q: torch.Tensor, k: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> bool:
+    """The JAX dispatcher's rule (flash_attention.py:481-489) without its
+    VMEM clause: that clause bounds the K/V blocks a TPU kernel keeps whole
+    in VMEM, and a kernel that streams K/V tiles has no such limit."""
+    Q, D = q.shape[1], q.shape[3]
+    return (bias is None and Q == k.shape[1] and Q >= _MIN_SEQ_FOR_KERNEL
+            and D <= 256 and q.shape[2] % k.shape[2] == 0)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, Q, H, D) attention. Eligible calls launch the kernel on a CUDA
+    tensor or raise (D > 128 included), and take its plain version on a CPU
+    tensor; the rest take the plain matmul path."""
+    if kernel_eligible(q, k, bias):
+        if q.is_cuda:
+            return flash_attention_cuda(q, k, v)
+        return attention_reference(q, k, v)
+    return _plain_attention(q, k, v, bias)

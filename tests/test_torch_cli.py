@@ -1,0 +1,83 @@
+"""The port's text-edit CLI on the CPU: the JAX CLI's results layout, the
+selfcheck, and clear errors for what this port does not cover yet."""
+
+import json
+import os
+
+import pytest
+import torch
+
+from audioeditingcode_tpu.cli.common import edit_save_path as jax_edit_save_path
+from audioeditingcode_tpu_torch.cli.run import main
+from test_torch_helpers import write_test_wav
+
+BASE = ["--model_id", "test/tiny-audioldm", "--num_diffusion_steps", "6",
+        "--tstart", "4", "--seed", "0"]
+
+
+@pytest.fixture(scope="module")
+def wav(tmp_path_factory):
+    return write_test_wav(str(tmp_path_factory.mktemp("aud") / "clip.wav"), seconds=0.5)
+
+
+def test_cli_selfcheck_on_cpu(wav, tmp_path):
+    out = main(BASE + ["--device", "cpu", "--init_aud", wav, "--target_prompt", "a trumpet",
+                       "--source_prompt", "a sine tone", "--selfcheck",
+                       "--results_path", str(tmp_path)])
+    d = os.path.dirname(out)
+    assert d == jax_edit_save_path(str(tmp_path), "test/tiny-audioldm", wav,
+                                   ["a sine tone"], ["a trumpet"], [""])
+    name = os.path.basename(out)[: -len(".wav")]
+    assert name.startswith("selfcheck_cfg_e_3_cfg_d_12_skip_2_")
+    assert sorted(os.listdir(d)) == sorted([name + ".wav", name + ".png", "orig.wav",
+                                            "run_args.json"])
+    with open(os.path.join(d, "run_args.json")) as f:
+        rec = json.load(f)
+    assert rec["selfcheck_snr_db"] >= 40.0
+    assert rec["device"] == "cpu" and rec["unet_steps"] == 10 and rec["seed"] == 0
+
+
+def test_cli_multi_prompt_edit_on_cpu(wav, tmp_path):
+    out = main(BASE + ["--device", "cpu", "--init_aud", wav,
+                       "--target_prompt", "a trumpet", "a violin", "--tstart", "4", "3",
+                       "--cfg_tar", "12", "6", "--results_path", str(tmp_path)])
+    assert os.path.getsize(out) > 44
+
+
+def test_cli_cuda_missing_raises(wav, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(BASE + ["--init_aud", wav, "--target_prompt", "x",
+                     "--results_path", str(tmp_path)])
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--mode", "ddim"], "item 8"),
+    (["--dp", "2"], "item 12"),
+    (["--sp", "2"], "item 12"),
+    (["--weights_dir", "w"], "item 13"),
+    (["--profile_dir", "p"], "item 14"),
+    (["--model_id", "stabilityai/stable-audio-open-1.0"], "item 9"),
+    (["--model_id", "cvssp/audioldm2-music"], "item 7"),
+])
+def test_cli_unported_flags_raise(wav, tmp_path, extra, item):
+    with pytest.raises(NotImplementedError, match=item):
+        main(BASE + ["--device", "cpu", "--init_aud", wav, "--target_prompt", "x",
+                     "--results_path", str(tmp_path)] + extra)
+
+
+def test_unet_rejects_dual_stream():
+    from audioeditingcode_tpu_torch.models.unet2d import UNet2DConditionConfig, UNet2DConditionModel
+
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        UNet2DConditionModel(UNet2DConditionConfig(double_cross_attention=True))
+
+
+def test_cli_bfloat16_on_cpu(wav, tmp_path):
+    """--dtype bfloat16 runs the modules in bf16; latents and the schedule
+    math stay float32, so the inversion still reconstructs."""
+    out = main(BASE + ["--device", "cpu", "--dtype", "bfloat16", "--init_aud", wav,
+                       "--target_prompt", "a trumpet", "--selfcheck",
+                       "--results_path", str(tmp_path)])
+    with open(os.path.join(os.path.dirname(out), "run_args.json")) as f:
+        assert json.load(f)["selfcheck_snr_db"] >= 40.0

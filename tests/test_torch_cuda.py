@@ -1,0 +1,58 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+These need an NVIDIA GPU and nvcc; they skip without one. On a machine
+with a card run them with ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
+(``--noconftest``: the suite's conftest imports JAX, which a PyTorch-only install lacks).
+Tolerances as in tests/test_torch_flash_attention.py.
+"""
+
+import pytest
+import torch
+
+from audioeditingcode_tpu_torch.ops import flash_attention as fa
+from audioeditingcode_tpu_torch.utils.device import resolve_device
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return resolve_device("cuda")  # also turns TF32 off for the float32 reference
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D", [(2, 4096, 8, 8, 16), (2, 1024, 8, 8, 32),
+                                         (2, 1025, 24, 12, 64), (1, 777, 2, 1, 128),
+                                         (1, 1000, 3, 3, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_version(cuda, B, S, H, Hkv, D, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(B, S, H, D, device=cuda, generator=g).to(dtype)
+    k = torch.randn(B, S, Hkv, D, device=cuda, generator=g).to(dtype)
+    v = torch.randn(B, S, Hkv, D, device=cuda, generator=g).to(dtype)
+    got = fa.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), fa.attention_reference(q, k, v).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_kernel_masks_kv_len_and_reads_strides(cuda):
+    q = torch.randn(1, 1032, 2, 32, device=cuda)
+    kv = torch.randn(1, 2, 1032, 32, device=cuda).transpose(1, 2)  # strided heads
+    got = fa.flash_attention_cuda(q, kv, kv, kv_len=1025)
+    want = fa.attention_reference(q, kv[:, :1025], kv[:, :1025])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_dispatcher_launches_kernel_or_raises(cuda):
+    q = torch.randn(1, 1024, 2, 16, device=cuda)
+    before = fa.flash_attention_cuda.launches
+    fa.fused_attention(q, q, q)
+    assert fa.flash_attention_cuda.launches == before + 1
+    fa.fused_attention(q[:, :512], q[:, :512], q[:, :512])  # below the threshold
+    assert fa.flash_attention_cuda.launches == before + 1
+    wide = torch.randn(1, 1024, 1, 136, device=cuda)  # eligible, but D > 128
+    with pytest.raises(ValueError, match="head dim"):
+        fa.fused_attention(wide, wide, wide)

@@ -1,0 +1,100 @@
+"""The port's attention: the kernel's plain version against the Pallas
+kernel (interpret mode) and XLA attention, and the dispatcher's routing.
+
+Tolerances: 2e-5 in float32 (as tests/test_flash_attention.py: the sums run
+in another order), 3e-2 in bfloat16 (one bf16 rounding of q and of p)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from audioeditingcode_tpu.ops.flash_attention import _blocked_attention
+from audioeditingcode_tpu_torch.ops import flash_attention as fa
+from test_torch_helpers import to_np
+
+# (B, S, H, H_kv, D, dtype): the tests/test_flash_attention.py shapes, the
+# ragged DiT sequence, GQA and TANGO's head dim
+CASES = [
+    (2, 512, 2, 2, 64, "float32"),
+    (2, 768, 3, 3, 32, "float32"),
+    (2, 1024, 1, 1, 16, "float32"),
+    (1, 1024, 2, 2, 40, "float32"),
+    (2, 1025, 3, 3, 64, "float32"),
+    (2, 1025, 4, 2, 64, "float32"),
+    (1, 512, 2, 2, 64, "bfloat16"),
+    (1, 1025, 4, 2, 40, "bfloat16"),
+]
+
+
+def _qkv(B, S, H, Hkv, D, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, D), dtype=np.float32)
+    k = rng.standard_normal((B, S, Hkv, D), dtype=np.float32)
+    v = rng.standard_normal((B, S, Hkv, D), dtype=np.float32)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jax_in = [jnp.asarray(x, jd) for x in (q, k, v)]
+    torch_in = [torch.from_numpy(x).to(td) for x in (q, k, v)]
+    return jax_in, torch_in
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,dtype", CASES)
+def test_reference_matches_pallas_kernel(B, S, H, Hkv, D, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(B, S, H, Hkv, D, dtype)
+    want = np.asarray(_blocked_attention(jq, jk, jv, interpret=True), np.float32)
+    got = fa.attention_reference(tq, tk, tv)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    tol = 3e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(to_np(got), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,dtype", CASES)
+def test_reference_matches_xla_attention(B, S, H, Hkv, D, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(B, S, H, Hkv, D, dtype, seed=1)
+    f32 = [x.astype(jnp.float32) for x in (jq, jk, jv)]
+    want = np.asarray(jax.nn.dot_product_attention(*f32))
+    tol = 3e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(to_np(fa.attention_reference(tq, tk, tv)), want,
+                               atol=tol, rtol=tol)
+
+
+def test_reference_masks_keys_beyond_kv_len():
+    (_, _, _), (q, k, v) = _qkv(1, 1032, 2, 2, 32, "float32", seed=2)
+    got = fa.attention_reference(q, k, v, kv_len=1025)
+    want = fa.attention_reference(q, k[:, :1025], v[:, :1025])
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_dispatcher_takes_kernel_branch_at_1024():
+    """S = 1024 self-attention is kernel-eligible; on a CPU tensor that
+    branch is the plain version, which matches XLA attention."""
+    (jq, jk, jv), (q, k, v) = _qkv(1, 1024, 2, 2, 16, "float32", seed=3)
+    assert fa.kernel_eligible(q, k)
+    got = fa.fused_attention(q, k, v)
+    torch.testing.assert_close(got, fa.attention_reference(q, k, v), rtol=0, atol=0)
+    np.testing.assert_allclose(to_np(got), np.asarray(jax.nn.dot_product_attention(jq, jk, jv)),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("S,K,masked", [(512, 512, False), (256, 8, True), (1024, 8, False)])
+def test_dispatcher_plain_path_matches_xla(S, K, masked):
+    """Short, cross and masked attention take the plain path, with the
+    semantics of jax.nn.dot_product_attention (bias included)."""
+    from audioeditingcode_tpu.models.attention import mask_to_bias as jax_bias
+    from audioeditingcode_tpu_torch.models.attention import mask_to_bias
+
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((2, S, 2, 16), dtype=np.float32)
+    kv = rng.standard_normal((2, K, 2, 16), dtype=np.float32)
+    mask = np.ones((2, K), np.int32)
+    if masked:
+        mask[0, 3:] = 0
+    tb = mask_to_bias(torch.from_numpy(mask), torch.float32) if masked else None
+    jb = jax_bias(jnp.asarray(mask), jnp.float32) if masked else None
+    tq, tkv = torch.from_numpy(q), torch.from_numpy(kv)
+    assert not fa.kernel_eligible(tq, tkv, tb)
+    got = fa.fused_attention(tq, tkv, tkv, bias=tb)
+    want = jax.nn.dot_product_attention(jnp.asarray(q), jnp.asarray(kv), jnp.asarray(kv), bias=jb)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), atol=2e-5, rtol=2e-5)

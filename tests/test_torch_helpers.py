@@ -1,0 +1,107 @@
+"""Shared fixtures of the PyTorch-port parity tests, and the tests that pin
+the port's boundaries (no JAX imports, no silent CPU run).
+
+The parity tests hold ``audioeditingcode_tpu_torch`` against the JAX
+package on the CPU: both get the same numpy inputs and the same params
+(JAX ``load_model("test/tiny-audioldm")`` carried over by the bridge).
+"""
+
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+from flax.traverse_util import flatten_dict
+
+# the suite runs in several worker processes at once; a few torch threads
+# each keep them from oversubscribing the host's cores
+torch.set_num_threads(min(2, os.cpu_count() or 1))
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_DIR = os.path.join(REPO, "audioeditingcode_tpu_torch")
+
+
+def jax_tiny_pipeline(steps: int):
+    from audioeditingcode_tpu.models.registry import load_model
+
+    return load_model("test/tiny-audioldm", steps)
+
+
+def port_tiny_pipeline(steps: int, jpipe=None):
+    """The port's tiny pipeline on the CPU, with the JAX pipeline's params."""
+    from audioeditingcode_tpu_torch.models.bridge import flax_to_torch_state_dict
+    from audioeditingcode_tpu_torch.models.registry import load_model
+
+    jpipe = jpipe or jax_tiny_pipeline(steps)
+    pipe = load_model("test/tiny-audioldm", steps, device="cpu")
+    for mod, params in ((pipe.unet, jpipe.unet_params), (pipe.vae, jpipe.vae_params),
+                        (pipe.vocoder, jpipe.vocoder_params)):
+        mod.load_state_dict(flax_to_torch_state_dict(flatten_dict(params), mod))
+    return pipe
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| / max |ref|."""
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1e-30))
+
+
+def to_np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def write_test_wav(path: str, seconds: float = 1.0, sr: int = 16000) -> str:
+    """Two tones over a seeded noise floor. The floor keeps every mel bin
+    well above the log clamp, where float32 roundoff of the framed matmuls
+    would be amplified by the log."""
+    from scipy.io import wavfile
+
+    t = np.arange(int(sr * seconds), dtype=np.float32) / sr
+    wave = 0.4 * np.sin(2 * np.pi * 330 * t) + 0.1 * np.sin(2 * np.pi * 1250 * t)
+    wave += 0.02 * np.random.default_rng(0).standard_normal(t.shape)
+    wavfile.write(path, sr, (wave * 32767).astype(np.int16))
+    return path
+
+
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|audioeditingcode_tpu)\b", re.M)
+
+
+@pytest.mark.parametrize("root", ["audioeditingcode_tpu_torch", "chip_smoke.py"])
+def test_port_imports_no_jax(root):
+    """The port and its chip script import neither jax, flax nor the JAX
+    package (``\b`` keeps ``audioeditingcode_tpu_torch`` itself allowed)."""
+    path = os.path.join(REPO, root)
+    files = [path] if path.endswith(".py") else [
+        os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs if f.endswith(".py")]
+    assert files
+    for f in files:
+        with open(f) as fh:
+            src = fh.read()
+        bad = [m.group(0).strip() for m in _FORBIDDEN.finditer(src)]
+        assert not bad, f"{f}: {bad}"
+
+
+def test_cuda_device_missing_raises(monkeypatch):
+    from audioeditingcode_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """On a CPU tensor the dispatcher computes the plain version and never
+    reaches the kernel wrapper (whose count stays put)."""
+    from audioeditingcode_tpu_torch.ops import flash_attention as fa
+
+    before = fa.flash_attention_cuda.launches
+    q = torch.randn(1, 1024, 2, 16)
+    out = fa.fused_attention(q, q, q)
+    torch.testing.assert_close(out, fa.attention_reference(q, q, q), rtol=0, atol=0)
+    assert fa.flash_attention_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_cuda(q, q, q)

@@ -10,6 +10,7 @@ error that names the ROADMAP item that adds them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 import warnings
@@ -98,8 +99,12 @@ def parse_args(argv=None):
 
 
 def _reject_unported(args) -> None:
-    resolve_spec(args.model_id)  # raises for model families not ported yet
+    spec = resolve_spec(args.model_id)  # raises for model families not ported yet
     if args.mode == "ddim":
+        if spec.family == "stable-audio":
+            raise ValueError(
+                "--mode ddim requires a DDIM-scheduler model; Stable Audio "
+                "uses the cosine DPM solver (run --mode ours).")
         raise NotImplementedError("--mode ddim is not ported to PyTorch yet "
                                   "(ROADMAP Queue A item 8)")
     if args.dp != 1 or args.tp != 1 or args.sp not in (None, 0, 1):
@@ -135,11 +140,19 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     pipe = load_model(args.model_id, args.num_diffusion_steps, device=device,
                       dtype=dtype, seed=seed)
+    stable_audio = resolve_spec(args.model_id).family == "stable-audio"
 
-    x0_np, sr, duration = load_audio(args.init_aud, pipe.mel_config,
+    x0_np, sr, duration = load_audio(args.init_aud, pipe.mel_config, stft=not stable_audio,
                                      model_sr=pipe.get_sr(), device=device)
     x0 = torch.as_tensor(x0_np, device=device)
-    w0 = pipe.vae_encode(x0)
+    if stable_audio:
+        # duration conditioning and the decode crop window
+        pipe.setup_duration(0.0, min(duration, pipe.audio_vae_length / pipe.sample_rate))
+        if args.first_order:
+            pipe.sched = dataclasses.replace(pipe.sched, first_order=True)
+        w0 = pipe.vae_encode(x0, gen)
+    else:
+        w0 = pipe.vae_encode(x0)
 
     uncond = pipe.encode_text(args.target_neg_prompt, negative=True)
     has_src = len(args.source_prompt) > 1 or args.source_prompt[0] != ""
@@ -158,25 +171,28 @@ def main(argv=None):
     fwd_den = pipe.make_denoiser(empty, src, cfg_src_t)
     rev_den = fwd_den if args.selfcheck else pipe.make_denoiser(uncond, tgt, cfg_tar_t)
 
-    n_steps = int(args.num_diffusion_steps + T)  # UNet forwards of the edit
+    n_steps = int(args.num_diffusion_steps + T)  # denoiser forwards of the edit
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    _, zs, xts = inversion_forward_process(
+    _, zs, xts, extras = inversion_forward_process(
         pipe.sched, fwd_den, w0, gen, eta=args.eta,
         numerical_fix=args.numerical_fix,
         # selfcheck measures the numerics, so it keeps zs[0]
-        zero_first=not args.selfcheck,
+        zero_first=not args.selfcheck, return_extras=True,
     )
     w_edit = inversion_reverse_process(
         pipe.sched, rev_den, xts, zs[:T], eta=args.eta,
         tstart=torch.as_tensor(tstart, device=device) if multi else None,
         fix_alpha=args.fix_alpha, masks=masks if multi else None,
+        # the cosine solver's 2nd-order history, carried over from the
+        # forward pass (None for DDIM, which has none)
+        init_history=None if extras is None else extras[T - 1],
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     edit_s = time.perf_counter() - t0
-    print(f"[edit] {edit_s:.3f} s for {n_steps} UNet steps "
+    print(f"[edit] {edit_s:.3f} s for {n_steps} denoiser steps "
           f"({n_steps / edit_s:.2f} steps/s) on {device}")
 
     x_dec = pipe.vae_decode(w_edit)
@@ -189,7 +205,9 @@ def main(argv=None):
     if args.selfcheck:
         # the 'ours' inversion is exact by construction (zs are the recorded
         # residuals): reversing with the source conditioning must reproduce
-        # the recorded trajectory start xts[0] up to float error
+        # the recorded trajectory start xts[0] up to float error (for the
+        # cosine solver too: its final step ignores z, so exactness lands on
+        # the recorded trajectory start)
         ref = xts[0].double().cpu().numpy()
         err = w_edit.double().cpu().numpy() - ref
         sig = float(np.mean(np.square(ref)))
@@ -206,7 +224,11 @@ def main(argv=None):
     if args.selfcheck:
         name = "selfcheck_" + name
 
-    save_spectrogram_png(os.path.join(save_path, name + ".png"), x_dec.float().cpu().numpy())
+    if stable_audio:
+        audio = audio[0]  # the (2, T) stereo waveform of the one clip
+    else:
+        save_spectrogram_png(os.path.join(save_path, name + ".png"),
+                             x_dec.float().cpu().numpy())
     write_wav(os.path.join(save_path, name + ".wav"), audio, sr)
     write_wav(os.path.join(save_path, "orig.wav"), orig_audio, sr)
     dump_run_summary(save_path, args, {

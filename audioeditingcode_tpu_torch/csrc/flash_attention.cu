@@ -1,8 +1,9 @@
 // Blocked non-causal self-attention for Hopper (sm_90a), plain C interface.
 //
 // Replaces audioeditingcode_tpu/ops/flash_attention.py::_attn_kernel (body
-// _attn_core; host wrapper _blocked_attention). It computes the same
-// function: o = softmax(q k^T / sqrt(D)) v for every (batch, head), with
+// _attn_core; host wrapper _blocked_attention) and, as its ROT variant,
+// _attn_rotary_kernel (with _rotate). It computes the same function:
+// o = softmax(q k^T / sqrt(D)) v for every (batch, head), with
 //   - q * scale computed in f32 and rounded back to the input dtype,
 //   - scores, softmax and the output accumulator in f32,
 //   - p rounded to v's dtype before the PV product,
@@ -11,6 +12,19 @@
 // Inputs are (B, S, H, D) tensors addressed through their strides (the
 // last dim must be contiguous), so no transpose copy is made. f32 and bf16,
 // D a multiple of 8 up to 128.
+//
+// Rotary variant (ROT, the Stable Audio DiT's attn1 behind
+// AEC_ROTARY_IN_KERNEL=1): a rotate-half rotary embedding is applied in f32
+// to the first `rot` features of q and of k, from (S, rot) f32 cos/sin
+// tables indexed by position, and the result is rounded to the input dtype
+// before anything else touches it, as _rotate does. Each thread rotates its
+// q row in registers before the q*scale rounding; each K tile is rotated as
+// it lands in shared memory (the partner feature d +- rot/2 is read from
+// the same row, which the tile load has just brought into L1). The rotated
+// q and k never reach device memory. Square self-attention only (the tables
+// index queries and keys by the same position); rot even and <= D. The
+// products and the sum of the rotation are rounded separately (no FMA
+// contraction), as the plain PyTorch version computes them.
 //
 // Blocking. The TPU kernel keeps the whole K/V of one head in VMEM and does
 // a one-pass softmax; a Hopper block has at most 227 KB of shared memory,
@@ -79,12 +93,33 @@ struct Strides {
   int64_t b, s, h;
 };
 
-template <typename T, int D>
+// Rotary tables of the ROT variant: (S, rot) f32, row = position.
+struct Rotary {
+  const float* cos;
+  const float* sin;
+  int rot;
+};
+
+// rotate-half rotary of feature d < rot of one row p: x*cos + rh*sin with
+// rh = -x[d + rot/2] for d < rot/2 and x[d - rot/2] above, in f32, rounded
+// to T
+template <typename T>
+__device__ __forceinline__ float rotate(const T* p, int d, float x,
+                                        const Rotary& r, int pos) {
+  const int half = r.rot >> 1;
+  const float partner = Io<T>::load(p + (d < half ? d + half : d - half));
+  const float rh = d < half ? -partner : partner;
+  const int64_t t = (int64_t)pos * r.rot + d;
+  return Io<T>::round(__fadd_rn(__fmul_rn(x, __ldg(r.cos + t)),
+                                __fmul_rn(rh, __ldg(r.sin + t))));
+}
+
+template <typename T, int D, bool ROT>
 __global__ void __launch_bounds__(BM)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, T* __restrict__ o, int H, int rep,
                 int Sq, int kv_len, float scale, Strides qs, Strides ks,
-                Strides vs, Strides os) {
+                Strides vs, Strides os, Rotary rt) {
   constexpr int BN = Tile<D>::BN;
   __shared__ __align__(16) float k_tile[BN * D];
   __shared__ __align__(16) float v_tile[BN * D];
@@ -105,7 +140,9 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* qp = q + b * qs.b + (int64_t)(active ? row : 0) * qs.s + h * qs.h;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      qr[d] = active ? Io<T>::round(Io<T>::load(qp + d) * scale) : 0.f;
+      float x = active ? Io<T>::load(qp + d) : 0.f;
+      if (ROT && active && d < rt.rot) x = rotate(qp, d, x, rt, row);
+      qr[d] = active ? Io<T>::round(x * scale) : 0.f;
       acc[d] = 0.f;
     }
   }
@@ -120,7 +157,9 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int n = n0 + j;
       float kv = 0.f, vv = 0.f;
       if (n < kv_len) {
-        kv = Io<T>::load(kp + (int64_t)n * ks.s + d);
+        const T* kr = kp + (int64_t)n * ks.s;
+        kv = Io<T>::load(kr + d);
+        if (ROT && d < rt.rot) kv = rotate(kr, d, kv, rt, n);
         vv = Io<T>::load(vp + (int64_t)n * vs.s + d);
       }
       k_tile[e] = kv;
@@ -177,23 +216,30 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 void launch(const void* q, const void* k, const void* v, void* o, int B, int H,
             int rep, int Sq, int kv_len, float scale, Strides qs, Strides ks,
-            Strides vs, Strides os, cudaStream_t stream) {
+            Strides vs, Strides os, Rotary rt, cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + BM - 1) / BM);
-  attn_fwd_kernel<T, D><<<grid, BM, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, rep, Sq, kv_len, scale,
-      qs, ks, vs, os);
+  if (rt.rot > 0) {
+    attn_fwd_kernel<T, D, true><<<grid, BM, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), H, rep, Sq, kv_len,
+        scale, qs, ks, vs, os, rt);
+  } else {
+    attn_fwd_kernel<T, D, false><<<grid, BM, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), H, rep, Sq, kv_len,
+        scale, qs, ks, vs, os, rt);
+  }
 }
 
 template <typename T>
 bool dispatch(int D, const void* q, const void* k, const void* v, void* o,
               int B, int H, int rep, int Sq, int kv_len, float scale,
-              Strides qs, Strides ks, Strides vs, Strides os,
+              Strides qs, Strides ks, Strides vs, Strides os, Rotary rt,
               cudaStream_t stream) {
 #define AEC_CASE(DD)                                                         \
   case DD:                                                                   \
     launch<T, DD>(q, k, v, o, B, H, rep, Sq, kv_len, scale, qs, ks, vs, os, \
-                  stream);                                                   \
+                  rt, stream);                                               \
     return true;
   switch (D) {
     AEC_CASE(8)
@@ -218,6 +264,30 @@ bool dispatch(int D, const void* q, const void* k, const void* v, void* o,
 #undef AEC_CASE
 }
 
+int run(const void* q, const void* k, const void* v, void* o, int dtype,
+        int B, int H, int H_kv, int Sq, int kv_len, int D, float scale,
+        const Strides& qs, const Strides& ks, const Strides& vs,
+        const Strides& os, const Rotary& rt, void* stream) {
+  if (B < 1 || H < 1 || H_kv < 1 || H % H_kv != 0 || Sq < 1 || kv_len < 1 ||
+      (Sq + BM - 1) / BM > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rep = H / H_kv;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bool ok;
+  if (dtype == 0) {
+    ok = dispatch<float>(D, q, k, v, o, B, H, rep, Sq, kv_len, scale, qs, ks,
+                         vs, os, rt, st);
+  } else if (dtype == 1) {
+    ok = dispatch<__nv_bfloat16>(D, q, k, v, o, B, H, rep, Sq, kv_len, scale,
+                                 qs, ks, vs, os, rt, st);
+  } else {
+    ok = false;
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last dim
@@ -229,24 +299,29 @@ extern "C" int aec_flash_attention_fwd(
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, void* stream) {
-  if (B < 1 || H < 1 || H_kv < 1 || H % H_kv != 0 || Sq < 1 || kv_len < 1 ||
-      (Sq + BM - 1) / BM > 65535) {
+  return run(q, k, v, o, dtype, B, H, H_kv, Sq, kv_len, D, scale,
+             Strides{q_sb, q_ss, q_sh}, Strides{k_sb, k_ss, k_sh},
+             Strides{v_sb, v_ss, v_sh}, Strides{o_sb, o_ss, o_sh},
+             Rotary{nullptr, nullptr, 0}, stream);
+}
+
+// The rotary variant: as aec_flash_attention_fwd, square (Sq equal to the
+// keys' length), with cos/sin (>= Sq, rot) contiguous f32 tables and rot
+// even, 2 <= rot <= D.
+extern "C" int aec_flash_attention_rotary_fwd(
+    const void* q, const void* k, const void* v, void* o, const void* cos,
+    const void* sin, int rot, int dtype, int B, int H, int H_kv, int Sq,
+    int kv_len, int D, float scale, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_ss, long long o_sh, void* stream) {
+  if (rot < 2 || rot % 2 != 0 || rot > D || cos == nullptr || sin == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
-      vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
-  const int rep = H / H_kv;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bool ok;
-  if (dtype == 0) {
-    ok = dispatch<float>(D, q, k, v, o, B, H, rep, Sq, kv_len, scale, qs, ks,
-                         vs, os, st);
-  } else if (dtype == 1) {
-    ok = dispatch<__nv_bfloat16>(D, q, k, v, o, B, H, rep, Sq, kv_len, scale,
-                                 qs, ks, vs, os, st);
-  } else {
-    ok = false;
-  }
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return run(q, k, v, o, dtype, B, H, H_kv, Sq, kv_len, D, scale,
+             Strides{q_sb, q_ss, q_sh}, Strides{k_sb, k_ss, k_sh},
+             Strides{v_sb, v_ss, v_sh}, Strides{o_sb, o_ss, o_sh},
+             Rotary{static_cast<const float*>(cos),
+                    static_cast<const float*>(sin), rot},
+             stream);
 }

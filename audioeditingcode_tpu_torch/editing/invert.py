@@ -3,8 +3,11 @@ passes.
 
 Counterpart of ``audioeditingcode_tpu/editing/invert.py``. Each
 ``lax.scan`` of the JAX version is a Python loop over timesteps here; one
-CFG-batched UNet forward runs per step. The model is ``denoise_fn(xt, k) ->
-noise_pred`` with k the step position in the schedule.
+CFG-batched denoiser forward (UNet or DiT) runs per step. The model is
+``denoise_fn(xt, k) -> noise_pred`` with k the step position in the
+schedule. Multistep solvers (Stable Audio's cosine DPM) carry their history
+through the loop, and the forward pass can return it for the reverse pass's
+warm start.
 """
 
 from __future__ import annotations
@@ -44,14 +47,18 @@ def inversion_forward_process(
     eta: float = 1.0,
     numerical_fix: bool = True,
     zero_first: bool = True,
+    return_extras: bool = False,
 ):
-    """Forward pass: returns (x_fix, zs, xts).
+    """Forward pass: returns (x_fix, zs, xts[, extras]).
 
     ``noise`` is the (S, *x0.shape) draw for the independent q(x_t | x_0)
     samples, or a generator to draw it from. zs (S, 1, ...) are the noise
     maps (zs[0] zeroed with ``zero_first``); xts (S+1, 1, ...) is the
     trajectory with xts[idx] rewritten to the numerically fixed x_{t-1};
     x_fix is the last carry, the fixed, nearly clean latent (= xts[0]).
+    With ``return_extras`` (multistep solvers) extras (S, 1, ...) is the
+    per-step solver history in zs-index order; ``extras[T - 1]`` warm-starts
+    a reverse pass of T steps.
     """
     solver = as_solver(sched, eta=eta, numerical_fix=numerical_fix)
     S = solver.num_inference_steps
@@ -60,17 +67,22 @@ def inversion_forward_process(
     # value, so no second (S+1)-latent buffer is needed
     xts = solver.sample_xts(x0, noise)
     zs = torch.empty((S,) + tuple(x0.shape), dtype=xts.dtype, device=xts.device)
+    extras = torch.empty_like(zs) if return_extras and solver.carries_history else None
     xt = xts[S]
     state = solver.init_state(x0)
     for k in range(S):
         idx = S - k - 1
         eps = denoise_fn(xt, k)
-        state, z, xtm1_fix, _ = solver.forward_step(state, k, xt, xts[idx], eps)
+        state, z, xtm1_fix, extra = solver.forward_step(state, k, xt, xts[idx], eps)
         zs[idx] = z
+        if extras is not None:
+            extras[idx] = extra
         xts[idx] = xtm1_fix
         xt = xtm1_fix
     if zero_first:
         zs[0] = 0
+    if return_extras:
+        return xt, zs, xts, extras
     return xt, zs, xts
 
 
@@ -84,10 +96,13 @@ def inversion_reverse_process(
     tstart: Optional[torch.Tensor] = None,  # (P,) per-prompt start steps
     fix_alpha: float = 0.1,
     masks: Optional[torch.Tensor] = None,  # (P, ...) smoothed prompt masks
+    init_history: Optional[torch.Tensor] = None,  # multistep warm start
 ) -> torch.Tensor:
     """Reverse (edit) pass from x_{max tstart} with the stored noise maps,
     including the multi-tstart fix: prompts with a smaller tstart are
-    blended toward the stored trajectory until their own start step."""
+    blended toward the stored trajectory until their own start step.
+    ``init_history`` (``extras[T - 1]`` of the forward pass) warm-starts a
+    multistep solver."""
     solver = as_solver(sched, eta=eta)
     T = zs.shape[0]
     S = solver.num_inference_steps
@@ -100,7 +115,7 @@ def inversion_reverse_process(
         apply_fix = ((tstart.max() - tstart)[None, :] > its).to(xt.dtype)
         af = apply_fix * fix_alpha  # (T, P)
 
-    state = solver.init_state(xt)
+    state = solver.init_state(xt, init_history)
     for it in range(T):
         k = S - T + it
         eps = denoise_fn(xt, k)

@@ -9,14 +9,22 @@ key ``down_blocks.0.resnets.1.conv1.weight`` and a Flax path
 of that module's rank rules:
 
   Dense kernel   (in, out)          -> Linear weight (out, in)
+  Dense kernel   (in, out)          -> Conv1d(k=1) weight (out, in, 1)
+                                       (the DiT's pre/post convs)
   Conv kernel    (kh, kw, in, out)  -> Conv2d weight (out, in, kh, kw)
   Conv1d kernel  (k, in, out)       -> Conv1d weight (out, in, k)
+  ConvTranspose(transpose_kernel=True) kernel (k, out, in)
+                                    -> ConvTranspose1d (in, out, k), no flip
+                                       (Oobleck's conv_t1: the same transpose)
   HiFi-GAN ups_  (k, in, out), taps flipped -> ConvTranspose1d (in, out, k)
   norm scale                        -> weight
+  Snake alpha/beta (1, 1, C)        -> (1, C, 1)
+  Fourier weight / weights          -> as they are
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
@@ -24,6 +32,12 @@ import torch
 
 # torch module names that differ from the Flax ones
 _ALIASES = {"upsampler": "ups"}
+# normalized torch paths that differ from the Flax ones: diffusers'
+# Sequential projections of the DiT are linear_1 / linear_2 in Flax
+_PATH_RENAMES = (
+    (re.compile(r"^(timestep_proj|global_proj|cross_attention_proj)_0$"), r"\1_linear_1"),
+    (re.compile(r"^(timestep_proj|global_proj|cross_attention_proj)_2$"), r"\1_linear_2"),
+)
 # modules whose kernels emulate torch's ConvTranspose1d (flipped taps)
 _TRANSPOSE_CONV_MARKERS = ("ups_",)
 
@@ -39,7 +53,10 @@ def normalize_torch_key(key: str) -> Tuple[str, str]:
             merged[-1] = merged[-1] + "_" + p
         else:
             merged.append(p)
-    return "_".join(merged), leaf
+    path = "_".join(merged)
+    for pattern, repl in _PATH_RENAMES:
+        path = pattern.sub(repl, path)
+    return path, leaf
 
 
 def _flax_index(flat: Mapping[tuple, np.ndarray]) -> Dict[str, Dict[str, np.ndarray]]:
@@ -79,15 +96,19 @@ def flax_to_torch_state_dict(flat: Mapping[tuple, np.ndarray],
         if entry is None:
             raise KeyError(f"no Flax params for {key} (module path {norm!r})")
         if leaf == "weight":
-            name = "kernel" if "kernel" in entry else "scale"
+            name = next((n for n in ("kernel", "scale") if n in entry), "weight")
         else:
             name = leaf
         if name not in entry:
             raise KeyError(f"no Flax leaf {name!r} for {key} (has {sorted(entry)})")
         a = entry[name]
-        if name == "kernel":
+        if name == "kernel" and a.ndim == 2 and ref.dim() == 3:
+            a = a.T[:, :, None]  # Dense kernel -> Conv1d(k=1)
+        elif name == "kernel":
             a = flax_to_torch_tensor(
                 a, any(m in norm for m in _TRANSPOSE_CONV_MARKERS))
+        elif name in ("alpha", "beta") and a.ndim == 3:
+            a = a.transpose(0, 2, 1)  # Snake (1, 1, C) -> (1, C, 1)
         if tuple(a.shape) != tuple(ref.shape):
             raise ValueError(f"shape mismatch for {key}: {a.shape} vs {tuple(ref.shape)}")
         out[key] = torch.from_numpy(np.array(a, order="C")).to(ref.dtype)

@@ -1,16 +1,23 @@
-"""Model specs of the port: the AudioLDM family.
+"""Model specs of the port: AudioLDM-s and Stable Audio Open.
 
 The port's own copies of ``audioeditingcode_tpu/models/configs.py`` entries
-for ``cvssp/audioldm-s-full-v2`` and ``test/tiny-audioldm``.
+for ``cvssp/audioldm-s-full-v2``, ``stabilityai/stable-audio-open-1.0`` and
+their tiny test configs ``test/tiny-audioldm`` and
+``test/tiny-stable-audio``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from ..ops.stft import MelConfig
+from ..schedulers.cosine_dpm import CosineDPMConfig
 from ..schedulers.ddim import DDIMConfig
+from .dit1d import DiT1DConfig
 from .hifigan import HifiGanConfig
+from .oobleck import OobleckConfig
+from .projection import ProjectionConfig
 from .unet2d import UNet2DConditionConfig
 from .vae import AutoencoderKLConfig
 
@@ -18,16 +25,22 @@ from .vae import AutoencoderKLConfig
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     model_id: str
-    family: str
-    unet: UNet2DConditionConfig
-    vae: AutoencoderKLConfig
-    vocoder: HifiGanConfig
+    family: str  # 'audioldm' | 'stable-audio'
+    unet: Optional[UNet2DConditionConfig]
+    vae: Optional[AutoencoderKLConfig]
+    vocoder: Optional[HifiGanConfig]
     scheduler: DDIMConfig
-    mel: MelConfig
+    mel: Optional[MelConfig]
     sample_rate: int = 16000
-    text_encoder: str = "clap"  # 'clap' (needs a checkpoint) | 'null'
+    text_encoder: str = "clap"  # 'clap' | 't5' (need a checkpoint) | 'null'
     text_embed_dim: int = 512
+    text_seq_len: int = 1
     recommended_steps: int = 200
+    # Stable Audio family (1-D waveform path):
+    dit: Optional[DiT1DConfig] = None
+    oobleck: Optional[OobleckConfig] = None
+    cosine_scheduler: Optional[CosineDPMConfig] = None
+    projection: Optional[ProjectionConfig] = None
 
 
 _AUDIOLDM_SCHED = DDIMConfig(
@@ -97,6 +110,39 @@ MODEL_SPECS = {
         vae=_AUDIOLDM_VAE, vocoder=_HIFIGAN_16K_64,
         scheduler=_AUDIOLDM_SCHED, mel=_MEL_16K,
         text_encoder="clap", text_embed_dim=512, recommended_steps=100,
+    ),
+    "stabilityai/stable-audio-open-1.0": ModelSpec(
+        model_id="stabilityai/stable-audio-open-1.0", family="stable-audio",
+        unet=None, vae=None, vocoder=None,
+        scheduler=_AUDIOLDM_SCHED,  # unused; the cosine solver drives this family
+        mel=None, sample_rate=44100,
+        text_encoder="t5", text_embed_dim=768, text_seq_len=128,
+        recommended_steps=100,
+        dit=DiT1DConfig(),
+        oobleck=OobleckConfig(),
+        cosine_scheduler=CosineDPMConfig(),
+        projection=ProjectionConfig(),
+    ),
+    "test/tiny-stable-audio": ModelSpec(
+        model_id="test/tiny-stable-audio", family="stable-audio",
+        unet=None, vae=None, vocoder=None,
+        scheduler=_AUDIOLDM_SCHED, mel=None, sample_rate=4000,
+        text_encoder="null", text_embed_dim=32, text_seq_len=4,
+        recommended_steps=8,
+        dit=DiT1DConfig(
+            sample_size=16, in_channels=4, out_channels=4, num_layers=2,
+            attention_head_dim=16, num_attention_heads=4,
+            num_key_value_attention_heads=2, cross_attention_dim=32,
+            cross_attention_input_dim=32, global_states_input_dim=64,
+            time_proj_dim=32,
+        ),
+        oobleck=OobleckConfig(
+            encoder_hidden_size=8, downsampling_ratios=(2, 2),
+            channel_multiples=(1, 2), decoder_channels=8,
+            decoder_input_channels=4, audio_channels=2, sampling_rate=4000,
+        ),
+        cosine_scheduler=CosineDPMConfig(),
+        projection=ProjectionConfig(text_encoder_dim=32, conditioning_dim=32, internal_dim=16),
     ),
     "test/tiny-audioldm": ModelSpec(
         model_id="test/tiny-audioldm", family="audioldm",

@@ -1,8 +1,10 @@
-"""Model factory: model_id -> LatentAudioPipeline (AudioLDM family).
+"""Model factory: model_id -> LatentAudioPipeline (AudioLDM family) or
+StableAudioPipeline (Stable Audio family).
 
 Counterpart of ``audioeditingcode_tpu/models/registry.py``. Without a
 checkpoint the modules get a seeded random init of the JAX package's
-magnitudes: norm scales one, biases zero, weights N(0, 1/fan_in).
+magnitudes: norm scales one, biases zero, weights N(0, 1/fan_in), Fourier
+feature weights N(0, 1), Snake params zero.
 """
 
 from __future__ import annotations
@@ -12,10 +14,16 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from ..editing.solvers import CosineDPMSolver
+from ..schedulers.cosine_dpm import make_cosine_dpm_schedule
 from ..schedulers.ddim import make_schedule
 from .configs import MODEL_SPECS, ModelSpec
+from .dit1d import StableAudioDiT
 from .hifigan import HifiGanGenerator
+from .oobleck import AutoencoderOobleck
 from .pipeline import LatentAudioPipeline
+from .pipeline1d import StableAudioPipeline
+from .projection import StableAudioProjectionModel
 from .text_encoders import NullTextEncoder
 from .unet2d import UNet2DConditionModel
 from .vae import AutoencoderKL
@@ -29,9 +37,7 @@ _NOT_PORTED = {
     "cvssp/audioldm2-music": "Queue A item 7 (AudioLDM2)",
     "declare-lab/tango-full-ft-audio-music-caps": "Queue A item 7 (TANGO)",
     "declare-lab/tango-full-ft-audiocaps": "Queue A item 7 (TANGO)",
-    "stabilityai/stable-audio-open-1.0": "Queue A item 9 (Stable Audio)",
     "test/tiny-audioldm2": "Queue A item 7 (AudioLDM2)",
-    "test/tiny-stable-audio": "Queue A item 9 (Stable Audio)",
 }
 
 
@@ -50,18 +56,34 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     (so a seed gives the same weights on every device)."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
+        owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
         if leaf == "bias":
+            p.zero_()
+        elif getattr(owner, "fourier_features", False):  # fixed random features
+            p.copy_(torch.randn(p.shape, generator=generator))
+        elif leaf in ("alpha", "beta"):  # Snake log-scales
             p.zero_()
         elif p.dim() == 1:  # norm weights (and the vocoder's mean/scale stats)
             p.fill_(0.0 if leaf == "mean" else 1.0)
         else:
             # fan-in of the Flax kernel: every dim but its output one
             # (ConvTranspose1d keeps (in, out, k) in torch)
-            owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
             fan_in = p.numel() // (p.shape[1] if isinstance(owner, nn.ConvTranspose1d)
                                    else p.shape[0])
             w = torch.randn(p.shape, generator=generator) / fan_in ** 0.5
             p.copy_(w)
+    return module
+
+
+def to_model_dtype_(module: nn.Module, device, dtype: torch.dtype) -> nn.Module:
+    """Move an inference module to ``device`` in ``dtype``, keeping float32
+    the params its classes list in ``float32_params`` (those the Flax
+    modules use uncast in every dtype)."""
+    module.to(device=device, dtype=dtype).eval().requires_grad_(False)
+    for m in module.modules():
+        for name in getattr(m, "float32_params", ()):
+            p = m.get_parameter(name)
+            p.data = p.data.float()
     return module
 
 
@@ -72,7 +94,7 @@ def load_model(
     dtype: torch.dtype = torch.float32,
     seed: int = 0,
     weights_dir: Optional[str] = None,
-) -> LatentAudioPipeline:
+) -> Union[LatentAudioPipeline, StableAudioPipeline]:
     """Build the pipeline for ``model_id`` on ``device`` with seeded random
     weights (converted checkpoints are not supported yet)."""
     spec = resolve_spec(model_id)
@@ -80,12 +102,14 @@ def load_model(
         raise NotImplementedError(
             "--weights_dir: loading converted checkpoints into the PyTorch port "
             "is not supported yet (ROADMAP Queue A item 13)")
+    if spec.family == "stable-audio":
+        return _load_stable_audio(spec, num_diffusion_steps, device, dtype, seed)
     g = torch.Generator().manual_seed(seed)
     unet = random_init_(UNet2DConditionModel(spec.unet), g)
     vae = random_init_(AutoencoderKL(spec.vae), g)
     vocoder = random_init_(HifiGanGenerator(spec.vocoder), g)
     for m in (unet, vae, vocoder):
-        m.to(device=device, dtype=dtype).eval().requires_grad_(False)
+        to_model_dtype_(m, device, dtype)
     return LatentAudioPipeline(
         model_id=model_id,
         sched=make_schedule(spec.scheduler, num_diffusion_steps, device=device),
@@ -98,3 +122,30 @@ def load_model(
         sample_rate=spec.sample_rate,
         vae_pad_multiple=spec.vae.downscale_factor,
     )
+
+
+def _load_stable_audio(spec: ModelSpec, num_diffusion_steps: int, device,
+                       dtype: torch.dtype, seed: int) -> StableAudioPipeline:
+    """DiT + Oobleck VAE + projection + cosine DPM solver, with the duration
+    conditioning set up for the model's full length (as the JAX registry
+    does eagerly)."""
+    g = torch.Generator().manual_seed(seed)
+    dit = random_init_(StableAudioDiT(spec.dit), g)
+    vae = random_init_(AutoencoderOobleck(spec.oobleck), g)
+    projection = random_init_(StableAudioProjectionModel(spec.projection), g)
+    for m in (dit, vae, projection):
+        to_model_dtype_(m, device, dtype)
+    pipe = StableAudioPipeline(
+        model_id=spec.model_id,
+        sched=CosineDPMSolver(make_cosine_dpm_schedule(
+            spec.cosine_scheduler, num_diffusion_steps, device=device)),
+        dit=dit,
+        vae=vae,
+        projection=projection,
+        text_encoder=NullTextEncoder(hidden_dim=spec.projection.conditioning_dim,
+                                     seq_len=spec.text_seq_len or 8, device=device),
+        sample_rate=spec.sample_rate,
+        sample_size=spec.dit.sample_size,
+    )
+    pipe.setup_duration()
+    return pipe

@@ -17,7 +17,7 @@ import subprocess
 import tempfile
 from typing import Dict, Iterable, Tuple
 
-KERNEL_SOURCES = ("flash_attention",)
+KERNEL_SOURCES = ("flash_attention", "swiglu")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -3,22 +3,30 @@
 Counterpart of ``audioeditingcode_tpu/ops/flash_attention.py``. Layouts are
 the JAX package's: q is (B, Sq, H, D), k and v are (B, Skv, H_kv, D).
 
-- ``flash_attention_cuda``: the kernel (``csrc/flash_attention.cu``), which
-  replaces the Pallas ``_attn_kernel``. It streams K/V tiles through shared
-  memory with an online softmax instead of keeping a whole head in fast
-  memory. Each launch adds one to ``flash_attention_cuda.launches``.
-- ``attention_reference``: the kernel's plain PyTorch version, with the same
-  two roundings (q*scale back to the input dtype, p to v's dtype before PV).
-  CPU tensors take it; on the card it is only a yardstick.
-- ``fused_attention``: the dispatcher. Eligible calls go to the kernel on a
-  CUDA tensor (no fallback) and to ``attention_reference`` on a CPU tensor;
-  other calls take plain matmul + f32 softmax.
+- ``flash_attention_cuda`` (B1): the kernel (``csrc/flash_attention.cu``),
+  which replaces the Pallas ``_attn_kernel``. It streams K/V tiles through
+  shared memory with an online softmax instead of keeping a whole head in
+  fast memory. Each launch adds one to ``flash_attention_cuda.launches``.
+- ``flash_attention_rotary_cuda`` (B2): the same kernel with a partial
+  rotate-half rotary applied to q and k inside it, which replaces the
+  Pallas ``_attn_rotary_kernel``. Its launches count in
+  ``flash_attention_rotary_cuda.launches``.
+- ``attention_reference`` and ``rotary_attention_reference``: the kernels'
+  plain PyTorch versions, with the same roundings (the rotated q/k to the
+  input dtype, q*scale back to the input dtype, p to v's dtype before PV).
+  CPU tensors take them; on the card they are only yardsticks.
+- ``fused_attention``: the dispatcher. Eligible calls go to a kernel on a
+  CUDA tensor (no fallback) and to its plain version on a CPU tensor; other
+  calls take plain matmul + f32 softmax. A ``rotary`` (cos, sin) pair is
+  applied on the host (``_host_rotary``) before B1, or inside B2 with
+  ``AEC_ROTARY_IN_KERNEL=1``, as the JAX dispatcher does.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import os
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,21 +36,26 @@ _MIN_SEQ_FOR_KERNEL = 1024
 _MAX_KERNEL_HEAD_DIM = 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_FN = None
+_FNS = {}
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
+def _kernel_fn(rotary: bool = False):
+    """The C entry point of B1, or of B2 with ``rotary`` (built at first use)."""
+    fn = _FNS.get(rotary)
+    if fn is None:
         from .build import load
 
-        fn = load("flash_attention").aec_flash_attention_fwd
+        lib = load("flash_attention")
+        if rotary:
+            fn = lib.aec_flash_attention_rotary_fwd
+            head = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        else:
+            fn = lib.aec_flash_attention_fwd
+            head = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.c_float] + [ctypes.c_longlong] * 12
-                       + [ctypes.c_void_p])
-        _FN = fn
-    return _FN
+        fn.argtypes = head + [ctypes.c_float] + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
+        _FNS[rotary] = fn
+    return fn
 
 
 def _check_kernel_args(q, k, v):
@@ -94,6 +107,51 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_cuda.launches = 0
 
 
+def _check_rotary_tables(q, cos, sin) -> Tuple[torch.Tensor, torch.Tensor]:
+    rot = cos.shape[-1]
+    if cos.shape != sin.shape or cos.dim() != 2:
+        raise ValueError(f"cos/sin must be two (S, rot) tables, got "
+                         f"{tuple(cos.shape)}, {tuple(sin.shape)}")
+    if rot < 2 or rot % 2 or rot > q.shape[3]:
+        raise ValueError(f"rotary width {rot}: must be even and at most the head dim "
+                         f"{q.shape[3]}")
+    if cos.shape[0] < q.shape[1]:
+        raise ValueError(f"rotary tables cover {cos.shape[0]} positions, the "
+                         f"sequence has {q.shape[1]}")
+    if cos.device != q.device or sin.device != q.device:
+        raise ValueError("rotary tables must be on the device of q")
+    return cos.float().contiguous(), sin.float().contiguous()
+
+
+def flash_attention_rotary_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Launch the rotary kernel B2 on (B, S, H, D) x (B, S, H_kv, D) square
+    self-attention, with (>= S, rot) cos/sin tables. Raises on what it does
+    not take; never falls back."""
+    _check_kernel_args(q, k, v)
+    if q.shape[1] != k.shape[1]:
+        raise ValueError(f"in-kernel rotary takes square self-attention, got "
+                         f"{q.shape[1]} queries and {k.shape[1]} keys")
+    cos, sin = _check_rotary_tables(q, cos, sin)
+    B, S, H, D = q.shape
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _kernel_fn(rotary=True)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        cos.data_ptr(), sin.data_ptr(), cos.shape[-1],
+        _DTYPE_CODES[q.dtype], B, H, k.shape[2], S, S, D, 1.0 / (D ** 0.5),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_rotary kernel launch failed: CUDA error {rc}")
+    flash_attention_rotary_cuda.launches += 1
+    return o
+
+
+flash_attention_rotary_cuda.launches = 0
+
+
 def _repeat_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
     rep = heads // x.shape[2]
     return x if rep == 1 else x.repeat_interleave(rep, dim=2)
@@ -117,6 +175,26 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     denom = p.sum(dim=-1, keepdim=True)
     o = torch.matmul(p.to(v.dtype).float(), vt.float())
     return (o / denom).to(q.dtype).transpose(1, 2)
+
+
+def _host_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) partial rotate-half rotary on the first rot = cos.shape[-1]
+    features, in f32 from (S, rot) tables, rounded back to x's dtype."""
+    rot = cos.shape[-1]
+    xr = x[..., :rot].float()
+    half = rot // 2
+    rh = torch.cat([-xr[..., half:], xr[..., :half]], dim=-1)
+    out = xr * cos[:, None].float() + rh * sin[:, None].float()
+    return torch.cat([out.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+def rotary_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Plain version of B2 (and of the Pallas ``_attn_rotary_kernel``): the
+    host rotary of q and k, then the plain version of B1."""
+    S = q.shape[1]
+    return attention_reference(_host_rotary(q, cos[:S], sin[:S]),
+                               _host_rotary(k, cos[:S], sin[:S]), v)
 
 
 def _plain_attention(q, k, v, bias=None):
@@ -147,12 +225,25 @@ def kernel_eligible(q: torch.Tensor, k: torch.Tensor,
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, Q, H, D) attention. Eligible calls launch the kernel on a CUDA
-    tensor or raise (D > 128 included), and take its plain version on a CPU
-    tensor; the rest take the plain matmul path."""
+                    bias: Optional[torch.Tensor] = None,
+                    rotary: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """(B, Q, H, D) attention, with an optional partial rotary (cos, sin),
+    each (Q, rot), applied to q and k. Eligible calls launch a kernel on a
+    CUDA tensor or raise (D > 128 included), and take its plain version on a
+    CPU tensor; the rest take the plain matmul path. The rotary goes inside
+    the kernel (B2) with ``AEC_ROTARY_IN_KERNEL=1`` and an even width, and
+    is applied on the host before B1 otherwise (the JAX default)."""
     if kernel_eligible(q, k, bias):
+        if (rotary is not None and rotary[0].shape[-1] % 2 == 0
+                and os.environ.get("AEC_ROTARY_IN_KERNEL", "0") == "1"):
+            if q.is_cuda:
+                return flash_attention_rotary_cuda(q, k, v, *rotary)
+            return rotary_attention_reference(q, k, v, *rotary)
+        if rotary is not None:
+            q, k = _host_rotary(q, *rotary), _host_rotary(k, *rotary)
         if q.is_cuda:
             return flash_attention_cuda(q, k, v)
         return attention_reference(q, k, v)
+    if rotary is not None:
+        q, k = _host_rotary(q, *rotary), _host_rotary(k, *rotary)
     return _plain_attention(q, k, v, bias)

@@ -129,12 +129,24 @@ def load_audio(
     config: Optional[MelConfig] = None,
     left: int = 0,
     right: int = 0,
+    stft: bool = True,
     model_sr: Optional[int] = None,
     device: Union[str, torch.device] = "cpu",
 ) -> Tuple[np.ndarray, int, float]:
-    """Load audio for editing as a (1, 1, T, n_mels) mel "image" (the mel
-    families; Stable Audio's waveform path is not ported yet). Returns
-    (mel, sample_rate, duration)."""
+    """Load audio for editing. Returns (x, sample_rate, duration):
+
+    stft=True  (the mel families): x is a (1, 1, T, n_mels) mel "image".
+    stft=False (Stable Audio): x is the (channels, L) waveform at
+               ``model_sr``, with its mean removed and peak-normalized to 0.5.
+    """
+    if not stft:
+        waveform, sr = read_wav(audio_path)
+        if model_sr is not None and sr != model_sr:
+            waveform = resample(waveform, sr, model_sr)
+            sr = model_sr
+        waveform = waveform - waveform.mean()
+        waveform = waveform / (np.abs(waveform).max() + 1e-8) * 0.5
+        return waveform.astype(np.float32), sr, waveform.shape[-1] / sr
     config = config or MelConfig()
     duration = get_duration(audio_path)
     target_length = int(duration * 102.4)

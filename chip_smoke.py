@@ -6,30 +6,44 @@ Phases (any failure raises and exits non-zero; without a CUDA card, or
 without the rest of the repository beside this file, it exits non-zero and
 prints no result):
 
-0. the card's name and power limit; build every CUDA kernel from csrc/.
+0. the card's name and power limit; build every CUDA kernel from csrc/
+   (one nvcc per source, all started together), with the build time and
+   the kernel instances that spill registers.
 1. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, in float32 and bfloat16, with its time, the plain
-   version's time, one PyTorch library call's time and the card's bound.
+   paths' shapes, in float32 and bfloat16, with its time, the plain
+   version's time, a PyTorch library yardstick's time and the card's bound:
+   B1 flash_attention, B2 flash_attention_rotary, B3 swiglu.
 2. one full-width AudioLDM-s UNet forward (random seeded weights, batch 2
    on the (8, 256, 16) latent of a 10 s clip) on the card, through the
    kernel, against the same forward on the CPU, through the plain version.
-3. the main path: the port CLI's ``--mode ours`` edit of a synthetic 10 s
-   clip with AudioLDM-s at 200 inversion + 100 edit steps, once as an edit
-   and once with ``--selfcheck``; the kernel launch count of each run must
-   be 20 per UNet forward.
+2b. a full-width Stable Audio DiT forward cut to 2 of its 24 layers (batch
+   2 on the (64, 1024) latent), card against CPU, through B1 + B3 and,
+   with AEC_ROTARY_IN_KERNEL=1, through B2 + B3; and the full-width Oobleck
+   encode and decode on 16 latent frames, card against CPU.
+3. the AudioLDM-s main path: the port CLI's ``--mode ours`` edit of a
+   synthetic 10 s clip at 200 inversion + 100 edit steps, once as an edit
+   and once with ``--selfcheck``; B1 must launch 20 times per UNet forward.
+4. the Stable Audio Open main path: the CLI's ``--mode ours`` edit of a
+   synthetic 10 s, 44.1 kHz stereo clip at 100 inversion + 50 edit steps,
+   as an edit, with ``--selfcheck`` (>= 40 dB), and as an edit with
+   AEC_ROTARY_IN_KERNEL=1; B1 (B2 in the last run) and B3 must each launch
+   24 times per DiT forward.
+Every kernel launch count is set to 0 just before each main-path run and
+read just after it.
 
 The line before the last holds ``nvidia-smi``'s name and power limit, the
 one before it the kernels' JSON record, and the last line
 ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of the
-main path's CFG UNet step (device time by kernel class, the device's idle
-share) before the final lines.
+``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
+CFG denoiser step of each main path (device time by kernel class, the
+device's idle share) before the final lines.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -45,6 +59,12 @@ STEPS, TSTART = 200, 100  # the bench.py edit config: 300 CFG UNet forwards
 LATENT = (8, 256, 16)  # a 10 s clip: 1024 mel frames
 ATTN_CALLS_PER_FORWARD = 20  # 10 at (16, 4096, 16) + 10 at (16, 1024, 32)
 
+SA_MODEL_ID = "stabilityai/stable-audio-open-1.0"
+SA_STEPS, SA_TSTART = 100, 50  # bench.py's Stable Audio config: 150 CFG DiT forwards
+SA_LATENT = (64, 1024)  # every clip is padded to 1024 x 2048 samples
+SA_CALLS_PER_FORWARD = 24  # one B1 (or B2) and one B3 launch per DiT layer
+SA_PARITY_LAYERS = 2  # phase 2b's cut of the 24 layers
+
 # H100 SXM data-sheet peaks (dense rates at the 700 W limit). Exponentials
 # run on the SFU: 16 results per clock per SM (NVIDIA's CUDA documentation,
 # arithmetic instruction throughput, compute capability 9.0) x 132 SMs x
@@ -53,8 +73,8 @@ HBM_BYTES_PER_S = 3.35e12
 MATMUL_FLOPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 EXP_PER_S = 16 * 132 * 1.98e9
 
-# (B, S, H, H_kv, D): the two main-path shapes, then the GQA/ragged
-# interface shape of the Stable Audio DiT (S = 1025, 24 q / 12 kv heads)
+# (B, S, H, H_kv, D): the two AudioLDM-s UNet levels, then the Stable Audio
+# DiT's attn1 (ragged S = 1025 with the global token, 24 q / 12 kv heads)
 ATTN_CASES = [
     ((2, 4096, 8, 8, 16), torch.float32),
     ((2, 1024, 8, 8, 32), torch.float32),
@@ -66,6 +86,16 @@ ATTN_CASES = [
 # float32 differs only in summation order and the SFU exponential; bf16
 # rounds p at the running rather than the final max (as tests/test_flash_attention.py)
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+# the Stable Audio DiT's attn1 with the rotary inside the kernel (B2)
+ROTARY_CASES = [((2, 1025, 24, 12, 64), 32, torch.float32),
+                ((2, 1025, 24, 12, 64), 32, torch.bfloat16)]
+# (M, E, N) of the DiT feed-forward (B3): the CFG batch of 2 x 1025 tokens,
+# and 1025 rows (an empty source prompt runs the unconditional stream alone)
+SWIGLU_CASES = [((2050, 1536, 6144), torch.float32), ((1025, 1536, 6144), torch.float32),
+                ((2050, 1536, 6144), torch.bfloat16), ((1025, 1536, 6144), torch.bfloat16)]
+# float32 sums in another order than the plain version (1e-5); bf16 rounds
+# the same f32 result once, so it differs by at most one bf16 rounding
+SWIGLU_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 
 
 def log(msg: str) -> None:
@@ -93,16 +123,111 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def attention_bound_ms(B, S, H, Hkv, D, dtype):
+def attention_bound_ms(B, S, H, Hkv, D, dtype, rot=0):
     """Least time for the function: the larger of its bytes (q, k, v read
-    once, o written once) over HBM bandwidth and its operations (the two
-    matmuls at the type's peak, the exponentials at the SFU rate)."""
+    once, o written once, and with a rotary of width ``rot`` its two (S, rot)
+    float32 tables) over HBM bandwidth and its operations (the two matmuls
+    at the type's peak, the exponentials at the SFU rate)."""
     itemsize = torch.finfo(dtype).bits // 8
-    nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * itemsize
+    nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * itemsize + 2 * S * rot * 4
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(4.0 * B * H * S * S * D / MATMUL_FLOPS_PER_S[dtype],
                 1.0 * B * H * S * S / EXP_PER_S)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def swiglu_bound_ms(M, E, N, dtype):
+    """Least time for the fused SwiGLU: the larger of its bytes (x, the
+    (2N, E) weight and the f32 bias read once, the (M, N) output written
+    once) over HBM bandwidth and its operations (4 M E N at the type's
+    matmul peak; the M N exponentials at the SFU rate)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = (M * E + 2 * N * E + M * N) * itemsize + 2 * N * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(4.0 * M * E * N / MATMUL_FLOPS_PER_S[dtype], 1.0 * M * N / EXP_PER_S)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _record_case(kernel, shape, dtype, err, tol, ms, plain_ms, library_ms, library, bound):
+    case = {"shape": list(shape), "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+            "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": library, "bound_ms": bound[0], "bound_by": bound[1]}
+    log(f"[phase1] {kernel} {case['shape']} {case['dtype']}: max_abs_err {err:.3g} "
+        f"(tol {tol}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{library_ms:.4f} ms ({library}), bound {bound[0]:.4f} ms ({bound[1]})")
+    return case
+
+
+def phase1_rotary(fa):
+    """B2 against its plain version (host rotary, then B1's plain version)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from audioeditingcode_tpu_torch.models.dit1d import rotary_tables
+
+    cases = []
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for (B, S, H, Hkv, D), rot, dtype in ROTARY_CASES:
+        q = torch.randn(B, S, H, D, device="cuda", generator=g).to(dtype)
+        k = torch.randn(B, S, Hkv, D, device="cuda", generator=g).to(dtype)
+        v = torch.randn(B, S, Hkv, D, device="cuda", generator=g).to(dtype)
+        cos, sin = rotary_tables(rot, S, device="cuda")
+        out = fa.flash_attention_rotary_cuda(q, k, v, cos, sin)
+        torch.cuda.synchronize()
+        ref = fa.rotary_attention_reference(q, k, v, cos, sin)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = ATTN_TOL[dtype]
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+        kr, vr = (x.repeat_interleave(H // Hkv, dim=2) for x in (k, v))
+        vt = vr.transpose(1, 2)
+
+        def library():
+            return sdpa(fa._host_rotary(q, cos, sin).transpose(1, 2),
+                        fa._host_rotary(kr, cos, sin).transpose(1, 2), vt)
+
+        cases.append(_record_case(
+            "flash_attention_rotary", (B, S, H, D), dtype, err, tol,
+            cuda_ms(lambda: fa.flash_attention_rotary_cuda(q, k, v, cos, sin), reps=20),
+            cuda_ms(lambda: fa.rotary_attention_reference(q, k, v, cos, sin), reps=5, warmup=1),
+            cuda_ms(library, reps=20),
+            "host rotary of q and k + scaled_dot_product_attention (three PyTorch calls)",
+            attention_bound_ms(B, S, H, Hkv, D, dtype, rot)) | {"kv_heads": Hkv, "rot": rot})
+        del q, k, v, out, ref, kr, vr, vt
+        torch.cuda.empty_cache()
+    return cases
+
+
+def phase1_swiglu(sw):
+    """B3 against its plain version."""
+    from torch.nn import functional as F
+
+    cases = []
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for (M, E, N), dtype in SWIGLU_CASES:
+        x = torch.randn(M, E, device="cuda", generator=g).to(dtype)
+        w = (torch.randn(2 * N, E, device="cuda", generator=g) / E ** 0.5).to(dtype)
+        b = torch.randn(2 * N, device="cuda", generator=g) * 0.1
+        out = sw.swiglu_cuda(x, w, b)
+        torch.cuda.synchronize()
+        ref = sw.swiglu_reference(x, w, b)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = SWIGLU_TOL[dtype]
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+        bl = b.to(dtype)
+
+        def library():
+            h, gate = F.linear(x, w, bl).chunk(2, dim=-1)
+            return h * F.silu(gate)
+
+        cases.append(_record_case(
+            "swiglu", (M, E, N), dtype, err, tol,
+            cuda_ms(lambda: sw.swiglu_cuda(x, w, b), reps=10),
+            cuda_ms(lambda: sw.swiglu_reference(x, w, b), reps=5, warmup=1),
+            cuda_ms(library, reps=10),
+            "F.linear + chunk + silu * mul (three PyTorch calls)",
+            swiglu_bound_ms(M, E, N, dtype)))
+        del x, w, b, bl, out, ref
+        torch.cuda.empty_cache()
+    return cases
 
 
 def phase1_attention(fa):
@@ -123,20 +248,13 @@ def phase1_attention(fa):
         # the library yardstick, one call; GQA's kv heads repeated beforehand
         kr, vr = (x.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) for x in (k, v))
         qt = q.transpose(1, 2)
-        bound, bound_by = attention_bound_ms(B, S, H, Hkv, D, dtype)
-        case = {
-            "shape": [B, S, H, D], "kv_heads": Hkv, "dtype": str(dtype).split(".")[-1],
-            "max_abs_err": err, "tol": tol,
-            "ms": cuda_ms(lambda: fa.flash_attention_cuda(q, k, v), reps=20),
-            "plain_ms": cuda_ms(lambda: fa.attention_reference(q, k, v), reps=5, warmup=1),
-            "library_ms": cuda_ms(lambda: sdpa(qt, kr, vr), reps=20),
-            "bound_ms": bound, "bound_by": bound_by,
-        }
-        cases.append(case)
-        log(f"[phase1] flash_attention {case['shape']} kv_heads={Hkv} {case['dtype']}: "
-            f"max_abs_err {err:.3g} (tol {tol}), kernel {case['ms']:.4f} ms, plain "
-            f"{case['plain_ms']:.4f} ms, library {case['library_ms']:.4f} ms, "
-            f"bound {bound:.4f} ms ({bound_by})")
+        cases.append(_record_case(
+            "flash_attention", (B, S, H, D), dtype, err, tol,
+            cuda_ms(lambda: fa.flash_attention_cuda(q, k, v), reps=20),
+            cuda_ms(lambda: fa.attention_reference(q, k, v), reps=5, warmup=1),
+            cuda_ms(lambda: sdpa(qt, kr, vr), reps=20),
+            "scaled_dot_product_attention (one PyTorch call)",
+            attention_bound_ms(B, S, H, Hkv, D, dtype)) | {"kv_heads": Hkv})
         del q, k, v, out, ref, kr, vr, qt
         torch.cuda.empty_cache()
     return cases
@@ -173,16 +291,104 @@ def phase2_unet_parity(fa):
     return {"unet_rel_err": rel}
 
 
-def write_clip(path: str, seconds: float = 10.0, sr: int = 16000) -> None:
+def reset_launches(fa, sw) -> None:
+    fa.flash_attention_cuda.launches = 0
+    fa.flash_attention_rotary_cuda.launches = 0
+    sw.swiglu_cuda.launches = 0
+
+
+def read_launches(fa, sw) -> dict:
+    return {"flash_attention": fa.flash_attention_cuda.launches,
+            "flash_attention_rotary": fa.flash_attention_rotary_cuda.launches,
+            "swiglu": sw.swiglu_cuda.launches}
+
+
+def _max_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def phase2b_stable_audio_parity(fa, sw):
+    """A full-width DiT cut to SA_PARITY_LAYERS layers, card vs CPU, through
+    B1 + B3 and (AEC_ROTARY_IN_KERNEL=1) through B2 + B3; and the full-width
+    Oobleck encode and decode on 16 latent frames, card vs CPU."""
+    from audioeditingcode_tpu_torch.models.configs import MODEL_SPECS
+    from audioeditingcode_tpu_torch.models.dit1d import StableAudioDiT, rotary_tables
+    from audioeditingcode_tpu_torch.models.oobleck import AutoencoderOobleck
+    from audioeditingcode_tpu_torch.models.registry import random_init_, to_model_dtype_
+
+    spec = MODEL_SPECS[SA_MODEL_ID]
+    cfg = dataclasses.replace(spec.dit, num_layers=SA_PARITY_LAYERS)
+    dit = to_model_dtype_(random_init_(StableAudioDiT(cfg), torch.Generator().manual_seed(6)),
+                          "cpu", torch.float32)
+    g = torch.Generator().manual_seed(7)
+    C, L = SA_LATENT
+    x = torch.randn(2, L, C, generator=g)
+    t = torch.tensor([0.8, 0.8])
+    ctx = torch.randn(2, spec.text_seq_len + 2, cfg.cross_attention_input_dim, generator=g)
+    ctx[0] = 0  # the unconditional stream is all zero
+    glob = torch.randn(2, 1, cfg.global_states_input_dim, generator=g)
+    rot = rotary_tables(cfg.rotary_embed_dim, L + 1)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu_out = dit(x, t, ctx, glob, rot)
+    cpu_s = time.perf_counter() - t0
+    dit = dit.cuda()
+    args = [a.cuda() for a in (x, t, ctx, glob)] + [tuple(r.cuda() for r in rot)]
+    out = {"dit_layers": SA_PARITY_LAYERS, "dit_cpu_s": cpu_s}
+    for name, env in (("host_rotary", "0"), ("rotary_in_kernel", "1")):
+        os.environ["AEC_ROTARY_IN_KERNEL"] = env
+        reset_launches(fa, sw)
+        with torch.no_grad():
+            gpu_out = dit(*args).cpu()
+        launched = read_launches(fa, sw)
+        rel = _max_rel(gpu_out, cpu_out)
+        log(f"[phase2b] Stable Audio DiT ({SA_PARITY_LAYERS} layers, batch 2, {L}+1 tokens, "
+            f"{name}): card vs CPU max rel err {rel:.3g} (limit 1e-3, TF32 off), "
+            f"launches {launched}, CPU {cpu_s:.1f} s")
+        attn = "flash_attention_rotary" if env == "1" else "flash_attention"
+        want = {"flash_attention": 0, "flash_attention_rotary": 0,
+                "swiglu": SA_PARITY_LAYERS, attn: SA_PARITY_LAYERS}
+        if not np.isfinite(rel) or rel > 1e-3:
+            raise AssertionError(f"DiT card/CPU parity ({name}) {rel} > 1e-3")
+        if launched != want:
+            raise AssertionError(f"DiT ({name}) launches {launched}, expected {want}")
+        out[f"dit_rel_err_{name}"] = rel
+    os.environ.pop("AEC_ROTARY_IN_KERNEL")
+    del dit, args
+
+    vae = to_model_dtype_(random_init_(AutoencoderOobleck(spec.oobleck),
+                                       torch.Generator().manual_seed(8)), "cpu", torch.float32)
+    frames = 16
+    audio = 0.3 * torch.randn(1, 2, frames * spec.oobleck.hop_length, generator=g)
+    z = torch.randn(1, spec.oobleck.decoder_input_channels, frames, generator=g)
+    with torch.no_grad():
+        cpu_mean, _ = vae.encode(audio)
+        cpu_dec = vae.decode(z)
+        vae = vae.cuda()
+        gpu_mean, _ = vae.encode(audio.cuda())
+        gpu_dec = vae.decode(z.cuda())
+    out["oobleck_encode_rel_err"] = _max_rel(gpu_mean.cpu(), cpu_mean)
+    out["oobleck_decode_rel_err"] = _max_rel(gpu_dec.cpu(), cpu_dec)
+    log(f"[phase2b] Oobleck full width, {frames} latent frames: card vs CPU max rel err "
+        f"encode {out['oobleck_encode_rel_err']:.3g}, decode "
+        f"{out['oobleck_decode_rel_err']:.3g} (limit 1e-3, TF32 off)")
+    if not max(out["oobleck_encode_rel_err"], out["oobleck_decode_rel_err"]) <= 1e-3:
+        raise AssertionError(f"Oobleck card/CPU parity > 1e-3: {out}")
+    return out
+
+
+def write_clip(path: str, seconds: float = 10.0, sr: int = 16000, channels: int = 1) -> None:
     from scipy.io import wavfile
 
     t = np.arange(int(sr * seconds)) / sr
     wave = 0.4 * np.sin(2 * np.pi * 330 * t) + 0.1 * np.sin(2 * np.pi * 1250 * t)
     wave += 0.02 * np.random.default_rng(0).standard_normal(t.shape)
+    if channels == 2:  # a second tone, louder in the right channel
+        wave = np.stack([wave, wave + 0.2 * np.sin(2 * np.pi * 523 * t)], axis=1) / 1.2
     wavfile.write(path, sr, (wave * 32767).astype(np.int16))
 
 
-def phase3_main_path(fa, tmp: str):
+def phase3_main_path(fa, sw, tmp: str):
     from scipy.io import wavfile
 
     from audioeditingcode_tpu_torch.cli.run import main as run_edit
@@ -196,20 +402,22 @@ def phase3_main_path(fa, tmp: str):
                 "--cfg_src", "3", "--cfg_tar", "12",
                 "--num_diffusion_steps", str(STEPS), "--tstart", str(TSTART),
                 "--seed", "0", "--results_path", os.path.join(tmp, name)] + extra
-        fa.flash_attention_cuda.launches = 0
+        reset_launches(fa, sw)
         out = run_edit(argv)
-        launches = fa.flash_attention_cuda.launches
+        counts = read_launches(fa, sw)
+        launches = counts["flash_attention"]
         with open(os.path.join(os.path.dirname(out), "run_args.json")) as f:
             rec = json.load(f)
         sr, wav = wavfile.read(out)
         forwards = rec["unet_steps"]
-        run = {"launches": launches, "unet_forwards": forwards,
+        run = {"launches": counts, "unet_forwards": forwards,
                "edit_s": rec["edit_seconds"], "steps_per_s": forwards / rec["edit_seconds"],
                "wav_samples": int(wav.shape[-1]), "selfcheck_snr_db": rec["selfcheck_snr_db"]}
         log(f"[phase3] {name}: {run}")
-        if forwards != STEPS + TSTART or launches != ATTN_CALLS_PER_FORWARD * forwards:
-            raise AssertionError(f"{name}: {launches} kernel launches for {forwards} "
-                                 f"UNet forwards, expected {ATTN_CALLS_PER_FORWARD} each")
+        if (forwards != STEPS + TSTART or launches != ATTN_CALLS_PER_FORWARD * forwards
+                or counts["flash_attention_rotary"] or counts["swiglu"]):
+            raise AssertionError(f"{name}: launches {counts} for {forwards} UNet forwards, "
+                                 f"expected {ATTN_CALLS_PER_FORWARD} B1 launches each")
         if sr != 16000 or wav.shape[-1] < 10 * 16000 or not np.any(wav):
             raise AssertionError(f"{name}: bad output wav {out}: sr {sr}, shape {wav.shape}")
         runs[name] = run
@@ -218,9 +426,55 @@ def phase3_main_path(fa, tmp: str):
     return runs
 
 
+def phase4_stable_audio(fa, sw, tmp: str):
+    """The Stable Audio Open edit through the CLI: an edit, a selfcheck, and
+    an edit with the rotary inside the attention kernel (B2)."""
+    from scipy.io import wavfile
+
+    from audioeditingcode_tpu_torch.cli.run import main as run_edit
+
+    clip = os.path.join(tmp, "clip44k.wav")
+    write_clip(clip, sr=44100, channels=2)
+    runs = {}
+    for name, extra, env in (("edit", [], "0"), ("selfcheck", ["--selfcheck"], "0"),
+                             ("edit_rotary_in_kernel", [], "1")):
+        os.environ["AEC_ROTARY_IN_KERNEL"] = env
+        argv = ["--model_id", SA_MODEL_ID, "--init_aud", clip,
+                "--source_prompt", "a sine tone", "--target_prompt", "a cello",
+                "--cfg_src", "3", "--cfg_tar", "12",
+                "--num_diffusion_steps", str(SA_STEPS), "--tstart", str(SA_TSTART),
+                "--seed", "0", "--results_path", os.path.join(tmp, "sa_" + name)] + extra
+        reset_launches(fa, sw)
+        out = run_edit(argv)
+        counts = read_launches(fa, sw)
+        with open(os.path.join(os.path.dirname(out), "run_args.json")) as f:
+            rec = json.load(f)
+        sr, wav = wavfile.read(out)
+        forwards = rec["unet_steps"]
+        attn = "flash_attention_rotary" if env == "1" else "flash_attention"
+        want = {"flash_attention": 0, "flash_attention_rotary": 0,
+                "swiglu": SA_CALLS_PER_FORWARD * forwards, attn: SA_CALLS_PER_FORWARD * forwards}
+        run = {"launches": counts, "dit_forwards": forwards, "edit_s": rec["edit_seconds"],
+               "steps_per_s": forwards / rec["edit_seconds"], "wav_shape": list(wav.shape),
+               "sr": sr, "selfcheck_snr_db": rec["selfcheck_snr_db"]}
+        log(f"[phase4] {name}: {run}")
+        if forwards != SA_STEPS + SA_TSTART or counts != want:
+            raise AssertionError(f"{name}: launches {counts} for {forwards} DiT forwards, "
+                                 f"expected {want}")
+        if sr != 44100 or wav.shape != (10 * 44100, 2) or not np.any(wav):
+            raise AssertionError(f"{name}: bad output wav {out}: sr {sr}, shape {wav.shape}")
+        runs[name] = run
+    os.environ.pop("AEC_ROTARY_IN_KERNEL")
+    if not runs["selfcheck"]["selfcheck_snr_db"] >= 40.0:
+        raise AssertionError(f"selfcheck SNR {runs['selfcheck']['selfcheck_snr_db']} < 40 dB")
+    return runs
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    for cls, keys in (("attention kernel B1", ("attn_fwd_kernel",)),
+    if "attn_fwd_kernel" in n:  # the template's last argument is ROT
+        return "attention kernel B2 (rotary)" if "true>" in n else "attention kernel B1"
+    for cls, keys in (("SwiGLU kernel B3", ("swiglu_kernel",)),
                       ("convolution", ("fprop", "conv", "implicit_gemm", "winograd", "fft")),
                       ("matmul", ("gemm", "cutlass", "cublas")),
                       ("norm", ("norm", "welford")),
@@ -230,16 +484,17 @@ def _kernel_class(name: str) -> str:
     return "elementwise/other"
 
 
-def profile_main_path_step(n_steps: int = 6) -> dict:
-    """torch.profiler over n CFG UNet steps of the main path's config."""
+def profile_main_path_step(model_id: str, steps: int, latent, n_steps: int = 6) -> dict:
+    """torch.profiler over n CFG denoiser steps of a main path's config."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from audioeditingcode_tpu_torch.editing.cfg import build_cfg_tensors
     from audioeditingcode_tpu_torch.models.registry import load_model
 
-    pipe = load_model(MODEL_ID, STEPS, device="cuda", seed=0)
-    x = torch.randn((1,) + LATENT, device="cuda", generator=torch.Generator("cuda").manual_seed(3))
+    pipe = load_model(model_id, steps, device="cuda", seed=0)
+    x = torch.randn((1,) + tuple(latent), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
     cfg, _ = build_cfg_tensors(x.shape, ["a dog barking"], [12.0], device="cuda")
     den = pipe.make_denoiser(pipe.encode_text([""], negative=True),
                              pipe.encode_text(["a dog barking"]), cfg)
@@ -263,7 +518,7 @@ def profile_main_path_step(n_steps: int = 6) -> dict:
         by_class[_kernel_class(e.key)] = by_class.get(_kernel_class(e.key), 0.0) + ms
         kernels.append((ms, e.count // n_steps, e.key[:90]))
     busy = sum(by_class.values())
-    out = {"step_wall_ms": wall_ms, "device_busy_ms": busy,
+    out = {"model_id": model_id, "step_wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": max(0.0, 1.0 - busy / wall_ms),
            "device_ms_by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1]))}
     log(f"[profile] {json.dumps(out)}")
@@ -278,6 +533,7 @@ def main() -> int:
         return 2
     from audioeditingcode_tpu_torch.ops import build
     from audioeditingcode_tpu_torch.ops import flash_attention as fa
+    from audioeditingcode_tpu_torch.ops import swiglu as sw
     from audioeditingcode_tpu_torch.utils.device import resolve_device
 
     resolve_device("cuda", 0)  # also turns TF32 off for float32
@@ -293,30 +549,52 @@ def main() -> int:
     log(f"[phase0] built {sorted(logs) or 'nothing (up to date)'} in {build_s:.1f} s; "
         f"kernel instances with register spills: {spills}")
 
-    cases = phase1_attention(fa)
+    cases = {"flash_attention": phase1_attention(fa),
+             "flash_attention_rotary": phase1_rotary(fa),
+             "swiglu": phase1_swiglu(sw)}
     parity = phase2_unet_parity(fa)
+    parity.update(phase2b_stable_audio_parity(fa, sw))
     with tempfile.TemporaryDirectory() as tmp:
-        runs = phase3_main_path(fa, tmp)
+        runs = {"audioldm": phase3_main_path(fa, sw, tmp),
+                "stable_audio": phase4_stable_audio(fa, sw, tmp)}
     if "--profile" in sys.argv[1:]:
-        profile_main_path_step()
+        profile_main_path_step(MODEL_ID, STEPS, LATENT)
+        profile_main_path_step(SA_MODEL_ID, SA_STEPS, SA_LATENT)
 
-    main_case = cases[0]
-    record = {"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "audioeditingcode_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "audioeditingcode_tpu/ops/flash_attention.py:72",
-        "tpu_kernel": "ops/flash_attention.py::_attn_kernel",
-        "launches": runs["edit"]["launches"],
-        "launches_selfcheck": runs["selfcheck"]["launches"],
-        "shape": main_case["shape"], "dtype": main_case["dtype"],
-        "max_abs_err": main_case["max_abs_err"], "max_err": main_case["max_abs_err"],
-        "ms": main_case["ms"], "kernel_ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
-        "cases": cases,
-    }], "build_s": build_s, **parity,
-        "edit_s": runs["edit"]["edit_s"], "steps_per_s": runs["edit"]["steps_per_s"],
-        "selfcheck_snr_db": runs["selfcheck"]["selfcheck_snr_db"]}
+    sources = {"flash_attention": "flash_attention.cu", "flash_attention_rotary": "flash_attention.cu",
+               "swiglu": "swiglu.cu"}
+    replaces = {"flash_attention": ("ops/flash_attention.py:72", "_attn_kernel"),
+                "flash_attention_rotary": ("ops/flash_attention.py:59", "_attn_rotary_kernel"),
+                "swiglu": ("ops/swiglu.py:47", "swiglu._kernel")}
+    kernels = []
+    for kname, kcases in cases.items():
+        by_run = {f"{model}_{run}": r["launches"][kname]
+                  for model, model_runs in runs.items() for run, r in model_runs.items()}
+        main_case = kcases[0]  # the main path's shape in float32
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "audioeditingcode_tpu_torch/csrc/" + sources[kname],
+            "replaces": "audioeditingcode_tpu/" + replaces[kname][0],
+            "tpu_kernel": replaces[kname][1],
+            # counted over every main-path run of this script (each started
+            # from 0 and read after it), and per run
+            "launches": sum(by_run.values()), "launches_by_run": by_run,
+            "shape": main_case["shape"], "dtype": main_case["dtype"],
+            "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
+            "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
+            "cases": kcases,
+        })
+        if not sum(by_run.values()):
+            raise AssertionError(f"{kname} was launched no time on the main paths")
+    ald, sa = runs["audioldm"], runs["stable_audio"]
+    record = {"kernels": kernels, "build_s": build_s, **parity,
+              "edit_s": ald["edit"]["edit_s"], "steps_per_s": ald["edit"]["steps_per_s"],
+              "selfcheck_snr_db": ald["selfcheck"]["selfcheck_snr_db"],
+              "stable_audio_edit_s": sa["edit"]["edit_s"],
+              "stable_audio_steps_per_s": sa["edit"]["steps_per_s"],
+              "stable_audio_selfcheck_snr_db": sa["selfcheck"]["selfcheck_snr_db"],
+              "stable_audio_rotary_in_kernel_edit_s": sa["edit_rotary_in_kernel"]["edit_s"]}
     print(json.dumps(record), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

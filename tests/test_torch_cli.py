@@ -57,7 +57,7 @@ def test_cli_cuda_missing_raises(wav, tmp_path, monkeypatch):
     (["--sp", "2"], "item 12"),
     (["--weights_dir", "w"], "item 13"),
     (["--profile_dir", "p"], "item 14"),
-    (["--model_id", "stabilityai/stable-audio-open-1.0"], "item 9"),
+    (["--model_id", "declare-lab/tango-full-ft-audiocaps"], "item 7"),
     (["--model_id", "cvssp/audioldm2-music"], "item 7"),
 ])
 def test_cli_unported_flags_raise(wav, tmp_path, extra, item):

@@ -9,7 +9,9 @@ Tolerances as in tests/test_torch_flash_attention.py.
 import pytest
 import torch
 
+from audioeditingcode_tpu_torch.models.dit1d import rotary_tables
 from audioeditingcode_tpu_torch.ops import flash_attention as fa
+from audioeditingcode_tpu_torch.ops import swiglu
 from audioeditingcode_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.cuda
@@ -56,3 +58,71 @@ def test_dispatcher_launches_kernel_or_raises(cuda):
     wide = torch.randn(1, 1024, 1, 136, device=cuda)  # eligible, but D > 128
     with pytest.raises(ValueError, match="head dim"):
         fa.fused_attention(wide, wide, wide)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,rot", [(2, 1025, 24, 12, 64, 32), (1, 1024, 2, 2, 32, 32),
+                                             (1, 777, 4, 1, 128, 64), (1, 1000, 3, 3, 8, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rotary_kernel_matches_plain_version(cuda, B, S, H, Hkv, D, rot, dtype):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(B, S, H, D, device=cuda, generator=g).to(dtype)
+    k = torch.randn(B, S, Hkv, D, device=cuda, generator=g).to(dtype)
+    v = torch.randn(B, S, Hkv, D, device=cuda, generator=g).to(dtype)
+    cos, sin = rotary_tables(rot, S + 3, device=cuda)  # longer tables are fine
+    got = fa.flash_attention_rotary_cuda(q, k, v, cos, sin)
+    torch.cuda.synchronize()
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(),
+                               fa.rotary_attention_reference(q, k, v, cos, sin).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_rotary_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.randn(1, 1024, 2, 32, device=cuda)
+    cos, sin = rotary_tables(32, 1024, device=cuda)
+    with pytest.raises(ValueError, match="square"):
+        fa.flash_attention_rotary_cuda(q, q[:, :512], q[:, :512], cos, sin)
+    with pytest.raises(ValueError, match="even"):
+        fa.flash_attention_rotary_cuda(q, q, q, cos[:, :3], sin[:, :3])
+    with pytest.raises(ValueError, match="positions"):
+        fa.flash_attention_rotary_cuda(q, q, q, cos[:100], sin[:100])
+
+
+def test_dispatcher_routes_rotary(cuda, monkeypatch):
+    q = torch.randn(1, 1025, 4, 64, device=cuda)
+    kv = torch.randn(1, 1025, 2, 64, device=cuda)
+    rot = rotary_tables(32, 1025, device=cuda)
+    b1, b2 = fa.flash_attention_cuda.launches, fa.flash_attention_rotary_cuda.launches
+    host = fa.fused_attention(q, kv, kv, rotary=rot)
+    assert (fa.flash_attention_cuda.launches, fa.flash_attention_rotary_cuda.launches) == (b1 + 1, b2)
+    monkeypatch.setenv("AEC_ROTARY_IN_KERNEL", "1")
+    inside = fa.fused_attention(q, kv, kv, rotary=rot)
+    assert (fa.flash_attention_cuda.launches, fa.flash_attention_rotary_cuda.launches) == (b1 + 1, b2 + 1)
+    torch.testing.assert_close(inside, host, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("M,E,N", [(2050, 1536, 6144), (1025, 1536, 6144), (512, 128, 128),
+                                   (77, 256, 192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swiglu_kernel_matches_plain_version(cuda, M, E, N, dtype):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(M, E, device=cuda, generator=g).to(dtype)
+    w = (torch.randn(2 * N, E, device=cuda, generator=g) / E ** 0.5).to(dtype)
+    b = torch.randn(2 * N, device=cuda, generator=g) * 0.1
+    got = swiglu.swiglu_cuda(x, w, b)
+    torch.cuda.synchronize()
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), swiglu.swiglu_reference(x, w, b).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_swiglu_dispatcher_launches_kernel_or_raises(cuda):
+    x = torch.randn(2, 256, 128, device=cuda)
+    w, b = torch.randn(256, 128, device=cuda), torch.zeros(256, device=cuda)
+    before = swiglu.swiglu_cuda.launches
+    swiglu.fused_swiglu(x, w, b)
+    assert swiglu.swiglu_cuda.launches == before + 1
+    swiglu.fused_swiglu(x[:, :100], w, b)  # below the row threshold
+    assert swiglu.swiglu_cuda.launches == before + 1
+    with pytest.raises(ValueError, match="one dtype"):
+        swiglu.swiglu_cuda(x[0], w.double(), b)

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from audioeditingcode_tpu.ops.flash_attention import _blocked_attention
+from audioeditingcode_tpu.ops.flash_attention import _blocked_attention, _host_rotary
+from audioeditingcode_tpu.models.dit1d import rotary_tables as j_rotary_tables
 from audioeditingcode_tpu_torch.ops import flash_attention as fa
 from test_torch_helpers import to_np
 
@@ -98,3 +99,46 @@ def test_dispatcher_plain_path_matches_xla(S, K, masked):
     got = fa.fused_attention(tq, tkv, tkv, bias=tb)
     want = jax.nn.dot_product_attention(jnp.asarray(q), jnp.asarray(kv), jnp.asarray(kv), bias=jb)
     np.testing.assert_allclose(to_np(got), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,rot,dtype", [
+    (2, 1025, 4, 2, 64, 32, "float32"),
+    (1, 1025, 4, 2, 64, 32, "bfloat16"),
+    (1, 1024, 2, 2, 32, 32, "float32"),
+])
+def test_rotary_reference_matches_pallas_kernel(B, S, H, Hkv, D, rot, dtype):
+    """B2's plain version against _attn_rotary_kernel (interpret mode), at
+    the DiT's ragged S = 1025 with GQA, and with the rotary over all of D."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(B, S, H, Hkv, D, dtype, seed=5)
+    jcos, jsin = j_rotary_tables(rot, S)
+    cos, sin = torch.from_numpy(np.array(jcos)), torch.from_numpy(np.array(jsin))
+    want = np.asarray(_blocked_attention(jq, jk, jv, rotary=(jcos, jsin), interpret=True),
+                      np.float32)
+    got = fa.rotary_attention_reference(tq, tk, tv, cos, sin)
+    tol = 3e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(to_np(got), want, atol=tol, rtol=tol)
+    # the host rotary itself is bit-equal to the JAX one
+    np.testing.assert_array_equal(to_np(fa._host_rotary(tq, cos, sin)),
+                                  np.asarray(_host_rotary(jq, jcos, jsin), np.float32))
+
+
+@pytest.mark.parametrize("in_kernel", ["0", "1"])
+def test_dispatcher_rotary_routing(in_kernel, monkeypatch):
+    """With AEC_ROTARY_IN_KERNEL=1 an eligible call takes B2's plain version
+    on a CPU tensor; otherwise the host rotary, then B1's. Ineligible
+    (short) calls take the host rotary and the plain path. All match JAX."""
+    monkeypatch.setenv("AEC_ROTARY_IN_KERNEL", in_kernel)
+    from audioeditingcode_tpu.ops.flash_attention import fused_attention as j_fused
+
+    for S in (1025, 512):
+        (jq, jk, jv), (tq, tk, tv) = _qkv(1, S, 2, 1, 64, "float32", seed=6)
+        jcos, jsin = j_rotary_tables(32, S)
+        cos, sin = torch.from_numpy(np.array(jcos)), torch.from_numpy(np.array(jsin))
+        calls = []
+        ref = fa.rotary_attention_reference
+        monkeypatch.setattr(fa, "rotary_attention_reference",
+                            lambda *a: calls.append(1) or ref(*a))
+        got = fa.fused_attention(tq, tk, tv, rotary=(cos, sin))
+        assert len(calls) == (1 if in_kernel == "1" and S >= 1024 else 0)
+        want = j_fused(jq, jk, jv, rotary=(jcos, jsin))
+        np.testing.assert_allclose(to_np(got), np.asarray(want), atol=2e-5, rtol=2e-5)

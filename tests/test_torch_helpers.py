@@ -41,6 +41,33 @@ def port_tiny_pipeline(steps: int, jpipe=None):
     return pipe
 
 
+def jax_tiny_stable_audio(steps: int):
+    from audioeditingcode_tpu.models.registry import load_model
+
+    return load_model("test/tiny-stable-audio", steps)
+
+
+def bridge_stable_audio(pipe, jpipe):
+    """Load the JAX Stable Audio pipeline's params into the port's one."""
+    from audioeditingcode_tpu_torch.models.bridge import flax_to_torch_state_dict
+
+    for mod, params in ((pipe.dit, jpipe.dit_params), (pipe.vae, jpipe.vae_params),
+                        (pipe.projection, jpipe.projection_params)):
+        mod.load_state_dict(flax_to_torch_state_dict(flatten_dict(params), mod))
+    pipe.setup_duration()
+    return pipe
+
+
+def port_tiny_stable_audio(steps: int, jpipe=None, dtype=torch.float32):
+    """The port's tiny Stable Audio pipeline on the CPU, with the JAX
+    pipeline's params."""
+    from audioeditingcode_tpu_torch.models.registry import load_model
+
+    jpipe = jpipe or jax_tiny_stable_audio(steps)
+    return bridge_stable_audio(load_model("test/tiny-stable-audio", steps, device="cpu",
+                                          dtype=dtype), jpipe)
+
+
 def rel_err(got, ref) -> float:
     """max |got - ref| / max |ref|."""
     got = np.asarray(got, np.float64)
@@ -63,6 +90,17 @@ def write_test_wav(path: str, seconds: float = 1.0, sr: int = 16000) -> str:
     wave = 0.4 * np.sin(2 * np.pi * 330 * t) + 0.1 * np.sin(2 * np.pi * 1250 * t)
     wave += 0.02 * np.random.default_rng(0).standard_normal(t.shape)
     wavfile.write(path, sr, (wave * 32767).astype(np.int16))
+    return path
+
+
+def write_stereo_wav(path: str, seconds: float = 1.0, sr: int = 4000) -> str:
+    """A stereo clip: a different tone in each channel."""
+    from scipy.io import wavfile
+
+    t = np.arange(int(sr * seconds), dtype=np.float32) / sr
+    left = 0.4 * np.sin(2 * np.pi * 330 * t)
+    right = 0.3 * np.sin(2 * np.pi * 520 * t + 0.5)
+    wavfile.write(path, sr, (np.stack([left, right], axis=1) * 32767).astype(np.int16))
     return path
 
 

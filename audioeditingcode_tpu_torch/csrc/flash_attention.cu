@@ -38,14 +38,17 @@
 // What bounds it on an H100. At the main UNet shape (B*H = 16, S = 4096,
 // D = 16) the function is 4*16*4096^2*16 = 17.2 GFLOP and 268 M
 // exponentials on 8.4 MB of q/k/v/o in f32: it is bound by operations, not
-// bytes. This first kernel runs the products on the CUDA cores in f32 (for
-// bf16 too, after an exact widening), so its bound is the f32 FMA rate
-// (67 TFLOP/s, 0.26 ms at that shape); the bf16 tensor-core bound would be
-// set by the exponentials (MUFU). The design keeps the FMA pipe fed: all
-// loops over D and over the BN keys of a tile are unrolled at compile time
-// (D and BN are template arguments), scores of a tile stay in registers,
-// and the only shared-memory traffic is the broadcast float4 loads.
-// wgmma, TMA and warp specialisation are left for a later kernel.
+// bytes. This kernel runs the products on the CUDA cores in f32, so its
+// bound is the f32 FMA rate (67 TFLOP/s, 0.26 ms at that shape). The
+// design keeps the FMA pipe fed: all loops over D and over the BN keys of a
+// tile are unrolled at compile time (D and BN are template arguments),
+// scores of a tile stay in registers, and the only shared-memory traffic is
+// the broadcast float4 loads.
+//
+// Routes (ops/flash_attention.py::attention_route): float32 B1 and the
+// rotary variant in both dtypes run here; bfloat16 B1 runs on the tensor
+// cores in flash_attention_tc.cu (TMA, mbarriers, wgmma), so the bf16
+// instances here are the rotary ones only, widening bf16 exactly to f32.
 //
 // Launch errors are returned as cudaGetLastError() to the caller.
 
@@ -53,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -223,7 +228,7 @@ void launch(const void* q, const void* k, const void* v, void* o, int B, int H,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), H, rep, Sq, kv_len,
         scale, qs, ks, vs, os, rt);
-  } else {
+  } else if constexpr (std::is_same<T, float>::value) {
     attn_fwd_kernel<T, D, false><<<grid, BM, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), H, rep, Sq, kv_len,
@@ -268,8 +273,10 @@ int run(const void* q, const void* k, const void* v, void* o, int dtype,
         int B, int H, int H_kv, int Sq, int kv_len, int D, float scale,
         const Strides& qs, const Strides& ks, const Strides& vs,
         const Strides& os, const Rotary& rt, void* stream) {
+  // bfloat16 is compiled for the rotary variant only (plain bf16 B1 is
+  // flash_attention_tc.cu), so launch<bf16, D> without a rotary launches nothing
   if (B < 1 || H < 1 || H_kv < 1 || H % H_kv != 0 || Sq < 1 || kv_len < 1 ||
-      (Sq + BM - 1) / BM > 65535) {
+      (Sq + BM - 1) / BM > 65535 || (dtype == 1 && rt.rot == 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int rep = H / H_kv;
@@ -290,24 +297,25 @@ int run(const void* q, const void* k, const void* v, void* o, int dtype,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last dim
-// of every tensor must be contiguous. Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for arguments the kernel does not take).
+// float32 (bfloat16 B1 is aec_flash_attention_tc_fwd). Strides are in
+// elements; the last dim of every tensor must be contiguous. Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
+// the kernel does not take).
 extern "C" int aec_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int H, int H_kv, int Sq, int kv_len, int D, float scale, long long q_sb,
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int H_kv, int Sq, int kv_len, int D, float scale, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, void* stream) {
-  return run(q, k, v, o, dtype, B, H, H_kv, Sq, kv_len, D, scale,
+  return run(q, k, v, o, 0, B, H, H_kv, Sq, kv_len, D, scale,
              Strides{q_sb, q_ss, q_sh}, Strides{k_sb, k_ss, k_sh},
              Strides{v_sb, v_ss, v_sh}, Strides{o_sb, o_ss, o_sh},
              Rotary{nullptr, nullptr, 0}, stream);
 }
 
-// The rotary variant: as aec_flash_attention_fwd, square (Sq equal to the
-// keys' length), with cos/sin (>= Sq, rot) contiguous f32 tables and rot
-// even, 2 <= rot <= D.
+// The rotary variant, in float32 (dtype 0) or bfloat16 (dtype 1): as
+// aec_flash_attention_fwd, square (Sq equal to the keys' length), with
+// cos/sin (>= Sq, rot) contiguous f32 tables and rot even, 2 <= rot <= D.
 extern "C" int aec_flash_attention_rotary_fwd(
     const void* q, const void* k, const void* v, void* o, const void* cos,
     const void* sin, int rot, int dtype, int B, int H, int H_kv, int Sq,

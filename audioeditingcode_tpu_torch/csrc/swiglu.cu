@@ -1,4 +1,5 @@
-// Fused SwiGLU projection for Hopper (sm_90a), plain C interface.
+// Fused SwiGLU projection in float32 on the CUDA cores, for Hopper
+// (sm_90a), plain C interface.
 //
 // Replaces audioeditingcode_tpu/ops/swiglu.py::_kernel (host _swiglu_call,
 // dispatcher fused_swiglu). It computes the same function:
@@ -8,9 +9,10 @@
 // gate half rows [N, 2N)). Both halves are read from that weight in place,
 // with no copy, as the Pallas kernel passes the kernel twice with two index
 // maps. Products accumulate in f32, the bias is added in f32, SiLU and the
-// product run in f32, and the tile is stored once in the input dtype: the
-// (M, 2N) intermediate never reaches device memory. f32 and bf16 inputs;
-// the bias is f32.
+// product run in f32, and the tile is stored once: the (M, 2N)
+// intermediate never reaches device memory. Each output is summed in k
+// order with FMAs, as cuBLAS's FFMA GEMM does, so it is bit-equal to the
+// plain version's float32 matmul plus epilogue.
 //
 // Blocking. The TPU kernel keeps all M rows of x resident in VMEM and
 // streams the weight once. A Hopper block has 227 KB of shared memory, so
@@ -28,14 +30,14 @@
 // What bounds it on an H100. At the DiT shape (M = 2 x 1025, E = 1536,
 // N = 6144) the function is 4 M E N = 77.4 GFLOP on ~139 MB of f32 inputs
 // and output: it is bound by operations, not bytes (1.16 ms at the 67
-// TFLOP/s f32 FMA rate; 0.078 ms at the 989 TFLOP/s bf16 tensor-core rate).
-// This first kernel runs the products on the CUDA cores in f32 (bf16 is
-// widened exactly to f32 in shared memory), so its bound is the f32 FMA
-// rate; mma.sync / wgmma with TMA are left for a later kernel.
+// TFLOP/s f32 FMA rate). This kernel runs the products on the CUDA cores
+// in f32, so its bound is the f32 FMA rate.
+//
+// Routes (ops/swiglu.py::swiglu_route): float32 runs here; bfloat16 runs
+// on the tensor cores in swiglu_tc.cu (TMA, mbarriers, wgmma).
 //
 // Launch errors are returned as cudaGetLastError() to the caller.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -54,56 +56,14 @@ static_assert(THREADS == 256, "the load mapping assumes 256 threads");
 static_assert(BM * BK == 2 * 4 * THREADS, "two 4-wide x loads per thread");
 static_assert(BN * BK == 4 * THREADS, "one 4-wide load per weight half per thread");
 
-// four consecutive elements from global memory, widened to f32
-template <typename T>
-struct Load4;
+// four consecutive floats from global memory
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
 
-template <>
-struct Load4<float> {
-  static __device__ __forceinline__ float4 load(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-  }
-};
-
-template <>
-struct Load4<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load(const __nv_bfloat16* p) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-    const float2 a = __bfloat1622float2(lo);
-    const float2 b = __bfloat1622float2(hi);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-};
-
-// four consecutive outputs, one rounding each
-template <typename T>
-struct Store4;
-
-template <>
-struct Store4<float> {
-  static __device__ __forceinline__ void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Store4<__nv_bfloat16> {
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* v) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 raw;
-    raw.x = *reinterpret_cast<uint32_t*>(&lo);
-    raw.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-};
-
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-swiglu_kernel(const T* __restrict__ x, const T* __restrict__ w,
-              const float* __restrict__ bias, T* __restrict__ out, int M,
+swiglu_kernel(const float* __restrict__ x, const float* __restrict__ w,
+              const float* __restrict__ bias, float* __restrict__ out, int M,
               int E, int N) {
   __shared__ __align__(16) float xs[BK][BM + PAD];
   __shared__ __align__(16) float vs[BK][BN + PAD];
@@ -120,10 +80,10 @@ swiglu_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int xr1 = m0 + lrow + BM / 2;
   const bool x0_ok = xr0 < M;
   const bool x1_ok = xr1 < M;
-  const T* xp0 = x + (int64_t)(x0_ok ? xr0 : 0) * E + lk;
-  const T* xp1 = x + (int64_t)(x1_ok ? xr1 : 0) * E + lk;
-  const T* vp = w + (int64_t)(n0 + lrow) * E + lk;
-  const T* gp = w + (int64_t)(N + n0 + lrow) * E + lk;
+  const float* xp0 = x + (int64_t)(x0_ok ? xr0 : 0) * E + lk;
+  const float* xp1 = x + (int64_t)(x1_ok ? xr1 : 0) * E + lk;
+  const float* vp = w + (int64_t)(n0 + lrow) * E + lk;
+  const float* gp = w + (int64_t)(N + n0 + lrow) * E + lk;
 
   // compute mapping: rows ty*TM .. +7, columns tx*TN .. +3 of each half
   const int tx = tid % (BN / TN);
@@ -141,10 +101,10 @@ swiglu_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 
   const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 rx0 = x0_ok ? Load4<T>::load(xp0) : zero4;
-  float4 rx1 = x1_ok ? Load4<T>::load(xp1) : zero4;
-  float4 rv = Load4<T>::load(vp);
-  float4 rg = Load4<T>::load(gp);
+  float4 rx0 = x0_ok ? load4(xp0) : zero4;
+  float4 rx1 = x1_ok ? load4(xp1) : zero4;
+  float4 rv = load4(vp);
+  float4 rg = load4(gp);
 
   for (int k0 = 0; k0 < E; k0 += BK) {
     __syncthreads();  // every thread is done with the previous slice
@@ -168,10 +128,10 @@ swiglu_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
     if (k0 + BK < E) {  // prefetch the next slice while this one computes
       const int off = k0 + BK;
-      rx0 = x0_ok ? Load4<T>::load(xp0 + off) : zero4;
-      rx1 = x1_ok ? Load4<T>::load(xp1 + off) : zero4;
-      rv = Load4<T>::load(vp + off);
-      rg = Load4<T>::load(gp + off);
+      rx0 = x0_ok ? load4(xp0 + off) : zero4;
+      rx1 = x1_ok ? load4(xp1 + off) : zero4;
+      rv = load4(vp + off);
+      rg = load4(gp + off);
     }
 
 #pragma unroll
@@ -213,38 +173,26 @@ swiglu_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const float g = acc_g[i][j] + bg[j];
       o[j] = a * (g * (1.f / (1.f + expf(-g))));
     }
-    Store4<T>::store(out + (int64_t)m * N + n, o);
+    *reinterpret_cast<float4*>(out + (int64_t)m * N + n) =
+        make_float4(o[0], o[1], o[2], o[3]);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and out share it; bias is f32).
-// x is (M, E), w is (2N, E), bias is (2N,), out is (M, N), all contiguous
+// float32 x (M, E), w (2N, E), bias (2N,) and out (M, N), all contiguous
 // and 16-byte aligned. E must be a multiple of 16 and N of 64. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
 // the kernel does not take).
 extern "C" int aec_swiglu_fwd(const void* x, const void* w, const void* bias,
-                              void* out, int dtype, int M, int E, int N,
-                              void* stream) {
+                              void* out, int M, int E, int N, void* stream) {
   if (M < 1 || E < BK || N < BN || E % BK != 0 || N % BN != 0 ||
       (M + BM - 1) / BM > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(N / BN, (M + BM - 1) / BM);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* b = static_cast<const float*>(bias);
-  if (dtype == 0) {
-    swiglu_kernel<float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), b,
-        static_cast<float*>(out), M, E, N);
-  } else if (dtype == 1) {
-    swiglu_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), b,
-        static_cast<__nv_bfloat16*>(out), M, E, N);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  swiglu_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(out), M, E, N);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,13 +3,18 @@
 Counterpart of ``audioeditingcode_tpu/ops/flash_attention.py``. Layouts are
 the JAX package's: q is (B, Sq, H, D), k and v are (B, Skv, H_kv, D).
 
-- ``flash_attention_cuda`` (B1): the kernel (``csrc/flash_attention.cu``),
-  which replaces the Pallas ``_attn_kernel``. It streams K/V tiles through
-  shared memory with an online softmax instead of keeping a whole head in
-  fast memory. Each launch adds one to ``flash_attention_cuda.launches``.
-- ``flash_attention_rotary_cuda`` (B2): the same kernel with a partial
-  rotate-half rotary applied to q and k inside it, which replaces the
-  Pallas ``_attn_rotary_kernel``. Its launches count in
+- ``flash_attention_cuda`` (B1), which replaces the Pallas ``_attn_kernel``.
+  It streams K/V tiles through shared memory with an online softmax instead
+  of keeping a whole head in fast memory. ``attention_route`` picks the
+  kernel: bfloat16 goes to the tensor-core kernel
+  (``csrc/flash_attention_tc.cu``: TMA, mbarriers, wgmma), float32 to the
+  CUDA-core kernel (``csrc/flash_attention.cu``: f32 FMAs, as the float32
+  reference computes). Each launch adds one to
+  ``flash_attention_cuda.launches`` and to its route's entry of
+  ``flash_attention_cuda.launches_by_route``.
+- ``flash_attention_rotary_cuda`` (B2): the CUDA-core kernel with a partial
+  rotate-half rotary applied to q and k inside it, in both dtypes, which
+  replaces the Pallas ``_attn_rotary_kernel``. Its launches count in
   ``flash_attention_rotary_cuda.launches``.
 - ``attention_reference`` and ``rotary_attention_reference``: the kernels'
   plain PyTorch versions, with the same roundings (the rotated q/k to the
@@ -38,24 +43,56 @@ _MAX_KERNEL_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}
 
+TENSOR_CORE = "tensor_core"
+CUDA_CORE = "cuda_core"
 
-def _kernel_fn(rotary: bool = False):
-    """The C entry point of B1, or of B2 with ``rotary`` (built at first use)."""
-    fn = _FNS.get(rotary)
+# How far a bfloat16 kernel output may lie from attention_reference: two
+# bf16 ulps (p rounded at the running rather than the final max, the sums
+# in another order, one rounding of o), 4e-3 near zero. A kernel that left
+# the zero-filled keys of its last tile in the softmax lies outside it
+# (tests/test_torch_flash_attention.py).
+BF16_TOL = {"atol": 4e-3, "rtol": 2.0 ** -6}
+
+
+def attention_route(dtype: torch.dtype, rotary: bool = False) -> str:
+    """The kernel a CUDA launch takes: bfloat16 B1 runs on the tensor cores;
+    float32 B1 and B2 in both dtypes run on the CUDA cores."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"the attention kernels take float32 or bfloat16, got {dtype}")
+    return TENSOR_CORE if dtype == torch.bfloat16 and not rotary else CUDA_CORE
+
+
+def _kernel_fn(route: str = CUDA_CORE, rotary: bool = False):
+    """The C entry point of B1 on ``route``, or of B2 with ``rotary``
+    (built at first use)."""
+    fn = _FNS.get((route, rotary))
     if fn is None:
         from .build import load
 
-        lib = load("flash_attention")
-        if rotary:
-            fn = lib.aec_flash_attention_rotary_fwd
+        head = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        if route == TENSOR_CORE:
+            fn = load("flash_attention_tc").aec_flash_attention_tc_fwd
+        elif rotary:
+            fn = load("flash_attention").aec_flash_attention_rotary_fwd
             head = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
         else:
-            fn = lib.aec_flash_attention_fwd
-            head = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+            fn = load("flash_attention").aec_flash_attention_fwd
         fn.restype = ctypes.c_int
         fn.argtypes = head + [ctypes.c_float] + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
-        _FNS[rotary] = fn
+        _FNS[(route, rotary)] = fn
     return fn
+
+
+def _check_tma_args(*tensors) -> None:
+    """What the tensor-core kernel's TMA loads take: 16-byte aligned bases
+    and strides that are multiples of 16 bytes (8 bfloat16)."""
+    for x in tensors:
+        if x.data_ptr() % 16:
+            raise ValueError("the tensor-core attention kernel takes 16-byte aligned "
+                             "q, k and v (TMA)")
+        if any(st % 8 for st in x.stride()[:3]):
+            raise ValueError(f"the tensor-core attention kernel takes strides that are "
+                             f"multiples of 8 elements (TMA), got {tuple(x.stride())}")
 
 
 def _check_kernel_args(q, k, v):
@@ -89,22 +126,27 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     if not 1 <= kv_len <= k.shape[1]:
         raise ValueError(f"kv_len {kv_len} outside 1..{k.shape[1]}")
+    route = attention_route(q.dtype)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if route == TENSOR_CORE:
+        _check_tma_args(q, k, v, o)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _kernel_fn()(
+    rc = _kernel_fn(route)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        _DTYPE_CODES[q.dtype], B, H, k.shape[2], Sq, kv_len, D,
-        1.0 / (D ** 0.5),
+        B, H, k.shape[2], Sq, kv_len, D, 1.0 / (D ** 0.5),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         stream,
     )
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_attention kernel ({route}) launch failed: "
+                           f"CUDA error {rc}")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_route[route] += 1
     return o
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_route = {TENSOR_CORE: 0, CUDA_CORE: 0}
 
 
 def _check_rotary_tables(q, cos, sin) -> Tuple[torch.Tensor, torch.Tensor]:

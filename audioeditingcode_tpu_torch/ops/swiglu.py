@@ -5,10 +5,14 @@ DiT's feed-forward is ``net.2(h * silu(gate))`` with ``[h | gate] = x W^T +
 b``, W the (2N, E) weight of ``ff.net.0.proj`` (torch Linear layout: value
 half rows [0, N), gate half rows [N, 2N)).
 
-- ``swiglu_cuda`` (B3): the kernel (``csrc/swiglu.cu``), which replaces the
-  Pallas ``swiglu._kernel``: both halves in one pass, f32 accumulation and
-  epilogue, one rounding on output; the (M, 2N) intermediate never reaches
-  device memory. Each launch adds one to ``swiglu_cuda.launches``.
+- ``swiglu_cuda`` (B3), which replaces the Pallas ``swiglu._kernel``: both
+  halves in one pass, f32 accumulation and epilogue, one rounding on
+  output; the (M, 2N) intermediate never reaches device memory.
+  ``swiglu_route`` picks the kernel: bfloat16 goes to the tensor-core
+  kernel (``csrc/swiglu_tc.cu``: TMA, mbarriers, wgmma), float32 to the
+  CUDA-core kernel (``csrc/swiglu.cu``: f32 FMAs, bit-equal to cuBLAS's
+  FFMA GEMM). Each launch adds one to ``swiglu_cuda.launches`` and to its
+  route's entry of ``swiglu_cuda.launches_by_route``.
 - ``swiglu_reference``: the kernel's plain PyTorch version, with the Pallas
   kernel's rounding (bias added in f32, SiLU in f32, one cast). CPU tensors
   take it; on the card it is only a yardstick.
@@ -31,20 +35,33 @@ from torch.nn import functional as F
 # (the JAX dispatcher's threshold, swiglu.py:42)
 _MIN_ROWS_FOR_KERNEL = 512
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_FN = None
+_FNS = {}
+
+TENSOR_CORE = "tensor_core"
+CUDA_CORE = "cuda_core"
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
+def swiglu_route(dtype: torch.dtype) -> str:
+    """The kernel a CUDA launch takes: bfloat16 runs on the tensor cores,
+    float32 on the CUDA cores."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the SwiGLU kernels take float32 or bfloat16, got {dtype}")
+    return TENSOR_CORE if dtype == torch.bfloat16 else CUDA_CORE
+
+
+def _kernel_fn(route: str):
+    fn = _FNS.get(route)
+    if fn is None:
         from .build import load
 
-        fn = load("swiglu").aec_swiglu_fwd
+        if route == TENSOR_CORE:
+            fn = load("swiglu_tc").aec_swiglu_tc_fwd
+        else:
+            fn = load("swiglu").aec_swiglu_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        _FN = fn
-    return _FN
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        _FNS[route] = fn
+    return fn
 
 
 def swiglu_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -54,7 +71,7 @@ def swiglu_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> to
         raise ValueError("swiglu_cuda takes CUDA tensors")
     if not (x.device == weight.device == bias.device):
         raise ValueError("x, weight and bias must be on one device")
-    if x.dtype not in _DTYPE_CODES or weight.dtype != x.dtype:
+    if x.dtype not in (torch.float32, torch.bfloat16) or weight.dtype != x.dtype:
         raise ValueError(f"swiglu_cuda takes float32 or bfloat16 x and weight of "
                          f"one dtype, got {x.dtype}/{weight.dtype}")
     if x.dim() != 2 or weight.dim() != 2 or weight.shape[1] != x.shape[1]:
@@ -72,18 +89,21 @@ def swiglu_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> to
         raise ValueError("x and weight must be contiguous")
     if x.data_ptr() % 16 or weight.data_ptr() % 16:
         raise ValueError("x and weight must be 16-byte aligned")
+    route = swiglu_route(x.dtype)
     bias = bias.float().contiguous()
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _kernel_fn()(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                      _DTYPE_CODES[x.dtype], M, E, N, stream)
+    rc = _kernel_fn(route)(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                           out.data_ptr(), M, E, N, stream)
     if rc != 0:
-        raise RuntimeError(f"swiglu kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"swiglu kernel ({route}) launch failed: CUDA error {rc}")
     swiglu_cuda.launches += 1
+    swiglu_cuda.launches_by_route[route] += 1
     return out
 
 
 swiglu_cuda.launches = 0
+swiglu_cuda.launches_by_route = {TENSOR_CORE: 0, CUDA_CORE: 0}
 
 
 def swiglu_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:

@@ -7,12 +7,16 @@ without the rest of the repository beside this file, it exits non-zero and
 prints no result):
 
 0. the card's name and power limit; build every CUDA kernel from csrc/
-   (one nvcc per source, all started together), with the build time and
-   the kernel instances that spill registers.
+   (one nvcc per source, all started together), with each source's build
+   time, the most registers a kernel instance uses and the instances that
+   spill registers.
 1. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, in float32 and bfloat16, with its time, the plain
    version's time, a PyTorch library yardstick's time and the card's bound:
-   B1 flash_attention, B2 flash_attention_rotary, B3 swiglu.
+   B1 in bfloat16 on the tensor cores (flash_attention_tc) and in float32
+   on the CUDA cores (flash_attention), B2 flash_attention_rotary (CUDA
+   cores, both dtypes), B3 in bfloat16 on the tensor cores (swiglu_tc) and
+   in float32 on the CUDA cores (swiglu).
 2. one full-width AudioLDM-s UNet forward (random seeded weights, batch 2
    on the (8, 256, 16) latent of a 10 s clip) on the card, through the
    kernel, against the same forward on the CPU, through the plain version.
@@ -22,12 +26,15 @@ prints no result):
    encode and decode on 16 latent frames, card against CPU.
 3. the AudioLDM-s main path: the port CLI's ``--mode ours`` edit of a
    synthetic 10 s clip at 200 inversion + 100 edit steps, once as an edit
-   and once with ``--selfcheck``; B1 must launch 20 times per UNet forward.
+   and once with ``--selfcheck`` in float32, and once as a ``--dtype
+   bfloat16`` edit; B1 must launch 20 times per UNet forward, on the
+   CUDA-core route in float32 and on the tensor-core route in bfloat16.
 4. the Stable Audio Open main path: the CLI's ``--mode ours`` edit of a
    synthetic 10 s, 44.1 kHz stereo clip at 100 inversion + 50 edit steps,
-   as an edit, with ``--selfcheck`` (>= 40 dB), and as an edit with
-   AEC_ROTARY_IN_KERNEL=1; B1 (B2 in the last run) and B3 must each launch
-   24 times per DiT forward.
+   in float32 as an edit, with ``--selfcheck`` (>= 40 dB), and as an edit
+   with AEC_ROTARY_IN_KERNEL=1, and in bfloat16 as an edit and with
+   ``--selfcheck`` (>= 40 dB); B1 (B2 in the rotary run) and B3 must each
+   launch 24 times per DiT forward, on the tensor-core routes in bfloat16.
 Every kernel launch count is set to 0 just before each main-path run and
 read just after it.
 
@@ -36,8 +43,8 @@ one before it the kernels' JSON record, and the last line
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
-CFG denoiser step of each main path (device time by kernel class, the
-device's idle share) before the final lines.
+CFG denoiser step of each main path, in float32 and in bfloat16 (device
+time by kernel class, the device's idle share) before the final lines.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -64,6 +72,9 @@ SA_STEPS, SA_TSTART = 100, 50  # bench.py's Stable Audio config: 150 CFG DiT for
 SA_LATENT = (64, 1024)  # every clip is padded to 1024 x 2048 samples
 SA_CALLS_PER_FORWARD = 24  # one B1 (or B2) and one B3 launch per DiT layer
 SA_PARITY_LAYERS = 2  # phase 2b's cut of the 24 layers
+# each main path's edit: steps, tstart, target prompt, the clip's rate and channels
+EDITS = {MODEL_ID: (STEPS, TSTART, "a dog barking", {"sr": 16000, "channels": 1}),
+         SA_MODEL_ID: (SA_STEPS, SA_TSTART, "a cello", {"sr": 44100, "channels": 2})}
 
 # H100 SXM data-sheet peaks (dense rates at the 700 W limit). Exponentials
 # run on the SFU: 16 results per clock per SM (NVIDIA's CUDA documentation,
@@ -84,8 +95,9 @@ ATTN_CASES = [
     ((2, 1025, 24, 12, 64), torch.bfloat16),
 ]
 # float32 differs only in summation order and the SFU exponential; bf16
-# rounds p at the running rather than the final max (as tests/test_flash_attention.py)
-ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+# (B1 on the tensor cores, B2) is held to flash_attention.BF16_TOL: two bf16
+# ulps, 4e-3 near zero, which a kernel that dropped its kv_len mask fails
+F32_TOL = {"atol": 1e-5, "rtol": 1e-5}
 # the Stable Audio DiT's attn1 with the rotary inside the kernel (B2)
 ROTARY_CASES = [((2, 1025, 24, 12, 64), 32, torch.float32),
                 ((2, 1025, 24, 12, 64), 32, torch.bfloat16)]
@@ -93,9 +105,11 @@ ROTARY_CASES = [((2, 1025, 24, 12, 64), 32, torch.float32),
 # and 1025 rows (an empty source prompt runs the unconditional stream alone)
 SWIGLU_CASES = [((2050, 1536, 6144), torch.float32), ((1025, 1536, 6144), torch.float32),
                 ((2050, 1536, 6144), torch.bfloat16), ((1025, 1536, 6144), torch.bfloat16)]
-# float32 sums in another order than the plain version (1e-5); bf16 rounds
-# the same f32 result once, so it differs by at most one bf16 rounding
-SWIGLU_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+# float32 sums in the plain version's order (bit-equal); bf16 sums in the
+# tensor cores' order and rounds once, so an output can differ from the
+# plain version by one bf16 ulp (2^-5 at |out| in [4, 8)), within 3e-2 +
+# 3e-2 |ref|
+SWIGLU_TOL = {torch.float32: F32_TOL, torch.bfloat16: {"atol": 3e-2, "rtol": 3e-2}}
 
 
 def log(msg: str) -> None:
@@ -148,14 +162,39 @@ def swiglu_bound_ms(M, E, N, dtype):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _record_case(kernel, shape, dtype, err, tol, ms, plain_ms, library_ms, library, bound):
+def _check(out: torch.Tensor, ref: torch.Tensor, tol: dict):
+    """The max abs error, and the largest error over what the check allows
+    it (atol + rtol |ref|): at most 1 for a case that passes; raises if a
+    case does not."""
+    diff = (out.float() - ref.float()).abs()
+    errors = (diff.max().item(),
+              (diff / (tol["atol"] + tol["rtol"] * ref.float().abs())).max().item())
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    return errors
+
+
+def _record_case(kernel, shape, dtype, errors, tol, ms, plain_ms, library_ms, library, bound):
+    err, over = errors
     case = {"shape": list(shape), "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-            "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": library, "bound_ms": bound[0], "bound_by": bound[1]}
+            "err_over_allowed": over, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": library, "bound_ms": bound[0],
+            "bound_by": bound[1]}
     log(f"[phase1] {kernel} {case['shape']} {case['dtype']}: max_abs_err {err:.3g} "
-        f"(tol {tol}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"{library_ms:.4f} ms ({library}), bound {bound[0]:.4f} ms ({bound[1]})")
+        f"({over:.3g} of the allowed {tol['atol']} + {tol['rtol']:.4g} |ref|), "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms "
+        f"({library}), bound {bound[0]:.4f} ms ({bound[1]})")
     return case
+
+
+def _launch_on_route(wrapper, call):
+    """call() once; returns its result and the route whose count it raised."""
+    before = dict(wrapper.launches_by_route)
+    out = call()
+    torch.cuda.synchronize()
+    routes = [r for r, n in wrapper.launches_by_route.items() if n != before[r]]
+    if len(routes) != 1:
+        raise AssertionError(f"one launch raised the route counts {routes}")
+    return out, routes[0]
 
 
 def phase1_rotary(fa):
@@ -174,9 +213,8 @@ def phase1_rotary(fa):
         out = fa.flash_attention_rotary_cuda(q, k, v, cos, sin)
         torch.cuda.synchronize()
         ref = fa.rotary_attention_reference(q, k, v, cos, sin)
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = ATTN_TOL[dtype]
-        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+        tol = fa.BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        errors = _check(out, ref, tol)
         kr, vr = (x.repeat_interleave(H // Hkv, dim=2) for x in (k, v))
         vt = vr.transpose(1, 2)
 
@@ -185,12 +223,13 @@ def phase1_rotary(fa):
                         fa._host_rotary(kr, cos, sin).transpose(1, 2), vt)
 
         cases.append(_record_case(
-            "flash_attention_rotary", (B, S, H, D), dtype, err, tol,
+            "flash_attention_rotary", (B, S, H, D), dtype, errors, tol,
             cuda_ms(lambda: fa.flash_attention_rotary_cuda(q, k, v, cos, sin), reps=20),
             cuda_ms(lambda: fa.rotary_attention_reference(q, k, v, cos, sin), reps=5, warmup=1),
             cuda_ms(library, reps=20),
             "host rotary of q and k + scaled_dot_product_attention (three PyTorch calls)",
-            attention_bound_ms(B, S, H, Hkv, D, dtype, rot)) | {"kv_heads": Hkv, "rot": rot})
+            attention_bound_ms(B, S, H, Hkv, D, dtype, rot))
+            | {"kv_heads": Hkv, "rot": rot, "route": fa.attention_route(dtype, rotary=True)})
         del q, k, v, out, ref, kr, vr, vt
         torch.cuda.empty_cache()
     return cases
@@ -206,12 +245,12 @@ def phase1_swiglu(sw):
         x = torch.randn(M, E, device="cuda", generator=g).to(dtype)
         w = (torch.randn(2 * N, E, device="cuda", generator=g) / E ** 0.5).to(dtype)
         b = torch.randn(2 * N, device="cuda", generator=g) * 0.1
-        out = sw.swiglu_cuda(x, w, b)
-        torch.cuda.synchronize()
+        out, route = _launch_on_route(sw.swiglu_cuda, lambda: sw.swiglu_cuda(x, w, b))
+        if route != sw.swiglu_route(dtype):
+            raise AssertionError(f"swiglu {dtype} took the {route} route")
         ref = sw.swiglu_reference(x, w, b)
-        err = (out.float() - ref.float()).abs().max().item()
         tol = SWIGLU_TOL[dtype]
-        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+        errors = _check(out, ref, tol)
         bl = b.to(dtype)
 
         def library():
@@ -219,12 +258,12 @@ def phase1_swiglu(sw):
             return h * F.silu(gate)
 
         cases.append(_record_case(
-            "swiglu", (M, E, N), dtype, err, tol,
+            "swiglu", (M, E, N), dtype, errors, tol,
             cuda_ms(lambda: sw.swiglu_cuda(x, w, b), reps=10),
             cuda_ms(lambda: sw.swiglu_reference(x, w, b), reps=5, warmup=1),
             cuda_ms(library, reps=10),
             "F.linear + chunk + silu * mul (three PyTorch calls)",
-            swiglu_bound_ms(M, E, N, dtype)))
+            swiglu_bound_ms(M, E, N, dtype)) | {"route": route})
         del x, w, b, bl, out, ref
         torch.cuda.empty_cache()
     return cases
@@ -239,22 +278,23 @@ def phase1_attention(fa):
         q = torch.randn(B, S, H, D, device="cuda", generator=g).to(dtype)
         k = torch.randn(B, S, Hkv, D, device="cuda", generator=g).to(dtype)
         v = torch.randn(B, S, Hkv, D, device="cuda", generator=g).to(dtype)
-        out = fa.flash_attention_cuda(q, k, v)
-        torch.cuda.synchronize()
+        out, route = _launch_on_route(fa.flash_attention_cuda,
+                                      lambda: fa.flash_attention_cuda(q, k, v))
+        if route != fa.attention_route(dtype):
+            raise AssertionError(f"flash_attention {dtype} took the {route} route")
         ref = fa.attention_reference(q, k, v)
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = ATTN_TOL[dtype]
-        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+        tol = fa.BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        errors = _check(out, ref, tol)
         # the library yardstick, one call; GQA's kv heads repeated beforehand
         kr, vr = (x.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) for x in (k, v))
         qt = q.transpose(1, 2)
         cases.append(_record_case(
-            "flash_attention", (B, S, H, D), dtype, err, tol,
+            "flash_attention", (B, S, H, D), dtype, errors, tol,
             cuda_ms(lambda: fa.flash_attention_cuda(q, k, v), reps=20),
             cuda_ms(lambda: fa.attention_reference(q, k, v), reps=5, warmup=1),
             cuda_ms(lambda: sdpa(qt, kr, vr), reps=20),
             "scaled_dot_product_attention (one PyTorch call)",
-            attention_bound_ms(B, S, H, Hkv, D, dtype)) | {"kv_heads": Hkv})
+            attention_bound_ms(B, S, H, Hkv, D, dtype)) | {"kv_heads": Hkv, "route": route})
         del q, k, v, out, ref, kr, vr, qt
         torch.cuda.empty_cache()
     return cases
@@ -292,15 +332,32 @@ def phase2_unet_parity(fa):
 
 
 def reset_launches(fa, sw) -> None:
-    fa.flash_attention_cuda.launches = 0
+    for wrapper in (fa.flash_attention_cuda, sw.swiglu_cuda):
+        wrapper.launches = 0
+        wrapper.launches_by_route = dict.fromkeys(wrapper.launches_by_route, 0)
     fa.flash_attention_rotary_cuda.launches = 0
-    sw.swiglu_cuda.launches = 0
 
 
 def read_launches(fa, sw) -> dict:
-    return {"flash_attention": fa.flash_attention_cuda.launches,
+    """Launches per kernel: B1 and B3 on each route, and B2."""
+    for wrapper in (fa.flash_attention_cuda, sw.swiglu_cuda):
+        if wrapper.launches != sum(wrapper.launches_by_route.values()):
+            raise AssertionError(f"launches {wrapper.launches} != the sum of "
+                                 f"{wrapper.launches_by_route}")
+    return {"flash_attention": fa.flash_attention_cuda.launches_by_route[fa.CUDA_CORE],
+            "flash_attention_tc": fa.flash_attention_cuda.launches_by_route[fa.TENSOR_CORE],
             "flash_attention_rotary": fa.flash_attention_rotary_cuda.launches,
-            "swiglu": sw.swiglu_cuda.launches}
+            "swiglu": sw.swiglu_cuda.launches_by_route[sw.CUDA_CORE],
+            "swiglu_tc": sw.swiglu_cuda.launches_by_route[sw.TENSOR_CORE]}
+
+
+def expected_launches(per_forward: dict, forwards: int) -> dict:
+    """Every kernel's launches in a run of ``forwards`` forwards that
+    launch the kernels of ``per_forward`` that many times each."""
+    out = dict.fromkeys(["flash_attention", "flash_attention_tc", "flash_attention_rotary",
+                         "swiglu", "swiglu_tc"], 0)
+    out.update({k: n * forwards for k, n in per_forward.items()})
+    return out
 
 
 def _max_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -346,8 +403,7 @@ def phase2b_stable_audio_parity(fa, sw):
             f"{name}): card vs CPU max rel err {rel:.3g} (limit 1e-3, TF32 off), "
             f"launches {launched}, CPU {cpu_s:.1f} s")
         attn = "flash_attention_rotary" if env == "1" else "flash_attention"
-        want = {"flash_attention": 0, "flash_attention_rotary": 0,
-                "swiglu": SA_PARITY_LAYERS, attn: SA_PARITY_LAYERS}
+        want = expected_launches({"swiglu": 1, attn: 1}, SA_PARITY_LAYERS)
         if not np.isfinite(rel) or rel > 1e-3:
             raise AssertionError(f"DiT card/CPU parity ({name}) {rel} > 1e-3")
         if launched != want:
@@ -388,36 +444,42 @@ def write_clip(path: str, seconds: float = 10.0, sr: int = 16000, channels: int 
     wavfile.write(path, sr, (wave * 32767).astype(np.int16))
 
 
+def edit_argv(model_id: str, clip: str, results_path: str) -> list:
+    """The port CLI's arguments for the main-path edit of ``clip`` with ``model_id``."""
+    steps, tstart, target, _ = EDITS[model_id]
+    return ["--model_id", model_id, "--init_aud", clip,
+            "--source_prompt", "a sine tone", "--target_prompt", target,
+            "--cfg_src", "3", "--cfg_tar", "12",
+            "--num_diffusion_steps", str(steps), "--tstart", str(tstart),
+            "--seed", "0", "--results_path", results_path]
+
+
 def phase3_main_path(fa, sw, tmp: str):
     from scipy.io import wavfile
 
     from audioeditingcode_tpu_torch.cli.run import main as run_edit
 
     clip = os.path.join(tmp, "clip.wav")
-    write_clip(clip)
+    write_clip(clip, **EDITS[MODEL_ID][3])
     runs = {}
-    for name, extra in (("edit", []), ("selfcheck", ["--selfcheck"])):
-        argv = ["--model_id", MODEL_ID, "--init_aud", clip,
-                "--source_prompt", "a sine tone", "--target_prompt", "a dog barking",
-                "--cfg_src", "3", "--cfg_tar", "12",
-                "--num_diffusion_steps", str(STEPS), "--tstart", str(TSTART),
-                "--seed", "0", "--results_path", os.path.join(tmp, name)] + extra
+    for name, extra in (("edit", []), ("selfcheck", ["--selfcheck"]),
+                        ("edit_bf16", ["--dtype", "bfloat16"])):
         reset_launches(fa, sw)
-        out = run_edit(argv)
+        out = run_edit(edit_argv(MODEL_ID, clip, os.path.join(tmp, name)) + extra)
         counts = read_launches(fa, sw)
-        launches = counts["flash_attention"]
         with open(os.path.join(os.path.dirname(out), "run_args.json")) as f:
             rec = json.load(f)
         sr, wav = wavfile.read(out)
         forwards = rec["unet_steps"]
-        run = {"launches": counts, "unet_forwards": forwards,
+        attn = "flash_attention_tc" if name.endswith("bf16") else "flash_attention"
+        want = expected_launches({attn: ATTN_CALLS_PER_FORWARD}, forwards)
+        run = {"launches": counts, "unet_forwards": forwards, "dtype": rec["dtype"],
                "edit_s": rec["edit_seconds"], "steps_per_s": forwards / rec["edit_seconds"],
                "wav_samples": int(wav.shape[-1]), "selfcheck_snr_db": rec["selfcheck_snr_db"]}
         log(f"[phase3] {name}: {run}")
-        if (forwards != STEPS + TSTART or launches != ATTN_CALLS_PER_FORWARD * forwards
-                or counts["flash_attention_rotary"] or counts["swiglu"]):
+        if forwards != STEPS + TSTART or counts != want:
             raise AssertionError(f"{name}: launches {counts} for {forwards} UNet forwards, "
-                                 f"expected {ATTN_CALLS_PER_FORWARD} B1 launches each")
+                                 f"expected {want}")
         if sr != 16000 or wav.shape[-1] < 10 * 16000 or not np.any(wav):
             raise AssertionError(f"{name}: bad output wav {out}: sr {sr}, shape {wav.shape}")
         runs[name] = run
@@ -434,27 +496,26 @@ def phase4_stable_audio(fa, sw, tmp: str):
     from audioeditingcode_tpu_torch.cli.run import main as run_edit
 
     clip = os.path.join(tmp, "clip44k.wav")
-    write_clip(clip, sr=44100, channels=2)
+    write_clip(clip, **EDITS[SA_MODEL_ID][3])
     runs = {}
+    bf16 = ["--dtype", "bfloat16"]
     for name, extra, env in (("edit", [], "0"), ("selfcheck", ["--selfcheck"], "0"),
-                             ("edit_rotary_in_kernel", [], "1")):
+                             ("edit_rotary_in_kernel", [], "1"), ("edit_bf16", bf16, "0"),
+                             ("selfcheck_bf16", bf16 + ["--selfcheck"], "0")):
         os.environ["AEC_ROTARY_IN_KERNEL"] = env
-        argv = ["--model_id", SA_MODEL_ID, "--init_aud", clip,
-                "--source_prompt", "a sine tone", "--target_prompt", "a cello",
-                "--cfg_src", "3", "--cfg_tar", "12",
-                "--num_diffusion_steps", str(SA_STEPS), "--tstart", str(SA_TSTART),
-                "--seed", "0", "--results_path", os.path.join(tmp, "sa_" + name)] + extra
         reset_launches(fa, sw)
-        out = run_edit(argv)
+        out = run_edit(edit_argv(SA_MODEL_ID, clip, os.path.join(tmp, "sa_" + name)) + extra)
         counts = read_launches(fa, sw)
         with open(os.path.join(os.path.dirname(out), "run_args.json")) as f:
             rec = json.load(f)
         sr, wav = wavfile.read(out)
         forwards = rec["unet_steps"]
-        attn = "flash_attention_rotary" if env == "1" else "flash_attention"
-        want = {"flash_attention": 0, "flash_attention_rotary": 0,
-                "swiglu": SA_CALLS_PER_FORWARD * forwards, attn: SA_CALLS_PER_FORWARD * forwards}
-        run = {"launches": counts, "dit_forwards": forwards, "edit_s": rec["edit_seconds"],
+        tc = "_tc" if name.endswith("bf16") else ""
+        attn = "flash_attention_rotary" if env == "1" else "flash_attention" + tc
+        want = expected_launches({attn: SA_CALLS_PER_FORWARD,
+                                  "swiglu" + tc: SA_CALLS_PER_FORWARD}, forwards)
+        run = {"launches": counts, "dit_forwards": forwards, "dtype": rec["dtype"],
+               "edit_s": rec["edit_seconds"],
                "steps_per_s": forwards / rec["edit_seconds"], "wav_shape": list(wav.shape),
                "sr": sr, "selfcheck_snr_db": rec["selfcheck_snr_db"]}
         log(f"[phase4] {name}: {run}")
@@ -465,8 +526,9 @@ def phase4_stable_audio(fa, sw, tmp: str):
             raise AssertionError(f"{name}: bad output wav {out}: sr {sr}, shape {wav.shape}")
         runs[name] = run
     os.environ.pop("AEC_ROTARY_IN_KERNEL")
-    if not runs["selfcheck"]["selfcheck_snr_db"] >= 40.0:
-        raise AssertionError(f"selfcheck SNR {runs['selfcheck']['selfcheck_snr_db']} < 40 dB")
+    for name in ("selfcheck", "selfcheck_bf16"):
+        if not runs[name]["selfcheck_snr_db"] >= 40.0:
+            raise AssertionError(f"{name} SNR {runs[name]['selfcheck_snr_db']} < 40 dB")
     return runs
 
 
@@ -474,9 +536,11 @@ def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attn_fwd_kernel" in n:  # the template's last argument is ROT
         return "attention kernel B2 (rotary)" if "true>" in n else "attention kernel B1"
-    for cls, keys in (("SwiGLU kernel B3", ("swiglu_kernel",)),
+    for cls, keys in (("attention kernel B1 (tensor cores)", ("attn_tc_kernel",)),
+                      ("SwiGLU kernel B3 (tensor cores)", ("swiglu_tc_kernel",)),
+                      ("SwiGLU kernel B3", ("swiglu_kernel",)),
                       ("convolution", ("fprop", "conv", "implicit_gemm", "winograd", "fft")),
-                      ("matmul", ("gemm", "cutlass", "cublas")),
+                      ("matmul", ("gemm", "cutlass", "cublas", "nvjet")),
                       ("norm", ("norm", "welford")),
                       ("softmax", ("softmax",))):
         if any(k in n for k in keys):
@@ -484,7 +548,8 @@ def _kernel_class(name: str) -> str:
     return "elementwise/other"
 
 
-def profile_main_path_step(model_id: str, steps: int, latent, n_steps: int = 6) -> dict:
+def profile_main_path_step(model_id: str, steps: int, latent, dtype: torch.dtype,
+                           n_steps: int = 6) -> dict:
     """torch.profiler over n CFG denoiser steps of a main path's config."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -492,9 +557,9 @@ def profile_main_path_step(model_id: str, steps: int, latent, n_steps: int = 6) 
     from audioeditingcode_tpu_torch.editing.cfg import build_cfg_tensors
     from audioeditingcode_tpu_torch.models.registry import load_model
 
-    pipe = load_model(model_id, steps, device="cuda", seed=0)
+    pipe = load_model(model_id, steps, device="cuda", dtype=dtype, seed=0)
     x = torch.randn((1,) + tuple(latent), device="cuda",
-                    generator=torch.Generator("cuda").manual_seed(3))
+                    generator=torch.Generator("cuda").manual_seed(3)).to(dtype)
     cfg, _ = build_cfg_tensors(x.shape, ["a dog barking"], [12.0], device="cuda")
     den = pipe.make_denoiser(pipe.encode_text([""], negative=True),
                              pipe.encode_text(["a dog barking"]), cfg)
@@ -518,7 +583,8 @@ def profile_main_path_step(model_id: str, steps: int, latent, n_steps: int = 6) 
         by_class[_kernel_class(e.key)] = by_class.get(_kernel_class(e.key), 0.0) + ms
         kernels.append((ms, e.count // n_steps, e.key[:90]))
     busy = sum(by_class.values())
-    out = {"model_id": model_id, "step_wall_ms": wall_ms, "device_busy_ms": busy,
+    out = {"model_id": model_id, "dtype": str(dtype).split(".")[-1],
+           "step_wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": max(0.0, 1.0 - busy / wall_ms),
            "device_ms_by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1]))}
     log(f"[profile] {json.dumps(out)}")
@@ -542,37 +608,53 @@ def main() -> int:
     log(f"[phase0] device {name}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    logs = build.build()
+    built = build.build()
     build_s = time.perf_counter() - t0
-    spills = sum(" 0 bytes spill stores" not in line
-                 for log_ in logs.values() for line in log_.splitlines() if "spill stores" in line)
-    log(f"[phase0] built {sorted(logs) or 'nothing (up to date)'} in {build_s:.1f} s; "
-        f"kernel instances with register spills: {spills}")
+    builds = {}
+    for src, (nvcc_log, seconds) in sorted(built.items()):
+        lines = nvcc_log.splitlines()
+        builds[src] = {
+            "seconds": seconds,
+            "max_registers": max((int(m) for line in lines
+                                  for m in re.findall(r"Used (\d+) registers", line)), default=0),
+            "instances_spilling": sum(" 0 bytes spill stores" not in line
+                                      for line in lines if "spill stores" in line)}
+        log(f"[phase0] built csrc/{src}.cu in {seconds:.1f} s: {builds[src]}")
+    log(f"[phase0] build of {sorted(built) or 'nothing (up to date)'}: {build_s:.1f} s in all")
 
-    cases = {"flash_attention": phase1_attention(fa),
+    def by_route(kcases, tensor_core, cuda_core):
+        return {tensor_core: [c for c in kcases if c["route"] == fa.TENSOR_CORE],
+                cuda_core: [c for c in kcases if c["route"] == fa.CUDA_CORE]}
+
+    cases = {**by_route(phase1_attention(fa), "flash_attention_tc", "flash_attention"),
              "flash_attention_rotary": phase1_rotary(fa),
-             "swiglu": phase1_swiglu(sw)}
+             **by_route(phase1_swiglu(sw), "swiglu_tc", "swiglu")}
     parity = phase2_unet_parity(fa)
     parity.update(phase2b_stable_audio_parity(fa, sw))
     with tempfile.TemporaryDirectory() as tmp:
         runs = {"audioldm": phase3_main_path(fa, sw, tmp),
                 "stable_audio": phase4_stable_audio(fa, sw, tmp)}
     if "--profile" in sys.argv[1:]:
-        profile_main_path_step(MODEL_ID, STEPS, LATENT)
-        profile_main_path_step(SA_MODEL_ID, SA_STEPS, SA_LATENT)
+        for dtype in (torch.float32, torch.bfloat16):
+            profile_main_path_step(MODEL_ID, STEPS, LATENT, dtype)
+            profile_main_path_step(SA_MODEL_ID, SA_STEPS, SA_LATENT, dtype)
 
-    sources = {"flash_attention": "flash_attention.cu", "flash_attention_rotary": "flash_attention.cu",
-               "swiglu": "swiglu.cu"}
+    sources = {"flash_attention": "flash_attention.cu",
+               "flash_attention_tc": "flash_attention_tc.cu",
+               "flash_attention_rotary": "flash_attention.cu",
+               "swiglu": "swiglu.cu", "swiglu_tc": "swiglu_tc.cu"}
     replaces = {"flash_attention": ("ops/flash_attention.py:72", "_attn_kernel"),
+                "flash_attention_tc": ("ops/flash_attention.py:72", "_attn_kernel"),
                 "flash_attention_rotary": ("ops/flash_attention.py:59", "_attn_rotary_kernel"),
-                "swiglu": ("ops/swiglu.py:47", "swiglu._kernel")}
+                "swiglu": ("ops/swiglu.py:47", "swiglu._kernel"),
+                "swiglu_tc": ("ops/swiglu.py:47", "swiglu._kernel")}
     kernels = []
     for kname, kcases in cases.items():
         by_run = {f"{model}_{run}": r["launches"][kname]
                   for model, model_runs in runs.items() for run, r in model_runs.items()}
-        main_case = kcases[0]  # the main path's shape in float32
+        main_case = kcases[0]  # the main path's first shape on this route
         kernels.append({
-            "name": kname, "route": "cuda",
+            "name": kname, "route": "cuda", "cores": main_case["route"],
             "source": "audioeditingcode_tpu_torch/csrc/" + sources[kname],
             "replaces": "audioeditingcode_tpu/" + replaces[kname][0],
             "tpu_kernel": replaces[kname][1],
@@ -588,13 +670,18 @@ def main() -> int:
         if not sum(by_run.values()):
             raise AssertionError(f"{kname} was launched no time on the main paths")
     ald, sa = runs["audioldm"], runs["stable_audio"]
-    record = {"kernels": kernels, "build_s": build_s, **parity,
+    record = {"kernels": kernels, "build_s": build_s, "builds": builds, **parity,
               "edit_s": ald["edit"]["edit_s"], "steps_per_s": ald["edit"]["steps_per_s"],
               "selfcheck_snr_db": ald["selfcheck"]["selfcheck_snr_db"],
+              "bf16_edit_s": ald["edit_bf16"]["edit_s"],
+              "bf16_steps_per_s": ald["edit_bf16"]["steps_per_s"],
               "stable_audio_edit_s": sa["edit"]["edit_s"],
               "stable_audio_steps_per_s": sa["edit"]["steps_per_s"],
               "stable_audio_selfcheck_snr_db": sa["selfcheck"]["selfcheck_snr_db"],
-              "stable_audio_rotary_in_kernel_edit_s": sa["edit_rotary_in_kernel"]["edit_s"]}
+              "stable_audio_rotary_in_kernel_edit_s": sa["edit_rotary_in_kernel"]["edit_s"],
+              "stable_audio_bf16_edit_s": sa["edit_bf16"]["edit_s"],
+              "stable_audio_bf16_steps_per_s": sa["edit_bf16"]["steps_per_s"],
+              "stable_audio_bf16_selfcheck_snr_db": sa["selfcheck_bf16"]["selfcheck_snr_db"]}
     print(json.dumps(record), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,7 +3,10 @@
 These need an NVIDIA GPU and nvcc; they skip without one. On a machine
 with a card run them with ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``--noconftest``: the suite's conftest imports JAX, which a PyTorch-only install lacks).
-Tolerances as in tests/test_torch_flash_attention.py.
+Tolerances: 1e-5 in float32; bfloat16 attention to ``fa.BF16_TOL`` (two
+bf16 ulps, 4e-3 near zero: tight enough that a kernel which dropped its
+kv_len mask fails, see tests/test_torch_flash_attention.py); bfloat16
+SwiGLU to 3e-2.
 """
 
 import pytest
@@ -35,9 +38,8 @@ def test_kernel_matches_plain_version(cuda, B, S, H, Hkv, D, dtype):
     v = torch.randn(B, S, Hkv, D, device=cuda, generator=g).to(dtype)
     got = fa.flash_attention_cuda(q, k, v)
     torch.cuda.synchronize()
-    tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
-    torch.testing.assert_close(got.float(), fa.attention_reference(q, k, v).float(),
-                               rtol=tol, atol=tol)
+    tol = fa.BF16_TOL if dtype == torch.bfloat16 else {"atol": 1e-5, "rtol": 1e-5}
+    torch.testing.assert_close(got.float(), fa.attention_reference(q, k, v).float(), **tol)
 
 
 def test_kernel_masks_kv_len_and_reads_strides(cuda):
@@ -71,10 +73,9 @@ def test_rotary_kernel_matches_plain_version(cuda, B, S, H, Hkv, D, rot, dtype):
     cos, sin = rotary_tables(rot, S + 3, device=cuda)  # longer tables are fine
     got = fa.flash_attention_rotary_cuda(q, k, v, cos, sin)
     torch.cuda.synchronize()
-    tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
+    tol = fa.BF16_TOL if dtype == torch.bfloat16 else {"atol": 1e-5, "rtol": 1e-5}
     torch.testing.assert_close(got.float(),
-                               fa.rotary_attention_reference(q, k, v, cos, sin).float(),
-                               rtol=tol, atol=tol)
+                               fa.rotary_attention_reference(q, k, v, cos, sin).float(), **tol)
 
 
 def test_rotary_kernel_rejects_what_it_does_not_take(cuda):
@@ -126,3 +127,98 @@ def test_swiglu_dispatcher_launches_kernel_or_raises(cuda):
     assert swiglu.swiglu_cuda.launches == before + 1
     with pytest.raises(ValueError, match="one dtype"):
         swiglu.swiglu_cuda(x[0], w.double(), b)
+
+
+# --- the tensor-core routes (bfloat16): csrc/flash_attention_tc.cu, csrc/swiglu_tc.cu
+
+
+def _bf16_qkv(cuda, B, S, H, Hkv, D, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(B, S, h, D, device=cuda, generator=g).to(torch.bfloat16)
+            for h in (H, Hkv, Hkv)]
+
+
+@pytest.mark.parametrize("D", range(8, 129, 8))
+@pytest.mark.parametrize("S", [777, 1025])
+def test_tensor_core_attention_every_head_dim(cuda, D, S):
+    """Every D the padded widths (16, 32, 64, 128) cover, at ragged S, with GQA."""
+    q, k, v = _bf16_qkv(cuda, 1, S, 4, 2, D, seed=D)
+    before = dict(fa.flash_attention_cuda.launches_by_route)
+    got = fa.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches_by_route[fa.TENSOR_CORE] == before[fa.TENSOR_CORE] + 1
+    assert fa.flash_attention_cuda.launches_by_route[fa.CUDA_CORE] == before[fa.CUDA_CORE]
+    torch.testing.assert_close(got.float(), fa.attention_reference(q, k, v).float(),
+                               **fa.BF16_TOL)
+
+
+def test_tensor_core_attention_masks_kv_len_and_reads_strided_heads(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(2, 1032, 6, 64, device=cuda, generator=g).to(torch.bfloat16)
+    kv = torch.randn(2, 3, 1032, 64, device=cuda, generator=g).to(torch.bfloat16)
+    kv = kv.transpose(1, 2)  # strided heads, 3 kv heads for 6 q heads
+    got = fa.flash_attention_cuda(q, kv, kv, kv_len=1025)
+    want = fa.attention_reference(q, kv[:, :1025], kv[:, :1025])
+    torch.testing.assert_close(got.float(), want.float(), **fa.BF16_TOL)
+
+
+def test_tensor_core_attention_is_deterministic(cuda):
+    q, k, v = _bf16_qkv(cuda, 2, 1025, 24, 12, 64, seed=4)
+    first = fa.flash_attention_cuda(q, k, v)
+    second = fa.flash_attention_cuda(q, k, v)
+    assert torch.equal(first, second)
+
+
+def test_tensor_core_attention_rejects_what_tma_cannot_take(cuda):
+    base = torch.randn(1, 1024, 2, 24, device=cuda).to(torch.bfloat16)
+    misaligned = base[..., 4:20]  # head dim 16, base 8 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_cuda(misaligned, misaligned, misaligned)
+    odd_stride = torch.randn(1, 1024, 2, 20, device=cuda).to(torch.bfloat16)[..., :16]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.flash_attention_cuda(odd_stride, odd_stride, odd_stride)
+
+
+def test_float32_and_rotary_stay_on_cuda_cores(cuda):
+    q = torch.randn(1, 1024, 2, 32, device=cuda)
+    cos, sin = rotary_tables(32, 1024, device=cuda)
+    before = dict(fa.flash_attention_cuda.launches_by_route)
+    fa.flash_attention_cuda(q, q, q)
+    after = fa.flash_attention_cuda.launches_by_route
+    assert (after[fa.CUDA_CORE], after[fa.TENSOR_CORE]) == (before[fa.CUDA_CORE] + 1,
+                                                            before[fa.TENSOR_CORE])
+    b2 = fa.flash_attention_rotary_cuda.launches
+    qb = q.to(torch.bfloat16)
+    fa.flash_attention_rotary_cuda(qb, qb, qb, cos, sin)
+    assert fa.flash_attention_rotary_cuda.launches == b2 + 1
+    assert fa.flash_attention_cuda.launches_by_route[fa.TENSOR_CORE] == before[fa.TENSOR_CORE]
+
+
+@pytest.mark.parametrize("M,E,N", [(2050, 1536, 6144), (77, 256, 192), (130, 80, 320),
+                                   (1, 16, 64)])
+def test_tensor_core_swiglu_matches_plain_version(cuda, M, E, N):
+    """Ragged M, N % 128 != 0 and an E that is not a multiple of the 64-wide slice."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(M, E, device=cuda, generator=g).to(torch.bfloat16)
+    w = (torch.randn(2 * N, E, device=cuda, generator=g) / E ** 0.5).to(torch.bfloat16)
+    b = torch.randn(2 * N, device=cuda, generator=g) * 0.1
+    before = dict(swiglu.swiglu_cuda.launches_by_route)
+    got = swiglu.swiglu_cuda(x, w, b)
+    torch.cuda.synchronize()
+    assert swiglu.swiglu_cuda.launches_by_route == {
+        swiglu.TENSOR_CORE: before[swiglu.TENSOR_CORE] + 1,
+        swiglu.CUDA_CORE: before[swiglu.CUDA_CORE]}
+    torch.testing.assert_close(got.float(), swiglu.swiglu_reference(x, w, b).float(),
+                               rtol=3e-2, atol=3e-2)
+    assert torch.equal(got, swiglu.swiglu_cuda(x, w, b))  # deterministic
+
+
+def test_float32_swiglu_stays_on_cuda_cores(cuda):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(512, 128, device=cuda, generator=g)
+    w = torch.randn(256, 128, device=cuda, generator=g) / 128 ** 0.5
+    b = torch.randn(256, device=cuda, generator=g) * 0.1
+    before = dict(swiglu.swiglu_cuda.launches_by_route)
+    got = swiglu.swiglu_cuda(x, w, b)
+    assert swiglu.swiglu_cuda.launches_by_route[swiglu.CUDA_CORE] == before[swiglu.CUDA_CORE] + 1
+    torch.testing.assert_close(got, swiglu.swiglu_reference(x, w, b), rtol=1e-5, atol=1e-5)

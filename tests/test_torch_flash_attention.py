@@ -68,6 +68,23 @@ def test_reference_masks_keys_beyond_kv_len():
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("S,H,Hkv,D,tile", [(1025, 4, 2, 64, 128), (777, 2, 1, 128, 64),
+                                            (777, 4, 2, 8, 128)])
+def test_bf16_tolerance_passes_pallas_and_rejects_unmasked_tile_padding(S, H, Hkv, D, tile):
+    """fa.BF16_TOL, the bound the card holds the bf16 kernels to, takes the
+    Pallas kernel's bf16 output, and rejects what a tensor-core kernel
+    without its kv_len mask would give: the keys that TMA zero-fills up to a
+    whole tile of ``tile`` keys scoring 0 in the softmax."""
+    (jq, jk, jv), (q, k, v) = _qkv(1, S, H, Hkv, D, "bfloat16", seed=7)
+    want = fa.attention_reference(q, k, v).float()
+    pallas = np.asarray(_blocked_attention(jq, jk, jv, interpret=True), np.float32)
+    torch.testing.assert_close(torch.from_numpy(pallas), want, **fa.BF16_TOL)
+    k0, v0 = (torch.cat([x, x.new_zeros(1, -S % tile, Hkv, D)], dim=1) for x in (k, v))
+    with pytest.raises(AssertionError, match="Tensor-likes are not close"):
+        torch.testing.assert_close(fa.attention_reference(q, k0, v0).float(), want,
+                                   **fa.BF16_TOL)
+
+
 def test_dispatcher_takes_kernel_branch_at_1024():
     """S = 1024 self-attention is kernel-eligible; on a CPU tensor that
     branch is the plain version, which matches XLA attention."""
@@ -142,3 +159,29 @@ def test_dispatcher_rotary_routing(in_kernel, monkeypatch):
         assert len(calls) == (1 if in_kernel == "1" and S >= 1024 else 0)
         want = j_fused(jq, jk, jv, rotary=(jcos, jsin))
         np.testing.assert_allclose(to_np(got), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,rotary,route", [
+    (torch.bfloat16, False, fa.TENSOR_CORE),
+    (torch.float32, False, fa.CUDA_CORE),
+    (torch.bfloat16, True, fa.CUDA_CORE),
+    (torch.float32, True, fa.CUDA_CORE),
+])
+def test_attention_route(dtype, rotary, route):
+    """bfloat16 B1 goes to the tensor-core kernel; float32 B1 and B2 in both
+    dtypes to the CUDA-core kernel."""
+    assert fa.attention_route(dtype, rotary=rotary) == route
+
+
+def test_attention_route_rejects_other_dtypes():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.attention_route(torch.float16)
+
+
+def test_cuda_wrapper_rejects_cpu_tensors_without_counting():
+    (_, _, _), (q, k, v) = _qkv(1, 1024, 2, 2, 16, "bfloat16")
+    before = (fa.flash_attention_cuda.launches, dict(fa.flash_attention_cuda.launches_by_route))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_cuda(q, k, v)
+    assert (fa.flash_attention_cuda.launches,
+            fa.flash_attention_cuda.launches_by_route) == before

@@ -82,3 +82,15 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         swiglu.swiglu_cuda(tx, tw, tb)
     assert swiglu.swiglu_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, swiglu.TENSOR_CORE),
+                                         (torch.float32, swiglu.CUDA_CORE)])
+def test_swiglu_route(dtype, route):
+    """bfloat16 goes to the tensor-core kernel, float32 to the CUDA-core one."""
+    assert swiglu.swiglu_route(dtype) == route
+
+
+def test_swiglu_route_rejects_other_dtypes():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        swiglu.swiglu_route(torch.float16)

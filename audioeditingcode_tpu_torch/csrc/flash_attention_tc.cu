@@ -2,9 +2,10 @@
 // sm_90a, plain C interface.
 //
 // Replaces audioeditingcode_tpu/ops/flash_attention.py::_attn_kernel (body
-// _attn_core) for bfloat16 inputs; float32 and the rotary variant stay on
-// the CUDA-core kernel of flash_attention.cu. It computes the same function
-// with the same roundings: o = softmax(q k^T / sqrt(D)) v per (batch, head),
+// _attn_core) and, as its ROT variant, _attn_rotary_kernel (with _rotate),
+// for bfloat16 inputs; float32 stays on the CUDA-core kernel of
+// flash_attention.cu. It computes the same function with the same
+// roundings: o = softmax(q k^T / sqrt(D)) v per (batch, head),
 //   - q * scale computed in f32 and rounded to bf16, once per block,
 //   - scores, the online softmax and the output accumulator in f32,
 //   - p rounded to bf16 before the PV product,
@@ -38,6 +39,25 @@
 // stored. No atomics and a fixed order of every sum: the result is
 // deterministic.
 //
+// Rotary variant (ROT, the Stable Audio DiT's attn1 behind
+// AEC_ROTARY_IN_KERNEL=1): a rotate-half rotary embedding is applied in f32
+// to the first `rot` features of q and of k, from (S, rot) f32 cos/sin
+// tables indexed by position, with the products and their sum rounded
+// separately (no FMA contraction, as the plain PyTorch version computes
+// them), and the result is rounded to bf16 before anything else touches it,
+// as _rotate does. Each consumer thread rotates its q features as it loads
+// them (the partner feature d +- rot/2 read from global memory), before the
+// q * scale rounding. Each K tile is rotated in shared memory after TMA has
+// landed it and before any QK wgmma reads it: the producer warpgroup's
+// warps 1-3 wait on the stage's "full" barrier, each thread takes whole
+// (d, d + rot/2) pairs, or 16-byte chunks of 8 pairs where rot % 16 == 0,
+// of the tile's real keys (rows past kv_len are TMA's zero fill, masked
+// anyway, and would index the tables past their end),
+// reads and writes them through the swizzle TMA wrote, fences its writes
+// for the async proxy and arrives on the stage's "rotated" barrier, which
+// the consumers wait on besides "full". The rotated q and k never reach
+// device memory. Square self-attention only; rot even and <= D.
+//
 // What bounds it on an H100. At the UNet's (2, 4096, 8, 16) the function is
 // 17.2 GFLOP of bf16 products (0.017 ms at 989 TFLOP/s) and 268 M
 // exponentials (0.064 ms on the SFU): the exponentials bound it. At the
@@ -45,7 +65,12 @@
 // tensor-core version keeps the QK and PV products of one warpgroup in
 // series with its softmax; overlapping them inside a warpgroup (issuing
 // the next tile's QK before this tile's softmax) and register rebalancing
-// with setmaxnreg are left for later.
+// with setmaxnreg are left for later. The ROT variant adds no product,
+// only instructions: its K-tile rotation (BN x rot/2 pairs a tile) runs on
+// the producer's three otherwise idle warps while the consumers work on
+// the tiles before it, which hides it only while it needs fewer instruction
+// slots than a consumer tile (hence the 16-byte chunks); the q rotation
+// runs once per block, before the first tile.
 //
 // Launch errors are returned as cudaGetLastError() to the caller.
 
@@ -61,6 +86,7 @@ constexpr int CONSUMERS = 2;                    // warpgroups of 64 query rows
 constexpr int BM = 64 * CONSUMERS;              // query rows per block
 constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
 constexpr int STAGES = 3;
+constexpr int ROTATORS = 96;  // the producer warpgroup's warps 1-3 (ROT)
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DP>
@@ -81,28 +107,158 @@ struct Strides {
   int64_t b, s, h;
 };
 
-// q row `row` (zero beyond Sq), features d, d + 1 (zero beyond D), times
-// scale in f32, rounded to bf16 and packed
+// Rotary tables of the ROT variant: (S, rot) f32, row = position; `vec`
+// when K tiles can be rotated in 16-byte chunks (rot % 16 == 0, tables
+// 16-byte aligned).
+struct Rotary {
+  const float* cos;
+  const float* sin;
+  int rot;
+  bool vec;
+};
+
+// x * c + rh * s in f32, each product and the sum rounded on its own (the
+// caller rounds the result to bf16)
+__device__ __forceinline__ float rotary(float x, float c, float rh, float s) {
+  return __fadd_rn(__fmul_rn(x, c), __fmul_rn(rh, s));
+}
+
+// two packed bf16 (the first in the low half) as floats
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// rotate-half rotary of feature d < rot of the q row p at position pos, with
+// rh = -x[d + rot/2] below rot/2 and x[d - rot/2] above
+__device__ __forceinline__ float rotate_q(const __nv_bfloat16* p, int d, float x,
+                                          const Rotary& rt, int pos) {
+  const int half = rt.rot >> 1;
+  const float partner = __bfloat162float(p[d < half ? d + half : d - half]);
+  const int64_t t = (int64_t)pos * rt.rot + d;
+  const float rh = d < half ? -partner : partner;
+  const float r = rotary(x, __ldg(rt.cos + t), rh, __ldg(rt.sin + t));
+  return __bfloat162float(__float2bfloat16(r));
+}
+
+// q row `row` (zero beyond Sq), features d, d + 1 (zero beyond D), rotated
+// with ROT, times scale in f32, rounded to bf16 and packed
+template <bool ROT>
 __device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* qp, int row, int Sq,
-                                           int d, int D, const Strides& qs, float scale) {
+                                           int d, int D, const Strides& qs, float scale,
+                                           const Rotary& rt) {
   if (row >= Sq || d >= D) return 0u;
-  const __nv_bfloat162 v =
-      *reinterpret_cast<const __nv_bfloat162*>(qp + (int64_t)row * qs.s + d);
-  const float2 f = __bfloat1622float2(v);
+  const __nv_bfloat16* p = qp + (int64_t)row * qs.s;
+  float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + d));
+  if (ROT && d < rt.rot) {  // d and rot are even, so d + 1 < rot as well
+    f.x = rotate_q(p, d, f.x, rt, row);
+    f.y = rotate_q(p, d + 1, f.y, rt, row);
+  }
   return pack_bf16(f.x * scale, f.y * scale);
 }
 
+// Byte offset of feature d of key row `row` in a K tile: column block
+// d / (W / 2), then the swizzle TMA wrote it with, which XORs the 16-byte
+// chunk index (offset bits 4 and up) with offset bits 7 and up. Column
+// blocks are 1024-byte aligned, so offset bits and address bits agree.
 template <int DP>
+__device__ __forceinline__ uint32_t tile_offset(int row, int d) {
+  using C = Cfg<DP>;
+  const uint32_t o = row * C::W + (d % (C::W / 2)) * 2;
+  const uint32_t swizzled = o ^ (((o >> 7) & (C::W / 16 - 1)) << 4);
+  return (d / (C::W / 2)) * C::SUB + swizzled;
+}
+
+// Rotate the first `rows` keys of the K tile at kt (positions n0...) in
+// place, one (d, d + rot/2) pair at a time: thread `tid` of ROTATORS takes
+// whole pairs, so no pair is read by one thread and written by another.
+template <int DP>
+__device__ __forceinline__ void rotate_k_tile(uint8_t* kt, int n0, int rows,
+                                              const Rotary& rt, int tid) {
+  const int half = rt.rot >> 1;
+  for (int e = tid; e < rows * half; e += ROTATORS) {
+    const int row = e / half;
+    const int d = e - row * half;
+    auto* lo = reinterpret_cast<__nv_bfloat16*>(kt + tile_offset<DP>(row, d));
+    auto* hi = reinterpret_cast<__nv_bfloat16*>(kt + tile_offset<DP>(row, d + half));
+    const float x0 = __bfloat162float(*lo);
+    const float x1 = __bfloat162float(*hi);
+    const int64_t t = (int64_t)(n0 + row) * rt.rot + d;
+    *lo = __float2bfloat16(rotary(x0, __ldg(rt.cos + t), -x1, __ldg(rt.sin + t)));
+    *hi = __float2bfloat16(
+        rotary(x1, __ldg(rt.cos + t + half), x0, __ldg(rt.sin + t + half)));
+  }
+}
+
+// 8 consecutive floats from 16-byte aligned global memory
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  f[0] = a.x;
+  f[1] = a.y;
+  f[2] = a.z;
+  f[3] = a.w;
+  f[4] = b.x;
+  f[5] = b.y;
+  f[6] = b.z;
+  f[7] = b.w;
+}
+
+// The same rotation a 16-byte chunk at a time (rot a multiple of 16, tables
+// 16-byte aligned): thread `tid` takes the 8 features d0... of a key below
+// rot/2 with their partner chunk d0 + rot/2. TMA's swizzle moves whole
+// 16-byte chunks, so each chunk is one shared-memory access; this takes
+// about a quarter of the per-pair loop's instructions, which the three
+// rotating warps would otherwise spend longer on than the consumers spend
+// on a tile.
+template <int DP>
+__device__ __forceinline__ void rotate_k_tile_vec(uint8_t* kt, int n0, int rows,
+                                                  const Rotary& rt, int tid) {
+  const int half = rt.rot >> 1;
+  const int chunks = half / 8;
+  for (int e = tid; e < rows * chunks; e += ROTATORS) {
+    const int row = e / chunks;
+    const int d0 = (e - row * chunks) * 8;
+    uint4* lo = reinterpret_cast<uint4*>(kt + tile_offset<DP>(row, d0));
+    uint4* hi = reinterpret_cast<uint4*>(kt + tile_offset<DP>(row, d0 + half));
+    const uint4 xl = *lo, xh = *hi;
+    const int64_t t = (int64_t)(n0 + row) * rt.rot + d0;
+    float c0[8], s0[8], c1[8], s1[8];
+    load8(rt.cos + t, c0);
+    load8(rt.sin + t, s0);
+    load8(rt.cos + t + half, c1);
+    load8(rt.sin + t + half, s1);
+    const uint32_t* xl2 = reinterpret_cast<const uint32_t*>(&xl);
+    const uint32_t* xh2 = reinterpret_cast<const uint32_t*>(&xh);
+    uint4 ol, oh;
+    uint32_t* ol2 = reinterpret_cast<uint32_t*>(&ol);
+    uint32_t* oh2 = reinterpret_cast<uint32_t*>(&oh);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = unpack_bf16(xl2[i]);
+      const float2 b = unpack_bf16(xh2[i]);
+      const int j = 2 * i;
+      ol2[i] = pack_bf16(rotary(a.x, c0[j], -b.x, s0[j]),
+                         rotary(a.y, c0[j + 1], -b.y, s0[j + 1]));
+      oh2[i] = pack_bf16(rotary(b.x, c1[j], a.x, s1[j]),
+                         rotary(b.y, c1[j + 1], a.y, s1[j + 1]));
+    }
+    *lo = ol;
+    *hi = oh;
+  }
+}
+
+template <int DP, bool ROT>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap,
                const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
                int H, int rep, int Sq, int kv_len, int D, float scale, Strides qs,
-               Strides os) {
+               Strides os, Rotary rt) {
   using C = Cfg<DP>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES];
   __shared__ __align__(8) uint64_t empty[STAGES];
+  __shared__ __align__(8) uint64_t rotated[STAGES];  // ROT: K tile rotated
   uint8_t* smem = align1024(smem_raw);
 
   const int bh = blockIdx.x;
@@ -116,14 +272,32 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMERS * 128);
+      if (ROT) mbar_init(&rotated[s], ROTATORS);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
   if (wg == CONSUMERS) {
-    // producer: one thread keeps the ring full
-    if (threadIdx.x == CONSUMERS * 128) {
+    // producer: one thread keeps the ring full; with ROT, warps 1-3 rotate
+    // each K tile after it lands
+    if (ROT && threadIdx.x >= CONSUMERS * 128 + 32) {
+      const int tid = threadIdx.x - CONSUMERS * 128 - 32;
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(&full[s], (t / STAGES) & 1);
+        const int n0 = t * C::BN;
+        uint8_t* kt = smem + s * 2 * C::TILE;
+        const int rows = min(C::BN, kv_len - n0);
+        if (rt.vec) {
+          rotate_k_tile_vec<DP>(kt, n0, rows, rt, tid);
+        } else {
+          rotate_k_tile<DP>(kt, n0, rows, rt, tid);
+        }
+        fence_proxy_async();  // the consumers' wgmma reads the rotated tile
+        mbar_arrive(&rotated[s]);
+      }
+    } else if (threadIdx.x == CONSUMERS * 128) {
       const int hk = h / rep;
       for (int t = 0; t < tiles; ++t) {
         const int s = t % STAGES;
@@ -153,10 +327,10 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
       const __nv_bfloat16* qp = q + b * qs.b + h * qs.h;
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
-        qf[kk][0] = q_pair(qp, r, Sq, 16 * kk + c2, D, qs, scale);
-        qf[kk][1] = q_pair(qp, r + 8, Sq, 16 * kk + c2, D, qs, scale);
-        qf[kk][2] = q_pair(qp, r, Sq, 16 * kk + 8 + c2, D, qs, scale);
-        qf[kk][3] = q_pair(qp, r + 8, Sq, 16 * kk + 8 + c2, D, qs, scale);
+        qf[kk][0] = q_pair<ROT>(qp, r, Sq, 16 * kk + c2, D, qs, scale, rt);
+        qf[kk][1] = q_pair<ROT>(qp, r + 8, Sq, 16 * kk + c2, D, qs, scale, rt);
+        qf[kk][2] = q_pair<ROT>(qp, r, Sq, 16 * kk + 8 + c2, D, qs, scale, rt);
+        qf[kk][3] = q_pair<ROT>(qp, r + 8, Sq, 16 * kk + 8 + c2, D, qs, scale, rt);
       }
     }
 
@@ -169,6 +343,7 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
     for (int t = 0; t < tiles; ++t) {
       const int s = t % STAGES;
       mbar_wait(&full[s], (t / STAGES) & 1);
+      if (ROT) mbar_wait(&rotated[s], (t / STAGES) & 1);
       const uint8_t* kt = smem + s * 2 * C::TILE;
       const uint8_t* vt = kt + C::TILE;
 
@@ -296,23 +471,55 @@ int make_maps(CUtensorMap* kmap, CUtensorMap* vmap, const void* k, const void* v
   return rc;
 }
 
-template <int DP>
+template <int DP, bool ROT>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int H_kv, int Sq, int kv_len, int D, float scale, const Strides& qs,
-           const Strides& ks, const Strides& vs, const Strides& os,
+           const Strides& ks, const Strides& vs, const Strides& os, const Rotary& rt,
            cudaStream_t stream) {
   using C = Cfg<DP>;
   CUtensorMap kmap, vmap;
   const int rc = make_maps<DP>(&kmap, &vmap, k, v, B, H_kv, kv_len, D, ks, vs);
   if (rc != 0) return rc < 0 ? rc : -rc;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      attn_tc_kernel<DP, ROT>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (Sq + BM - 1) / BM);
-  attn_tc_kernel<DP><<<grid, THREADS, C::SMEM, stream>>>(
+  attn_tc_kernel<DP, ROT><<<grid, THREADS, C::SMEM, stream>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q),
-      static_cast<__nv_bfloat16*>(o), H, H / H_kv, Sq, kv_len, D, scale, qs, os);
+      static_cast<__nv_bfloat16*>(o), H, H / H_kv, Sq, kv_len, D, scale, qs, os, rt);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool ROT>
+int run(const void* q, const void* k, const void* v, void* o, int B, int H, int H_kv,
+        int Sq, int kv_len, int D, float scale, const Strides& qs, const Strides& ks,
+        const Strides& vs, const Strides& os, const Rotary& rt, void* stream) {
+  if (B < 1 || H < 1 || H_kv < 1 || H % H_kv != 0 || Sq < 1 || kv_len < 1 ||
+      D < 8 || D > 128 || D % 8 != 0 || (Sq + BM - 1) / BM > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  const int64_t strides =
+      qs.b | qs.s | qs.h | ks.b | ks.s | ks.h | vs.b | vs.s | vs.h | os.b | os.s | os.h;
+  if (bases % 16 != 0 || strides % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 16) {
+    return launch<16, ROT>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs,
+                           os, rt, st);
+  }
+  if (D <= 32) {
+    return launch<32, ROT>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs,
+                           os, rt, st);
+  }
+  if (D <= 64) {
+    return launch<64, ROT>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs,
+                           os, rt, st);
+  }
+  return launch<128, ROT>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs,
+                          os, rt, st);
 }
 
 }  // namespace
@@ -329,28 +536,31 @@ extern "C" int aec_flash_attention_tc_fwd(
     long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     void* stream) {
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
-      os{o_sb, o_ss, o_sh};
-  if (B < 1 || H < 1 || H_kv < 1 || H % H_kv != 0 || Sq < 1 || kv_len < 1 ||
-      D < 8 || D > 128 || D % 8 != 0 || (Sq + BM - 1) / BM > 65535) {
+  return run<false>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale,
+                    Strides{q_sb, q_ss, q_sh}, Strides{k_sb, k_ss, k_sh},
+                    Strides{v_sb, v_ss, v_sh}, Strides{o_sb, o_ss, o_sh},
+                    Rotary{nullptr, nullptr, 0, false}, stream);
+}
+
+// The rotary variant: as aec_flash_attention_tc_fwd, square (Sq equal to
+// kv_len), with cos/sin (>= Sq, rot) contiguous f32 tables and rot even,
+// 2 <= rot <= D.
+extern "C" int aec_flash_attention_rotary_tc_fwd(
+    const void* q, const void* k, const void* v, void* o, const void* cos,
+    const void* sin, int rot, int B, int H, int H_kv, int Sq, int kv_len, int D,
+    float scale, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh, void* stream) {
+  if (rot < 2 || rot % 2 != 0 || rot > D || cos == nullptr || sin == nullptr ||
+      Sq != kv_len) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  const long long strides = q_sb | q_ss | q_sh | k_sb | k_ss | k_sh | v_sb | v_ss |
-                            v_sh | o_sb | o_ss | o_sh;
-  if (bases % 16 != 0 || strides % 8 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 16) {
-    return launch<16>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs, os, st);
-  }
-  if (D <= 32) {
-    return launch<32>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs, os, st);
-  }
-  if (D <= 64) {
-    return launch<64>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs, os, st);
-  }
-  return launch<128>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs, os, st);
+  const uintptr_t tables =
+      reinterpret_cast<uintptr_t>(cos) | reinterpret_cast<uintptr_t>(sin);
+  return run<true>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale,
+                   Strides{q_sb, q_ss, q_sh}, Strides{k_sb, k_ss, k_sh},
+                   Strides{v_sb, v_ss, v_sh}, Strides{o_sb, o_ss, o_sh},
+                   Rotary{static_cast<const float*>(cos), static_cast<const float*>(sin),
+                          rot, rot % 16 == 0 && tables % 16 == 0},
+                   stream);
 }

@@ -118,6 +118,13 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo_bytes,
   return d;
 }
 
+// order this thread's earlier shared-memory writes (generic proxy) before
+// the async-proxy reads and writes (wgmma, TMA) of threads that synchronise
+// with it afterwards through an mbarrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }

@@ -12,10 +12,13 @@ the JAX package's: q is (B, Sq, H, D), k and v are (B, Skv, H_kv, D).
   reference computes). Each launch adds one to
   ``flash_attention_cuda.launches`` and to its route's entry of
   ``flash_attention_cuda.launches_by_route``.
-- ``flash_attention_rotary_cuda`` (B2): the CUDA-core kernel with a partial
-  rotate-half rotary applied to q and k inside it, in both dtypes, which
-  replaces the Pallas ``_attn_rotary_kernel``. Its launches count in
-  ``flash_attention_rotary_cuda.launches``.
+- ``flash_attention_rotary_cuda`` (B2): B1 with a partial rotate-half
+  rotary applied to q and k inside the kernel, which replaces the Pallas
+  ``_attn_rotary_kernel``. The routes are B1's: bfloat16 runs the ROT
+  variant of the tensor-core kernel, which rotates each K tile in shared
+  memory after TMA lands it; float32 the ROT variant of the CUDA-core
+  kernel. Its launches count in ``flash_attention_rotary_cuda.launches``
+  and ``.launches_by_route``.
 - ``attention_reference`` and ``rotary_attention_reference``: the kernels'
   plain PyTorch versions, with the same roundings (the rotated q/k to the
   input dtype, q*scale back to the input dtype, p to v's dtype before PV).
@@ -40,7 +43,7 @@ import torch
 _MIN_SEQ_FOR_KERNEL = 1024
 _MAX_KERNEL_HEAD_DIM = 128
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _FNS = {}
 
 TENSOR_CORE = "tensor_core"
@@ -55,36 +58,34 @@ BF16_TOL = {"atol": 4e-3, "rtol": 2.0 ** -6}
 
 
 def attention_route(dtype: torch.dtype, rotary: bool = False) -> str:
-    """The kernel a CUDA launch takes: bfloat16 B1 runs on the tensor cores;
-    float32 B1 and B2 in both dtypes run on the CUDA cores."""
-    if dtype not in _DTYPE_CODES:
+    """The kernel a CUDA launch of B1, or of B2 with ``rotary``, takes:
+    bfloat16 runs on the tensor cores, float32 on the CUDA cores."""
+    if dtype not in _DTYPES:
         raise ValueError(f"the attention kernels take float32 or bfloat16, got {dtype}")
-    return TENSOR_CORE if dtype == torch.bfloat16 and not rotary else CUDA_CORE
+    return TENSOR_CORE if dtype == torch.bfloat16 else CUDA_CORE
 
 
-def _kernel_fn(route: str = CUDA_CORE, rotary: bool = False):
+def _kernel_fn(route: str, rotary: bool = False):
     """The C entry point of B1 on ``route``, or of B2 with ``rotary``
     (built at first use)."""
     fn = _FNS.get((route, rotary))
     if fn is None:
         from .build import load
 
-        head = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-        if route == TENSOR_CORE:
-            fn = load("flash_attention_tc").aec_flash_attention_tc_fwd
-        elif rotary:
-            fn = load("flash_attention").aec_flash_attention_rotary_fwd
-            head = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-        else:
-            fn = load("flash_attention").aec_flash_attention_fwd
+        tc = "_tc" if route == TENSOR_CORE else ""
+        fn = getattr(load("flash_attention" + tc),
+                     "aec_flash_attention" + ("_rotary" if rotary else "") + tc + "_fwd")
+        # q, k, v, o (+ cos, sin, rot), B, H, H_kv, Sq, kv_len, D
+        head = ([ctypes.c_void_p] * 6 + [ctypes.c_int] if rotary else [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
-        fn.argtypes = head + [ctypes.c_float] + [ctypes.c_longlong] * 12 + [ctypes.c_void_p]
+        fn.argtypes = (head + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_longlong] * 12
+                       + [ctypes.c_void_p])
         _FNS[(route, rotary)] = fn
     return fn
 
 
 def _check_tma_args(*tensors) -> None:
-    """What the tensor-core kernel's TMA loads take: 16-byte aligned bases
+    """What the tensor-core kernels' TMA loads take: 16-byte aligned bases
     and strides that are multiples of 16 bytes (8 bfloat16)."""
     for x in tensors:
         if x.data_ptr() % 16:
@@ -100,7 +101,7 @@ def _check_kernel_args(q, k, v):
         raise ValueError("flash_attention_cuda takes CUDA tensors")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
-    if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
+    if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"flash_attention_cuda takes float32 or bfloat16 "
                          f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -168,30 +169,37 @@ def _check_rotary_tables(q, cos, sin) -> Tuple[torch.Tensor, torch.Tensor]:
 def flash_attention_rotary_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Launch the rotary kernel B2 on (B, S, H, D) x (B, S, H_kv, D) square
-    self-attention, with (>= S, rot) cos/sin tables. Raises on what it does
-    not take; never falls back."""
+    self-attention, with (>= S, rot) cos/sin tables, on the route of
+    ``attention_route(dtype, rotary=True)``. Raises on what it does not
+    take; never falls back."""
     _check_kernel_args(q, k, v)
     if q.shape[1] != k.shape[1]:
         raise ValueError(f"in-kernel rotary takes square self-attention, got "
                          f"{q.shape[1]} queries and {k.shape[1]} keys")
     cos, sin = _check_rotary_tables(q, cos, sin)
     B, S, H, D = q.shape
+    route = attention_route(q.dtype, rotary=True)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if route == TENSOR_CORE:
+        _check_tma_args(q, k, v, o)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _kernel_fn(rotary=True)(
+    rc = _kernel_fn(route, rotary=True)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), cos.shape[-1],
-        _DTYPE_CODES[q.dtype], B, H, k.shape[2], S, S, D, 1.0 / (D ** 0.5),
+        B, H, k.shape[2], S, S, D, 1.0 / (D ** 0.5),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         stream,
     )
     if rc != 0:
-        raise RuntimeError(f"flash_attention_rotary kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_attention_rotary kernel ({route}) launch failed: "
+                           f"CUDA error {rc}")
     flash_attention_rotary_cuda.launches += 1
+    flash_attention_rotary_cuda.launches_by_route[route] += 1
     return o
 
 
 flash_attention_rotary_cuda.launches = 0
+flash_attention_rotary_cuda.launches_by_route = {TENSOR_CORE: 0, CUDA_CORE: 0}
 
 
 def _repeat_kv(x: torch.Tensor, heads: int) -> torch.Tensor:

@@ -14,9 +14,11 @@ prints no result):
    paths' shapes, in float32 and bfloat16, with its time, the plain
    version's time, a PyTorch library yardstick's time and the card's bound:
    B1 in bfloat16 on the tensor cores (flash_attention_tc) and in float32
-   on the CUDA cores (flash_attention), B2 flash_attention_rotary (CUDA
-   cores, both dtypes), B3 in bfloat16 on the tensor cores (swiglu_tc) and
-   in float32 on the CUDA cores (swiglu).
+   on the CUDA cores (flash_attention), B2 likewise
+   (flash_attention_rotary_tc, flash_attention_rotary; beside SDPA it is
+   also timed against the default dispatcher's host rotary + B1), B3 in
+   bfloat16 on the tensor cores (swiglu_tc) and in float32 on the CUDA
+   cores (swiglu).
 2. one full-width AudioLDM-s UNet forward (random seeded weights, batch 2
    on the (8, 256, 16) latent of a 10 s clip) on the card, through the
    kernel, against the same forward on the CPU, through the plain version.
@@ -33,8 +35,9 @@ prints no result):
    synthetic 10 s, 44.1 kHz stereo clip at 100 inversion + 50 edit steps,
    in float32 as an edit, with ``--selfcheck`` (>= 40 dB), and as an edit
    with AEC_ROTARY_IN_KERNEL=1, and in bfloat16 as an edit and with
-   ``--selfcheck`` (>= 40 dB); B1 (B2 in the rotary run) and B3 must each
-   launch 24 times per DiT forward, on the tensor-core routes in bfloat16.
+   ``--selfcheck`` (>= 40 dB), each also with AEC_ROTARY_IN_KERNEL=1; B1
+   (B2 in the rotary runs) and B3 must each launch 24 times per DiT
+   forward, on the tensor-core routes in bfloat16.
 Every kernel launch count is set to 0 just before each main-path run and
 read just after it.
 
@@ -43,8 +46,9 @@ one before it the kernels' JSON record, and the last line
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
-CFG denoiser step of each main path, in float32 and in bfloat16 (device
-time by kernel class, the device's idle share) before the final lines.
+CFG denoiser step of each main path, in float32 and in bfloat16, and of the
+bfloat16 Stable Audio step with AEC_ROTARY_IN_KERNEL=1 (device time by
+kernel class, the device's idle share) before the final lines.
 """
 
 from __future__ import annotations
@@ -98,9 +102,15 @@ ATTN_CASES = [
 # (B1 on the tensor cores, B2) is held to flash_attention.BF16_TOL: two bf16
 # ulps, 4e-3 near zero, which a kernel that dropped its kv_len mask fails
 F32_TOL = {"atol": 1e-5, "rtol": 1e-5}
-# the Stable Audio DiT's attn1 with the rotary inside the kernel (B2)
-ROTARY_CASES = [((2, 1025, 24, 12, 64), 32, torch.float32),
-                ((2, 1025, 24, 12, 64), 32, torch.bfloat16)]
+# ((B, S, H, H_kv, D), rot, dtype, strided heads): the Stable Audio DiT's
+# attn1 with the rotary inside the kernel (B2) first, then a ragged
+# sequence at the widest head dim, and the DiT shape with q, k and v as
+# transposes of (B, H, S, D)
+ROTARY_CASES = [((2, 1025, 24, 12, 64), 32, torch.float32, False),
+                ((2, 1025, 24, 12, 64), 32, torch.bfloat16, False),
+                ((1, 777, 4, 2, 128), 64, torch.float32, False),
+                ((1, 777, 4, 2, 128), 64, torch.bfloat16, False),
+                ((2, 1025, 24, 12, 64), 32, torch.bfloat16, True)]
 # (M, E, N) of the DiT feed-forward (B3): the CFG batch of 2 x 1025 tokens,
 # and 1025 rows (an empty source prompt runs the unconditional stream alone)
 SWIGLU_CASES = [((2050, 1536, 6144), torch.float32), ((1025, 1536, 6144), torch.float32),
@@ -198,20 +208,25 @@ def _launch_on_route(wrapper, call):
 
 
 def phase1_rotary(fa):
-    """B2 against its plain version (host rotary, then B1's plain version)."""
+    """B2 against its plain version (host rotary, then B1's plain version),
+    timed beside two yardsticks: host rotary + SDPA, and host rotary + B1,
+    the default dispatcher's path (AEC_ROTARY_IN_KERNEL unset)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from audioeditingcode_tpu_torch.models.dit1d import rotary_tables
 
     cases = []
     g = torch.Generator(device="cuda").manual_seed(4)
-    for (B, S, H, Hkv, D), rot, dtype in ROTARY_CASES:
-        q = torch.randn(B, S, H, D, device="cuda", generator=g).to(dtype)
-        k = torch.randn(B, S, Hkv, D, device="cuda", generator=g).to(dtype)
-        v = torch.randn(B, S, Hkv, D, device="cuda", generator=g).to(dtype)
+    for (B, S, H, Hkv, D), rot, dtype, strided in ROTARY_CASES:
+        q, k, v = (torch.randn(B, h, S, D, device="cuda", generator=g).to(dtype).transpose(1, 2)
+                   if strided else
+                   torch.randn(B, S, h, D, device="cuda", generator=g).to(dtype)
+                   for h in (H, Hkv, Hkv))
         cos, sin = rotary_tables(rot, S, device="cuda")
-        out = fa.flash_attention_rotary_cuda(q, k, v, cos, sin)
-        torch.cuda.synchronize()
+        out, route = _launch_on_route(fa.flash_attention_rotary_cuda,
+                                      lambda: fa.flash_attention_rotary_cuda(q, k, v, cos, sin))
+        if route != fa.attention_route(dtype, rotary=True):
+            raise AssertionError(f"flash_attention_rotary {dtype} took the {route} route")
         ref = fa.rotary_attention_reference(q, k, v, cos, sin)
         tol = fa.BF16_TOL if dtype == torch.bfloat16 else F32_TOL
         errors = _check(out, ref, tol)
@@ -222,14 +237,26 @@ def phase1_rotary(fa):
             return sdpa(fa._host_rotary(q, cos, sin).transpose(1, 2),
                         fa._host_rotary(kr, cos, sin).transpose(1, 2), vt)
 
-        cases.append(_record_case(
-            "flash_attention_rotary", (B, S, H, D), dtype, errors, tol,
+        def dispatcher():
+            return fa.flash_attention_cuda(fa._host_rotary(q, cos, sin),
+                                           fa._host_rotary(k, cos, sin), v)
+
+        kname = "flash_attention_rotary" + ("_tc" if route == fa.TENSOR_CORE else "")
+        case = _record_case(
+            kname, (B, S, H, D), dtype, errors, tol,
             cuda_ms(lambda: fa.flash_attention_rotary_cuda(q, k, v, cos, sin), reps=20),
             cuda_ms(lambda: fa.rotary_attention_reference(q, k, v, cos, sin), reps=5, warmup=1),
             cuda_ms(library, reps=20),
             "host rotary of q and k + scaled_dot_product_attention (three PyTorch calls)",
             attention_bound_ms(B, S, H, Hkv, D, dtype, rot))
-            | {"kv_heads": Hkv, "rot": rot, "route": fa.attention_route(dtype, rotary=True)})
+        case |= {"kv_heads": Hkv, "rot": rot, "strided_heads": strided, "route": route,
+                 "host_rotary_b1_ms": cuda_ms(dispatcher, reps=20),
+                 "bit_equal_to_host_rotary_b1": torch.equal(out, dispatcher())}
+        log(f"[phase1] {kname} {case['shape']} {case['dtype']} rot {rot}"
+            f"{' strided heads' if strided else ''}: host rotary + B1 (the default "
+            f"dispatcher) {case['host_rotary_b1_ms']:.4f} ms, bit-equal to it: "
+            f"{case['bit_equal_to_host_rotary_b1']}")
+        cases.append(case)
         del q, k, v, out, ref, kr, vr, vt
         torch.cuda.empty_cache()
     return cases
@@ -331,31 +358,36 @@ def phase2_unet_parity(fa):
     return {"unet_rel_err": rel}
 
 
+def _wrappers(fa, sw) -> dict:
+    """Each kernel wrapper, by the name of its CUDA-core kernel."""
+    return {"flash_attention": fa.flash_attention_cuda,
+            "flash_attention_rotary": fa.flash_attention_rotary_cuda, "swiglu": sw.swiglu_cuda}
+
+
 def reset_launches(fa, sw) -> None:
-    for wrapper in (fa.flash_attention_cuda, sw.swiglu_cuda):
+    for wrapper in _wrappers(fa, sw).values():
         wrapper.launches = 0
         wrapper.launches_by_route = dict.fromkeys(wrapper.launches_by_route, 0)
-    fa.flash_attention_rotary_cuda.launches = 0
 
 
 def read_launches(fa, sw) -> dict:
-    """Launches per kernel: B1 and B3 on each route, and B2."""
-    for wrapper in (fa.flash_attention_cuda, sw.swiglu_cuda):
+    """Launches per kernel: B1, B2 and B3, each on both routes (the
+    tensor-core kernel's name ends in _tc)."""
+    counts = {}
+    for name, wrapper in _wrappers(fa, sw).items():
         if wrapper.launches != sum(wrapper.launches_by_route.values()):
-            raise AssertionError(f"launches {wrapper.launches} != the sum of "
+            raise AssertionError(f"{name} launches {wrapper.launches} != the sum of "
                                  f"{wrapper.launches_by_route}")
-    return {"flash_attention": fa.flash_attention_cuda.launches_by_route[fa.CUDA_CORE],
-            "flash_attention_tc": fa.flash_attention_cuda.launches_by_route[fa.TENSOR_CORE],
-            "flash_attention_rotary": fa.flash_attention_rotary_cuda.launches,
-            "swiglu": sw.swiglu_cuda.launches_by_route[sw.CUDA_CORE],
-            "swiglu_tc": sw.swiglu_cuda.launches_by_route[sw.TENSOR_CORE]}
+        counts[name] = wrapper.launches_by_route[fa.CUDA_CORE]
+        counts[name + "_tc"] = wrapper.launches_by_route[fa.TENSOR_CORE]
+    return counts
 
 
 def expected_launches(per_forward: dict, forwards: int) -> dict:
     """Every kernel's launches in a run of ``forwards`` forwards that
     launch the kernels of ``per_forward`` that many times each."""
     out = dict.fromkeys(["flash_attention", "flash_attention_tc", "flash_attention_rotary",
-                         "swiglu", "swiglu_tc"], 0)
+                         "flash_attention_rotary_tc", "swiglu", "swiglu_tc"], 0)
     out.update({k: n * forwards for k, n in per_forward.items()})
     return out
 
@@ -489,8 +521,10 @@ def phase3_main_path(fa, sw, tmp: str):
 
 
 def phase4_stable_audio(fa, sw, tmp: str):
-    """The Stable Audio Open edit through the CLI: an edit, a selfcheck, and
-    an edit with the rotary inside the attention kernel (B2)."""
+    """The Stable Audio Open edit through the CLI: in float32 an edit, a
+    selfcheck, and an edit with the rotary inside the attention kernel (B2);
+    in bfloat16 an edit and a selfcheck, each with host rotary + B1 and with
+    B2."""
     from scipy.io import wavfile
 
     from audioeditingcode_tpu_torch.cli.run import main as run_edit
@@ -501,7 +535,9 @@ def phase4_stable_audio(fa, sw, tmp: str):
     bf16 = ["--dtype", "bfloat16"]
     for name, extra, env in (("edit", [], "0"), ("selfcheck", ["--selfcheck"], "0"),
                              ("edit_rotary_in_kernel", [], "1"), ("edit_bf16", bf16, "0"),
-                             ("selfcheck_bf16", bf16 + ["--selfcheck"], "0")):
+                             ("selfcheck_bf16", bf16 + ["--selfcheck"], "0"),
+                             ("edit_rotary_in_kernel_bf16", bf16, "1"),
+                             ("selfcheck_rotary_in_kernel_bf16", bf16 + ["--selfcheck"], "1")):
         os.environ["AEC_ROTARY_IN_KERNEL"] = env
         reset_launches(fa, sw)
         out = run_edit(edit_argv(SA_MODEL_ID, clip, os.path.join(tmp, "sa_" + name)) + extra)
@@ -511,7 +547,7 @@ def phase4_stable_audio(fa, sw, tmp: str):
         sr, wav = wavfile.read(out)
         forwards = rec["unet_steps"]
         tc = "_tc" if name.endswith("bf16") else ""
-        attn = "flash_attention_rotary" if env == "1" else "flash_attention" + tc
+        attn = ("flash_attention_rotary" if env == "1" else "flash_attention") + tc
         want = expected_launches({attn: SA_CALLS_PER_FORWARD,
                                   "swiglu" + tc: SA_CALLS_PER_FORWARD}, forwards)
         run = {"launches": counts, "dit_forwards": forwards, "dtype": rec["dtype"],
@@ -526,7 +562,7 @@ def phase4_stable_audio(fa, sw, tmp: str):
             raise AssertionError(f"{name}: bad output wav {out}: sr {sr}, shape {wav.shape}")
         runs[name] = run
     os.environ.pop("AEC_ROTARY_IN_KERNEL")
-    for name in ("selfcheck", "selfcheck_bf16"):
+    for name in ("selfcheck", "selfcheck_bf16", "selfcheck_rotary_in_kernel_bf16"):
         if not runs[name]["selfcheck_snr_db"] >= 40.0:
             raise AssertionError(f"{name} SNR {runs[name]['selfcheck_snr_db']} < 40 dB")
     return runs
@@ -534,10 +570,12 @@ def phase4_stable_audio(fa, sw, tmp: str):
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    if "attn_fwd_kernel" in n:  # the template's last argument is ROT
-        return "attention kernel B2 (rotary)" if "true>" in n else "attention kernel B1"
-    for cls, keys in (("attention kernel B1 (tensor cores)", ("attn_tc_kernel",)),
-                      ("SwiGLU kernel B3 (tensor cores)", ("swiglu_tc_kernel",)),
+    for key, b1, b2 in (("attn_fwd_kernel", "attention kernel B1", "attention kernel B2 (rotary)"),
+                        ("attn_tc_kernel", "attention kernel B1 (tensor cores)",
+                         "attention kernel B2 (rotary, tensor cores)")):
+        if key in n:  # the template's last argument is ROT
+            return b2 if "true>" in n else b1
+    for cls, keys in (("SwiGLU kernel B3 (tensor cores)", ("swiglu_tc_kernel",)),
                       ("SwiGLU kernel B3", ("swiglu_kernel",)),
                       ("convolution", ("fprop", "conv", "implicit_gemm", "winograd", "fft")),
                       ("matmul", ("gemm", "cutlass", "cublas", "nvjet")),
@@ -584,6 +622,7 @@ def profile_main_path_step(model_id: str, steps: int, latent, dtype: torch.dtype
         kernels.append((ms, e.count // n_steps, e.key[:90]))
     busy = sum(by_class.values())
     out = {"model_id": model_id, "dtype": str(dtype).split(".")[-1],
+           "rotary_in_kernel": os.environ.get("AEC_ROTARY_IN_KERNEL", "0") == "1",
            "step_wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": max(0.0, 1.0 - busy / wall_ms),
            "device_ms_by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1]))}
@@ -627,7 +666,8 @@ def main() -> int:
                 cuda_core: [c for c in kcases if c["route"] == fa.CUDA_CORE]}
 
     cases = {**by_route(phase1_attention(fa), "flash_attention_tc", "flash_attention"),
-             "flash_attention_rotary": phase1_rotary(fa),
+             **by_route(phase1_rotary(fa), "flash_attention_rotary_tc",
+                        "flash_attention_rotary"),
              **by_route(phase1_swiglu(sw), "swiglu_tc", "swiglu")}
     parity = phase2_unet_parity(fa)
     parity.update(phase2b_stable_audio_parity(fa, sw))
@@ -638,14 +678,20 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             profile_main_path_step(MODEL_ID, STEPS, LATENT, dtype)
             profile_main_path_step(SA_MODEL_ID, SA_STEPS, SA_LATENT, dtype)
+        os.environ["AEC_ROTARY_IN_KERNEL"] = "1"
+        profile_main_path_step(SA_MODEL_ID, SA_STEPS, SA_LATENT, torch.bfloat16)
+        os.environ.pop("AEC_ROTARY_IN_KERNEL")
 
     sources = {"flash_attention": "flash_attention.cu",
                "flash_attention_tc": "flash_attention_tc.cu",
                "flash_attention_rotary": "flash_attention.cu",
+               "flash_attention_rotary_tc": "flash_attention_tc.cu",
                "swiglu": "swiglu.cu", "swiglu_tc": "swiglu_tc.cu"}
     replaces = {"flash_attention": ("ops/flash_attention.py:72", "_attn_kernel"),
                 "flash_attention_tc": ("ops/flash_attention.py:72", "_attn_kernel"),
                 "flash_attention_rotary": ("ops/flash_attention.py:59", "_attn_rotary_kernel"),
+                "flash_attention_rotary_tc": ("ops/flash_attention.py:59",
+                                              "_attn_rotary_kernel"),
                 "swiglu": ("ops/swiglu.py:47", "swiglu._kernel"),
                 "swiglu_tc": ("ops/swiglu.py:47", "swiglu._kernel")}
     kernels = []
@@ -681,7 +727,11 @@ def main() -> int:
               "stable_audio_rotary_in_kernel_edit_s": sa["edit_rotary_in_kernel"]["edit_s"],
               "stable_audio_bf16_edit_s": sa["edit_bf16"]["edit_s"],
               "stable_audio_bf16_steps_per_s": sa["edit_bf16"]["steps_per_s"],
-              "stable_audio_bf16_selfcheck_snr_db": sa["selfcheck_bf16"]["selfcheck_snr_db"]}
+              "stable_audio_bf16_selfcheck_snr_db": sa["selfcheck_bf16"]["selfcheck_snr_db"],
+              "stable_audio_rotary_in_kernel_bf16_edit_s":
+                  sa["edit_rotary_in_kernel_bf16"]["edit_s"],
+              "stable_audio_rotary_in_kernel_bf16_selfcheck_snr_db":
+                  sa["selfcheck_rotary_in_kernel_bf16"]["selfcheck_snr_db"]}
     print(json.dumps(record), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,10 +3,10 @@
 These need an NVIDIA GPU and nvcc; they skip without one. On a machine
 with a card run them with ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``--noconftest``: the suite's conftest imports JAX, which a PyTorch-only install lacks).
-Tolerances: 1e-5 in float32; bfloat16 attention to ``fa.BF16_TOL`` (two
-bf16 ulps, 4e-3 near zero: tight enough that a kernel which dropped its
-kv_len mask fails, see tests/test_torch_flash_attention.py); bfloat16
-SwiGLU to 3e-2.
+Tolerances: 1e-5 in float32; bfloat16 attention (B1 and B2) to
+``fa.BF16_TOL`` (two bf16 ulps, 4e-3 near zero: tight enough that a kernel
+which dropped its kv_len mask or its K rotation fails, see
+tests/test_torch_flash_attention.py); bfloat16 SwiGLU to 3e-2.
 """
 
 import pytest
@@ -179,19 +179,90 @@ def test_tensor_core_attention_rejects_what_tma_cannot_take(cuda):
         fa.flash_attention_cuda(odd_stride, odd_stride, odd_stride)
 
 
-def test_float32_and_rotary_stay_on_cuda_cores(cuda):
+def test_float32_on_cuda_cores_and_bf16_rotary_on_tensor_cores(cuda):
+    """float32 B1 and B2 launch the CUDA-core kernel, bfloat16 B2 the
+    tensor-core one; each raises only its own wrapper's route count."""
     q = torch.randn(1, 1024, 2, 32, device=cuda)
     cos, sin = rotary_tables(32, 1024, device=cuda)
-    before = dict(fa.flash_attention_cuda.launches_by_route)
+    b1 = dict(fa.flash_attention_cuda.launches_by_route)
     fa.flash_attention_cuda(q, q, q)
-    after = fa.flash_attention_cuda.launches_by_route
-    assert (after[fa.CUDA_CORE], after[fa.TENSOR_CORE]) == (before[fa.CUDA_CORE] + 1,
-                                                            before[fa.TENSOR_CORE])
-    b2 = fa.flash_attention_rotary_cuda.launches
+    assert fa.flash_attention_cuda.launches_by_route == {
+        fa.CUDA_CORE: b1[fa.CUDA_CORE] + 1, fa.TENSOR_CORE: b1[fa.TENSOR_CORE]}
+    b2 = dict(fa.flash_attention_rotary_cuda.launches_by_route)
+    fa.flash_attention_rotary_cuda(q, q, q, cos, sin)
     qb = q.to(torch.bfloat16)
     fa.flash_attention_rotary_cuda(qb, qb, qb, cos, sin)
-    assert fa.flash_attention_rotary_cuda.launches == b2 + 1
-    assert fa.flash_attention_cuda.launches_by_route[fa.TENSOR_CORE] == before[fa.TENSOR_CORE]
+    assert fa.flash_attention_rotary_cuda.launches_by_route == {
+        fa.CUDA_CORE: b2[fa.CUDA_CORE] + 1, fa.TENSOR_CORE: b2[fa.TENSOR_CORE] + 1}
+    assert fa.flash_attention_cuda.launches_by_route[fa.CUDA_CORE] == b1[fa.CUDA_CORE] + 1
+
+
+# (D, rot): every padded width DP (16, 32, 64, 128) with rot = D/2 and rot = D,
+# D below a width (40, 24), an odd rot/2 (rot 6, 10), and at D = 128 a rot
+# whose pairs cross the two 128-byte column blocks (96). rot % 16 == 0 takes
+# the K rotation in 16-byte chunks, the others (8, 20, 40, 10, 6) per pair.
+ROTARY_TC_CASES = [(16, 8), (16, 16), (32, 16), (32, 32), (64, 32), (64, 64), (128, 64),
+                   (128, 128), (128, 96), (40, 20), (40, 10), (24, 6)]
+
+
+@pytest.mark.parametrize("D,rot", ROTARY_TC_CASES)
+@pytest.mark.parametrize("S", [777, 1025])
+def test_tensor_core_rotary_attention_every_width(cuda, D, rot, S):
+    """bf16 B2 on the tensor cores against its plain version, at ragged S,
+    with GQA and tables longer than the sequence."""
+    q, k, v = _bf16_qkv(cuda, 1, S, 4, 2, D, seed=D + rot)
+    cos, sin = rotary_tables(rot, S + 5, device=cuda)
+    before = dict(fa.flash_attention_rotary_cuda.launches_by_route)
+    got = fa.flash_attention_rotary_cuda(q, k, v, cos, sin)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_rotary_cuda.launches_by_route == {
+        fa.TENSOR_CORE: before[fa.TENSOR_CORE] + 1, fa.CUDA_CORE: before[fa.CUDA_CORE]}
+    torch.testing.assert_close(got.float(),
+                               fa.rotary_attention_reference(q, k, v, cos, sin).float(),
+                               **fa.BF16_TOL)
+
+
+def test_tensor_core_rotary_attention_reads_strided_heads(cuda):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(2, 6, 1025, 64, device=cuda, generator=g).to(torch.bfloat16)
+    kv = torch.randn(2, 3, 1025, 64, device=cuda, generator=g).to(torch.bfloat16)
+    q, kv = q.transpose(1, 2), kv.transpose(1, 2)  # strided heads, 3 kv heads for 6
+    cos, sin = rotary_tables(32, 2048, device=cuda)
+    got = fa.flash_attention_rotary_cuda(q, kv, kv, cos, sin)
+    want = fa.rotary_attention_reference(q, kv, kv, cos, sin)
+    torch.testing.assert_close(got.float(), want.float(), **fa.BF16_TOL)
+
+
+def test_tensor_core_rotary_attention_misaligned_tables(cuda):
+    """Tables that are not 16-byte aligned take the per-pair K rotation even
+    where rot is a multiple of 16 (the chunk path reads them as float4)."""
+    q, k, v = _bf16_qkv(cuda, 1, 1025, 4, 2, 64, seed=9)
+    tables = rotary_tables(32, 1025, device=cuda)
+    cos, sin = (torch.cat([x.new_zeros(1), x.flatten()])[1:].view(1025, 32) for x in tables)
+    assert cos.data_ptr() % 16 and torch.equal(cos, tables[0])
+    got = fa.flash_attention_rotary_cuda(q, k, v, cos, sin)
+    torch.testing.assert_close(got.float(),
+                               fa.rotary_attention_reference(q, k, v, *tables).float(),
+                               **fa.BF16_TOL)
+
+
+def test_tensor_core_rotary_attention_is_deterministic(cuda):
+    q, k, v = _bf16_qkv(cuda, 2, 1025, 24, 12, 64, seed=8)
+    cos, sin = rotary_tables(32, 1025, device=cuda)
+    first = fa.flash_attention_rotary_cuda(q, k, v, cos, sin)
+    second = fa.flash_attention_rotary_cuda(q, k, v, cos, sin)
+    assert torch.equal(first, second)
+
+
+def test_tensor_core_rotary_attention_rejects_what_tma_cannot_take(cuda):
+    """No fallback to the CUDA cores: a bf16 call the TMA loads cannot take
+    raises and counts no launch."""
+    cos, sin = rotary_tables(16, 1024, device=cuda)
+    odd_stride = torch.randn(1, 1024, 2, 20, device=cuda).to(torch.bfloat16)[..., :16]
+    before = dict(fa.flash_attention_rotary_cuda.launches_by_route)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.flash_attention_rotary_cuda(odd_stride, odd_stride, odd_stride, cos, sin)
+    assert fa.flash_attention_rotary_cuda.launches_by_route == before
 
 
 @pytest.mark.parametrize("M,E,N", [(2050, 1536, 6144), (77, 256, 192), (130, 80, 320),

@@ -2,7 +2,9 @@
 kernel (interpret mode) and XLA attention, and the dispatcher's routing.
 
 Tolerances: 2e-5 in float32 (as tests/test_flash_attention.py: the sums run
-in another order), 3e-2 in bfloat16 (one bf16 rounding of q and of p)."""
+in another order), 3e-2 in bfloat16 (one bf16 rounding of q and of p) and,
+where a test holds the bound the card holds the bf16 kernels to,
+``fa.BF16_TOL`` (two bf16 ulps, 4e-3 near zero)."""
 
 import jax
 import jax.numpy as jnp
@@ -132,8 +134,8 @@ def test_rotary_reference_matches_pallas_kernel(B, S, H, Hkv, D, rot, dtype):
     want = np.asarray(_blocked_attention(jq, jk, jv, rotary=(jcos, jsin), interpret=True),
                       np.float32)
     got = fa.rotary_attention_reference(tq, tk, tv, cos, sin)
-    tol = 3e-2 if dtype == "bfloat16" else 2e-5
-    np.testing.assert_allclose(to_np(got), want, atol=tol, rtol=tol)
+    tol = fa.BF16_TOL if dtype == "bfloat16" else {"atol": 2e-5, "rtol": 2e-5}
+    np.testing.assert_allclose(to_np(got), want, **tol)
     # the host rotary itself is bit-equal to the JAX one
     np.testing.assert_array_equal(to_np(fa._host_rotary(tq, cos, sin)),
                                   np.asarray(_host_rotary(jq, jcos, jsin), np.float32))
@@ -161,15 +163,34 @@ def test_dispatcher_rotary_routing(in_kernel, monkeypatch):
         np.testing.assert_allclose(to_np(got), np.asarray(want), atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("B,S,H,Hkv,D,rot", [(1, 1025, 4, 2, 64, 32), (1, 777, 2, 1, 128, 64),
+                                             (1, 1024, 2, 2, 32, 32)])
+def test_bf16_tolerance_rejects_unrotated_keys(B, S, H, Hkv, D, rot):
+    """fa.BF16_TOL, the bound the card holds bf16 B2 to, takes the Pallas
+    rotary kernel's bf16 output, and rejects what a kernel that rotated q
+    but left its K tiles unrotated would give, so a card check sees a lost
+    (or misaddressed) K rotation."""
+    (jq, jk, jv), (q, k, v) = _qkv(B, S, H, Hkv, D, "bfloat16", seed=8)
+    jcos, jsin = j_rotary_tables(rot, S)
+    cos, sin = torch.from_numpy(np.array(jcos)), torch.from_numpy(np.array(jsin))
+    want = fa.rotary_attention_reference(q, k, v, cos, sin).float()
+    pallas = np.asarray(_blocked_attention(jq, jk, jv, rotary=(jcos, jsin), interpret=True),
+                        np.float32)
+    torch.testing.assert_close(torch.from_numpy(pallas), want, **fa.BF16_TOL)
+    unrotated_k = fa.attention_reference(fa._host_rotary(q, cos, sin), k, v).float()
+    with pytest.raises(AssertionError, match="Tensor-likes are not close"):
+        torch.testing.assert_close(unrotated_k, want, **fa.BF16_TOL)
+
+
 @pytest.mark.parametrize("dtype,rotary,route", [
     (torch.bfloat16, False, fa.TENSOR_CORE),
     (torch.float32, False, fa.CUDA_CORE),
-    (torch.bfloat16, True, fa.CUDA_CORE),
+    (torch.bfloat16, True, fa.TENSOR_CORE),
     (torch.float32, True, fa.CUDA_CORE),
 ])
 def test_attention_route(dtype, rotary, route):
-    """bfloat16 B1 goes to the tensor-core kernel; float32 B1 and B2 in both
-    dtypes to the CUDA-core kernel."""
+    """bfloat16 B1 and B2 go to the tensor-core kernel, float32 B1 and B2 to
+    the CUDA-core kernel."""
     assert fa.attention_route(dtype, rotary=rotary) == route
 
 
@@ -185,3 +206,14 @@ def test_cuda_wrapper_rejects_cpu_tensors_without_counting():
         fa.flash_attention_cuda(q, k, v)
     assert (fa.flash_attention_cuda.launches,
             fa.flash_attention_cuda.launches_by_route) == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rotary_wrapper_rejects_cpu_tensors_without_counting(dtype):
+    (_, _, _), (q, k, v) = _qkv(1, 1024, 2, 2, 32, dtype)
+    cos, sin = torch.ones(1024, 16), torch.zeros(1024, 16)
+    wrapper = fa.flash_attention_rotary_cuda
+    before = (wrapper.launches, dict(wrapper.launches_by_route))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wrapper(q, k, v, cos, sin)
+    assert (wrapper.launches, wrapper.launches_by_route) == before

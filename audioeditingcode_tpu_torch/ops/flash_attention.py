@@ -8,17 +8,18 @@ the JAX package's: q is (B, Sq, H, D), k and v are (B, Skv, H_kv, D).
   of keeping a whole head in fast memory. ``attention_route`` picks the
   kernel: bfloat16 goes to the tensor-core kernel
   (``csrc/flash_attention_tc.cu``: TMA, mbarriers, wgmma), float32 to the
-  CUDA-core kernel (``csrc/flash_attention.cu``: f32 FMAs, as the float32
-  reference computes). Each launch adds one to
-  ``flash_attention_cuda.launches`` and to its route's entry of
+  3xTF32 kernel (``csrc/flash_attention.cu``: each product as three TF32
+  ``mma.sync`` products of split operands on the tensor cores, which keeps
+  float32 accuracy; K/V tiles by double-buffered ``cp.async``). Each launch
+  adds one to ``flash_attention_cuda.launches`` and to its route's entry of
   ``flash_attention_cuda.launches_by_route``.
 - ``flash_attention_rotary_cuda`` (B2): B1 with a partial rotate-half
   rotary applied to q and k inside the kernel, which replaces the Pallas
   ``_attn_rotary_kernel``. The routes are B1's: bfloat16 runs the ROT
   variant of the tensor-core kernel, which rotates each K tile in shared
-  memory after TMA lands it; float32 the ROT variant of the CUDA-core
-  kernel. Its launches count in ``flash_attention_rotary_cuda.launches``
-  and ``.launches_by_route``.
+  memory after TMA lands it; float32 the ROT variant of the 3xTF32 kernel,
+  which does the same after ``cp.async`` lands it. Its launches count in
+  ``flash_attention_rotary_cuda.launches`` and ``.launches_by_route``.
 - ``attention_reference`` and ``rotary_attention_reference``: the kernels'
   plain PyTorch versions, with the same roundings (the rotated q/k to the
   input dtype, q*scale back to the input dtype, p to v's dtype before PV).
@@ -47,7 +48,7 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _FNS = {}
 
 TENSOR_CORE = "tensor_core"
-CUDA_CORE = "cuda_core"
+TF32X3 = "tf32x3"
 
 # How far a bfloat16 kernel output may lie from attention_reference: two
 # bf16 ulps (p rounded at the running rather than the final max, the sums
@@ -55,14 +56,20 @@ CUDA_CORE = "cuda_core"
 # the zero-filled keys of its last tile in the softmax lies outside it
 # (tests/test_torch_flash_attention.py).
 BF16_TOL = {"atol": 4e-3, "rtol": 2.0 ** -6}
+# How far a float32 kernel output may lie from attention_reference: 1e-5 +
+# 1e-5 |ref|. Products in 3xTF32 (hi·hi + hi·lo + lo·hi of operands split
+# into TF32 parts) lie well inside it, a single TF32 product outside it
+# (tests/test_torch_flash_attention.py).
+F32_TOL = {"atol": 1e-5, "rtol": 1e-5}
 
 
 def attention_route(dtype: torch.dtype, rotary: bool = False) -> str:
     """The kernel a CUDA launch of B1, or of B2 with ``rotary``, takes:
-    bfloat16 runs on the tensor cores, float32 on the CUDA cores."""
+    bfloat16 runs on the tensor cores in bf16, float32 on the tensor cores
+    in 3xTF32."""
     if dtype not in _DTYPES:
         raise ValueError(f"the attention kernels take float32 or bfloat16, got {dtype}")
-    return TENSOR_CORE if dtype == torch.bfloat16 else CUDA_CORE
+    return TENSOR_CORE if dtype == torch.bfloat16 else TF32X3
 
 
 def _kernel_fn(route: str, rotary: bool = False):
@@ -147,7 +154,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_cuda.launches = 0
-flash_attention_cuda.launches_by_route = {TENSOR_CORE: 0, CUDA_CORE: 0}
+flash_attention_cuda.launches_by_route = {TENSOR_CORE: 0, TF32X3: 0}
 
 
 def _check_rotary_tables(q, cos, sin) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -199,7 +206,7 @@ def flash_attention_rotary_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 
 
 flash_attention_rotary_cuda.launches = 0
-flash_attention_rotary_cuda.launches_by_route = {TENSOR_CORE: 0, CUDA_CORE: 0}
+flash_attention_rotary_cuda.launches_by_route = {TENSOR_CORE: 0, TF32X3: 0}
 
 
 def _repeat_kv(x: torch.Tensor, heads: int) -> torch.Tensor:

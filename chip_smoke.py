@@ -14,7 +14,7 @@ prints no result):
    paths' shapes, in float32 and bfloat16, with its time, the plain
    version's time, a PyTorch library yardstick's time and the card's bound:
    B1 in bfloat16 on the tensor cores (flash_attention_tc) and in float32
-   on the CUDA cores (flash_attention), B2 likewise
+   as three TF32 products on the tensor cores (flash_attention), B2 likewise
    (flash_attention_rotary_tc, flash_attention_rotary; beside SDPA it is
    also timed against the default dispatcher's host rotary + B1), B3 in
    bfloat16 on the tensor cores (swiglu_tc) and in float32 on the CUDA
@@ -30,14 +30,15 @@ prints no result):
    synthetic 10 s clip at 200 inversion + 100 edit steps, once as an edit
    and once with ``--selfcheck`` in float32, and once as a ``--dtype
    bfloat16`` edit; B1 must launch 20 times per UNet forward, on the
-   CUDA-core route in float32 and on the tensor-core route in bfloat16.
+   3xTF32 route in float32 and on the tensor-core route in bfloat16.
 4. the Stable Audio Open main path: the CLI's ``--mode ours`` edit of a
    synthetic 10 s, 44.1 kHz stereo clip at 100 inversion + 50 edit steps,
    in float32 as an edit, with ``--selfcheck`` (>= 40 dB), and as an edit
    with AEC_ROTARY_IN_KERNEL=1, and in bfloat16 as an edit and with
    ``--selfcheck`` (>= 40 dB), each also with AEC_ROTARY_IN_KERNEL=1; B1
    (B2 in the rotary runs) and B3 must each launch 24 times per DiT
-   forward, on the tensor-core routes in bfloat16.
+   forward, on the 3xTF32 route (B1, B2) and the CUDA cores (B3) in
+   float32 and on the tensor-core routes in bfloat16.
 Every kernel launch count is set to 0 just before each main-path run and
 read just after it.
 
@@ -84,8 +85,12 @@ EDITS = {MODEL_ID: (STEPS, TSTART, "a dog barking", {"sr": 16000, "channels": 1}
 # run on the SFU: 16 results per clock per SM (NVIDIA's CUDA documentation,
 # arithmetic instruction throughput, compute capability 9.0) x 132 SMs x
 # the 1.98 GHz boost clock that the 67 TFLOP/s float32 figure assumes.
+# float32 attention runs each product as three TF32 products on the tensor
+# cores (495 TFLOP/s), the least time at float32 accuracy; float32 SwiGLU
+# runs on the CUDA cores (67 TFLOP/s).
 HBM_BYTES_PER_S = 3.35e12
 MATMUL_FLOPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TF32X3_FLOPS_PER_S = 495e12 / 3
 EXP_PER_S = 16 * 132 * 1.98e9
 
 # (B, S, H, H_kv, D): the two AudioLDM-s UNet levels, then the Stable Audio
@@ -98,10 +103,10 @@ ATTN_CASES = [
     ((2, 1025, 24, 12, 64), torch.float32),
     ((2, 1025, 24, 12, 64), torch.bfloat16),
 ]
-# float32 differs only in summation order and the SFU exponential; bf16
-# (B1 on the tensor cores, B2) is held to flash_attention.BF16_TOL: two bf16
-# ulps, 4e-3 near zero, which a kernel that dropped its kv_len mask fails
-F32_TOL = {"atol": 1e-5, "rtol": 1e-5}
+# float32 attention (B1, B2) is held to flash_attention.F32_TOL, 1e-5 +
+# 1e-5 |ref|, which a single TF32 product fails; bf16 to
+# flash_attention.BF16_TOL: two bf16 ulps, 4e-3 near zero, which a kernel
+# that dropped its kv_len mask fails
 # ((B, S, H, H_kv, D), rot, dtype, strided heads): the Stable Audio DiT's
 # attn1 with the rotary inside the kernel (B2) first, then a ragged
 # sequence at the widest head dim, and the DiT shape with q, k and v as
@@ -115,11 +120,12 @@ ROTARY_CASES = [((2, 1025, 24, 12, 64), 32, torch.float32, False),
 # and 1025 rows (an empty source prompt runs the unconditional stream alone)
 SWIGLU_CASES = [((2050, 1536, 6144), torch.float32), ((1025, 1536, 6144), torch.float32),
                 ((2050, 1536, 6144), torch.bfloat16), ((1025, 1536, 6144), torch.bfloat16)]
-# float32 sums in the plain version's order (bit-equal); bf16 sums in the
-# tensor cores' order and rounds once, so an output can differ from the
-# plain version by one bf16 ulp (2^-5 at |out| in [4, 8)), within 3e-2 +
-# 3e-2 |ref|
-SWIGLU_TOL = {torch.float32: F32_TOL, torch.bfloat16: {"atol": 3e-2, "rtol": 3e-2}}
+# float32 sums in the plain version's order (bit-equal, held to 1e-5 +
+# 1e-5 |ref|); bf16 sums in the tensor cores' order and rounds once, so an
+# output can differ from the plain version by one bf16 ulp (2^-5 at |out| in
+# [4, 8)), within 3e-2 + 3e-2 |ref|
+SWIGLU_TOL = {torch.float32: {"atol": 1e-5, "rtol": 1e-5},
+              torch.bfloat16: {"atol": 3e-2, "rtol": 3e-2}}
 
 
 def log(msg: str) -> None:
@@ -147,17 +153,24 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _bound(t_bytes, t_products, t_exps):
+    """(ms, bound_by, the term that set it) of the largest of three times."""
+    terms = {"bytes": t_bytes, "products": t_products, "exponentials": t_exps}
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, "bytes" if term == "bytes" else "operations", term
+
+
 def attention_bound_ms(B, S, H, Hkv, D, dtype, rot=0):
-    """Least time for the function: the larger of its bytes (q, k, v read
+    """Least time for the function: the largest of its bytes (q, k, v read
     once, o written once, and with a rotary of width ``rot`` its two (S, rot)
-    float32 tables) over HBM bandwidth and its operations (the two matmuls
-    at the type's peak, the exponentials at the SFU rate)."""
+    float32 tables) over HBM bandwidth, its two matmuls at the type's
+    tensor-core peak (float32: three TF32 products each) and its
+    exponentials at the SFU rate."""
     itemsize = torch.finfo(dtype).bits // 8
     nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * itemsize + 2 * S * rot * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(4.0 * B * H * S * S * D / MATMUL_FLOPS_PER_S[dtype],
-                1.0 * B * H * S * S / EXP_PER_S)
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    rate = TF32X3_FLOPS_PER_S if dtype == torch.float32 else MATMUL_FLOPS_PER_S[dtype]
+    return _bound(nbytes / HBM_BYTES_PER_S, 4.0 * B * H * S * S * D / rate,
+                  1.0 * B * H * S * S / EXP_PER_S)
 
 
 def swiglu_bound_ms(M, E, N, dtype):
@@ -167,9 +180,8 @@ def swiglu_bound_ms(M, E, N, dtype):
     matmul peak; the M N exponentials at the SFU rate)."""
     itemsize = torch.finfo(dtype).bits // 8
     nbytes = (M * E + 2 * N * E + M * N) * itemsize + 2 * N * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(4.0 * M * E * N / MATMUL_FLOPS_PER_S[dtype], 1.0 * M * N / EXP_PER_S)
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    return _bound(nbytes / HBM_BYTES_PER_S, 4.0 * M * E * N / MATMUL_FLOPS_PER_S[dtype],
+                  1.0 * M * N / EXP_PER_S)
 
 
 def _check(out: torch.Tensor, ref: torch.Tensor, tol: dict):
@@ -188,11 +200,11 @@ def _record_case(kernel, shape, dtype, errors, tol, ms, plain_ms, library_ms, li
     case = {"shape": list(shape), "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
             "err_over_allowed": over, "tol": tol, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library": library, "bound_ms": bound[0],
-            "bound_by": bound[1]}
+            "bound_by": bound[1], "bound_term": bound[2]}
     log(f"[phase1] {kernel} {case['shape']} {case['dtype']}: max_abs_err {err:.3g} "
         f"({over:.3g} of the allowed {tol['atol']} + {tol['rtol']:.4g} |ref|), "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms "
-        f"({library}), bound {bound[0]:.4f} ms ({bound[1]})")
+        f"({library}), bound {bound[0]:.4f} ms ({bound[2]})")
     return case
 
 
@@ -228,7 +240,7 @@ def phase1_rotary(fa):
         if route != fa.attention_route(dtype, rotary=True):
             raise AssertionError(f"flash_attention_rotary {dtype} took the {route} route")
         ref = fa.rotary_attention_reference(q, k, v, cos, sin)
-        tol = fa.BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        tol = fa.BF16_TOL if dtype == torch.bfloat16 else fa.F32_TOL
         errors = _check(out, ref, tol)
         kr, vr = (x.repeat_interleave(H // Hkv, dim=2) for x in (k, v))
         vt = vr.transpose(1, 2)
@@ -310,7 +322,7 @@ def phase1_attention(fa):
         if route != fa.attention_route(dtype):
             raise AssertionError(f"flash_attention {dtype} took the {route} route")
         ref = fa.attention_reference(q, k, v)
-        tol = fa.BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        tol = fa.BF16_TOL if dtype == torch.bfloat16 else fa.F32_TOL
         errors = _check(out, ref, tol)
         # the library yardstick, one call; GQA's kv heads repeated beforehand
         kr, vr = (x.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) for x in (k, v))
@@ -359,13 +371,15 @@ def phase2_unet_parity(fa):
 
 
 def _wrappers(fa, sw) -> dict:
-    """Each kernel wrapper, by the name of its CUDA-core kernel."""
-    return {"flash_attention": fa.flash_attention_cuda,
-            "flash_attention_rotary": fa.flash_attention_rotary_cuda, "swiglu": sw.swiglu_cuda}
+    """Each kernel wrapper and its float32 route, by the name of its float32
+    kernel (the bfloat16 one's name adds _tc)."""
+    return {"flash_attention": (fa.flash_attention_cuda, fa.TF32X3),
+            "flash_attention_rotary": (fa.flash_attention_rotary_cuda, fa.TF32X3),
+            "swiglu": (sw.swiglu_cuda, sw.CUDA_CORE)}
 
 
 def reset_launches(fa, sw) -> None:
-    for wrapper in _wrappers(fa, sw).values():
+    for wrapper, _ in _wrappers(fa, sw).values():
         wrapper.launches = 0
         wrapper.launches_by_route = dict.fromkeys(wrapper.launches_by_route, 0)
 
@@ -374,11 +388,11 @@ def read_launches(fa, sw) -> dict:
     """Launches per kernel: B1, B2 and B3, each on both routes (the
     tensor-core kernel's name ends in _tc)."""
     counts = {}
-    for name, wrapper in _wrappers(fa, sw).items():
+    for name, (wrapper, f32_route) in _wrappers(fa, sw).items():
         if wrapper.launches != sum(wrapper.launches_by_route.values()):
             raise AssertionError(f"{name} launches {wrapper.launches} != the sum of "
                                  f"{wrapper.launches_by_route}")
-        counts[name] = wrapper.launches_by_route[fa.CUDA_CORE]
+        counts[name] = wrapper.launches_by_route[f32_route]
         counts[name + "_tc"] = wrapper.launches_by_route[fa.TENSOR_CORE]
     return counts
 
@@ -570,7 +584,8 @@ def phase4_stable_audio(fa, sw, tmp: str):
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    for key, b1, b2 in (("attn_fwd_kernel", "attention kernel B1", "attention kernel B2 (rotary)"),
+    for key, b1, b2 in (("attn_fwd_kernel", "attention kernel B1 (3xTF32)",
+                         "attention kernel B2 (rotary, 3xTF32)"),
                         ("attn_tc_kernel", "attention kernel B1 (tensor cores)",
                          "attention kernel B2 (rotary, tensor cores)")):
         if key in n:  # the template's last argument is ROT
@@ -661,14 +676,16 @@ def main() -> int:
         log(f"[phase0] built csrc/{src}.cu in {seconds:.1f} s: {builds[src]}")
     log(f"[phase0] build of {sorted(built) or 'nothing (up to date)'}: {build_s:.1f} s in all")
 
-    def by_route(kcases, tensor_core, cuda_core):
-        return {tensor_core: [c for c in kcases if c["route"] == fa.TENSOR_CORE],
-                cuda_core: [c for c in kcases if c["route"] == fa.CUDA_CORE]}
+    def by_route(kcases, names):
+        """The cases of each route, by the name of its kernel."""
+        return {name: [c for c in kcases if c["route"] == route] for route, name in names}
 
-    cases = {**by_route(phase1_attention(fa), "flash_attention_tc", "flash_attention"),
-             **by_route(phase1_rotary(fa), "flash_attention_rotary_tc",
-                        "flash_attention_rotary"),
-             **by_route(phase1_swiglu(sw), "swiglu_tc", "swiglu")}
+    cases = {**by_route(phase1_attention(fa), ((fa.TENSOR_CORE, "flash_attention_tc"),
+                                               (fa.TF32X3, "flash_attention"))),
+             **by_route(phase1_rotary(fa), ((fa.TENSOR_CORE, "flash_attention_rotary_tc"),
+                                            (fa.TF32X3, "flash_attention_rotary"))),
+             **by_route(phase1_swiglu(sw), ((sw.TENSOR_CORE, "swiglu_tc"),
+                                            (sw.CUDA_CORE, "swiglu")))}
     parity = phase2_unet_parity(fa)
     parity.update(phase2b_stable_audio_parity(fa, sw))
     with tempfile.TemporaryDirectory() as tmp:
@@ -710,7 +727,8 @@ def main() -> int:
             "shape": main_case["shape"], "dtype": main_case["dtype"],
             "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
-            "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
+            "bound_by": main_case["bound_by"], "bound_term": main_case["bound_term"],
+            "library_ms": main_case["library_ms"],
             "cases": kcases,
         })
         if not sum(by_run.values()):

@@ -3,9 +3,11 @@
 These need an NVIDIA GPU and nvcc; they skip without one. On a machine
 with a card run them with ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``--noconftest``: the suite's conftest imports JAX, which a PyTorch-only install lacks).
-Tolerances: 1e-5 in float32; bfloat16 attention (B1 and B2) to
-``fa.BF16_TOL`` (two bf16 ulps, 4e-3 near zero: tight enough that a kernel
-which dropped its kv_len mask or its K rotation fails, see
+Tolerances: float32 attention (B1 and B2, products in 3xTF32) to
+``fa.F32_TOL`` (1e-5 + 1e-5 |ref|: a kernel with a single TF32 product
+fails it), float32 SwiGLU to 1e-5; bfloat16 attention to ``fa.BF16_TOL``
+(two bf16 ulps, 4e-3 near zero: tight enough that a kernel which dropped its
+kv_len mask or its K rotation fails; both bounds are pinned in
 tests/test_torch_flash_attention.py); bfloat16 SwiGLU to 3e-2.
 """
 
@@ -38,7 +40,7 @@ def test_kernel_matches_plain_version(cuda, B, S, H, Hkv, D, dtype):
     v = torch.randn(B, S, Hkv, D, device=cuda, generator=g).to(dtype)
     got = fa.flash_attention_cuda(q, k, v)
     torch.cuda.synchronize()
-    tol = fa.BF16_TOL if dtype == torch.bfloat16 else {"atol": 1e-5, "rtol": 1e-5}
+    tol = fa.BF16_TOL if dtype == torch.bfloat16 else fa.F32_TOL
     torch.testing.assert_close(got.float(), fa.attention_reference(q, k, v).float(), **tol)
 
 
@@ -47,7 +49,7 @@ def test_kernel_masks_kv_len_and_reads_strides(cuda):
     kv = torch.randn(1, 2, 1032, 32, device=cuda).transpose(1, 2)  # strided heads
     got = fa.flash_attention_cuda(q, kv, kv, kv_len=1025)
     want = fa.attention_reference(q, kv[:, :1025], kv[:, :1025])
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, want, **fa.F32_TOL)
 
 
 def test_dispatcher_launches_kernel_or_raises(cuda):
@@ -73,7 +75,7 @@ def test_rotary_kernel_matches_plain_version(cuda, B, S, H, Hkv, D, rot, dtype):
     cos, sin = rotary_tables(rot, S + 3, device=cuda)  # longer tables are fine
     got = fa.flash_attention_rotary_cuda(q, k, v, cos, sin)
     torch.cuda.synchronize()
-    tol = fa.BF16_TOL if dtype == torch.bfloat16 else {"atol": 1e-5, "rtol": 1e-5}
+    tol = fa.BF16_TOL if dtype == torch.bfloat16 else fa.F32_TOL
     torch.testing.assert_close(got.float(),
                                fa.rotary_attention_reference(q, k, v, cos, sin).float(), **tol)
 
@@ -99,7 +101,7 @@ def test_dispatcher_routes_rotary(cuda, monkeypatch):
     monkeypatch.setenv("AEC_ROTARY_IN_KERNEL", "1")
     inside = fa.fused_attention(q, kv, kv, rotary=rot)
     assert (fa.flash_attention_cuda.launches, fa.flash_attention_rotary_cuda.launches) == (b1 + 1, b2 + 1)
-    torch.testing.assert_close(inside, host, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(inside, host, **fa.F32_TOL)
 
 
 @pytest.mark.parametrize("M,E,N", [(2050, 1536, 6144), (1025, 1536, 6144), (512, 128, 128),
@@ -147,7 +149,7 @@ def test_tensor_core_attention_every_head_dim(cuda, D, S):
     got = fa.flash_attention_cuda(q, k, v)
     torch.cuda.synchronize()
     assert fa.flash_attention_cuda.launches_by_route[fa.TENSOR_CORE] == before[fa.TENSOR_CORE] + 1
-    assert fa.flash_attention_cuda.launches_by_route[fa.CUDA_CORE] == before[fa.CUDA_CORE]
+    assert fa.flash_attention_cuda.launches_by_route[fa.TF32X3] == before[fa.TF32X3]
     torch.testing.assert_close(got.float(), fa.attention_reference(q, k, v).float(),
                                **fa.BF16_TOL)
 
@@ -179,22 +181,22 @@ def test_tensor_core_attention_rejects_what_tma_cannot_take(cuda):
         fa.flash_attention_cuda(odd_stride, odd_stride, odd_stride)
 
 
-def test_float32_on_cuda_cores_and_bf16_rotary_on_tensor_cores(cuda):
-    """float32 B1 and B2 launch the CUDA-core kernel, bfloat16 B2 the
+def test_float32_on_tf32x3_route_and_bf16_rotary_on_tensor_cores(cuda):
+    """float32 B1 and B2 launch the 3xTF32 kernel, bfloat16 B2 the bf16
     tensor-core one; each raises only its own wrapper's route count."""
     q = torch.randn(1, 1024, 2, 32, device=cuda)
     cos, sin = rotary_tables(32, 1024, device=cuda)
     b1 = dict(fa.flash_attention_cuda.launches_by_route)
     fa.flash_attention_cuda(q, q, q)
     assert fa.flash_attention_cuda.launches_by_route == {
-        fa.CUDA_CORE: b1[fa.CUDA_CORE] + 1, fa.TENSOR_CORE: b1[fa.TENSOR_CORE]}
+        fa.TF32X3: b1[fa.TF32X3] + 1, fa.TENSOR_CORE: b1[fa.TENSOR_CORE]}
     b2 = dict(fa.flash_attention_rotary_cuda.launches_by_route)
     fa.flash_attention_rotary_cuda(q, q, q, cos, sin)
     qb = q.to(torch.bfloat16)
     fa.flash_attention_rotary_cuda(qb, qb, qb, cos, sin)
     assert fa.flash_attention_rotary_cuda.launches_by_route == {
-        fa.CUDA_CORE: b2[fa.CUDA_CORE] + 1, fa.TENSOR_CORE: b2[fa.TENSOR_CORE] + 1}
-    assert fa.flash_attention_cuda.launches_by_route[fa.CUDA_CORE] == b1[fa.CUDA_CORE] + 1
+        fa.TF32X3: b2[fa.TF32X3] + 1, fa.TENSOR_CORE: b2[fa.TENSOR_CORE] + 1}
+    assert fa.flash_attention_cuda.launches_by_route[fa.TF32X3] == b1[fa.TF32X3] + 1
 
 
 # (D, rot): every padded width DP (16, 32, 64, 128) with rot = D/2 and rot = D,
@@ -216,7 +218,7 @@ def test_tensor_core_rotary_attention_every_width(cuda, D, rot, S):
     got = fa.flash_attention_rotary_cuda(q, k, v, cos, sin)
     torch.cuda.synchronize()
     assert fa.flash_attention_rotary_cuda.launches_by_route == {
-        fa.TENSOR_CORE: before[fa.TENSOR_CORE] + 1, fa.CUDA_CORE: before[fa.CUDA_CORE]}
+        fa.TENSOR_CORE: before[fa.TENSOR_CORE] + 1, fa.TF32X3: before[fa.TF32X3]}
     torch.testing.assert_close(got.float(),
                                fa.rotary_attention_reference(q, k, v, cos, sin).float(),
                                **fa.BF16_TOL)
@@ -263,6 +265,99 @@ def test_tensor_core_rotary_attention_rejects_what_tma_cannot_take(cuda):
     with pytest.raises(ValueError, match="multiples of 8"):
         fa.flash_attention_rotary_cuda(odd_stride, odd_stride, odd_stride, cos, sin)
     assert fa.flash_attention_rotary_cuda.launches_by_route == before
+
+
+# --- the float32 attention route: csrc/flash_attention.cu, products in 3xTF32
+
+
+def _f32_qkv(cuda, B, S, H, Hkv, D, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(B, S, h, D, device=cuda, generator=g) for h in (H, Hkv, Hkv)]
+
+
+@pytest.mark.parametrize("D", range(8, 129, 8))
+@pytest.mark.parametrize("S", [1024, 1025])
+def test_tf32x3_attention_every_head_dim(cuda, D, S):
+    """float32 B1 at every D (an instance each), with a whole and a ragged
+    last key tile and GQA, held to fa.F32_TOL."""
+    q, k, v = _f32_qkv(cuda, 1, S, 4, 2, D, seed=D)
+    before = dict(fa.flash_attention_cuda.launches_by_route)
+    got = fa.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches_by_route == {
+        fa.TF32X3: before[fa.TF32X3] + 1, fa.TENSOR_CORE: before[fa.TENSOR_CORE]}
+    torch.testing.assert_close(got, fa.attention_reference(q, k, v), **fa.F32_TOL)
+
+
+# (D, rot): rot 2, D/2 and D across the head dims, and rots that are not
+# multiples of 8 (6, 10, 12, 20, 36, 96 / 2 = 48 pairs)
+ROTARY_F32_CASES = [(8, 2), (8, 4), (8, 8), (16, 2), (16, 8), (16, 16), (24, 6), (24, 12),
+                    (32, 2), (32, 16), (32, 32), (40, 10), (40, 20), (64, 2), (64, 32),
+                    (64, 64), (72, 36), (128, 2), (128, 64), (128, 96), (128, 128)]
+
+
+@pytest.mark.parametrize("D,rot", ROTARY_F32_CASES)
+@pytest.mark.parametrize("S", [777, 1025])
+def test_tf32x3_rotary_attention_every_width(cuda, D, rot, S):
+    """float32 B2 against its plain version, at ragged S, with GQA and
+    tables longer than the sequence."""
+    q, k, v = _f32_qkv(cuda, 1, S, 4, 2, D, seed=D + rot)
+    cos, sin = rotary_tables(rot, S + 5, device=cuda)
+    before = dict(fa.flash_attention_rotary_cuda.launches_by_route)
+    got = fa.flash_attention_rotary_cuda(q, k, v, cos, sin)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_rotary_cuda.launches_by_route == {
+        fa.TF32X3: before[fa.TF32X3] + 1, fa.TENSOR_CORE: before[fa.TENSOR_CORE]}
+    torch.testing.assert_close(got, fa.rotary_attention_reference(q, k, v, cos, sin),
+                               **fa.F32_TOL)
+
+
+def test_tf32x3_attention_masks_kv_len_and_reads_strided_heads(cuda):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q = torch.randn(2, 6, 1032, 64, device=cuda, generator=g).transpose(1, 2)
+    kv = torch.randn(2, 3, 1032, 64, device=cuda, generator=g).transpose(1, 2)
+    got = fa.flash_attention_cuda(q, kv, kv, kv_len=1025)  # 3 kv heads for 6
+    want = fa.attention_reference(q, kv[:, :1025], kv[:, :1025])
+    torch.testing.assert_close(got, want, **fa.F32_TOL)
+
+
+def test_tf32x3_attention_takes_unaligned_rows(cuda):
+    """K/V rows that are not 16-byte aligned (a base 8 bytes past a boundary,
+    or strides of 17 floats) take the kernel's 4-byte copies, in B1 and B2."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(1, 1025, 4, 16, device=cuda, generator=g)
+    shifted = torch.randn(1, 1025, 2, 20, device=cuda, generator=g)[..., 2:18]
+    odd = torch.randn(1, 1025, 2, 17, device=cuda, generator=g)[..., :16]
+    cos, sin = rotary_tables(8, 1025, device=cuda)
+    for kv in (shifted, odd):
+        torch.testing.assert_close(fa.flash_attention_cuda(q, kv, kv),
+                                   fa.attention_reference(q, kv, kv), **fa.F32_TOL)
+        torch.testing.assert_close(fa.flash_attention_rotary_cuda(q, kv, kv, cos, sin),
+                                   fa.rotary_attention_reference(q, kv, kv, cos, sin),
+                                   **fa.F32_TOL)
+
+
+@pytest.mark.parametrize("rotary", [False, True])
+def test_tf32x3_attention_is_deterministic(cuda, rotary):
+    q, k, v = _f32_qkv(cuda, 2, 1025, 24, 12, 64, seed=12)
+    cos, sin = rotary_tables(32, 1025, device=cuda)
+    if rotary:
+        first, second = (fa.flash_attention_rotary_cuda(q, k, v, cos, sin) for _ in range(2))
+    else:
+        first, second = (fa.flash_attention_cuda(q, k, v) for _ in range(2))
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("S,H,Hkv,D,rot", [(1025, 24, 12, 64, 32), (777, 4, 2, 128, 64),
+                                           (1024, 2, 2, 24, 6), (1000, 3, 3, 8, 8)])
+def test_tf32x3_rotary_is_bit_equal_to_host_rotary_then_b1(cuda, S, H, Hkv, D, rot):
+    """B2 rotates q and K in f32 as the host rotary does, then runs B1's
+    products in B1's order: its output is B1's on host-rotated q and k."""
+    q, k, v = _f32_qkv(cuda, 1, S, H, Hkv, D, seed=S + D)
+    cos, sin = rotary_tables(rot, S, device=cuda)
+    got = fa.flash_attention_rotary_cuda(q, k, v, cos, sin)
+    want = fa.flash_attention_cuda(fa._host_rotary(q, cos, sin), fa._host_rotary(k, cos, sin), v)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("M,E,N", [(2050, 1536, 6144), (77, 256, 192), (130, 80, 320),

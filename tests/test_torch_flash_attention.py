@@ -184,14 +184,72 @@ def test_bf16_tolerance_rejects_unrotated_keys(B, S, H, Hkv, D, rot):
 
 @pytest.mark.parametrize("dtype,rotary,route", [
     (torch.bfloat16, False, fa.TENSOR_CORE),
-    (torch.float32, False, fa.CUDA_CORE),
+    (torch.float32, False, fa.TF32X3),
     (torch.bfloat16, True, fa.TENSOR_CORE),
-    (torch.float32, True, fa.CUDA_CORE),
+    (torch.float32, True, fa.TF32X3),
 ])
 def test_attention_route(dtype, rotary, route):
-    """bfloat16 B1 and B2 go to the tensor-core kernel, float32 B1 and B2 to
-    the CUDA-core kernel."""
+    """bfloat16 B1 and B2 go to the bf16 tensor-core kernel, float32 B1 and
+    B2 to the 3xTF32 one."""
     assert fa.attention_route(dtype, rotary=rotary) == route
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: to nearest at 10 mantissa
+    bits, ties away from zero, on the int32 view."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _rna_split(x: torch.Tensor):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _kernel_split(x: torch.Tensor):
+    """The float32 kernel's split (csrc/flash_attention.cu::split): hi by
+    Veltkamp's split at 11 significant bits, lo = x - hi with its low 13
+    bits masked off."""
+    c = x * 8193.0
+    hi = c + (x - c)
+    return hi, ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, split=None) -> torch.Tensor:
+    """a @ b from TF32 parts: lo·hi + hi·lo + hi·hi with the operands cut by
+    ``split`` (the float32 kernel's 3xTF32), or one TF32 product."""
+    if split is None:
+        return _tf32(a) @ _tf32(b)
+    (ah, al), (bh, bl) = split(a), split(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _tf32_attention(q, k, v, split=None) -> torch.Tensor:
+    """The float32 kernel's arithmetic with its two products emulated: q
+    split after q * scale, p after the exponential."""
+    H, D = q.shape[2], q.shape[3]
+    qs = (q * (1.0 / D ** 0.5)).transpose(1, 2)
+    kt, vt = (fa._repeat_kv(x, H).transpose(1, 2) for x in (k, v))
+    s = _tf32_matmul(qs, kt.transpose(-1, -2), split)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return (_tf32_matmul(p, vt, split) / p.sum(dim=-1, keepdim=True)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_f32_tolerance_takes_3xtf32_and_rejects_one_tf32_product(D):
+    """fa.F32_TOL, the bound the card holds the float32 kernels to, takes
+    attention whose products are three TF32 products (about 0.1 of it, with
+    rna parts or the kernel's) and rejects one TF32 product (about 25-50
+    times it), so a card check sees a kernel that lost its lo terms."""
+    (_, _, _), (q, k, v) = _qkv(1, 256, 4, 2, D, "float32", seed=9)
+    want = fa.attention_reference(q, k, v)
+    assert torch.equal(_tf32(torch.tensor([1 + 2 ** -11, -1 - 3 * 2 ** -11])),
+                       torch.tensor([1 + 2 ** -10, -1 - 2 ** -9]))  # ties away from zero
+    for split in (_rna_split, _kernel_split):
+        hi, lo = split(q)
+        assert not (hi.view(torch.int32) & 0x1FFF).any() and (hi + lo - q).abs().max() > 0
+        torch.testing.assert_close(_tf32_attention(q, k, v, split), want, **fa.F32_TOL)
+    with pytest.raises(AssertionError, match="Tensor-likes are not close"):
+        torch.testing.assert_close(_tf32_attention(q, k, v), want, **fa.F32_TOL)
 
 
 def test_attention_route_rejects_other_dtypes():

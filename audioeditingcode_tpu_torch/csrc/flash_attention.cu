@@ -94,7 +94,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32.cuh"
+
 namespace {
+
+using aec_tc::split;
 
 constexpr int WARPS = 4;          // each owns 16 query rows
 constexpr int BM = 16 * WARPS;    // query rows per block
@@ -136,19 +140,6 @@ __device__ __forceinline__ float rotate(const float* p, int d, float x, const Ro
   const float partner = __ldg(p + (d < half ? d + half : d - half));
   const int64_t t = (int64_t)pos * r.rot + d;
   return rotary(x, __ldg(r.cos + t), d < half ? -partner : partner, __ldg(r.sin + t));
-}
-
-// x as TF32 parts, x = hi + lo to about 2^-22 |x|: hi is x rounded to
-// nearest at 11 significant bits by Veltkamp's split (c = 8193 x, hi = c -
-// (c - x), each step rounded on its own), which TF32 holds exactly; lo = x -
-// hi is exact and is cut to TF32 by masking its low 13 bits. Four FP32
-// operations and one logic operation, where cvt.rna.tf32.f32 costs four for
-// each part; NaN stays NaN. Finite x below 2^114 in magnitude.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  const float c = __fmul_rn(x, 8193.f);
-  const float h = __fadd_rn(c, __fsub_rn(x, c));
-  hi = __float_as_uint(h);
-  lo = __float_as_uint(__fsub_rn(x, h)) & 0xffffe000u;
 }
 
 // d += a b for one m16n8k8 tile: a row-major 16 x 8, b column-major 8 x 8

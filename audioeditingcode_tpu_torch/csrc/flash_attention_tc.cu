@@ -3,9 +3,9 @@
 //
 // Replaces audioeditingcode_tpu/ops/flash_attention.py::_attn_kernel (body
 // _attn_core) and, as its ROT variant, _attn_rotary_kernel (with _rotate),
-// for bfloat16 inputs; float32 stays on the CUDA-core kernel of
-// flash_attention.cu. It computes the same function with the same
-// roundings: o = softmax(q k^T / sqrt(D)) v per (batch, head),
+// for bfloat16 inputs; float32 runs in 3xTF32 in flash_attention.cu. It
+// computes the same function with the same roundings: o = softmax(q k^T /
+// sqrt(D)) v per (batch, head),
 //   - q * scale computed in f32 and rounded to bf16, once per block,
 //   - scores, the online softmax and the output accumulator in f32,
 //   - p rounded to bf16 before the PV product,
@@ -466,8 +466,9 @@ int make_maps(CUtensorMap* kmap, CUtensorMap* vmap, const void* k, const void* v
                              (cuuint64_t)ks.b * 2};
   const cuuint64_t vst[3] = {(cuuint64_t)vs.h * 2, (cuuint64_t)vs.s * 2,
                              (cuuint64_t)vs.b * 2};
-  int rc = encode_bf16_map(kmap, 4, k, dims, kst, box, C::W);
-  if (rc == 0) rc = encode_bf16_map(vmap, 4, v, dims, vst, box, C::W);
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  int rc = encode_map(kmap, bf16, 4, k, dims, kst, box, C::W);
+  if (rc == 0) rc = encode_map(vmap, bf16, 4, v, dims, vst, box, C::W);
   return rc;
 }
 

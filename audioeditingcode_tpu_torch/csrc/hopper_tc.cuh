@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels:
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the bf16
-// wgmma instructions, and the host-side tensor-map encoder.
+// and tf32 wgmma instructions, and the host-side tensor-map encoders.
 //
 // Shared-memory tiles are written by TMA with a 32, 64 or 128-byte swizzle
 // and read by wgmma through a descriptor of the same swizzle, so the two
@@ -302,6 +302,48 @@ struct WgmmaSS<128> {
   }
 };
 
+// D (64 x N, f32) += A (64 x 8) * B (8 x N), tf32 (float32 values whose
+// low 13 bits the tensor cores ignore), both K-major in shared memory: tf32
+// wgmma takes no transposed operand. scale_d = 0 ignores D's old value.
+template <int N>
+struct WgmmaTf32SS;
+
+template <>
+struct WgmmaTf32SS<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
 // ------------------------------------------------------------------ host
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -335,20 +377,19 @@ inline CUtensorMapSwizzle swizzle_mode(int swizzle_bytes) {
                                                      : CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
-// A bf16 tensor map of `rank` dims (innermost first; strides in bytes of
-// dims 1.., each a multiple of 16), tiles of `box`, swizzled, zero-filled
-// out of bounds. Returns 0, or the CUresult of the encoder (or -1 when the
-// CUDA driver has no encoder).
-inline int encode_bf16_map(CUtensorMap* map, int rank, const void* base,
-                           const cuuint64_t* dims, const cuuint64_t* strides,
-                           const cuuint32_t* box, int swizzle_bytes) {
+// A tensor map of `type` and `rank` dims (innermost first; strides in bytes
+// of dims 1.., each a multiple of 16), tiles of `box`, swizzled,
+// zero-filled out of bounds. Returns 0, or the CUresult of the encoder (or
+// -1 when the CUDA driver has no encoder).
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                      const void* base, const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box, int swizzle_bytes) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return -1;
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
-         const_cast<void*>(base), dims, strides, box, elem,
-         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_mode(swizzle_bytes),
+      fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims,
+         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_mode(swizzle_bytes),
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return static_cast<int>(r);
 }

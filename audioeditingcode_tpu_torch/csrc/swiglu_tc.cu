@@ -2,7 +2,7 @@
 // plain C interface.
 //
 // Replaces audioeditingcode_tpu/ops/swiglu.py::_kernel (host _swiglu_call)
-// for bfloat16 inputs; float32 stays on the CUDA-core kernel of swiglu.cu.
+// for bfloat16 inputs; float32 runs in 3xTF32 in swiglu.cu.
 // It computes the same function:
 //   out[m, n] = (x[m] . W[n] + b[n]) * silu(x[m] . W[N + n] + b[N + n])
 // for x (M, E) and the one (2N, E) weight of ff.net.0.proj (value half rows
@@ -164,8 +164,9 @@ extern "C" int aec_swiglu_tc_fwd(const void* x, const void* w, const void* bias,
   const cuuint64_t stride[1] = {(cuuint64_t)E * 2};
   const cuuint32_t xbox[2] = {BK, BM};
   const cuuint32_t wbox[2] = {BK, BN};
-  int rc = encode_bf16_map(&xmap, 2, x, xdims, stride, xbox, 128);
-  if (rc == 0) rc = encode_bf16_map(&wmap, 2, w, wdims, stride, wbox, 128);
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  int rc = encode_map(&xmap, bf16, 2, x, xdims, stride, xbox, 128);
+  if (rc == 0) rc = encode_map(&wmap, bf16, 2, w, wdims, stride, wbox, 128);
   if (rc != 0) return rc < 0 ? rc : -rc;
   const cudaError_t err = cudaFuncSetAttribute(
       swiglu_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);

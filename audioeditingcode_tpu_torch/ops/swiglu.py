@@ -8,11 +8,12 @@ half rows [0, N), gate half rows [N, 2N)).
 - ``swiglu_cuda`` (B3), which replaces the Pallas ``swiglu._kernel``: both
   halves in one pass, f32 accumulation and epilogue, one rounding on
   output; the (M, 2N) intermediate never reaches device memory.
-  ``swiglu_route`` picks the kernel: bfloat16 goes to the tensor-core
+  ``swiglu_route`` picks the kernel: bfloat16 goes to the bf16 tensor-core
   kernel (``csrc/swiglu_tc.cu``: TMA, mbarriers, wgmma), float32 to the
-  CUDA-core kernel (``csrc/swiglu.cu``: f32 FMAs, bit-equal to cuBLAS's
-  FFMA GEMM). Each launch adds one to ``swiglu_cuda.launches`` and to its
-  route's entry of ``swiglu_cuda.launches_by_route``.
+  3xTF32 one (``csrc/swiglu.cu``: TMA, operands split once per stage into
+  TF32 hi and lo parts, three tf32 wgmma products, held to ``F32_TOL``).
+  Each launch adds one to ``swiglu_cuda.launches`` and to its route's entry
+  of ``swiglu_cuda.launches_by_route``.
 - ``swiglu_reference``: the kernel's plain PyTorch version, with the Pallas
   kernel's rounding (bias added in f32, SiLU in f32, one cast). CPU tensors
   take it; on the card it is only a yardstick.
@@ -38,15 +39,26 @@ _MIN_ROWS_FOR_KERNEL = 512
 _FNS = {}
 
 TENSOR_CORE = "tensor_core"
-CUDA_CORE = "cuda_core"
+TF32X3 = "tf32x3"
+
+# How far a bfloat16 kernel output may lie from swiglu_reference: two bf16
+# ulps (the sums in the tensor cores' order, one rounding of the output),
+# 4e-3 near zero. A kernel that skipped one 64-feature slice of E lies
+# outside it (tests/test_torch_swiglu.py).
+BF16_TOL = {"atol": 4e-3, "rtol": 2.0 ** -6}
+# How far a float32 kernel output may lie from swiglu_reference: 1e-5 +
+# 1e-5 |ref|. 3xTF32 products summed in fresh accumulators every 32
+# features lie well inside it; one TF32 product, or one truncating
+# tensor-core sum over all of E, outside it (tests/test_torch_swiglu.py).
+F32_TOL = {"atol": 1e-5, "rtol": 1e-5}
 
 
 def swiglu_route(dtype: torch.dtype) -> str:
-    """The kernel a CUDA launch takes: bfloat16 runs on the tensor cores,
-    float32 on the CUDA cores."""
+    """The kernel a CUDA launch takes: bfloat16 runs on the tensor cores in
+    bf16, float32 on the tensor cores in 3xTF32."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the SwiGLU kernels take float32 or bfloat16, got {dtype}")
-    return TENSOR_CORE if dtype == torch.bfloat16 else CUDA_CORE
+    return TENSOR_CORE if dtype == torch.bfloat16 else TF32X3
 
 
 def _kernel_fn(route: str):
@@ -103,7 +115,7 @@ def swiglu_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> to
 
 
 swiglu_cuda.launches = 0
-swiglu_cuda.launches_by_route = {TENSOR_CORE: 0, CUDA_CORE: 0}
+swiglu_cuda.launches_by_route = {TENSOR_CORE: 0, TF32X3: 0}
 
 
 def swiglu_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:

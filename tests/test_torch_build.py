@@ -34,7 +34,8 @@ def test_library_name_ignores_headers_not_included(tmp_path, monkeypatch):
     assert build.library_path("plain") == first
 
 
-@pytest.mark.parametrize("name,headers", [("flash_attention", []), ("swiglu", []),
+@pytest.mark.parametrize("name,headers", [("flash_attention", [b"tf32.cuh"]),
+                                          ("swiglu", [b"hopper_tc.cuh", b"tf32.cuh"]),
                                           ("flash_attention_tc", [b"hopper_tc.cuh"]),
                                           ("swiglu_tc", [b"hopper_tc.cuh"])])
 def test_kernel_sources_include_the_hashed_headers(name, headers):

@@ -5,10 +5,13 @@ with a card run them with ``python -m pytest --noconftest tests/test_torch_cuda.
 (``--noconftest``: the suite's conftest imports JAX, which a PyTorch-only install lacks).
 Tolerances: float32 attention (B1 and B2, products in 3xTF32) to
 ``fa.F32_TOL`` (1e-5 + 1e-5 |ref|: a kernel with a single TF32 product
-fails it), float32 SwiGLU to 1e-5; bfloat16 attention to ``fa.BF16_TOL``
-(two bf16 ulps, 4e-3 near zero: tight enough that a kernel which dropped its
-kv_len mask or its K rotation fails; both bounds are pinned in
-tests/test_torch_flash_attention.py); bfloat16 SwiGLU to 3e-2.
+fails it) and float32 SwiGLU (products in 3xTF32) to ``swiglu.F32_TOL``,
+the same bound; bfloat16 attention to ``fa.BF16_TOL`` (two bf16 ulps, 4e-3
+near zero: tight enough that a kernel which dropped its kv_len mask or its
+K rotation fails) and bfloat16 SwiGLU to ``swiglu.BF16_TOL``, the same
+bound (a kernel that skipped a 64-feature slice of E fails it). The bounds
+are pinned in tests/test_torch_flash_attention.py and
+tests/test_torch_swiglu.py.
 """
 
 import pytest
@@ -114,9 +117,8 @@ def test_swiglu_kernel_matches_plain_version(cuda, M, E, N, dtype):
     b = torch.randn(2 * N, device=cuda, generator=g) * 0.1
     got = swiglu.swiglu_cuda(x, w, b)
     torch.cuda.synchronize()
-    tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
-    torch.testing.assert_close(got.float(), swiglu.swiglu_reference(x, w, b).float(),
-                               rtol=tol, atol=tol)
+    tol = swiglu.BF16_TOL if dtype == torch.bfloat16 else swiglu.F32_TOL
+    torch.testing.assert_close(got.float(), swiglu.swiglu_reference(x, w, b).float(), **tol)
 
 
 def test_swiglu_dispatcher_launches_kernel_or_raises(cuda):
@@ -373,18 +375,61 @@ def test_tensor_core_swiglu_matches_plain_version(cuda, M, E, N):
     torch.cuda.synchronize()
     assert swiglu.swiglu_cuda.launches_by_route == {
         swiglu.TENSOR_CORE: before[swiglu.TENSOR_CORE] + 1,
-        swiglu.CUDA_CORE: before[swiglu.CUDA_CORE]}
+        swiglu.TF32X3: before[swiglu.TF32X3]}
     torch.testing.assert_close(got.float(), swiglu.swiglu_reference(x, w, b).float(),
-                               rtol=3e-2, atol=3e-2)
+                               **swiglu.BF16_TOL)
     assert torch.equal(got, swiglu.swiglu_cuda(x, w, b))  # deterministic
 
 
-def test_float32_swiglu_stays_on_cuda_cores(cuda):
+def test_float32_swiglu_on_tf32x3_route(cuda):
     g = torch.Generator(device=cuda).manual_seed(6)
     x = torch.randn(512, 128, device=cuda, generator=g)
     w = torch.randn(256, 128, device=cuda, generator=g) / 128 ** 0.5
     b = torch.randn(256, device=cuda, generator=g) * 0.1
     before = dict(swiglu.swiglu_cuda.launches_by_route)
     got = swiglu.swiglu_cuda(x, w, b)
-    assert swiglu.swiglu_cuda.launches_by_route[swiglu.CUDA_CORE] == before[swiglu.CUDA_CORE] + 1
-    torch.testing.assert_close(got, swiglu.swiglu_reference(x, w, b), rtol=1e-5, atol=1e-5)
+    assert swiglu.swiglu_cuda.launches_by_route == {
+        swiglu.TF32X3: before[swiglu.TF32X3] + 1,
+        swiglu.TENSOR_CORE: before[swiglu.TENSOR_CORE]}
+    torch.testing.assert_close(got, swiglu.swiglu_reference(x, w, b), **swiglu.F32_TOL)
+
+
+# --- the float32 SwiGLU route: csrc/swiglu.cu, products in 3xTF32
+
+
+@pytest.mark.parametrize("M,E,N", [(2050, 1536, 6144), (1025, 1536, 6144), (77, 80, 192),
+                                   (130, 1552, 320), (1, 16, 64), (300, 48, 128)])
+def test_tf32x3_swiglu_matches_plain_version(cuda, M, E, N):
+    """float32 B3 held to swiglu.F32_TOL: the DiT shapes; ragged M; E not a
+    multiple of the 32-feature stage (80, 1552, 48: TMA's zero fill); N % 128
+    != 0 (192, 320); M = 1. Deterministic, and counted on its route."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(M, E, device=cuda, generator=g)
+    w = torch.randn(2 * N, E, device=cuda, generator=g) / E ** 0.5
+    b = torch.randn(2 * N, device=cuda, generator=g) * 0.1
+    before = dict(swiglu.swiglu_cuda.launches_by_route)
+    got = swiglu.swiglu_cuda(x, w, b)
+    torch.cuda.synchronize()
+    assert swiglu.swiglu_cuda.launches_by_route == {
+        swiglu.TF32X3: before[swiglu.TF32X3] + 1,
+        swiglu.TENSOR_CORE: before[swiglu.TENSOR_CORE]}
+    torch.testing.assert_close(got, swiglu.swiglu_reference(x, w, b), **swiglu.F32_TOL)
+    assert torch.equal(got, swiglu.swiglu_cuda(x, w, b))
+
+
+def test_tf32x3_swiglu_rejects_what_it_does_not_take(cuda):
+    """No fallback: E % 16 != 0, N % 64 != 0 and an x that is not 16-byte
+    aligned raise and count no launch."""
+    x = torch.randn(64, 136, device=cuda)
+    w, b = torch.randn(256, 136, device=cuda), torch.zeros(256, device=cuda)
+    before = dict(swiglu.swiglu_cuda.launches_by_route)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        swiglu.swiglu_cuda(x[:, :120], w[:, :120].contiguous(), b)  # E = 120
+    with pytest.raises(ValueError, match="multiple of 64"):
+        swiglu.swiglu_cuda(x[:, :128].contiguous(), w[:192, :128].contiguous(), b[:192])
+    shifted = x.flatten()[4:4 + 64 * 128].view(64, 128)  # 16 bytes past an aligned base...
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        swiglu.swiglu_cuda(x.flatten()[1:1 + 64 * 128].view(64, 128),
+                           w[:, :128].contiguous(), b)
+    swiglu.swiglu_cuda(shifted, w[:, :128].contiguous(), b)  # ...is taken
+    assert swiglu.swiglu_cuda.launches_by_route[swiglu.TF32X3] == before[swiglu.TF32X3] + 1

@@ -15,7 +15,7 @@ import torch
 from audioeditingcode_tpu.ops.flash_attention import _blocked_attention, _host_rotary
 from audioeditingcode_tpu.models.dit1d import rotary_tables as j_rotary_tables
 from audioeditingcode_tpu_torch.ops import flash_attention as fa
-from test_torch_helpers import to_np
+from test_torch_helpers import tf32_round, tf32_split, to_np
 
 # (B, S, H, H_kv, D, dtype): the tests/test_flash_attention.py shapes, the
 # ragged DiT sequence, GQA and TANGO's head dim
@@ -194,31 +194,16 @@ def test_attention_route(dtype, rotary, route):
     assert fa.attention_route(dtype, rotary=rotary) == route
 
 
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to TF32 as cvt.rna.tf32.f32 does: to nearest at 10 mantissa
-    bits, ties away from zero, on the int32 view."""
-    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
-
-
 def _rna_split(x: torch.Tensor):
-    hi = _tf32(x)
-    return hi, _tf32(x - hi)
-
-
-def _kernel_split(x: torch.Tensor):
-    """The float32 kernel's split (csrc/flash_attention.cu::split): hi by
-    Veltkamp's split at 11 significant bits, lo = x - hi with its low 13
-    bits masked off."""
-    c = x * 8193.0
-    hi = c + (x - c)
-    return hi, ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
 
 
 def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, split=None) -> torch.Tensor:
     """a @ b from TF32 parts: lo·hi + hi·lo + hi·hi with the operands cut by
     ``split`` (the float32 kernel's 3xTF32), or one TF32 product."""
     if split is None:
-        return _tf32(a) @ _tf32(b)
+        return tf32_round(a) @ tf32_round(b)
     (ah, al), (bh, bl) = split(a), split(b)
     return (al @ bh + ah @ bl) + ah @ bh
 
@@ -242,9 +227,9 @@ def test_f32_tolerance_takes_3xtf32_and_rejects_one_tf32_product(D):
     times it), so a card check sees a kernel that lost its lo terms."""
     (_, _, _), (q, k, v) = _qkv(1, 256, 4, 2, D, "float32", seed=9)
     want = fa.attention_reference(q, k, v)
-    assert torch.equal(_tf32(torch.tensor([1 + 2 ** -11, -1 - 3 * 2 ** -11])),
+    assert torch.equal(tf32_round(torch.tensor([1 + 2 ** -11, -1 - 3 * 2 ** -11])),
                        torch.tensor([1 + 2 ** -10, -1 - 2 ** -9]))  # ties away from zero
-    for split in (_rna_split, _kernel_split):
+    for split in (_rna_split, tf32_split):
         hi, lo = split(q)
         assert not (hi.view(torch.int32) & 0x1FFF).any() and (hi + lo - q).abs().max() > 0
         torch.testing.assert_close(_tf32_attention(q, k, v, split), want, **fa.F32_TOL)

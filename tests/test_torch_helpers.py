@@ -80,6 +80,21 @@ def to_np(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: to nearest at 10 mantissa
+    bits, ties away from zero, on the int32 view."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """The float32 kernels' split into TF32 parts (csrc/tf32.cuh::split): hi
+    by Veltkamp's split at 11 significant bits, lo = x - hi with its low 13
+    bits masked off."""
+    c = x * 8193.0
+    hi = c + (x - c)
+    return hi, ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+
+
 def write_test_wav(path: str, seconds: float = 1.0, sr: int = 16000) -> str:
     """Two tones over a seeded noise floor. The floor keeps every mel bin
     well above the log clamp, where float32 roundoff of the framed matmuls

@@ -6,7 +6,10 @@ Tolerances: 2e-5 in float32 (as tests/test_swiglu.py: the sums run in
 another order), 3e-2 in bfloat16. In bfloat16 the plain version follows
 the Pallas kernel's rounding (bias added in f32, SiLU in f32, one cast), so
 it is held against ``_swiglu_call(interpret=True)``, not against JAX's
-``_reference``, which adds the bias in the input dtype."""
+``_reference``, which adds the bias in the input dtype. The bounds the card
+holds the kernels to, ``swiglu.F32_TOL`` and ``swiglu.BF16_TOL``, are
+pinned here: what the float32 kernel's tensor-core arithmetic passes and
+what a broken kernel fails."""
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +20,7 @@ import torch
 from audioeditingcode_tpu.ops.swiglu import _reference, _swiglu_call
 from audioeditingcode_tpu.ops.swiglu import fused_swiglu as j_fused_swiglu
 from audioeditingcode_tpu_torch.ops import swiglu
-from test_torch_helpers import to_np
+from test_torch_helpers import tf32_round, tf32_split, to_np
 
 
 def _inputs(m, e, n, dtype, seed=0):
@@ -85,10 +88,91 @@ def test_cuda_wrapper_rejects_cpu_tensors():
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, swiglu.TENSOR_CORE),
-                                         (torch.float32, swiglu.CUDA_CORE)])
+                                         (torch.float32, swiglu.TF32X3)])
 def test_swiglu_route(dtype, route):
-    """bfloat16 goes to the tensor-core kernel, float32 to the CUDA-core one."""
+    """bfloat16 goes to the bf16 tensor-core kernel, float32 to the 3xTF32
+    one."""
     assert swiglu.swiglu_route(dtype) == route
+
+
+def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 to float32, rounded toward zero, as the tensor cores round
+    each sum they add into an accumulator."""
+    r = x.to(torch.float32)
+    return torch.where(r.double().abs() > x.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _tensor_core_swiglu(x, w, b, chain, three=True):
+    """The float32 kernel's arithmetic (csrc/swiglu.cu) emulated: per k8 step
+    the products lo_x hi_w, hi_x lo_w and hi_x hi_w of the TF32 parts
+    (``three=False``: one TF32 product), each step's sum added into the
+    accumulator with truncation; a fresh accumulator every ``chain``
+    features, added into the running f32 sum with rounded adds; then the f32
+    epilogue."""
+    if three:
+        (xh, xl), (wh, wl) = tf32_split(x), tf32_split(w)
+        terms = [(xl, wh), (xh, wl), (xh, wh)]
+    else:
+        terms = [(tf32_round(x), tf32_round(w))]
+    terms = [(a.double(), c.double()) for a, c in terms]
+    h = torch.zeros(x.shape[0], w.shape[0])
+    for c0 in range(0, x.shape[1], chain):
+        acc = torch.zeros(x.shape[0], w.shape[0], dtype=torch.float64)
+        for k in range(c0, min(c0 + chain, x.shape[1]), 8):
+            for a, c in terms:
+                acc = _round_toward_zero(acc + a[:, k:k + 8] @ c[:, k:k + 8].T).double()
+        h = h + acc.float()
+    n = w.shape[0] // 2
+    a, g = h[:, :n] + b[:n], h[:, n:] + b[n:]
+    return a * (g * torch.sigmoid(g))
+
+
+@pytest.mark.parametrize("chain,three,passes", [
+    (32, True, True),     # the kernel: a fresh stage accumulator every BK = 32 features
+    (64, True, True),
+    (32, False, False),   # one TF32 product: about 90x the bound
+    (1536, True, False),  # one truncating chain over all of E: about 3x the bound
+])
+def test_f32_tolerance_pins_the_tensor_core_arithmetic(chain, three, passes):
+    """swiglu.F32_TOL, the bound the card holds the float32 kernel to, at the
+    DiT's E = 1536: 3xTF32 with fresh accumulators every 32 or 64 features
+    passes (about 0.15 of it), while one TF32 product, or one truncating
+    chain over all of E, fails, so a card check sees a kernel that lost its
+    lo terms or its per-stage sums."""
+    _, (x, w, b) = _inputs(16, 1536, 32, "float32", seed=3)
+    got = _tensor_core_swiglu(x, w, b, chain, three)
+    want = swiglu.swiglu_reference(x, w, b)
+    if passes:
+        torch.testing.assert_close(got, want, **swiglu.F32_TOL)
+    else:
+        with pytest.raises(AssertionError, match="Tensor-likes are not close"):
+            torch.testing.assert_close(got, want, **swiglu.F32_TOL)
+
+
+def test_bf16_tolerance_passes_the_pallas_kernel():
+    """The Pallas kernel (interpret mode) in bfloat16 at E = 1536 lies within
+    swiglu.BF16_TOL (two bf16 ulps) of the plain version."""
+    (jx, jk, jb), (tx, tw, tb) = _inputs(64, 1536, 128, "bfloat16", seed=4)
+    want = torch.from_numpy(np.asarray(_swiglu_call(jx, jk, jb, interpret=True), np.float32))
+    torch.testing.assert_close(swiglu.swiglu_reference(tx, tw, tb).float(), want,
+                               **swiglu.BF16_TOL)
+
+
+@pytest.mark.parametrize("mutant", ["last_slice_skipped", "value_gate_swapped"])
+def test_bf16_tolerance_rejects_a_broken_kernel(mutant):
+    """What a bf16 kernel that skipped its last 64-feature slice of E, or
+    swapped the value and gate halves, returns lies outside swiglu.BF16_TOL
+    of the Pallas kernel."""
+    (jx, jk, jb), (tx, tw, tb) = _inputs(64, 1536, 128, "bfloat16", seed=4)
+    want = torch.from_numpy(np.asarray(_swiglu_call(jx, jk, jb, interpret=True), np.float32))
+    if mutant == "last_slice_skipped":
+        tx = tx.clone()
+        tx[:, -64:] = 0
+    else:
+        tw, tb = (torch.cat(t.chunk(2)[::-1]) for t in (tw, tb))
+    with pytest.raises(AssertionError, match="Tensor-likes are not close"):
+        torch.testing.assert_close(swiglu.swiglu_reference(tx, tw, tb).float(), want,
+                                   **swiglu.BF16_TOL)
 
 
 def test_swiglu_route_rejects_other_dtypes():

@@ -8,11 +8,14 @@ prints no result):
 
 0. the card's name and power limit; build every CUDA kernel from csrc/
    (one nvcc per source, all started together), with each source's build
-   time, the most registers a kernel instance uses and the instances that
-   spill registers.
+   time, the most registers a kernel instance uses, the instances that
+   spill registers and those whose wgmma ptxas serialises.
 1. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes, in float32 and bfloat16, with its time, the plain
-   version's time, a PyTorch library yardstick's time and the card's bound:
+   paths' shapes, in float32 and bfloat16, with its time (CUDA events
+   around back-to-back calls, and on the device alone by torch.profiler; a
+   case whose first exceeds its second 1.5x is marked host-bound), the
+   plain version's time, a PyTorch library yardstick's times and the card's
+   bound:
    B1 in bfloat16 on the tensor cores (flash_attention_tc) and in float32
    as three TF32 products on the tensor cores (flash_attention), B2 likewise
    (flash_attention_rotary_tc, flash_attention_rotary; beside SDPA it is
@@ -24,8 +27,11 @@ prints no result):
    kernel, against the same forward on the CPU, through the plain version.
 2b. a full-width Stable Audio DiT forward cut to 2 of its 24 layers (batch
    2 on the (64, 1024) latent), card against CPU, through B1 + B3 and,
-   with AEC_ROTARY_IN_KERNEL=1, through B2 + B3; and the full-width Oobleck
-   encode and decode on 16 latent frames, card against CPU.
+   with AEC_ROTARY_IN_KERNEL=1, through B2 + B3; the same DiT in bfloat16
+   on the card (B1-tc + B3-tc, then B2-tc + B3-tc) against the float32 CPU
+   forward, within 1.25x the error of the bf16 forward through the plain
+   versions on the CPU; and the full-width Oobleck encode and decode on 16
+   latent frames, card against CPU.
 3. the AudioLDM-s main path: the port CLI's ``--mode ours`` edit of a
    synthetic 10 s clip at 200 inversion + 100 edit steps, once as an edit
    and once with ``--selfcheck`` in float32, and once as a ``--dtype
@@ -77,6 +83,8 @@ SA_STEPS, SA_TSTART = 100, 50  # bench.py's Stable Audio config: 150 CFG DiT for
 SA_LATENT = (64, 1024)  # every clip is padded to 1024 x 2048 samples
 SA_CALLS_PER_FORWARD = 24  # one B1 (or B2) and one B3 launch per DiT layer
 SA_PARITY_LAYERS = 2  # phase 2b's cut of the 24 layers
+# phase 2b's bf16 bound, as a multiple of the plain bf16 forward's own error
+BF16_FORWARD_RATIO = 1.25
 # each main path's edit: steps, tstart, target prompt, the clip's rate and channels
 EDITS = {MODEL_ID: (STEPS, TSTART, "a dog barking", {"sr": 16000, "channels": 1}),
          SA_MODEL_ID: (SA_STEPS, SA_TSTART, "a cello", {"sr": 44100, "channels": 2})}
@@ -91,6 +99,9 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 TF32X3_FLOPS_PER_S = 495e12 / 3
 EXP_PER_S = 16 * 132 * 1.98e9
+# a phase-1 case is host-bound where its back-to-back time by CUDA events
+# exceeds its device-only time by more than this factor
+HOST_BOUND = 1.5
 
 # (B, S, H, H_kv, D): the two AudioLDM-s UNet levels, then the Stable Audio
 # DiT's attn1 (ragged S = 1025 with the global token, 24 q / 12 kv heads)
@@ -117,11 +128,13 @@ ROTARY_CASES = [((2, 1025, 24, 12, 64), 32, torch.float32, False),
                 ((2, 1025, 24, 12, 64), 32, torch.bfloat16, True)]
 # (M, E, N) of the DiT feed-forward (B3): the CFG batch of 2 x 1025 tokens,
 # and 1025 rows (an empty source prompt runs the unconditional stream
-# alone); in float32 also a ragged case (M and E not multiples of the
-# kernel's 128-row block and 32-feature stage, N not of 128)
+# alone); in each dtype also a ragged case (M and E not multiples of the
+# kernels' 128-row tile and their 32- or 64-feature stage, N not of 128: in
+# bfloat16 the 128-column half tile crosses N)
 SWIGLU_CASES = [((2050, 1536, 6144), torch.float32), ((1025, 1536, 6144), torch.float32),
                 ((77, 80, 192), torch.float32),
-                ((2050, 1536, 6144), torch.bfloat16), ((1025, 1536, 6144), torch.bfloat16)]
+                ((2050, 1536, 6144), torch.bfloat16), ((1025, 1536, 6144), torch.bfloat16),
+                ((77, 80, 192), torch.bfloat16)]
 # float32 B3 is held to swiglu.F32_TOL, bf16 B3 to swiglu.BF16_TOL (the
 # bounds and what fails them: ops/swiglu.py)
 
@@ -137,18 +150,18 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Mean device time of fn() over reps launches, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def _times(kernel, plain, library, reps: int) -> dict:
+    """The kernel's and the library call's times by CUDA events around reps
+    back-to-back calls (``ms``, which is the host's time where the host is
+    slower to issue a call than the device to run it) and on the device
+    alone (``device_ms``, torch.profiler); the plain version's by CUDA
+    events. A case is host-bound where ms > HOST_BOUND x device_ms."""
+    from audioeditingcode_tpu_torch.utils.timing import cuda_ms, device_ms
+
+    t = {"ms": cuda_ms(kernel, reps), "device_ms": device_ms(kernel, reps),
+         "plain_ms": cuda_ms(plain, reps=5, warmup=1),
+         "library_ms": cuda_ms(library, reps), "library_device_ms": device_ms(library, reps)}
+    return t | {"host_bound": t["ms"] > HOST_BOUND * t["device_ms"]}
 
 
 def _bound(t_bytes, t_products, t_exps):
@@ -197,16 +210,17 @@ def _check(out: torch.Tensor, ref: torch.Tensor, tol: dict):
     return errors
 
 
-def _record_case(kernel, shape, dtype, errors, tol, ms, plain_ms, library_ms, library, bound):
+def _record_case(kernel, shape, dtype, errors, tol, times, library, bound):
     err, over = errors
     case = {"shape": list(shape), "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-            "err_over_allowed": over, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "library": library, "bound_ms": bound[0],
-            "bound_by": bound[1], "bound_term": bound[2]}
+            "err_over_allowed": over, "tol": tol, **times, "library": library,
+            "bound_ms": bound[0], "bound_by": bound[1], "bound_term": bound[2]}
     log(f"[phase1] {kernel} {case['shape']} {case['dtype']}: max_abs_err {err:.3g} "
         f"({over:.3g} of the allowed {tol['atol']} + {tol['rtol']:.4g} |ref|), "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms "
-        f"({library}), bound {bound[0]:.4f} ms ({bound[2]})")
+        f"kernel {times['ms']:.4f} ms (device {times['device_ms']:.4f}"
+        f"{', host-bound' if times['host_bound'] else ''}), plain {times['plain_ms']:.4f} ms, "
+        f"library {times['library_ms']:.4f} ms (device {times['library_device_ms']:.4f}; "
+        f"{library}), bound {bound[0]:.4f} ms ({bound[2]})")
     return case
 
 
@@ -228,6 +242,7 @@ def phase1_rotary(fa):
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from audioeditingcode_tpu_torch.models.dit1d import rotary_tables
+    from audioeditingcode_tpu_torch.utils.timing import cuda_ms, device_ms
 
     cases = []
     g = torch.Generator(device="cuda").manual_seed(4)
@@ -258,17 +273,18 @@ def phase1_rotary(fa):
         kname = "flash_attention_rotary" + ("_tc" if route == fa.TENSOR_CORE else "")
         case = _record_case(
             kname, (B, S, H, D), dtype, errors, tol,
-            cuda_ms(lambda: fa.flash_attention_rotary_cuda(q, k, v, cos, sin), reps=20),
-            cuda_ms(lambda: fa.rotary_attention_reference(q, k, v, cos, sin), reps=5, warmup=1),
-            cuda_ms(library, reps=20),
+            _times(lambda: fa.flash_attention_rotary_cuda(q, k, v, cos, sin),
+                   lambda: fa.rotary_attention_reference(q, k, v, cos, sin), library, reps=20),
             "host rotary of q and k + scaled_dot_product_attention (three PyTorch calls)",
             attention_bound_ms(B, S, H, Hkv, D, dtype, rot))
         case |= {"kv_heads": Hkv, "rot": rot, "strided_heads": strided, "route": route,
                  "host_rotary_b1_ms": cuda_ms(dispatcher, reps=20),
+                 "host_rotary_b1_device_ms": device_ms(dispatcher, reps=20),
                  "bit_equal_to_host_rotary_b1": torch.equal(out, dispatcher())}
         log(f"[phase1] {kname} {case['shape']} {case['dtype']} rot {rot}"
             f"{' strided heads' if strided else ''}: host rotary + B1 (the default "
-            f"dispatcher) {case['host_rotary_b1_ms']:.4f} ms, bit-equal to it: "
+            f"dispatcher) {case['host_rotary_b1_ms']:.4f} ms (device "
+            f"{case['host_rotary_b1_device_ms']:.4f}), bit-equal to it: "
             f"{case['bit_equal_to_host_rotary_b1']}")
         cases.append(case)
         del q, k, v, out, ref, kr, vr, vt
@@ -302,9 +318,8 @@ def phase1_swiglu(sw):
 
         case = _record_case(
             "swiglu", (M, E, N), dtype, errors, tol,
-            cuda_ms(lambda: sw.swiglu_cuda(x, w, b), reps=10),
-            cuda_ms(lambda: sw.swiglu_reference(x, w, b), reps=5, warmup=1),
-            cuda_ms(library, reps=10),
+            _times(lambda: sw.swiglu_cuda(x, w, b), lambda: sw.swiglu_reference(x, w, b),
+                   library, reps=10),
             "F.linear + chunk + silu * mul (three PyTorch calls)",
             swiglu_bound_ms(M, E, N, dtype)) | {"route": route}
         if dtype == torch.float32:
@@ -343,9 +358,8 @@ def phase1_attention(fa):
         qt = q.transpose(1, 2)
         cases.append(_record_case(
             "flash_attention", (B, S, H, D), dtype, errors, tol,
-            cuda_ms(lambda: fa.flash_attention_cuda(q, k, v), reps=20),
-            cuda_ms(lambda: fa.attention_reference(q, k, v), reps=5, warmup=1),
-            cuda_ms(lambda: sdpa(qt, kr, vr), reps=20),
+            _times(lambda: fa.flash_attention_cuda(q, k, v),
+                   lambda: fa.attention_reference(q, k, v), lambda: sdpa(qt, kr, vr), reps=20),
             "scaled_dot_product_attention (one PyTorch call)",
             attention_bound_ms(B, S, H, Hkv, D, dtype)) | {"kv_heads": Hkv, "route": route})
         del q, k, v, out, ref, kr, vr, qt
@@ -424,6 +438,12 @@ def _max_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
+def _rel_fro(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Relative Frobenius error of got against ref."""
+    ref = ref.double()
+    return ((got.double() - ref).norm() / ref.norm()).item()
+
+
 def phase2b_stable_audio_parity(fa, sw):
     """A full-width DiT cut to SA_PARITY_LAYERS layers, card vs CPU, through
     B1 + B3 and (AEC_ROTARY_IN_KERNEL=1) through B2 + B3; and the full-width
@@ -449,9 +469,17 @@ def phase2b_stable_audio_parity(fa, sw):
     with torch.no_grad():
         cpu_out = dit(x, t, ctx, glob, rot)
     cpu_s = time.perf_counter() - t0
+    # the same forward in bfloat16 on the CPU, through the kernels' plain
+    # versions (B2's is host rotary + B1's, so it serves both bf16 passes)
+    dit_bf16 = to_model_dtype_(copy.deepcopy(dit), "cpu", torch.bfloat16)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        plain_bf16_err = _rel_fro(dit_bf16(x, t, ctx, glob, rot), cpu_out)
+    plain_bf16_s = time.perf_counter() - t0
     dit = dit.cuda()
     args = [a.cuda() for a in (x, t, ctx, glob)] + [tuple(r.cuda() for r in rot)]
-    out = {"dit_layers": SA_PARITY_LAYERS, "dit_cpu_s": cpu_s}
+    out = {"dit_layers": SA_PARITY_LAYERS, "dit_cpu_s": cpu_s,
+           "dit_bf16_plain_rel_fro_err": plain_bf16_err, "dit_bf16_plain_cpu_s": plain_bf16_s}
     for name, env in (("host_rotary", "0"), ("rotary_in_kernel", "1")):
         os.environ["AEC_ROTARY_IN_KERNEL"] = env
         reset_launches(fa, sw)
@@ -469,8 +497,33 @@ def phase2b_stable_audio_parity(fa, sw):
         if launched != want:
             raise AssertionError(f"DiT ({name}) launches {launched}, expected {want}")
         out[f"dit_rel_err_{name}"] = rel
+    # bfloat16 on the card, through B1-tc + B3-tc and B2-tc + B3-tc, against
+    # the float32 CPU forward. The bound: the card's bf16 forward may lie at
+    # most BF16_FORWARD_RATIO times as far from the float32 forward as the
+    # same bf16 forward through the plain versions on the CPU (both round
+    # every activation to bf16; the kernels' sums run in another order)
+    dit_bf16 = to_model_dtype_(dit_bf16, "cuda", torch.bfloat16)
+    for name, env in (("host_rotary", "0"), ("rotary_in_kernel", "1")):
+        os.environ["AEC_ROTARY_IN_KERNEL"] = env
+        reset_launches(fa, sw)
+        with torch.no_grad():
+            gpu_out = dit_bf16(*args).cpu()
+        launched = read_launches(fa, sw)
+        err = _rel_fro(gpu_out, cpu_out)
+        limit = BF16_FORWARD_RATIO * plain_bf16_err
+        log(f"[phase2b] Stable Audio DiT bf16 ({name}): card vs float32 CPU relative "
+            f"Frobenius error {err:.4g}, the bf16 plain versions on the CPU {plain_bf16_err:.4g} "
+            f"(limit {BF16_FORWARD_RATIO} x that = {limit:.4g}; CPU {plain_bf16_s:.1f} s), "
+            f"launches {launched}")
+        attn = ("flash_attention_rotary" if env == "1" else "flash_attention") + "_tc"
+        want = expected_launches({"swiglu_tc": 1, attn: 1}, SA_PARITY_LAYERS)
+        if not np.isfinite(err) or err > limit:
+            raise AssertionError(f"DiT bf16 card ({name}) error {err} > {limit}")
+        if launched != want:
+            raise AssertionError(f"DiT bf16 ({name}) launches {launched}, expected {want}")
+        out[f"dit_bf16_rel_fro_err_{name}"] = err
     os.environ.pop("AEC_ROTARY_IN_KERNEL")
-    del dit, args
+    del dit, dit_bf16, args
 
     vae = to_model_dtype_(random_init_(AutoencoderOobleck(spec.oobleck),
                                        torch.Generator().manual_seed(8)), "cpu", torch.float32)
@@ -686,7 +739,10 @@ def main() -> int:
             "max_registers": max((int(m) for line in lines
                                   for m in re.findall(r"Used (\d+) registers", line)), default=0),
             "instances_spilling": sum(" 0 bytes spill stores" not in line
-                                      for line in lines if "spill stores" in line)}
+                                      for line in lines if "spill stores" in line),
+            # ptxas C7518: wgmma under a branch it deems divergent, serialised
+            "instances_wgmma_serialized": sum("wgmma.mma_async instructions are serialized"
+                                              in line for line in lines)}
         log(f"[phase0] built csrc/{src}.cu in {seconds:.1f} s: {builds[src]}")
     log(f"[phase0] build of {sorted(built) or 'nothing (up to date)'}: {build_s:.1f} s in all")
 
@@ -740,9 +796,11 @@ def main() -> int:
             "launches": sum(by_run.values()), "launches_by_run": by_run,
             "shape": main_case["shape"], "dtype": main_case["dtype"],
             "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
+            "device_ms": main_case["device_ms"], "host_bound": main_case["host_bound"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "bound_term": main_case["bound_term"],
             "library_ms": main_case["library_ms"],
+            "library_device_ms": main_case["library_device_ms"],
             "cases": kcases,
         })
         if not sum(by_run.values()):

@@ -41,3 +41,19 @@ def test_library_name_ignores_headers_not_included(tmp_path, monkeypatch):
 def test_kernel_sources_include_the_hashed_headers(name, headers):
     with open(os.path.join(build.CSRC_DIR, name + ".cu"), "rb") as f:
         assert build._LOCAL_INCLUDE.findall(f.read()) == headers
+
+
+def test_variant_timer_reads_ptxas_registers_spills_and_warnings():
+    from audioeditingcode_tpu_torch.ops import swiglu_ab
+
+    log = ("ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z1kv\n"
+           "    0 bytes stack frame, 24 bytes spill stores, 24 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 1 barriers, 448 bytes cmem[0]\n"
+           "ptxas info    : Used 90 registers, used 1 barriers, 448 bytes cmem[0]\n"
+           "ptxas warning : (C7510) a warning\n"
+           "ptxas info    : (C7518) Potential Performance Loss: wgmma.mma_async instructions "
+           "are serialized\n")
+    got = swiglu_ab.ptxas_summary(log)
+    assert (got["registers"], got["spill_stores"]) == (168, 24)
+    assert got["warnings"] == log.splitlines()[-2:]

@@ -381,6 +381,36 @@ def test_tensor_core_swiglu_matches_plain_version(cuda, M, E, N):
     assert torch.equal(got, swiglu.swiglu_cuda(x, w, b))  # deterministic
 
 
+@pytest.mark.parametrize("M,E,N,more_tiles_than_sms", [
+    (2050, 1536, 6144, True),  # 816 tiles: each of the 132 blocks walks 6 or 7
+    (1025, 1536, 6144, True),  # the last row block's second consumer lies past M
+    (300, 64, 16384, True),  # 384 tiles at few rows and one slice of E
+    (77, 1536, 192, False),  # the second half tile crosses N
+    (1, 64, 320, False),  # M = 1; the third half tile crosses N
+    (64, 128, 128, False),  # the second consumer's rows all past M
+])
+def test_tensor_core_swiglu_persistent_walk(cuda, M, E, N, more_tiles_than_sms):
+    """B3-tc's persistent blocks, with more tiles than SMs and fewer, half
+    tiles past N (two weight maps, stores clipped to N) and consumers whose
+    rows all lie past M: held to BF16_TOL, bit-equal on a rerun, counted on
+    the tensor-core route."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (-(-M // 128) * -(-N // 128) > sms) == more_tiles_than_sms
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(M, E, device=cuda, generator=g).to(torch.bfloat16)
+    w = (torch.randn(2 * N, E, device=cuda, generator=g) / E ** 0.5).to(torch.bfloat16)
+    b = torch.randn(2 * N, device=cuda, generator=g) * 0.1
+    before = dict(swiglu.swiglu_cuda.launches_by_route)
+    got = swiglu.swiglu_cuda(x, w, b)
+    torch.cuda.synchronize()
+    assert swiglu.swiglu_cuda.launches_by_route == {
+        swiglu.TENSOR_CORE: before[swiglu.TENSOR_CORE] + 1,
+        swiglu.TF32X3: before[swiglu.TF32X3]}
+    torch.testing.assert_close(got.float(), swiglu.swiglu_reference(x, w, b).float(),
+                               **swiglu.BF16_TOL)
+    assert torch.equal(got, swiglu.swiglu_cuda(x, w, b))
+
+
 def test_float32_swiglu_on_tf32x3_route(cuda):
     g = torch.Generator(device=cuda).manual_seed(6)
     x = torch.randn(512, 128, device=cuda, generator=g)

@@ -146,6 +146,17 @@ def test_cuda_device_missing_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_device_time_needs_a_card(monkeypatch):
+    """The device-only timer raises without a card, before it calls fn."""
+    from audioeditingcode_tpu_torch.utils.timing import device_ms
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        device_ms(lambda: calls.append(1), reps=2)
+    assert calls == []
+
+
 def test_cpu_tensors_take_the_plain_version():
     """On a CPU tensor the dispatcher computes the plain version and never
     reaches the kernel wrapper (whose count stays put)."""

@@ -1,7 +1,10 @@
-"""Shared CLI plumbing: seeding, the results layout, artifact saving.
+"""Shared CLI plumbing: seeding, the results layout, artifact saving, the
+PC diagnostics, wandb (optional) and per-stage timing.
 
-Counterpart of the parts of ``audioeditingcode_tpu/cli/common.py`` that the
-text-edit CLI uses; the results layout and ``run_args.json`` are the same.
+Counterpart of ``audioeditingcode_tpu/cli/common.py``; the results layout
+and ``run_args.json`` are the same. wandb and matplotlib are optional: a
+missing or disabled wandb logs nothing, and without matplotlib the PC
+correlation plots are skipped.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ import random
 import struct
 import time
 import zlib
-from typing import List, Optional
+from contextlib import contextmanager
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -95,3 +99,170 @@ def dump_run_summary(save_path: str, args, extra=None) -> None:
         payload.update(extra)
     with open(os.path.join(save_path, "run_args.json"), "w") as f:
         json.dump(payload, f, indent=2, default=str)
+
+
+def plot_corrs(corrs, in_corrs, n_evs: int, save_path: Optional[str] = None):
+    """PC-correlation diagnostics: each PC's correlation with the previous
+    timestep's, and the power method's mean successive-iterate correlation.
+    Returns the two figures, saved as PNGs when ``save_path`` is given; (None,
+    None) without matplotlib, which is then said in one line."""
+    try:
+        import matplotlib
+    except ImportError:
+        print("[!] matplotlib not installed; PC correlation plots skipped "
+              "(the arrays are in the extraction's npz)")
+        return None, None
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    corrs = np.asarray(corrs) if len(corrs) else np.zeros((0, n_evs))
+    fig1, ax = plt.subplots()
+    for ev in range(n_evs):
+        if corrs.shape[0]:
+            ax.plot(corrs[:, ev], label=f"PC {ev + 1}")
+    ax.set_xlabel("timestep index")
+    ax.set_ylabel("corr with previous timestep's PC")
+    ax.set_ylim(-1.05, 1.05)
+    ax.legend()
+    fig1.tight_layout()
+
+    fig2, ax2 = plt.subplots()
+    in_corrs = np.asarray(in_corrs) if len(in_corrs) else np.zeros((0, 1, n_evs))
+    if in_corrs.size:
+        mean_conv = in_corrs.mean(axis=0)  # (iters-1, n_ev)
+        for ev in range(min(n_evs, mean_conv.shape[-1])):
+            ax2.plot(mean_conv[:, ev], label=f"PC {ev + 1}")
+    ax2.set_xlabel("power iteration")
+    ax2.set_ylabel("mean successive-iterate corr")
+    ax2.legend()
+    fig2.tight_layout()
+
+    if save_path is not None:
+        fig1.savefig(os.path.join(save_path, "pc_corrs.png"))
+        fig2.savefig(os.path.join(save_path, "pc_in_corrs.png"))
+    plt.close(fig1)
+    plt.close(fig2)
+    return fig1, fig2
+
+
+class WandbStub:
+    """No-op drop-in used when wandb is unavailable or disabled."""
+
+    def __getattr__(self, name):
+        def _noop(*a, **k):
+            return self
+
+        return _noop
+
+
+def init_wandb(args, job_type: str, name: str):
+    """Open a wandb run (project "AudInv", named by ``--wandb_name`` or the
+    output basename, with ``--wandb_group``, the job type and the args as its
+    config); the no-op stub when disabled or not installed."""
+    if getattr(args, "wandb_disable", True):
+        return WandbStub()
+    try:
+        import wandb
+    except ImportError:
+        print("[!] wandb not installed; logging disabled")
+        return WandbStub()
+    mode = os.environ.get("WANDB_MODE", "online")
+    wandb.init(project="AudInv", config={},
+               name=getattr(args, "wandb_name", None) or name,
+               group=getattr(args, "wandb_group", None),
+               job_type=job_type, mode=mode)
+    wandb.config.update(vars(args))
+    return wandb
+
+
+def log_edit_artifacts(wandb, name: str, sr: int,
+                       orig_audio: np.ndarray, gen_audio: np.ndarray,
+                       orig_spec: Optional[np.ndarray] = None,
+                       gen_spec: Optional[np.ndarray] = None) -> None:
+    """Log the original and generated audio and their spectrograms."""
+    if isinstance(wandb, WandbStub):
+        return
+    d = {
+        "orig": wandb.Audio(np.asarray(orig_audio).squeeze(), caption="orig",
+                            sample_rate=sr),
+        "gen": wandb.Audio(np.asarray(gen_audio).squeeze(), caption=name,
+                           sample_rate=sr),
+    }
+    if orig_spec is not None:
+        d["orig_spec"] = wandb.Image(np.asarray(orig_spec), caption="orig")
+    if gen_spec is not None:
+        d["gen_spec"] = wandb.Image(np.asarray(gen_spec), caption=name)
+    wandb.log(d)
+
+
+def log_pc_corrs(wandb, corrs, in_corrs, eigvals, n_evs: int) -> None:
+    """Log PC-extraction diagnostics: the power method's convergence
+    correlations per PC and every window step's eigenvalues."""
+    if isinstance(wandb, WandbStub):
+        return
+    corrs = np.asarray(corrs) if len(corrs) else np.zeros((0, n_evs))
+    in_corrs = np.asarray(in_corrs) if len(in_corrs) else np.zeros((0, 1, n_evs))
+    eigvals = np.asarray(eigvals) if len(eigvals) else np.zeros((0, n_evs))
+    for ev in range(n_evs):
+        if in_corrs.size:
+            mean_conv = in_corrs.mean(axis=0)
+            table = wandb.Table(
+                data=[[int(i), float(c)] for i, c in enumerate(mean_conv[:, ev])],
+                columns=["iter", "corr"])
+            wandb.log({f"in_corr_{ev}": wandb.plot.line(
+                table, "iter", "corr",
+                title=f"Subspace iteration correlations #PC {ev}")})
+    # the iteration is a data field, not step=: wandb drops a log whose step
+    # goes backwards, and the plots above already advanced the auto-step
+    if eigvals.size:
+        try:
+            wandb.define_metric("eigval_*", step_metric="eigval_iter")
+        except AttributeError:  # older wandb without define_metric
+            pass
+        for it in range(eigvals.shape[0]):
+            row = {f"eigval_{ev}": float(eigvals[it, ev]) for ev in range(n_evs)}
+            row["eigval_iter"] = it
+            wandb.log(row)
+    if corrs.size:
+        fig1, _ = plot_corrs(corrs, in_corrs, n_evs)
+        if fig1 is not None:
+            wandb.log({"pc_corrs": wandb.Image(fig1)})
+
+
+class StageClock:
+    """Seconds and denoiser forwards per stage of a run, for run_args.json.
+
+    ``stage(name)`` times a block (synchronising the card on both sides);
+    ``counted(name, fn)`` wraps a denoiser so that each call adds one
+    forward to the stage."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.seconds: Dict[str, float] = {}
+        self.forwards: Dict[str, int] = {}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @contextmanager
+    def stage(self, name: str):
+        self._sync()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._sync()
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+            self.forwards.setdefault(name, 0)
+
+    def counted(self, name: str, fn: Callable) -> Callable:
+        def wrapped(*a, **k):
+            self.forwards[name] = self.forwards.get(name, 0) + 1
+            return fn(*a, **k)
+
+        return wrapped
+
+    def record(self) -> dict:
+        return {"stage_seconds": dict(self.seconds), "stage_forwards": dict(self.forwards)}

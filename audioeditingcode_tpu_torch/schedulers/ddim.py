@@ -78,6 +78,7 @@ class DiffusionSchedule:
     step_alpha_prod: torch.Tensor  # (S,)  alpha_bar[timesteps[k]]
     step_alpha_prod_prev: torch.Tensor  # (S,)  alpha_bar[timesteps[k] - ratio] (or final)
     step_variance: torch.Tensor  # (S,)  DDIM variance at step k
+    step_sigma: torch.Tensor  # (S,)  sqrt(1/alpha_bar - 1) at timesteps[k]
     num_train_timesteps: int = 1000
     num_inference_steps: int = 50
     prediction_type: str = "epsilon"
@@ -103,6 +104,7 @@ def make_schedule(config: DDIMConfig, num_inference_steps: int,
     beta_prod = 1.0 - alpha_prod
     beta_prod_prev = 1.0 - alpha_prod_prev
     variance = (beta_prod_prev / beta_prod) * (1.0 - alpha_prod / alpha_prod_prev)
+    sigma = np.sqrt(1.0 / alpha_prod - 1.0)
 
     def t(a, dt=dtype):
         # via an f32 numpy cast, as jnp.asarray(f64, dtype=f32) rounds
@@ -114,6 +116,7 @@ def make_schedule(config: DDIMConfig, num_inference_steps: int,
         step_alpha_prod=t(alpha_prod),
         step_alpha_prod_prev=t(alpha_prod_prev),
         step_variance=t(variance),
+        step_sigma=t(sigma),
         num_train_timesteps=config.num_train_timesteps,
         num_inference_steps=num_inference_steps,
         prediction_type=config.prediction_type,
@@ -143,6 +146,11 @@ def pred_epsilon(sched: DiffusionSchedule, k: int, x, model_output):
 def get_variance(sched: DiffusionSchedule, k: int):
     """DDIM posterior variance at step position k."""
     return sched.step_variance[k]
+
+
+def get_sigma(sched: DiffusionSchedule, k: int):
+    """sqrt(1/alpha_bar[t_k] - 1), the noise scale at step position k."""
+    return sched.step_sigma[k]
 
 
 def add_noise(sched: DiffusionSchedule, x0, noise, t):
@@ -223,3 +231,26 @@ def reverse_step_with_custom_noise(
     if variance_noise is not None:
         prev_sample = prev_sample + eta * torch.sqrt(variance) * variance_noise
     return prev_sample
+
+
+def ddim_step(
+    sched: DiffusionSchedule,
+    k: int,
+    model_output: torch.Tensor,
+    sample: torch.Tensor,
+    eta: float = 0.0,
+    variance_noise: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """diffusers DDIMScheduler.step with std_dev_t = eta * sqrt(variance);
+    returns (prev_sample, x0_pred)."""
+    a_prev = sched.step_alpha_prod_prev[k]
+    std_dev_t = eta * torch.sqrt(sched.step_variance[k])
+
+    x0_pred = pred_original_sample(sched, k, sample, model_output)
+    eps = pred_epsilon(sched, k, sample, model_output)
+
+    pred_sample_direction = torch.sqrt(1.0 - a_prev - std_dev_t ** 2) * eps
+    prev_sample = torch.sqrt(a_prev) * x0_pred + pred_sample_direction
+    if variance_noise is not None:
+        prev_sample = prev_sample + std_dev_t * variance_noise
+    return prev_sample, x0_pred

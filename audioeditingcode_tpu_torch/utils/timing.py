@@ -7,6 +7,9 @@ from __future__ import annotations
 
 import torch
 
+# profiles device_ms takes before it gives up on one that shows device time
+_PROFILE_ATTEMPTS = 3
+
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     """Mean time of fn() over reps back-to-back calls, by CUDA events: the
@@ -27,7 +30,10 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
 def device_ms(fn, reps: int, warmup: int = 3) -> float:
     """Mean device time of fn() over reps calls: the sum of the time of
     every kernel and copy it ran on the card, by torch.profiler, over reps.
-    The host's time between launches is left out."""
+    The host's time between launches is left out. A profile that delivers
+    no device activity at all (CUPTI drops a session's buffers now and then
+    among many short sessions in one process) is taken again, up to
+    _PROFILE_ATTEMPTS profiles."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -36,12 +42,13 @@ def device_ms(fn, reps: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    if total_us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return total_us / 1e3 / reps
+    for _ in range(_PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / 1e3 / reps
+    raise RuntimeError(f"torch.profiler recorded no device time in {_PROFILE_ATTEMPTS} profiles")

@@ -24,7 +24,10 @@ prints no result):
    products on the tensor cores (swiglu).
 2. one full-width AudioLDM-s UNet forward (random seeded weights, batch 2
    on the (8, 256, 16) latent of a 10 s clip) on the card, through the
-   kernel, against the same forward on the CPU, through the plain version.
+   kernel, against the same forward on the CPU, through the plain version;
+   and the same UNet in bfloat16 on the card (B1-tc) against the float32
+   CPU forward, within 1.25x the error of the bf16 forward through the
+   plain version on the CPU.
 2b. a full-width Stable Audio DiT forward cut to 2 of its 24 layers (batch
    2 on the (64, 1024) latent), card against CPU, through B1 + B3 and,
    with AEC_ROTARY_IN_KERNEL=1, through B2 + B3; the same DiT in bfloat16
@@ -32,6 +35,11 @@ prints no result):
    forward, within 1.25x the error of the bf16 forward through the plain
    versions on the CPU; and the full-width Oobleck encode and decode on 16
    latent frames, card against CPU.
+2c. the finite-difference probe of PC extraction, ab = x0(xt + c v) -
+   x0(xt) at c = 1e-3 for two PCs (batch 4), on the full-width AudioLDM-s
+   UNet and on phase 2b's 2-layer DiT, in float32 on the card (3xTF32
+   kernels) against the card's plain versions, each against a float64
+   probe on the CPU; and the card against the CPU's float32 probe.
 3. the AudioLDM-s main path: the port CLI's ``--mode ours`` edit of a
    synthetic 10 s clip at 200 inversion + 100 edit steps, once as an edit
    and once with ``--selfcheck`` in float32, and once as a ``--dtype
@@ -45,21 +53,34 @@ prints no result):
    (B2 in the rotary runs) and B3 must each launch 24 times per DiT
    forward, on the 3xTF32 routes in float32 and on the tensor-core routes
    in bfloat16.
+5. AudioLDM-s PC editing through the port's CLIs on phase 3's clip: PC
+   extraction in float32 (200 steps, 2 PCs, 50 power iterations at each of
+   the two window steps 100 and 99), then its application in bfloat16 along
+   both PCs at amount 0 and at amount 2 (each amount-2 wav must differ from
+   the amount-0 wav of its PC, and the two PCs' wavs from each other), and
+   in float32 along PC 1 at amount 0, which must give back the extraction's
+   drift-free wav.
+6. Stable Audio PC editing likewise on phase 4's clip (100 steps, window
+   steps 50 and 49); the float32 amount-0 application also shows that the
+   application conditions on the duration the extraction recorded.
 Every kernel launch count is set to 0 just before each main-path run and
-read just after it.
+read just after it; each run is held to its launches per denoiser forward
+(its run_args.json counts the forwards of each stage).
 
 The line before the last holds ``nvidia-smi``'s name and power limit, the
 one before it the kernels' JSON record, and the last line
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
-CFG denoiser step of each main path, in float32 and in bfloat16, and of the
-bfloat16 Stable Audio step with AEC_ROTARY_IN_KERNEL=1 (device time by
+CFG denoiser step of each main path, in float32 and in bfloat16, of the
+bfloat16 Stable Audio step with AEC_ROTARY_IN_KERNEL=1, and of each model's
+float32 power-iteration step at two PCs (a batch-4 forward; device time by
 kernel class, the device's idle share) before the final lines.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -104,7 +125,9 @@ EXP_PER_S = 16 * 132 * 1.98e9
 HOST_BOUND = 1.5
 
 # (B, S, H, H_kv, D): the two AudioLDM-s UNet levels, then the Stable Audio
-# DiT's attn1 (ragged S = 1025 with the global token, 24 q / 12 kv heads)
+# DiT's attn1 (ragged S = 1025 with the global token, 24 q / 12 kv heads),
+# at the edit's CFG batch 2; then each at the PC paths' batch 4 (two PCs
+# times the CFG pair)
 ATTN_CASES = [
     ((2, 4096, 8, 8, 16), torch.float32),
     ((2, 1024, 8, 8, 32), torch.float32),
@@ -112,6 +135,12 @@ ATTN_CASES = [
     ((2, 1024, 8, 8, 32), torch.bfloat16),
     ((2, 1025, 24, 12, 64), torch.float32),
     ((2, 1025, 24, 12, 64), torch.bfloat16),
+    ((4, 4096, 8, 8, 16), torch.float32),
+    ((4, 1024, 8, 8, 32), torch.float32),
+    ((4, 4096, 8, 8, 16), torch.bfloat16),
+    ((4, 1024, 8, 8, 32), torch.bfloat16),
+    ((4, 1025, 24, 12, 64), torch.float32),
+    ((4, 1025, 24, 12, 64), torch.bfloat16),
 ]
 # float32 attention (B1, B2) is held to flash_attention.F32_TOL, 1e-5 +
 # 1e-5 |ref|, which a single TF32 product fails; bf16 to
@@ -130,13 +159,60 @@ ROTARY_CASES = [((2, 1025, 24, 12, 64), 32, torch.float32, False),
 # and 1025 rows (an empty source prompt runs the unconditional stream
 # alone); in each dtype also a ragged case (M and E not multiples of the
 # kernels' 128-row tile and their 32- or 64-feature stage, N not of 128: in
-# bfloat16 the 128-column half tile crosses N)
+# bfloat16 the 128-column half tile crosses N); last, the PC paths' batch
+# of 4 x 1025 tokens
 SWIGLU_CASES = [((2050, 1536, 6144), torch.float32), ((1025, 1536, 6144), torch.float32),
                 ((77, 80, 192), torch.float32),
                 ((2050, 1536, 6144), torch.bfloat16), ((1025, 1536, 6144), torch.bfloat16),
-                ((77, 80, 192), torch.bfloat16)]
+                ((77, 80, 192), torch.bfloat16),
+                ((4100, 1536, 6144), torch.float32), ((4100, 1536, 6144), torch.bfloat16)]
 # float32 B3 is held to swiglu.F32_TOL, bf16 B3 to swiglu.BF16_TOL (the
 # bounds and what fails them: ops/swiglu.py)
+
+
+# phase 2c: the PC extraction's finite-difference probe ab = x0(xt + c v) -
+# x0(xt) at the CLI's c and two PCs, each variant against the same probe in
+# float64 on the CPU (float64 weights and activations; attention and SwiGLU
+# in float64 too): on the card through the kernels; on the card with each
+# kernel call replaced by its plain version (the CPU's code path, run on
+# the card); on the CPU in float32. The difference divides float32 roundoff
+# of x0 by c, so float32 probes lie about a percent from the float64 one,
+# and how far depends on the summation orders of every op, not only the
+# kernels'. Bound: the probe through the kernels lies at most PROBE_RATIO
+# times as far from the float64 probe as the same probe on the card
+# through the plain versions (relative Frobenius error): the kernels keep
+# the probe at float32 accuracy.
+PROBE_CONST, PROBE_N_EV, PROBE_CFG = 1e-3, 2, 3.0
+PROBE_RATIO = 1.25
+# The card's probe against the CPU's float32 one (relative Frobenius
+# error), by model: 1.5x what the first runs on an H100 read (UNet 0.0144,
+# DiT 0.0517, the same in three runs from the same seeds). The gap is the
+# card's other float32 ops (cuDNN's convolutions, cuBLAS) summing in other
+# orders than the CPU's; half again leaves room for another library's
+# orders, and a probe past it has changed by more than an order of sums.
+PROBE_CARD_CPU_MAX = {"unet": 0.0215, "dit": 0.0775}
+# phases 5 and 6: each model's PC extraction (steps, --drift_start,
+# --drift_end: a two-step window) and its applications
+PC_N_EVS, PC_ITERS = 2, 50
+PCS = {MODEL_ID: (STEPS, 100, 98), SA_MODEL_ID: (SA_STEPS, 50, 48)}
+# (name, flags): the same on both models, in this order
+PC_APPLICATIONS = [
+    ("apply_bf16_amount0", ["--evs", "1", "2", "--amount", "0", "--dtype", "bfloat16"]),
+    ("apply_bf16", ["--evs", "1", "2", "--amount", "2", "--dtype", "bfloat16"]),
+    ("apply_amount0", ["--evs", "1", "--amount", "0"]),
+]
+# The float32 amount-0 application against the extraction's drift-free wav,
+# bound fixed before the first run: 33 LSB of the int16 wav (1e-3 of full
+# scale). Amount 0 redoes the two window steps from their own x0 prediction,
+# which changes the latent by float32 roundoff only (~1e-7 relative; the
+# CPU test measures <= 1e-5 after the tiny model's remaining steps); every
+# other step runs the same kernels on the same inputs. Only an application
+# that leaves the extraction's trajectory (other weights, conditioning,
+# noise maps or steps) reaches 1e-3 of full scale. The drift is held to the
+# same bound the other way: each bf16 amount-2 wav must differ by more than
+# it from the bf16 amount-0 wav of its PC (the same batch and kernels, so a
+# drift that moves nothing gives the same wav), and from the other PC's.
+AMOUNT0_MAX_LSB = 33
 
 
 def log(msg: str) -> None:
@@ -368,8 +444,10 @@ def phase1_attention(fa):
 
 
 def phase2_unet_parity(fa):
+    """The full-width UNet, card vs CPU, in float32 and in bfloat16; returns
+    the record and the CPU UNet (float32), which phase 2c reuses."""
     from audioeditingcode_tpu_torch.models.configs import MODEL_SPECS
-    from audioeditingcode_tpu_torch.models.registry import random_init_
+    from audioeditingcode_tpu_torch.models.registry import random_init_, to_model_dtype_
     from audioeditingcode_tpu_torch.models.text_encoders import NullTextEncoder
     from audioeditingcode_tpu_torch.models.unet2d import UNet2DConditionModel
 
@@ -395,8 +473,231 @@ def phase2_unet_parity(fa):
         raise AssertionError(f"UNet card/CPU parity {rel} > 1e-3")
     if launched != ATTN_CALLS_PER_FORWARD:
         raise AssertionError(f"{launched} kernel launches in one UNet forward")
-    return {"unet_rel_err": rel}
+    del gpu_unet
+    out = {"unet_rel_err": rel}
+    # bfloat16 on the card through B1-tc, against the float32 CPU forward:
+    # the card may lie at most BF16_FORWARD_RATIO times as far from it as the
+    # same bf16 forward through the plain version on the CPU
+    unet_bf16 = to_model_dtype_(copy.deepcopy(unet), "cpu", torch.bfloat16)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        plain_bf16_err = _rel_fro(unet_bf16(x.to(torch.bfloat16), t, class_labels=labels),
+                                  cpu_out)
+    plain_bf16_s = time.perf_counter() - t0
+    unet_bf16 = to_model_dtype_(unet_bf16, "cuda", torch.bfloat16)
+    before = dict(fa.flash_attention_cuda.launches_by_route)
+    with torch.no_grad():
+        gpu_bf16 = unet_bf16(x.to(torch.bfloat16).cuda(), t.cuda(),
+                             class_labels=labels.cuda()).cpu()
+    launched_tc = fa.flash_attention_cuda.launches_by_route[fa.TENSOR_CORE] - before[fa.TENSOR_CORE]
+    err = _rel_fro(gpu_bf16, cpu_out)
+    limit = BF16_FORWARD_RATIO * plain_bf16_err
+    log(f"[phase2] AudioLDM-s UNet bf16: card vs float32 CPU relative Frobenius error "
+        f"{err:.4g}, the bf16 plain version on the CPU {plain_bf16_err:.4g} (limit "
+        f"{BF16_FORWARD_RATIO} x that = {limit:.4g}; CPU {plain_bf16_s:.1f} s), "
+        f"{launched_tc} tensor-core launches")
+    if not np.isfinite(err) or err > limit:
+        raise AssertionError(f"UNet bf16 card error {err} > {limit}")
+    if launched_tc != ATTN_CALLS_PER_FORWARD:
+        raise AssertionError(f"{launched_tc} tensor-core launches in one bf16 UNet forward")
+    out |= {"unet_bf16_rel_fro_err": err, "unet_bf16_plain_rel_fro_err": plain_bf16_err,
+            "unet_bf16_plain_cpu_s": plain_bf16_s}
+    return out, unet
 
+
+def _probe(solver, pipe, xt, z, v, k, prompt, state=None):
+    """The first power iteration's finite difference, ab = x0(xt + c v) -
+    x0(xt), at step k for the rows of v (one per PC), on the device of xt
+    and returned on the CPU: x0(xt) at batch 1, as the extraction's
+    trajectory takes it, the shifted inputs at the PCs' batch."""
+    from audioeditingcode_tpu_torch.editing.pc_drift import forward_directional
+    from audioeditingcode_tpu_torch.models.text_encoders import repeat_cond
+
+    n = v.shape[0]
+    uncond, cond = pipe.encode_text([""], negative=True), pipe.encode_text([prompt])
+    _, x0 = forward_directional(solver, pipe.make_eps_pair(uncond, cond), xt, k, z, PROBE_CFG,
+                                state=state)
+    pair = pipe.make_eps_pair(repeat_cond(uncond, n), repeat_cond(cond, n))
+    xe, ze = xt.repeat_interleave(n, dim=0), z.repeat_interleave(n, dim=0)
+    _, x0s = forward_directional(solver, pair, xe, k, ze, PROBE_CFG, eigvecs=PROBE_CONST * v,
+                                 amount=1.0, state=state)
+    return (x0s - x0).cpu()
+
+
+def _attention_f64(q, k, v, bias=None, rotary=None):
+    """Attention wholly in float64, rotary included (the plain versions
+    compute in float32), for phase 2c's float64 probes."""
+    def rotate(x, cos, sin):
+        rot, half = cos.shape[-1], cos.shape[-1] // 2
+        xr = x[..., :rot]
+        rh = torch.cat([-xr[..., half:], xr[..., :half]], dim=-1)
+        out = xr * cos[:, None].double() + rh * sin[:, None].double()
+        return torch.cat([out, x[..., rot:]], dim=-1)
+
+    if rotary is not None:
+        q, k = rotate(q, *rotary), rotate(k, *rotary)
+    rep = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(rep, dim=2).transpose(1, 2) for t in (k, v))
+    logits = torch.matmul(qt, kt.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if bias is not None:
+        logits = logits + bias.double()
+    return torch.matmul(torch.softmax(logits, dim=-1), vt).transpose(1, 2)
+
+
+def _swiglu_f64(x, weight, bias):
+    h, gate = torch.nn.functional.linear(x, weight, bias).chunk(2, dim=-1)
+    return h * torch.nn.functional.silu(gate)
+
+
+@contextlib.contextmanager
+def _swap_ops(attention_fn, swiglu_fn):
+    """The UNet's and the DiT's attention, and the DiT's SwiGLU, through
+    other functions."""
+    from audioeditingcode_tpu_torch.models import attention, dit1d
+
+    saved = attention.fused_attention, dit1d.fused_attention, dit1d.fused_swiglu
+    attention.fused_attention = dit1d.fused_attention = attention_fn
+    dit1d.fused_swiglu = swiglu_fn
+    try:
+        yield
+    finally:
+        attention.fused_attention, dit1d.fused_attention, dit1d.fused_swiglu = saved
+
+
+def _plain_ops():
+    """The dispatchers with each kernel call replaced by its plain version:
+    on any device, the path a CPU tensor takes."""
+    from audioeditingcode_tpu_torch.ops import flash_attention as fa
+    from audioeditingcode_tpu_torch.ops import swiglu as sw
+
+    def attention_fn(q, k, v, bias=None, rotary=None):
+        if not fa.kernel_eligible(q, k, bias):
+            return fa.fused_attention(q, k, v, bias, rotary)
+        if rotary is not None:
+            q, k = fa._host_rotary(q, *rotary), fa._host_rotary(k, *rotary)
+        return fa.attention_reference(q, k, v)
+
+    def swiglu_fn(x, weight, bias):
+        if not sw.kernel_eligible(x, weight):
+            return sw.fused_swiglu(x, weight, bias)
+        out = sw.swiglu_reference(x.reshape(-1, x.shape[-1]), weight, bias)
+        return out.reshape(x.shape[:-1] + (weight.shape[0] // 2,))
+
+    return _swap_ops(attention_fn, swiglu_fn)
+
+
+def _probe_check(name, probes, launched, want_launches):
+    """Every float32 probe against the float64 one; the card's through the
+    kernels may lie at most PROBE_RATIO times as far from it as the card's
+    through the plain versions, and at most PROBE_CARD_CPU_MAX[name] from
+    the CPU's float32 probe. Also reports each PC's cosine, card against
+    CPU."""
+    ref = probes["float64"]
+    err = {v: _rel_fro(p, ref) for v, p in probes.items() if v != "float64"}
+    a, b = probes["card"].double().flatten(1), probes["cpu"].double().flatten(1)
+    cos = ((a * b).sum(1) / a.norm(dim=1) / b.norm(dim=1)).tolist()
+    card_cpu = _rel_fro(probes["card"], probes["cpu"])
+    limit = PROBE_RATIO * err["card_plain"]
+    log(f"[phase2c] {name} probe ab = x0(xt + {PROBE_CONST} v) - x0(xt), {PROBE_N_EV} PCs: "
+        f"relative Frobenius error against float64: "
+        f"{ {v: round(e, 6) for v, e in err.items()} } (card limit {PROBE_RATIO} x card_plain "
+        f"= {limit:.4g}); card vs CPU {card_cpu:.4g} (limit {PROBE_CARD_CPU_MAX[name]}), "
+        f"cosines {[round(c, 8) for c in cos]}; |ab| {ref.norm().item():.4g}; "
+        f"launches through the kernels {launched['card']}")
+    if not np.isfinite(err["card"]) or err["card"] > limit:
+        raise AssertionError(f"{name} probe: card {err['card']} from float64, limit {limit}")
+    if not card_cpu <= PROBE_CARD_CPU_MAX[name]:
+        raise AssertionError(f"{name} probe: card {card_cpu} from the CPU's, "
+                             f"limit {PROBE_CARD_CPU_MAX[name]}")
+    if launched["card"] != want_launches or launched["card_plain"] != expected_launches({}, 0):
+        raise AssertionError(f"{name} probe launches {launched}, expected {want_launches}")
+    return {f"{name}_probe_err": err, f"{name}_probe_card_vs_cpu": card_cpu,
+            f"{name}_probe_cos": cos}
+
+
+def phase2c_probe(fa, sw, unet):
+    """The finite-difference probe of PC extraction in float32, through the
+    kernels on the card and in the other variants of PROBE_RATIO's comment,
+    against the CPU in float64: on the full-width AudioLDM-s UNet at step 100
+    of 200 through the pipeline's CFG pair, and on phase 2b's 2-layer
+    full-width DiT at step 50 of 100 with a warm solver history."""
+    from audioeditingcode_tpu_torch.editing.solvers import CosineDPMSolver, DDIMSolver
+    from audioeditingcode_tpu_torch.models.configs import MODEL_SPECS
+    from audioeditingcode_tpu_torch.models.dit1d import StableAudioDiT, rotary_tables
+    from audioeditingcode_tpu_torch.models.pipeline import LatentAudioPipeline
+    from audioeditingcode_tpu_torch.models.pipeline1d import StableAudioPipeline
+    from audioeditingcode_tpu_torch.models.registry import random_init_, to_model_dtype_
+    from audioeditingcode_tpu_torch.models.text_encoders import NullTextEncoder
+    from audioeditingcode_tpu_torch.schedulers.cosine_dpm import make_cosine_dpm_schedule
+    from audioeditingcode_tpu_torch.schedulers.ddim import make_schedule
+
+    g = torch.Generator().manual_seed(9)
+    n = PROBE_N_EV
+    variants = (("cpu", "cpu", torch.float32, contextlib.nullcontext),
+                ("card", "cuda", torch.float32, contextlib.nullcontext),
+                ("card_plain", "cuda", torch.float32, _plain_ops),
+                ("float64", "cpu", torch.float64,
+                 lambda: _swap_ops(_attention_f64, _swiglu_f64)))
+
+    def run(name, dev, dtype, ops, model, probe):
+        reset_launches(fa, sw)
+        t0 = time.perf_counter()
+        with torch.no_grad(), ops():
+            probes[name] = probe(dev, dtype, model.to(device=dev, dtype=dtype))
+        out[f"{tag}_probe_{name}_s"] = time.perf_counter() - t0
+        return read_launches(fa, sw)
+
+    spec = MODEL_SPECS[MODEL_ID]
+    xt, z = torch.randn((1,) + LATENT, generator=g), torch.randn((1,) + LATENT, generator=g)
+    v = torch.randn((n,) + LATENT, generator=g)
+
+    def unet_probe(dev, dtype, model):
+        pipe = LatentAudioPipeline(MODEL_ID, make_schedule(spec.scheduler, STEPS, device=dev),
+                                   model, None, None, NullTextEncoder(class_dim=512, device=dev),
+                                   spec.mel)
+        return _probe(DDIMSolver(pipe.sched), pipe, *(t.to(dev, dtype) for t in (xt, z, v)),
+                      k=STEPS // 2, prompt="a dog barking")
+
+    out, probes, tag = {}, {}, "unet"
+    launched = {name: run(name, dev, dtype, ops, copy.deepcopy(unet), unet_probe)
+                for name, dev, dtype, ops in variants}
+    out |= _probe_check("unet", probes, launched,
+                        expected_launches({"flash_attention": ATTN_CALLS_PER_FORWARD}, 2))
+
+    sa = MODEL_SPECS[SA_MODEL_ID]
+    cfg = dataclasses.replace(sa.dit, num_layers=SA_PARITY_LAYERS)
+    dit = to_model_dtype_(random_init_(StableAudioDiT(cfg), torch.Generator().manual_seed(6)),
+                          "cpu", torch.float32)
+    C, L = SA_LATENT
+    k = SA_STEPS // 2
+    sigma = float(make_cosine_dpm_schedule(sa.cosine_scheduler, SA_STEPS).sigmas_host[k])
+    xt = torch.randn(1, C, L, generator=g) * sigma
+    z, hist = torch.randn(1, C, L, generator=g), torch.randn(1, C, L, generator=g)
+    v = torch.randn(n, C, L, generator=g)
+    dur = torch.randn(1, 2, cfg.cross_attention_input_dim, generator=g)
+    glob = torch.randn(1, 1, cfg.global_states_input_dim, generator=g)
+
+    def dit_probe(dev, dtype, model):
+        pipe = StableAudioPipeline(
+            SA_MODEL_ID, CosineDPMSolver(make_cosine_dpm_schedule(sa.cosine_scheduler, SA_STEPS,
+                                                                  device=dev)),
+            model, None, None,
+            NullTextEncoder(hidden_dim=sa.projection.conditioning_dim, seq_len=sa.text_seq_len,
+                            device=dev), sample_size=L,
+            _duration_embeds=dur.to(dev), _global_states=glob.to(dev),
+            _rotary=rotary_tables(cfg.rotary_embed_dim, L + 1, device=dev))
+        x, zz, vv, h = (t.to(dev, dtype) for t in (xt, z, v, hist))
+        return _probe(pipe.sched, pipe, x, zz, vv, k, "a cello",
+                      state=pipe.sched.init_state(x, h))
+
+    probes, tag = {}, "dit"
+    launched = {name: run(name, dev, dtype, ops, copy.deepcopy(dit), dit_probe)
+                for name, dev, dtype, ops in variants}
+    out |= _probe_check("dit", probes, launched,
+                        expected_launches({"flash_attention": 1, "swiglu": 1},
+                                          2 * SA_PARITY_LAYERS))
+    return out
 
 def _wrappers(fa, sw) -> dict:
     """Each kernel wrapper and its float32 route, by the name of its float32
@@ -649,6 +950,107 @@ def phase4_stable_audio(fa, sw, tmp: str):
     return runs
 
 
+def _pc_run(fa, sw, name: str, call, per_forward: dict, forwards_expected: int):
+    """One PC CLI run from launch counts of 0: returns (its output, the run's
+    record). Every kernel must have launched per_forward times for each
+    denoiser forward its run_args.json counts."""
+    reset_launches(fa, sw)
+    t0 = time.perf_counter()
+    out = call()
+    wall = time.perf_counter() - t0
+    counts = read_launches(fa, sw)
+    first = out if isinstance(out, str) else out[0]
+    with open(os.path.join(os.path.dirname(first), "run_args.json")) as f:
+        rec = json.load(f)
+    forwards = sum(rec["stage_forwards"].values())
+    want = expected_launches(per_forward, forwards)
+    run = {"launches": counts, "forwards": forwards, "dtype": rec["dtype"], "wall_s": wall,
+           "stage_seconds": rec["stage_seconds"], "stage_forwards": rec["stage_forwards"],
+           "forwards_per_s": forwards / sum(rec["stage_seconds"].values())}
+    if "power_iteration_seconds_per_window_step" in rec:
+        run["power_iteration_s_per_window_step"] = rec["power_iteration_seconds_per_window_step"]
+    log(f"[{name}] {run}")
+    if forwards != forwards_expected or counts != want:
+        raise AssertionError(f"{name}: launches {counts} for {forwards} denoiser forwards "
+                             f"(expected {forwards_expected}), expected {want}")
+    return out, run
+
+
+def _check_wav(name: str, path: str, sr_want: int, channels: int):
+    from scipy.io import wavfile
+
+    sr, wav = wavfile.read(path)
+    ok_shape = (wav.shape == (10 * sr_want, 2) if channels == 2
+                else wav.ndim == 1 and wav.shape[0] >= 10 * sr_want)
+    if sr != sr_want or not ok_shape or not np.any(wav):
+        raise AssertionError(f"{name}: bad output wav {path}: sr {sr}, shape {wav.shape}")
+    return wav.astype(np.int64)
+
+
+def phase_pcs(fa, sw, tmp: str, model_id: str, clip: str, tag: str) -> dict:
+    """Phases 5 and 6: PC extraction in float32 through the port's CLI, then
+    each of PC_APPLICATIONS, each run held to its launches per
+    forward and its outputs checked."""
+    from audioeditingcode_tpu_torch.cli.pc_apply import main as pc_apply
+    from audioeditingcode_tpu_torch.cli.pc_extract import main as pc_extract
+
+    steps, start, end = PCS[model_id]
+    sr, channels = EDITS[model_id][3]["sr"], EDITS[model_id][3]["channels"]
+    if model_id == SA_MODEL_ID:
+        per = {"f32": {"flash_attention": SA_CALLS_PER_FORWARD, "swiglu": SA_CALLS_PER_FORWARD},
+               "bf16": {"flash_attention_tc": SA_CALLS_PER_FORWARD,
+                        "swiglu_tc": SA_CALLS_PER_FORWARD}}
+    else:
+        per = {"f32": {"flash_attention": ATTN_CALLS_PER_FORWARD},
+               "bf16": {"flash_attention_tc": ATTN_CALLS_PER_FORWARD}}
+    argv = ["--model_id", model_id, "--init_aud", clip, "--num_diffusion_steps", str(steps),
+            "--n_evs", str(PC_N_EVS), "--iters", str(PC_ITERS), "--drift_start", str(start),
+            "--drift_end", str(end), "--seed", "0", "--wandb_disable",
+            "--results_path", os.path.join(tmp, f"pc_{tag}")]
+    window = start - end
+    ckpt, runs = None, {}
+    ckpt, runs["extract"] = _pc_run(fa, sw, f"{tag} extract", lambda: pc_extract(argv),
+                                    per["f32"], 2 * steps + window * PC_ITERS)
+    z = np.load(ckpt)
+    vals, vecs = z["eig_vals"], z["eig_vecs"].reshape(window, PC_N_EVS, -1).astype(np.float64)
+    norms = np.linalg.norm(vecs, axis=-1)
+    dots = np.abs(np.einsum("wd,wd->w", vecs[:, 0], vecs[:, 1]))
+    runs["extract"] |= {"eig_vals": vals.tolist(), "eigvec_norm_err": float(np.abs(norms - 1).max()),
+                        "pc_dot_max": float(dots.max()), "eig_its": z["eig_its"].tolist()}
+    log(f"[{tag}] eigenvalues {vals.tolist()}, |norm - 1| <= {runs['extract']['eigvec_norm_err']:.3g}"
+        f", |PC1 . PC2| <= {runs['extract']['pc_dot_max']:.3g}")
+    if vals.shape != (window, PC_N_EVS) or not (np.all(np.isfinite(vals)) and np.all(vals > 0)):
+        raise AssertionError(f"{tag}: eigenvalues {vals}")
+    if runs["extract"]["eigvec_norm_err"] > 1e-4 or runs["extract"]["pc_dot_max"] > 1e-3:
+        raise AssertionError(f"{tag}: eigenvectors not orthonormal: {runs['extract']}")
+    free = _check_wav(f"{tag} extract", ckpt[: -len(".npz")] + ".wav", sr, channels)
+    base = ["--extraction_path", ckpt, "--drift_start", str(start), "--drift_end", str(end),
+            "--seed", "0", "--wandb_disable"]
+    wavs = {}
+    for name, extra in PC_APPLICATIONS:
+        dt = "bf16" if "bfloat16" in extra else "f32"
+        outs, runs[name] = _pc_run(fa, sw, f"{tag} {name}", lambda: pc_apply(base + extra),
+                                   per[dt], steps)
+        wavs[name] = [_check_wav(f"{tag} {name}", o, sr, channels) for o in outs]
+        diffs = [int(np.abs(w - free).max()) for w in wavs[name]]
+        runs[name] |= {"outputs": len(outs), "max_lsb_from_drift_free": diffs}
+        log(f"[{tag}] {name}: {len(outs)} wavs, max difference from the drift-free wav "
+            f"{diffs} LSB")
+    if max(runs["apply_amount0"]["max_lsb_from_drift_free"]) > AMOUNT0_MAX_LSB:
+        raise AssertionError(f"{tag}: float32 amount 0 is {runs['apply_amount0']} "
+                             f"(limit {AMOUNT0_MAX_LSB} LSB from the drift-free wav)")
+    moved = [int(np.abs(w - w0).max())
+             for w, w0 in zip(wavs["apply_bf16"], wavs["apply_bf16_amount0"])]
+    apart = int(np.abs(wavs["apply_bf16"][0] - wavs["apply_bf16"][1]).max())
+    runs["apply_bf16"] |= {"max_lsb_from_amount0": moved, "max_lsb_between_pcs": apart}
+    log(f"[{tag}] bf16 amount 2: max difference from amount 0 of the same PC {moved} LSB, "
+        f"between the PCs {apart} LSB (each must exceed {AMOUNT0_MAX_LSB})")
+    if min(moved + [apart]) <= AMOUNT0_MAX_LSB:
+        raise AssertionError(f"{tag}: the drift did not move the wav: {moved} LSB from amount "
+                             f"0, {apart} LSB between the PCs")
+    return runs
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     for key, b1, b2 in (("attn_fwd_kernel", "attention kernel B1 (3xTF32)",
@@ -669,8 +1071,10 @@ def _kernel_class(name: str) -> str:
 
 
 def profile_main_path_step(model_id: str, steps: int, latent, dtype: torch.dtype,
-                           n_steps: int = 6) -> dict:
-    """torch.profiler over n CFG denoiser steps of a main path's config."""
+                           n_steps: int = 6, rows: int = 1) -> dict:
+    """torch.profiler over n CFG denoiser steps of a main path's config, on
+    ``rows`` latents at once (a forward of batch 2 rows: rows = 2 is a power
+    iteration's step at two PCs)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -678,7 +1082,7 @@ def profile_main_path_step(model_id: str, steps: int, latent, dtype: torch.dtype
     from audioeditingcode_tpu_torch.models.registry import load_model
 
     pipe = load_model(model_id, steps, device="cuda", dtype=dtype, seed=0)
-    x = torch.randn((1,) + tuple(latent), device="cuda",
+    x = torch.randn((rows,) + tuple(latent), device="cuda",
                     generator=torch.Generator("cuda").manual_seed(3)).to(dtype)
     cfg, _ = build_cfg_tensors(x.shape, ["a dog barking"], [12.0], device="cuda")
     den = pipe.make_denoiser(pipe.encode_text([""], negative=True),
@@ -703,7 +1107,7 @@ def profile_main_path_step(model_id: str, steps: int, latent, dtype: torch.dtype
         by_class[_kernel_class(e.key)] = by_class.get(_kernel_class(e.key), 0.0) + ms
         kernels.append((ms, e.count // n_steps, e.key[:90]))
     busy = sum(by_class.values())
-    out = {"model_id": model_id, "dtype": str(dtype).split(".")[-1],
+    out = {"model_id": model_id, "dtype": str(dtype).split(".")[-1], "forward_batch": 2 * rows,
            "rotary_in_kernel": os.environ.get("AEC_ROTARY_IN_KERNEL", "0") == "1",
            "step_wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": max(0.0, 1.0 - busy / wall_ms),
@@ -756,11 +1160,23 @@ def main() -> int:
                                             (fa.TF32X3, "flash_attention_rotary"))),
              **by_route(phase1_swiglu(sw), ((sw.TENSOR_CORE, "swiglu_tc"),
                                             (sw.TF32X3, "swiglu")))}
-    parity = phase2_unet_parity(fa)
+    parity, unet = phase2_unet_parity(fa)
     parity.update(phase2b_stable_audio_parity(fa, sw))
+    t0 = time.perf_counter()
+    parity.update(phase2c_probe(fa, sw, unet))
+    parity["phase2c_s"] = time.perf_counter() - t0
+    log(f"[phase2c] {parity['phase2c_s']:.1f} s")
+    del unet
     with tempfile.TemporaryDirectory() as tmp:
         runs = {"audioldm": phase3_main_path(fa, sw, tmp),
                 "stable_audio": phase4_stable_audio(fa, sw, tmp)}
+        t0 = time.perf_counter()
+        runs["audioldm_pc"] = phase_pcs(fa, sw, tmp, MODEL_ID, os.path.join(tmp, "clip.wav"),
+                                        "phase5")
+        runs["stable_audio_pc"] = phase_pcs(fa, sw, tmp, SA_MODEL_ID,
+                                            os.path.join(tmp, "clip44k.wav"), "phase6")
+        pc_s = time.perf_counter() - t0
+        log(f"[phase5-6] PC phases: {pc_s:.1f} s")
     if "--profile" in sys.argv[1:]:
         for dtype in (torch.float32, torch.bfloat16):
             profile_main_path_step(MODEL_ID, STEPS, LATENT, dtype)
@@ -768,6 +1184,9 @@ def main() -> int:
         os.environ["AEC_ROTARY_IN_KERNEL"] = "1"
         profile_main_path_step(SA_MODEL_ID, SA_STEPS, SA_LATENT, torch.bfloat16)
         os.environ.pop("AEC_ROTARY_IN_KERNEL")
+        # a power iteration's step: float32, two PCs, a batch-4 forward
+        profile_main_path_step(MODEL_ID, STEPS, LATENT, torch.float32, rows=PC_N_EVS)
+        profile_main_path_step(SA_MODEL_ID, SA_STEPS, SA_LATENT, torch.float32, rows=PC_N_EVS)
 
     sources = {"flash_attention": "flash_attention.cu",
                "flash_attention_tc": "flash_attention_tc.cu",
@@ -806,7 +1225,15 @@ def main() -> int:
         if not sum(by_run.values()):
             raise AssertionError(f"{kname} was launched no time on the main paths")
     ald, sa = runs["audioldm"], runs["stable_audio"]
+    ald_pc, sa_pc = runs["audioldm_pc"], runs["stable_audio_pc"]
     record = {"kernels": kernels, "build_s": build_s, "builds": builds, **parity,
+              "pc_phases_s": pc_s,
+              "pc_extract_s_per_window_step":
+                  ald_pc["extract"]["power_iteration_s_per_window_step"],
+              "stable_audio_pc_extract_s_per_window_step":
+                  sa_pc["extract"]["power_iteration_s_per_window_step"],
+              "pc_apply_bf16_s": sum(ald_pc["apply_bf16"]["stage_seconds"].values()),
+              "stable_audio_pc_apply_bf16_s": sum(sa_pc["apply_bf16"]["stage_seconds"].values()),
               "edit_s": ald["edit"]["edit_s"], "steps_per_s": ald["edit"]["steps_per_s"],
               "selfcheck_snr_db": ald["selfcheck"]["selfcheck_snr_db"],
               "bf16_edit_s": ald["edit_bf16"]["edit_s"],

@@ -11,7 +11,8 @@ near zero: tight enough that a kernel which dropped its kv_len mask or its
 K rotation fails) and bfloat16 SwiGLU to ``swiglu.BF16_TOL``, the same
 bound (a kernel that skipped a 64-feature slice of E fails it). The bounds
 are pinned in tests/test_torch_flash_attention.py and
-tests/test_torch_swiglu.py.
+tests/test_torch_swiglu.py. Power iteration on the tiny models, card
+against CPU, is held to the bounds of tests/test_torch_pc_drift.py.
 """
 
 import pytest
@@ -463,3 +464,66 @@ def test_tf32x3_swiglu_rejects_what_it_does_not_take(cuda):
                            w[:, :128].contiguous(), b)
     swiglu.swiglu_cuda(shifted, w[:, :128].contiguous(), b)  # ...is taken
     assert swiglu.swiglu_cuda.launches_by_route[swiglu.TF32X3] == before[swiglu.TF32X3] + 1
+
+
+def _tiny_eig(model_id: str, device, n_ev: int = 2, iters: int = 10):
+    """get_eigenvectors on a tiny model built by the port's registry with
+    seeded random weights, from a seeded xt, noise and v0, at a latent long
+    enough that the attention (S >= 1024) goes to the kernel on a card:
+    Stable Audio's rotary tables are set for 1024 latent frames. Returns
+    the result and the launches of B1 and B3 it made."""
+    from audioeditingcode_tpu_torch.editing.pc_drift import forward_directional, get_eigenvectors
+    from audioeditingcode_tpu_torch.editing.solvers import as_solver
+    from audioeditingcode_tpu_torch.models.registry import load_model
+    from audioeditingcode_tpu_torch.models.text_encoders import repeat_cond
+
+    pipe = load_model(model_id, 6, device=device, seed=0)
+    if model_id == "test/tiny-stable-audio":
+        pipe.sample_size = 1024
+        pipe.setup_duration()
+        shape, scale = (1, 4, 1024), 3.0
+    else:
+        shape, scale = (1, 4, 32, 32), 1.0
+    g = torch.Generator().manual_seed(12)
+    xt, z = (torch.randn(shape, generator=g) * s for s in (scale, 1.0))
+    v0 = torch.randn((n_ev,) + shape[1:], generator=g)
+    solver = as_solver(pipe.sched)
+    hist = torch.randn(shape, generator=g)
+    state = solver.init_state(xt.to(device), hist.to(device) if solver.carries_history else None)
+    pair = pipe.make_eps_pair(repeat_cond(pipe.encode_text([""], negative=True), n_ev),
+                              repeat_cond(pipe.encode_text(["a sine tone"]), n_ev))
+    xe, ze = (t.repeat_interleave(n_ev, dim=0).to(device) for t in (xt, z))
+    before = (fa.flash_attention_cuda.launches, swiglu.swiglu_cuda.launches)
+    _, x0 = forward_directional(solver, pair, xe, 2, ze, 3.0, state=state)
+    res = get_eigenvectors(solver, pair, xe, ze, torch.ones(shape, device=device), 2, x0,
+                           v0=v0.to(device), const=0.1, iters=iters, cfg_tar=3.0, n_ev=n_ev,
+                           state=state)
+    return res, (fa.flash_attention_cuda.launches - before[0],
+                 swiglu.swiglu_cuda.launches - before[1])
+
+
+@pytest.mark.parametrize("model_id", ["test/tiny-audioldm", "test/tiny-stable-audio"])
+def test_get_eigenvectors_card_matches_cpu(cuda, model_id):
+    """Power iteration on the card (B1 at float32 on the 3xTF32 route)
+    against the CPU's plain versions from the same v0, at
+    the bounds of the CPU tests (tests/test_torch_pc_drift.py, c = 0.1):
+    |cosine| >= 0.9999 with the same sign, eigenvalues 5e-4 relative,
+    in_corrs 1e-3 absolute, in_norms 1e-4 relative."""
+    got, (attn, ff) = _tiny_eig(model_id, cuda)
+    want, _ = _tiny_eig(model_id, "cpu")
+    iters, n_ev = 10, 2
+    # one forward for x0 plus one per iteration, each launching B1 the same
+    # number of times; the tiny DiT's width, 64, is under B3's E % 128 rule,
+    # so its feed-forward takes the plain path on either device (as in JAX)
+    assert attn >= iters + 1 and attn % (iters + 1) == 0, attn
+    assert ff == 0
+    a = got.eigvecs.double().cpu().reshape(n_ev, -1)
+    b = want.eigvecs.double().reshape(n_ev, -1)
+    cos = (a * b).sum(1) / a.norm(dim=1) / b.norm(dim=1)
+    assert bool((cos >= 0.9999).all()), cos
+    rel = ((got.eigvals.cpu() - want.eigvals).abs().max() / want.eigvals.abs().max()).item()
+    assert rel <= 5e-4
+    assert (got.in_corrs.cpu() - want.in_corrs).abs().max().item() <= 1e-3
+    norm_rel = ((got.in_norms.cpu() - want.in_norms).abs().max()
+                / want.in_norms.abs().max()).item()
+    assert norm_rel <= 1e-4

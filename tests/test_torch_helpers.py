@@ -157,6 +157,44 @@ def test_device_time_needs_a_card(monkeypatch):
     assert calls == []
 
 
+def test_device_time_takes_a_profile_again_when_it_has_no_device_time(monkeypatch):
+    """A profile with no device activity is taken again; a time comes from
+    the first profile that has some, and none from profiles that all lack
+    it."""
+    import types
+
+    import torch.profiler
+    from torch.autograd import DeviceType
+
+    from audioeditingcode_tpu_torch.utils.timing import device_ms
+
+    delivered = iter([[], [], [("k", 300.0)], [], [], []])
+
+    class Profile:
+        def __init__(self, activities):
+            self.events = next(delivered)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [types.SimpleNamespace(device_type=DeviceType.CUDA,
+                                          self_device_time_total=us)
+                    for _, us in self.events]
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    calls = []
+    assert device_ms(lambda: calls.append(1), reps=3, warmup=1) == pytest.approx(0.1)
+    assert len(calls) == 1 + 3 * 3  # warmup, then three profiles of 3 reps
+    with pytest.raises(RuntimeError, match="no device time in 3 profiles"):
+        device_ms(lambda: None, reps=2)
+
+
 def test_cpu_tensors_take_the_plain_version():
     """On a CPU tensor the dispatcher computes the plain version and never
     reaches the kernel wrapper (whose count stays put)."""

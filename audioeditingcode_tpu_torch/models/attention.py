@@ -2,8 +2,11 @@
 
 Counterpart of ``audioeditingcode_tpu/models/attention.py``. Every attention
 goes through :func:`..ops.flash_attention.fused_attention`, which sends the
-long unmasked self-attention to the CUDA kernel. LayerNorm and GroupNorm
-use eps = 1e-6 as the Flax modules do (torch's default is 1e-5).
+long unmasked self-attention to the CUDA kernel; cross-attention to a text
+stream (AudioLDM2's two streams, TANGO's T5 tokens), with the stream's key
+mask as an additive bias, takes the plain path, as in the JAX dispatcher.
+LayerNorm and GroupNorm use eps = 1e-6 as the Flax modules do (torch's
+default is 1e-5).
 """
 
 from __future__ import annotations

@@ -6,9 +6,13 @@ matched as ``audioeditingcode_tpu/models/convert.py`` matches them: a torch
 key ``down_blocks.0.resnets.1.conv1.weight`` and a Flax path
 ``(down_blocks_0_resnets_1, conv1, kernel)`` both normalize to
 ``down_blocks_0_resnets_1_conv1``. Tensors are re-laid-out by the inverse
-of that module's rank rules:
+of that module's rank rules (the dual-stream UNet's transformers,
+``attentions.{2j}`` and ``attentions.{2j+1}``, are named as in Flax, so they
+need no rule of their own):
 
   Dense kernel   (in, out)          -> Linear weight (out, in)
+                                       (also the linear proj_in / proj_out
+                                       of use_linear_projection transformers)
   Dense kernel   (in, out)          -> Conv1d(k=1) weight (out, in, 1)
                                        (the DiT's pre/post convs)
   Conv kernel    (kh, kw, in, out)  -> Conv2d weight (out, in, kh, kw)

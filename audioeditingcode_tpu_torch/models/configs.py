@@ -1,9 +1,12 @@
-"""Model specs of the port: AudioLDM-s and Stable Audio Open.
+"""Model specs of the port: the AudioLDM, AudioLDM2 and TANGO mel UNets and
+Stable Audio Open.
 
-The port's own copies of ``audioeditingcode_tpu/models/configs.py`` entries
-for ``cvssp/audioldm-s-full-v2``, ``stabilityai/stable-audio-open-1.0`` and
-their tiny test configs ``test/tiny-audioldm`` and
-``test/tiny-stable-audio``.
+The port's own copies of the ``audioeditingcode_tpu/models/configs.py``
+entries of the audio models (AudioLDM-s and -l, AudioLDM2, -large and
+-music, both TANGO checkpoints, Stable Audio Open 1.0) and of their tiny
+test configs (``test/tiny-audioldm``, ``test/tiny-audioldm2``,
+``test/tiny-tango``, ``test/tiny-stable-audio``). The image models
+(Stable Diffusion, CelebA-HQ) are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,14 +28,14 @@ from .vae import AutoencoderKLConfig
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     model_id: str
-    family: str  # 'audioldm' | 'stable-audio'
+    family: str  # 'audioldm' | 'audioldm2' | 'tango' | 'stable-audio'
     unet: Optional[UNet2DConditionConfig]
     vae: Optional[AutoencoderKLConfig]
     vocoder: Optional[HifiGanConfig]
     scheduler: DDIMConfig
     mel: Optional[MelConfig]
     sample_rate: int = 16000
-    text_encoder: str = "clap"  # 'clap' | 't5' (need a checkpoint) | 'null'
+    text_encoder: str = "clap"  # 'clap' | 't5' | 'clap+t5+gpt2' (need a checkpoint) | 'null'
     text_embed_dim: int = 512
     text_seq_len: int = 1
     recommended_steps: int = 200
@@ -48,6 +51,12 @@ _AUDIOLDM_SCHED = DDIMConfig(
     beta_schedule="scaled_linear", prediction_type="epsilon",
     set_alpha_to_one=False, steps_offset=1,
 )
+_SD_SCHED = DDIMConfig(
+    num_train_timesteps=1000, beta_start=0.00085, beta_end=0.012,
+    beta_schedule="scaled_linear", prediction_type="epsilon",
+    set_alpha_to_one=False, steps_offset=1,
+)
+_SD21_V_SCHED = dataclasses.replace(_SD_SCHED, prediction_type="v_prediction")
 
 _MEL_16K = MelConfig(
     filter_length=1024, hop_length=160, win_length=1024,
@@ -67,6 +76,49 @@ _AUDIOLDM_VAE = AutoencoderKLConfig(
     block_out_channels=(128, 256, 512), layers_per_block=2,
     scaling_factor=0.9227914,
 )
+
+
+
+def _audioldm_unet(block_out, heads=8) -> UNet2DConditionConfig:
+    return UNet2DConditionConfig(
+        in_channels=8, out_channels=8,
+        down_block_types=("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",),
+        up_block_types=("UpBlock2D",) + ("CrossAttnUpBlock2D",) * 3,
+        block_out_channels=block_out,
+        layers_per_block=2,
+        cross_attention_dim=None,  # attn2 degrades to self-attn (FiLM-only text)
+        num_attention_heads=heads,
+        class_embed_type="simple_projection",
+        projection_class_embeddings_input_dim=512,
+        class_embeddings_concat=True,
+    )
+
+
+def _audioldm2_unet(block_out, cross_dim, heads=8) -> UNet2DConditionConfig:
+    return UNet2DConditionConfig(
+        in_channels=8, out_channels=8,
+        down_block_types=("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",),
+        up_block_types=("UpBlock2D",) + ("CrossAttnUpBlock2D",) * 3,
+        block_out_channels=block_out,
+        layers_per_block=2,
+        cross_attention_dim=cross_dim,  # GPT-2 generated embeds
+        double_cross_attention=True,
+        cross_attention_dim_1=1024,  # T5/CLAP projected stream
+        num_attention_heads=heads,
+        use_linear_projection=True,
+    )
+
+
+def _tango_unet() -> UNet2DConditionConfig:
+    return UNet2DConditionConfig(
+        in_channels=8, out_channels=8,
+        down_block_types=("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",),
+        up_block_types=("UpBlock2D",) + ("CrossAttnUpBlock2D",) * 3,
+        block_out_channels=(320, 640, 1280, 1280),
+        layers_per_block=2, cross_attention_dim=1024,
+        num_attention_heads=8, use_linear_projection=True,
+    )
+
 
 TINY_UNET = UNet2DConditionConfig(
     in_channels=4, out_channels=4,
@@ -95,21 +147,52 @@ TINY_HIFIGAN = HifiGanConfig(
 MODEL_SPECS = {
     "cvssp/audioldm-s-full-v2": ModelSpec(
         model_id="cvssp/audioldm-s-full-v2", family="audioldm",
-        unet=UNet2DConditionConfig(
-            in_channels=8, out_channels=8,
-            down_block_types=("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",),
-            up_block_types=("UpBlock2D",) + ("CrossAttnUpBlock2D",) * 3,
-            block_out_channels=(128, 256, 384, 640),
-            layers_per_block=2,
-            cross_attention_dim=None,  # attn2 degrades to self-attn (FiLM-only text)
-            num_attention_heads=8,
-            class_embed_type="simple_projection",
-            projection_class_embeddings_input_dim=512,
-            class_embeddings_concat=True,
-        ),
+        unet=_audioldm_unet((128, 256, 384, 640)),
         vae=_AUDIOLDM_VAE, vocoder=_HIFIGAN_16K_64,
         scheduler=_AUDIOLDM_SCHED, mel=_MEL_16K,
         text_encoder="clap", text_embed_dim=512, recommended_steps=100,
+    ),
+    "cvssp/audioldm-l-full": ModelSpec(
+        model_id="cvssp/audioldm-l-full", family="audioldm",
+        unet=_audioldm_unet((256, 512, 768, 1280)),
+        vae=_AUDIOLDM_VAE, vocoder=_HIFIGAN_16K_64,
+        scheduler=_AUDIOLDM_SCHED, mel=_MEL_16K,
+        text_encoder="clap", text_embed_dim=512, recommended_steps=100,
+    ),
+    "cvssp/audioldm2": ModelSpec(
+        model_id="cvssp/audioldm2", family="audioldm2",
+        unet=_audioldm2_unet((128, 256, 384, 640), cross_dim=768),
+        vae=_AUDIOLDM_VAE, vocoder=_HIFIGAN_16K_64,
+        scheduler=_AUDIOLDM_SCHED, mel=_MEL_16K,
+        text_encoder="clap+t5+gpt2", text_embed_dim=768, text_seq_len=8,
+    ),
+    "cvssp/audioldm2-large": ModelSpec(
+        model_id="cvssp/audioldm2-large", family="audioldm2",
+        unet=_audioldm2_unet((256, 384, 640, 1024), cross_dim=768),
+        vae=_AUDIOLDM_VAE, vocoder=_HIFIGAN_16K_64,
+        scheduler=_AUDIOLDM_SCHED, mel=_MEL_16K,
+        text_encoder="clap+t5+gpt2", text_embed_dim=768, text_seq_len=8,
+    ),
+    "cvssp/audioldm2-music": ModelSpec(
+        model_id="cvssp/audioldm2-music", family="audioldm2",
+        unet=_audioldm2_unet((128, 256, 384, 640), cross_dim=768),
+        vae=_AUDIOLDM_VAE, vocoder=_HIFIGAN_16K_64,
+        scheduler=_AUDIOLDM_SCHED, mel=_MEL_16K,
+        text_encoder="clap+t5+gpt2", text_embed_dim=768, text_seq_len=8,
+    ),
+    "declare-lab/tango-full-ft-audio-music-caps": ModelSpec(
+        model_id="declare-lab/tango-full-ft-audio-music-caps", family="tango",
+        unet=_tango_unet(),
+        vae=_AUDIOLDM_VAE, vocoder=_HIFIGAN_16K_64,
+        scheduler=_SD21_V_SCHED, mel=_MEL_16K,
+        text_encoder="t5", text_embed_dim=1024, text_seq_len=512,
+    ),
+    "declare-lab/tango-full-ft-audiocaps": ModelSpec(
+        model_id="declare-lab/tango-full-ft-audiocaps", family="tango",
+        unet=_tango_unet(),
+        vae=_AUDIOLDM_VAE, vocoder=_HIFIGAN_16K_64,
+        scheduler=_SD21_V_SCHED, mel=_MEL_16K,
+        text_encoder="t5", text_embed_dim=1024, text_seq_len=512,
     ),
     "stabilityai/stable-audio-open-1.0": ModelSpec(
         model_id="stabilityai/stable-audio-open-1.0", family="stable-audio",
@@ -149,5 +232,36 @@ MODEL_SPECS = {
         unet=TINY_UNET, vae=TINY_VAE, vocoder=TINY_HIFIGAN,
         scheduler=_AUDIOLDM_SCHED, mel=_MEL_16K,
         text_encoder="null", text_embed_dim=32, recommended_steps=20,
+    ),
+    "test/tiny-audioldm2": ModelSpec(
+        model_id="test/tiny-audioldm2", family="audioldm2",
+        unet=UNet2DConditionConfig(
+            in_channels=4, out_channels=4,
+            down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+            up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+            block_out_channels=(32, 64), layers_per_block=1, norm_num_groups=8,
+            cross_attention_dim=24, double_cross_attention=True,
+            cross_attention_dim_1=40, num_attention_heads=4,
+            use_linear_projection=True,
+        ),
+        vae=TINY_VAE, vocoder=TINY_HIFIGAN,
+        scheduler=_AUDIOLDM_SCHED, mel=_MEL_16K,
+        text_encoder="null", text_embed_dim=24, text_seq_len=6,
+        recommended_steps=8,
+    ),
+    "test/tiny-tango": ModelSpec(
+        model_id="test/tiny-tango", family="tango",
+        unet=UNet2DConditionConfig(
+            in_channels=4, out_channels=4,
+            down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+            up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+            block_out_channels=(32, 64), layers_per_block=1, norm_num_groups=8,
+            cross_attention_dim=32, num_attention_heads=4,
+            use_linear_projection=True,
+        ),
+        vae=TINY_VAE, vocoder=TINY_HIFIGAN,
+        scheduler=_SD21_V_SCHED, mel=_MEL_16K,
+        text_encoder="t5", text_embed_dim=32, text_seq_len=16,
+        recommended_steps=8,
     ),
 }

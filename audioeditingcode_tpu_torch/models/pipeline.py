@@ -34,6 +34,7 @@ class LatentAudioPipeline:
     mel_config: MelConfig
     sample_rate: int = 16000
     vae_pad_multiple: int = 4
+    max_mel_frames: Optional[int] = None  # TANGO: 1700
 
     @property
     def dtype(self) -> torch.dtype:
@@ -47,7 +48,7 @@ class LatentAudioPipeline:
         """One denoiser forward: NCHW latent batch -> NCHW model output."""
         ts = torch.as_tensor(t, device=x.device).reshape(()).expand(x.shape[0])
         out = self.unet(x.to(self.dtype), ts, cond.hidden_states, cond.class_labels,
-                        cond.attention_mask)
+                        cond.attention_mask, cond.hidden_states_1, cond.attention_mask_1)
         return out.to(x.dtype)
 
     def make_eps_pair(self, uncond: TextCond, cond: Optional[TextCond]):
@@ -79,6 +80,9 @@ class LatentAudioPipeline:
         """mel image (B, 1, T, n_mels) -> latent (B, C, T/4, n_mels/4); the
         time axis is padded at its START to a multiple of the VAE scale."""
         h = x.shape[2]
+        if self.max_mel_frames is not None and h > self.max_mel_frames:
+            raise ValueError(f"Audio too long: {h} mel frames > model maximum "
+                             f"{self.max_mel_frames}.")
         m = self.vae_pad_multiple
         if h % m:
             x = F.pad(x, (0, 0, m - h % m, 0))

@@ -1,5 +1,5 @@
-"""Model factory: model_id -> LatentAudioPipeline (AudioLDM family) or
-StableAudioPipeline (Stable Audio family).
+"""Model factory: model_id -> LatentAudioPipeline (the mel UNet families:
+AudioLDM, AudioLDM2, TANGO) or StableAudioPipeline (Stable Audio family).
 
 Counterpart of ``audioeditingcode_tpu/models/registry.py``. Without a
 checkpoint the modules get a seeded random init of the JAX package's
@@ -9,7 +9,7 @@ feature weights N(0, 1), Snake params zero.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 from torch import nn
@@ -24,20 +24,17 @@ from .oobleck import AutoencoderOobleck
 from .pipeline import LatentAudioPipeline
 from .pipeline1d import StableAudioPipeline
 from .projection import StableAudioProjectionModel
-from .text_encoders import NullTextEncoder
+from .text_encoders import NullTextEncoder, TextCond
 from .unet2d import UNet2DConditionModel
 from .vae import AutoencoderKL
 
 # model ids of the JAX package that this port does not cover yet, with the
 # ROADMAP item that adds them
 _NOT_PORTED = {
-    "cvssp/audioldm-l-full": "Queue A item 7 (AudioLDM-l)",
-    "cvssp/audioldm2": "Queue A item 7 (AudioLDM2)",
-    "cvssp/audioldm2-large": "Queue A item 7 (AudioLDM2)",
-    "cvssp/audioldm2-music": "Queue A item 7 (AudioLDM2)",
-    "declare-lab/tango-full-ft-audio-music-caps": "Queue A item 7 (TANGO)",
-    "declare-lab/tango-full-ft-audiocaps": "Queue A item 7 (TANGO)",
-    "test/tiny-audioldm2": "Queue A item 7 (AudioLDM2)",
+    "CompVis/stable-diffusion-v1-4": "Queue A item 11 (cli/images.py)",
+    "CompVis/ldm-celebahq-256": "Queue A item 11 (cli/images.py)",
+    "test/tiny-sd": "Queue A item 11 (cli/images.py)",
+    "test/tiny-celebahq": "Queue A item 11 (cli/images.py)",
 }
 
 
@@ -116,12 +113,29 @@ def load_model(
         unet=unet,
         vae=vae,
         vocoder=vocoder,
-        text_encoder=NullTextEncoder(
-            class_dim=spec.unet.projection_class_embeddings_input_dim, device=device),
+        text_encoder=_make_text_encoder(spec, device),
         mel_config=spec.mel,
         sample_rate=spec.sample_rate,
         vae_pad_multiple=spec.vae.downscale_factor,
+        max_mel_frames=1700 if spec.family == "tango" else None,
     )
+
+
+def _make_text_encoder(spec: ModelSpec, device) -> Callable[..., TextCond]:
+    """The weight-free prompt encoder of a mel family, as the JAX registry
+    builds it without converted weights (the text towers need a checkpoint:
+    ROADMAP Queue A item 13): AudioLDM's FiLM vector; AudioLDM2's two token
+    streams, 8 tokens at the GPT-2 width and text_seq_len at the projected
+    width; TANGO's T5 stream of min(text_seq_len, 64) tokens."""
+    unet = spec.unet
+    if spec.family == "audioldm2":
+        return NullTextEncoder(hidden_dim=unet.cross_attention_dim, seq_len=8,
+                               hidden_dim_1=unet.cross_attention_dim_1,
+                               seq_len_1=spec.text_seq_len or 8, device=device)
+    if spec.family == "tango":
+        return NullTextEncoder(hidden_dim=unet.cross_attention_dim,
+                               seq_len=min(spec.text_seq_len, 64), device=device)
+    return NullTextEncoder(class_dim=unet.projection_class_embeddings_input_dim, device=device)
 
 
 def _load_stable_audio(spec: ModelSpec, num_diffusion_steps: int, device,

@@ -1,11 +1,21 @@
-"""Conditional 2-D UNet (NCHW) — the latent-diffusion denoiser, AudioLDM
-configuration.
+"""Conditional 2-D UNet (NCHW) — the latent-diffusion denoiser of the mel
+families.
 
-Counterpart of ``audioeditingcode_tpu/models/unet2d.py``: single-stream
-blocks, FiLM conditioning through a ``simple_projection`` class embedding
-(added or concatenated to the time embedding), and attn2 as self-attention
-when no encoder states are given. Parameter names are diffusers' dotted
-names (``down_blocks.0.attentions.1.transformer_blocks.0.attn1.to_q.weight``).
+Counterpart of ``audioeditingcode_tpu/models/unet2d.py``. One module
+covers:
+
+- AudioLDM: FiLM conditioning through a ``simple_projection`` class
+  embedding (added or concatenated to the time embedding), and attn2 as
+  self-attention when no encoder states are given;
+- AudioLDM2: two conditioning streams, one full ``Transformer2DModel`` per
+  stream at each attention position, ``attentions.{2j}`` on
+  ``encoder_hidden_states`` and ``attentions.{2j+1}`` on
+  ``encoder_hidden_states_1``, run in turn (diffusers'
+  AudioLDM2UNet2DConditionModel layout);
+- TANGO: one cross-attention stream, with linear ``proj_in``/``proj_out``.
+
+Parameter names are diffusers' dotted names
+(``down_blocks.0.attentions.1.transformer_blocks.0.attn1.to_q.weight``).
 """
 
 from __future__ import annotations
@@ -81,10 +91,6 @@ class UNet2DConditionModel(nn.Module):
     def __init__(self, config: UNet2DConditionConfig):
         super().__init__()
         cfg = self.config = config
-        if cfg.double_cross_attention:
-            raise NotImplementedError(
-                "the AudioLDM2 dual-stream UNet (double_cross_attention) is not "
-                "ported yet: ROADMAP Queue A item 7")
         if cfg.class_embed_type not in (None, "simple_projection"):
             raise NotImplementedError(cfg.class_embed_type)
         ch0 = cfg.block_out_channels[0]
@@ -97,13 +103,21 @@ class UNet2DConditionModel(nn.Module):
                 temb_ch = ch0 * 8
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
 
-        def attn(ch, i):
+        def transformer(ch, i, cross_dim):
             heads = cfg.heads_for_block(i)
             return Transformer2DModel(
                 ch, heads, ch // heads, depth=cfg.transformer_layers_per_block,
-                cross_attention_dim=cfg.cross_attention_dim,
+                cross_attention_dim=cross_dim,
                 use_linear_projection=cfg.use_linear_projection,
                 norm_num_groups=groups)
+
+        def attn(ch, i):
+            """The transformers of one attention position: one, or one per
+            stream for the dual-stream UNet."""
+            if not cfg.double_cross_attention:
+                return [transformer(ch, i, cfg.cross_attention_dim)]
+            return [transformer(ch, i, cfg.cross_attention_dim),
+                    transformer(ch, i, cfg.cross_attention_dim_1)]
 
         n_levels = len(cfg.block_out_channels)
         skip_ch: List[int] = [ch0]  # channels of the skip connections, in order
@@ -116,7 +130,7 @@ class UNet2DConditionModel(nn.Module):
                 resnets.append(ResnetBlock2D(ch, out_ch, temb_ch, groups))
                 ch = out_ch
                 if block_type == "CrossAttnDownBlock2D":
-                    attns.append(attn(out_ch, i))
+                    attns += attn(out_ch, i)
                 skip_ch.append(ch)
             down = None
             if i < len(cfg.down_block_types) - 1:
@@ -129,7 +143,7 @@ class UNet2DConditionModel(nn.Module):
             self.mid_block = _Block(
                 [ResnetBlock2D(ch, mid_ch, temb_ch, groups),
                  ResnetBlock2D(mid_ch, mid_ch, temb_ch, groups)],
-                [attn(mid_ch, n_levels - 1)])
+                attn(mid_ch, n_levels - 1))
             ch = mid_ch
 
         self.up_blocks = nn.ModuleList()
@@ -141,7 +155,7 @@ class UNet2DConditionModel(nn.Module):
                 resnets.append(ResnetBlock2D(ch + skip_ch.pop(), out_ch, temb_ch, groups))
                 ch = out_ch
                 if block_type == "CrossAttnUpBlock2D":
-                    attns.append(attn(out_ch, rev_i))
+                    attns += attn(out_ch, rev_i)
             up = Upsample2D(out_ch) if i < len(cfg.up_block_types) - 1 else None
             self.up_blocks.append(_Block(resnets, attns, upsample=up))
 
@@ -155,10 +169,18 @@ class UNet2DConditionModel(nn.Module):
         encoder_hidden_states: Optional[torch.Tensor] = None,  # (B, K, D)
         class_labels: Optional[torch.Tensor] = None,
         encoder_attention_mask: Optional[torch.Tensor] = None,  # (B, K) keep-mask
+        encoder_hidden_states_1: Optional[torch.Tensor] = None,  # (B, K1, D1) 2nd stream
+        encoder_attention_mask_1: Optional[torch.Tensor] = None,  # (B, K1)
     ) -> torch.Tensor:
         cfg = self.config
         dtype = self.conv_in.weight.dtype
         ctx_bias = mask_to_bias(encoder_attention_mask, dtype)
+        ctx1_bias = mask_to_bias(encoder_attention_mask_1, dtype)
+        # the text streams in the module dtype, as the Flax modules cast them
+        if encoder_hidden_states is not None:
+            encoder_hidden_states = encoder_hidden_states.to(dtype)
+        if encoder_hidden_states_1 is not None:
+            encoder_hidden_states_1 = encoder_hidden_states_1.to(dtype)
         if cfg.center_input_sample:
             sample = 2.0 * sample - 1.0
 
@@ -178,7 +200,10 @@ class UNet2DConditionModel(nn.Module):
                    else emb + class_emb)
 
         def attend(block, j, x):
-            return block.attentions[j](x, encoder_hidden_states, ctx_bias)
+            if not cfg.double_cross_attention:
+                return block.attentions[j](x, encoder_hidden_states, ctx_bias)
+            x = block.attentions[2 * j](x, encoder_hidden_states, ctx_bias)
+            return block.attentions[2 * j + 1](x, encoder_hidden_states_1, ctx1_bias)
 
         sample = self.conv_in(sample)
         skips = [sample]

@@ -254,3 +254,17 @@ def ddim_step(
     if variance_noise is not None:
         prev_sample = prev_sample + std_dev_t * variance_noise
     return prev_sample, x0_pred
+
+
+def ddim_next_step(sched: DiffusionSchedule, k: int, model_output: torch.Tensor,
+                   sample: torch.Tensor) -> torch.Tensor:
+    """Deterministic DDIM inversion step at position k: the sample at
+    timesteps[k] - ratio up to timesteps[k]. It assumes epsilon prediction,
+    as the JAX package and its upstream do, whatever the schedule's
+    prediction type."""
+    # step_alpha_prod_prev already falls back to final_alpha_cumprod for
+    # negative previous timesteps (make_schedule)
+    a_t = sched.step_alpha_prod_prev[k]
+    a_next = sched.step_alpha_prod[k]
+    x0_pred = (sample - torch.sqrt(1.0 - a_t) * model_output) / torch.sqrt(a_t)
+    return torch.sqrt(a_next) * x0_pred + torch.sqrt(1.0 - a_next) * model_output

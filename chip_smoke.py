@@ -63,9 +63,26 @@ prints no result):
 6. Stable Audio PC editing likewise on phase 4's clip (100 steps, window
    steps 50 and 49); the float32 amount-0 application also shows that the
    application conditions on the duration the extraction recorded.
+2d. one full-width UNet forward of each other mel family, AudioLDM2-music
+   (two transformers per attention position, one per text stream),
+   AudioLDM-l and TANGO (B1 at head dims 40 and 80), batch 1 on the (8,
+   256, 16) latent: float32 card against CPU; bfloat16 on the card against
+   the float32 CPU forward, within 1.25x the error of the same bf16 forward
+   on the card through the plain versions.
+7. the baselines through the port's CLIs on phases 3 and 4's clips:
+   AudioLDM-s ``--mode ddim`` (200 steps, tstart 100) in float32, bfloat16
+   and with ``--selfcheck`` (SNR reported, not gated); SDEdit
+   (``cli/sdedit.py``) on AudioLDM-s (200 steps, tstart 100) and on Stable
+   Audio (100 steps, tstart 50, Brownian noise) in float32 and bfloat16;
+   each wav must differ from its orig.wav.
+8. ``--mode ours`` on the other families on phase 3's clip: AudioLDM2-music
+   at 200 + 100 steps as a float32 edit, a float32 selfcheck and a
+   bfloat16 edit; AudioLDM-l and TANGO as selfchecks at 50 + 25 steps in
+   float32 and bfloat16; every selfcheck >= 40 dB.
 Every kernel launch count is set to 0 just before each main-path run and
 read just after it; each run is held to its launches per denoiser forward
-(its run_args.json counts the forwards of each stage).
+(its run_args.json counts the forwards of each stage). Each phase's
+seconds are printed.
 
 The line before the last holds ``nvidia-smi``'s name and power limit, the
 one before it the kernels' JSON record, and the last line
@@ -73,9 +90,10 @@ one before it the kernels' JSON record, and the last line
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of one
 CFG denoiser step of each main path, in float32 and in bfloat16, of the
-bfloat16 Stable Audio step with AEC_ROTARY_IN_KERNEL=1, and of each model's
-float32 power-iteration step at two PCs (a batch-4 forward; device time by
-kernel class, the device's idle share) before the final lines.
+bfloat16 Stable Audio step with AEC_ROTARY_IN_KERNEL=1, of each model's
+float32 power-iteration step at two PCs (a batch-4 forward), and of the
+AudioLDM2-music step in float32 and bfloat16 (device time by kernel class,
+the device's idle share) before the final lines.
 """
 
 from __future__ import annotations
@@ -110,6 +128,25 @@ BF16_FORWARD_RATIO = 1.25
 EDITS = {MODEL_ID: (STEPS, TSTART, "a dog barking", {"sr": 16000, "channels": 1}),
          SA_MODEL_ID: (SA_STEPS, SA_TSTART, "a cello", {"sr": 44100, "channels": 2})}
 
+# the other mel UNet families (phases 2d and 8), each with the B1 launches
+# of one forward on the (8, 256, 16) latent: a launch per self-attention at
+# S >= 1024 (the two finest levels, 5 attention positions each). AudioLDM-l:
+# attn1 and attn2 (self-attention without context) of one transformer per
+# position, D = 32 at S = 4096 and 64 at 1024. AudioLDM2: two transformers
+# per position (one per conditioning stream), each with its attn1; attn2 is
+# cross-attention and takes the plain path; D = 16 and 32 (-music). TANGO:
+# one transformer per position, attn1 only; D = 40 and 80.
+A2_MODEL_ID = "cvssp/audioldm2-music"
+AL_MODEL_ID = "cvssp/audioldm-l-full"
+TANGO_MODEL_ID = "declare-lab/tango-full-ft-audiocaps"
+FAMILY_CALLS_PER_FORWARD = {A2_MODEL_ID: 20, AL_MODEL_ID: 20, TANGO_MODEL_ID: 10}
+# phase 8's edits of phase 3's clip: AudioLDM2-music at the bench.py config,
+# AudioLDM-l and TANGO at 50 inversion + 25 edit steps
+SHORT_STEPS, SHORT_TSTART = 50, 25
+EDITS.update({A2_MODEL_ID: (STEPS, TSTART) + EDITS[MODEL_ID][2:],
+              AL_MODEL_ID: (SHORT_STEPS, SHORT_TSTART) + EDITS[MODEL_ID][2:],
+              TANGO_MODEL_ID: (SHORT_STEPS, SHORT_TSTART) + EDITS[MODEL_ID][2:]})
+
 # H100 SXM data-sheet peaks (dense rates at the 700 W limit). Exponentials
 # run on the SFU: 16 results per clock per SM (NVIDIA's CUDA documentation,
 # arithmetic instruction throughput, compute capability 9.0) x 132 SMs x
@@ -141,6 +178,20 @@ ATTN_CASES = [
     ((4, 1024, 8, 8, 32), torch.bfloat16),
     ((4, 1025, 24, 12, 64), torch.float32),
     ((4, 1025, 24, 12, 64), torch.bfloat16),
+    # the other UNet families' shapes at the CFG batch: AudioLDM-l (D = 32
+    # at S = 4096, 64 at 1024), TANGO (40 and 80), AudioLDM2-large (48 at
+    # 1024); the tensor-core kernel pads D = 40, 48 and 80 to 64 and 128
+    # by the TMA's zero fill
+    ((2, 4096, 8, 8, 32), torch.float32),
+    ((2, 4096, 8, 8, 32), torch.bfloat16),
+    ((2, 1024, 8, 8, 64), torch.float32),
+    ((2, 1024, 8, 8, 64), torch.bfloat16),
+    ((2, 4096, 8, 8, 40), torch.float32),
+    ((2, 4096, 8, 8, 40), torch.bfloat16),
+    ((2, 1024, 8, 8, 80), torch.float32),
+    ((2, 1024, 8, 8, 80), torch.bfloat16),
+    ((2, 1024, 8, 8, 48), torch.float32),
+    ((2, 1024, 8, 8, 48), torch.bfloat16),
 ]
 # float32 attention (B1, B2) is held to flash_attention.F32_TOL, 1e-5 +
 # 1e-5 |ref|, which a single TF32 product fails; bf16 to
@@ -847,6 +898,81 @@ def phase2b_stable_audio_parity(fa, sw):
     return out
 
 
+def phase2d_unet_families(fa, sw):
+    """One full-width UNet forward of each other mel family (AudioLDM2-music,
+    AudioLDM-l, TANGO; seeded random weights, batch 1 on the (8, 256, 16)
+    latent, the target prompt's weight-free conditioning): float32 on the
+    card through B1 against the CPU through the plain version; bfloat16 on
+    the card through B1-tc against the float32 CPU forward, within
+    BF16_FORWARD_RATIO times the error of the same bf16 forward on the card
+    through the plain versions (every other op the same, so the ratio is
+    the kernel's alone)."""
+    from audioeditingcode_tpu_torch.models.configs import MODEL_SPECS
+    from audioeditingcode_tpu_torch.models.registry import (
+        _make_text_encoder,
+        random_init_,
+        to_model_dtype_,
+    )
+    from audioeditingcode_tpu_torch.models.unet2d import UNet2DConditionModel
+
+    out = {}
+    g = torch.Generator().manual_seed(10)
+    for model_id in (A2_MODEL_ID, AL_MODEL_ID, TANGO_MODEL_ID):
+        tag = model_id.split("/")[1]
+        spec = MODEL_SPECS[model_id]
+        calls = FAMILY_CALLS_PER_FORWARD[model_id]
+        unet = to_model_dtype_(random_init_(UNet2DConditionModel(spec.unet),
+                                            torch.Generator().manual_seed(1)),
+                               "cpu", torch.float32)
+        x = torch.randn((1,) + LATENT, generator=g)
+        t = torch.tensor([501])
+        cond = _make_text_encoder(spec, "cpu")(["a dog barking"])
+
+        def forward(model, dev, dtype, x=x, t=t, cond=cond):
+            args = [None if a is None else a.to(dev) for a in
+                    (cond.hidden_states, cond.class_labels, cond.attention_mask,
+                     cond.hidden_states_1, cond.attention_mask_1)]
+            with torch.no_grad():
+                return model(x.to(dev, dtype), t.to(dev), *args).cpu()
+
+        t0 = time.perf_counter()
+        cpu_out = forward(unet, "cpu", torch.float32)
+        cpu_s = time.perf_counter() - t0
+        unet = unet.cuda()
+        reset_launches(fa, sw)
+        gpu_out = forward(unet, "cuda", torch.float32)
+        launched = read_launches(fa, sw)
+        rel = _max_rel(gpu_out, cpu_out)
+        unet = to_model_dtype_(unet, "cuda", torch.bfloat16)
+        reset_launches(fa, sw)
+        bf16_out = forward(unet, "cuda", torch.bfloat16)
+        launched_tc = read_launches(fa, sw)
+        with _plain_ops():
+            plain_out = forward(unet, "cuda", torch.bfloat16)
+        plain_launched = read_launches(fa, sw)
+        err, plain_err = _rel_fro(bf16_out, cpu_out), _rel_fro(plain_out, cpu_out)
+        limit = BF16_FORWARD_RATIO * plain_err
+        log(f"[phase2d] {tag} UNet forward {[1, *LATENT]}: card vs CPU max rel err {rel:.3g} "
+            f"(limit 1e-3, TF32 off), launches {launched}, CPU {cpu_s:.1f} s; bf16 card vs "
+            f"float32 CPU relative Frobenius error {err:.4g}, the bf16 plain versions on the "
+            f"card {plain_err:.4g} (limit {BF16_FORWARD_RATIO} x that = {limit:.4g}), "
+            f"launches {launched_tc}")
+        if not np.isfinite(rel) or rel > 1e-3:
+            raise AssertionError(f"{tag} UNet card/CPU parity {rel} > 1e-3")
+        if not np.isfinite(err) or err > limit:
+            raise AssertionError(f"{tag} UNet bf16 card error {err} > {limit}")
+        if (launched != expected_launches({"flash_attention": calls}, 1)
+                or launched_tc != expected_launches({"flash_attention_tc": calls}, 1)
+                or plain_launched != launched_tc):
+            raise AssertionError(f"{tag} UNet launches {launched}, {launched_tc}, "
+                                 f"{plain_launched}; expected {calls} per forward")
+        out[tag] = {"rel_err": rel, "bf16_rel_fro_err": err, "bf16_plain_rel_fro_err": plain_err,
+                    "cpu_s": cpu_s}
+        del unet
+        torch.cuda.empty_cache()
+    return {"unet_families": out}
+
+
 def write_clip(path: str, seconds: float = 10.0, sr: int = 16000, channels: int = 1) -> None:
     from scipy.io import wavfile
 
@@ -1051,6 +1177,110 @@ def phase_pcs(fa, sw, tmp: str, model_id: str, clip: str, tag: str) -> dict:
     return runs
 
 
+def _cli_run(fa, sw, name: str, call, per_forward: dict, forwards: int, seconds_key: str,
+             sr: int, channels: int, snr_min=None):
+    """One edit-CLI run from launch counts of 0, held to its denoiser
+    forwards (run_args.json's unet_steps), to per_forward launches of each
+    kernel per forward, to a wav of the model's rate and at least 10 s that
+    differs from its orig.wav and, with snr_min, to its selfcheck SNR."""
+    reset_launches(fa, sw)
+    t0 = time.perf_counter()
+    out = call()
+    wall = time.perf_counter() - t0
+    counts = read_launches(fa, sw)
+    with open(os.path.join(os.path.dirname(out), "run_args.json")) as f:
+        rec = json.load(f)
+    run = {"launches": counts, "forwards": rec["unet_steps"], "dtype": rec["dtype"],
+           "loop_s": rec[seconds_key], "steps_per_s": rec["unet_steps"] / rec[seconds_key],
+           "wall_s": wall, "selfcheck_snr_db": rec.get("selfcheck_snr_db")}
+    if rec.get("noise_seconds"):
+        run["noise_s"] = rec["noise_seconds"]
+    wav = _check_wav(name, out, sr, channels)
+    orig = _check_wav(name + " orig", os.path.join(os.path.dirname(out), "orig.wav"), sr,
+                      channels)
+    n = min(len(wav), len(orig))
+    run["max_lsb_from_orig"] = int(np.abs(wav[:n] - orig[:n]).max())
+    log(f"[{name}] {run}")
+    want = expected_launches(per_forward, forwards)
+    if rec["unet_steps"] != forwards or counts != want:
+        raise AssertionError(f"{name}: launches {counts} for {rec['unet_steps']} forwards "
+                             f"(expected {forwards}), expected {want}")
+    if run["max_lsb_from_orig"] == 0:
+        raise AssertionError(f"{name}: the wav is orig.wav")
+    if snr_min is not None and not run["selfcheck_snr_db"] >= snr_min:
+        raise AssertionError(f"{name}: selfcheck SNR {run['selfcheck_snr_db']} < {snr_min} dB")
+    return run
+
+
+def _per_forward(model_id: str, bf16: bool) -> dict:
+    """Each kernel's launches in one denoiser forward of model_id."""
+    tc = "_tc" if bf16 else ""
+    if model_id == SA_MODEL_ID:
+        return {"flash_attention" + tc: SA_CALLS_PER_FORWARD, "swiglu" + tc: SA_CALLS_PER_FORWARD}
+    return {"flash_attention" + tc: FAMILY_CALLS_PER_FORWARD.get(model_id,
+                                                                 ATTN_CALLS_PER_FORWARD)}
+
+
+def phase7_baselines(fa, sw, tmp: str) -> dict:
+    """The baselines through the port's CLIs, at each model's edit config:
+    AudioLDM-s --mode ddim (200 steps and the CLI's default tstart 100: a
+    partial inversion of 100 steps, then 100 generation steps) in float32,
+    bfloat16 and with --selfcheck (SNR reported, not gated: DDIM inversion
+    is approximate); SDEdit on AudioLDM-s (200 steps, tstart 100) and on
+    Stable Audio (100 steps, tstart 50, Brownian noise) in float32 and
+    bfloat16."""
+    from audioeditingcode_tpu_torch.cli.run import main as run_edit
+    from audioeditingcode_tpu_torch.cli.sdedit import main as sdedit
+
+    runs = {}
+    bf16 = ["--dtype", "bfloat16"]
+    clip = os.path.join(tmp, "clip.wav")
+    for name, extra in (("ddim", []), ("ddim_bf16", bf16), ("ddim_selfcheck", ["--selfcheck"])):
+        argv = edit_argv(MODEL_ID, clip, os.path.join(tmp, name)) + ["--mode", "ddim"] + extra
+        runs[name] = _cli_run(fa, sw, f"phase7 {name}", lambda: run_edit(argv),
+                              _per_forward(MODEL_ID, "bfloat16" in extra), 2 * TSTART,
+                              "edit_seconds", 16000, 1)
+    for model_id, tag, clip_name in ((MODEL_ID, "sdedit", "clip.wav"),
+                                     (SA_MODEL_ID, "sdedit_stable_audio", "clip44k.wav")):
+        steps, tstart, target, wav = EDITS[model_id]  # the edit's config
+        for name, extra in ((tag, []), (tag + "_bf16", bf16)):
+            argv = ["--model_id", model_id, "--init_aud", os.path.join(tmp, clip_name),
+                    "--target_prompt", target, "--num_diffusion_steps", str(steps),
+                    "--tstart", str(tstart), "--seed", "0", "--wandb_disable",
+                    "--results_path", os.path.join(tmp, name)] + extra
+            runs[name] = _cli_run(fa, sw, f"phase7 {name}", lambda: sdedit(argv),
+                                  _per_forward(model_id, bool(extra)), tstart,
+                                  "sdedit_seconds", wav["sr"], wav["channels"])
+    return runs
+
+
+def phase8_families(fa, sw, tmp: str) -> dict:
+    """--mode ours on the other mel families through the port's CLI, on
+    phase 3's clip: AudioLDM2-music at the bench.py config (200 + 100 steps)
+    as a float32 edit, a float32 selfcheck and a bfloat16 edit; AudioLDM-l
+    and TANGO (v-prediction) as selfchecks at 50 + 25 steps in float32 and
+    bfloat16. Every selfcheck must reach 40 dB."""
+    from audioeditingcode_tpu_torch.cli.run import main as run_edit
+
+    runs = {}
+    clip = os.path.join(tmp, "clip.wav")
+    plan = [(A2_MODEL_ID, "audioldm2", ("edit", "selfcheck", "edit_bf16")),
+            (AL_MODEL_ID, "audioldm_l", ("selfcheck", "selfcheck_bf16")),
+            (TANGO_MODEL_ID, "tango", ("selfcheck", "selfcheck_bf16"))]
+    for model_id, tag, names in plan:
+        steps, tstart = EDITS[model_id][:2]
+        for name in names:
+            selfcheck, bf16 = name.startswith("selfcheck"), name.endswith("bf16")
+            argv = (edit_argv(model_id, clip, os.path.join(tmp, f"{tag}_{name}"))
+                    + (["--selfcheck"] if selfcheck else [])
+                    + (["--dtype", "bfloat16"] if bf16 else []))
+            runs[f"{tag}_{name}"] = _cli_run(
+                fa, sw, f"phase8 {tag} {name}", lambda: run_edit(argv),
+                _per_forward(model_id, bf16), steps + tstart, "edit_seconds", 16000, 1,
+                snr_min=40.0 if selfcheck else None)
+    return runs
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     for key, b1, b2 in (("attn_fwd_kernel", "attention kernel B1 (3xTF32)",
@@ -1154,29 +1384,36 @@ def main() -> int:
         """The cases of each route, by the name of its kernel."""
         return {name: [c for c in kcases if c["route"] == route] for route, name in names}
 
-    cases = {**by_route(phase1_attention(fa), ((fa.TENSOR_CORE, "flash_attention_tc"),
-                                               (fa.TF32X3, "flash_attention"))),
+    phase_s = {}
+
+    def timed(phase, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[phase] = time.perf_counter() - t0
+        log(f"[{phase}] {phase_s[phase]:.1f} s")
+        return out
+
+    cases = {**by_route(timed("phase1", phase1_attention, fa),
+                        ((fa.TENSOR_CORE, "flash_attention_tc"), (fa.TF32X3, "flash_attention"))),
              **by_route(phase1_rotary(fa), ((fa.TENSOR_CORE, "flash_attention_rotary_tc"),
                                             (fa.TF32X3, "flash_attention_rotary"))),
              **by_route(phase1_swiglu(sw), ((sw.TENSOR_CORE, "swiglu_tc"),
                                             (sw.TF32X3, "swiglu")))}
-    parity, unet = phase2_unet_parity(fa)
-    parity.update(phase2b_stable_audio_parity(fa, sw))
-    t0 = time.perf_counter()
-    parity.update(phase2c_probe(fa, sw, unet))
-    parity["phase2c_s"] = time.perf_counter() - t0
-    log(f"[phase2c] {parity['phase2c_s']:.1f} s")
+
+    parity, unet = timed("phase2", phase2_unet_parity, fa)
+    parity.update(timed("phase2b", phase2b_stable_audio_parity, fa, sw))
+    parity.update(timed("phase2c", phase2c_probe, fa, sw, unet))
     del unet
+    parity.update(timed("phase2d", phase2d_unet_families, fa, sw))
     with tempfile.TemporaryDirectory() as tmp:
-        runs = {"audioldm": phase3_main_path(fa, sw, tmp),
-                "stable_audio": phase4_stable_audio(fa, sw, tmp)}
-        t0 = time.perf_counter()
-        runs["audioldm_pc"] = phase_pcs(fa, sw, tmp, MODEL_ID, os.path.join(tmp, "clip.wav"),
-                                        "phase5")
-        runs["stable_audio_pc"] = phase_pcs(fa, sw, tmp, SA_MODEL_ID,
-                                            os.path.join(tmp, "clip44k.wav"), "phase6")
-        pc_s = time.perf_counter() - t0
-        log(f"[phase5-6] PC phases: {pc_s:.1f} s")
+        runs = {"audioldm": timed("phase3", phase3_main_path, fa, sw, tmp),
+                "stable_audio": timed("phase4", phase4_stable_audio, fa, sw, tmp)}
+        runs["audioldm_pc"] = timed("phase5", phase_pcs, fa, sw, tmp, MODEL_ID,
+                                    os.path.join(tmp, "clip.wav"), "phase5")
+        runs["stable_audio_pc"] = timed("phase6", phase_pcs, fa, sw, tmp, SA_MODEL_ID,
+                                        os.path.join(tmp, "clip44k.wav"), "phase6")
+        runs["baselines"] = timed("phase7", phase7_baselines, fa, sw, tmp)
+        runs["families"] = timed("phase8", phase8_families, fa, sw, tmp)
     if "--profile" in sys.argv[1:]:
         for dtype in (torch.float32, torch.bfloat16):
             profile_main_path_step(MODEL_ID, STEPS, LATENT, dtype)
@@ -1187,6 +1424,8 @@ def main() -> int:
         # a power iteration's step: float32, two PCs, a batch-4 forward
         profile_main_path_step(MODEL_ID, STEPS, LATENT, torch.float32, rows=PC_N_EVS)
         profile_main_path_step(SA_MODEL_ID, SA_STEPS, SA_LATENT, torch.float32, rows=PC_N_EVS)
+        for dtype in (torch.float32, torch.bfloat16):
+            profile_main_path_step(A2_MODEL_ID, STEPS, LATENT, dtype)
 
     sources = {"flash_attention": "flash_attention.cu",
                "flash_attention_tc": "flash_attention_tc.cu",
@@ -1202,8 +1441,10 @@ def main() -> int:
                 "swiglu_tc": ("ops/swiglu.py:47", "swiglu._kernel")}
     kernels = []
     for kname, kcases in cases.items():
+        # the runs that launched it (the others launched it no time)
         by_run = {f"{model}_{run}": r["launches"][kname]
-                  for model, model_runs in runs.items() for run, r in model_runs.items()}
+                  for model, model_runs in runs.items() for run, r in model_runs.items()
+                  if r["launches"][kname]}
         main_case = kcases[0]  # the main path's first shape on this route
         kernels.append({
             "name": kname, "route": "cuda", "cores": main_case["route"],
@@ -1226,8 +1467,9 @@ def main() -> int:
             raise AssertionError(f"{kname} was launched no time on the main paths")
     ald, sa = runs["audioldm"], runs["stable_audio"]
     ald_pc, sa_pc = runs["audioldm_pc"], runs["stable_audio_pc"]
+    base, fam = runs["baselines"], runs["families"]
     record = {"kernels": kernels, "build_s": build_s, "builds": builds, **parity,
-              "pc_phases_s": pc_s,
+              "phase_s": phase_s, "pc_phases_s": phase_s["phase5"] + phase_s["phase6"],
               "pc_extract_s_per_window_step":
                   ald_pc["extract"]["power_iteration_s_per_window_step"],
               "stable_audio_pc_extract_s_per_window_step":
@@ -1248,7 +1490,12 @@ def main() -> int:
               "stable_audio_rotary_in_kernel_bf16_edit_s":
                   sa["edit_rotary_in_kernel_bf16"]["edit_s"],
               "stable_audio_rotary_in_kernel_bf16_selfcheck_snr_db":
-                  sa["selfcheck_rotary_in_kernel_bf16"]["selfcheck_snr_db"]}
+                  sa["selfcheck_rotary_in_kernel_bf16"]["selfcheck_snr_db"],
+              "loop_s": {name: r["loop_s"] for name, r in {**base, **fam}.items()},
+              "selfcheck_snr_db_by_run": {name: r["selfcheck_snr_db"]
+                                          for name, r in {**base, **fam}.items()
+                                          if r["selfcheck_snr_db"] is not None},
+              "sdedit_stable_audio_noise_s": base["sdedit_stable_audio"]["noise_s"]}
     print(json.dumps(record), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -52,25 +52,15 @@ def test_cli_cuda_missing_raises(wav, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--mode", "ddim"], "item 8"),
     (["--dp", "2"], "item 12"),
     (["--sp", "2"], "item 12"),
     (["--weights_dir", "w"], "item 13"),
     (["--profile_dir", "p"], "item 14"),
-    (["--model_id", "declare-lab/tango-full-ft-audiocaps"], "item 7"),
-    (["--model_id", "cvssp/audioldm2-music"], "item 7"),
 ])
 def test_cli_unported_flags_raise(wav, tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         main(BASE + ["--device", "cpu", "--init_aud", wav, "--target_prompt", "x",
                      "--results_path", str(tmp_path)] + extra)
-
-
-def test_unet_rejects_dual_stream():
-    from audioeditingcode_tpu_torch.models.unet2d import UNet2DConditionConfig, UNet2DConditionModel
-
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        UNet2DConditionModel(UNet2DConditionConfig(double_cross_attention=True))
 
 
 def test_cli_bfloat16_on_cpu(wav, tmp_path):

@@ -35,7 +35,10 @@ def cuda():
 
 @pytest.mark.parametrize("B,S,H,Hkv,D", [(2, 4096, 8, 8, 16), (2, 1024, 8, 8, 32),
                                          (2, 1025, 24, 12, 64), (1, 777, 2, 1, 128),
-                                         (1, 1000, 3, 3, 8)])
+                                         (1, 1000, 3, 3, 8),
+                                         # AudioLDM-l and TANGO (bf16 pads D 40, 80)
+                                         (2, 4096, 8, 8, 32), (2, 1024, 8, 8, 64),
+                                         (2, 4096, 8, 8, 40), (2, 1024, 8, 8, 80)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, B, S, H, Hkv, D, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)

@@ -22,19 +22,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.join(REPO, "audioeditingcode_tpu_torch")
 
 
-def jax_tiny_pipeline(steps: int):
+def jax_tiny_pipeline(steps: int, model_id: str = "test/tiny-audioldm"):
     from audioeditingcode_tpu.models.registry import load_model
 
-    return load_model("test/tiny-audioldm", steps)
+    return load_model(model_id, steps)
 
 
-def port_tiny_pipeline(steps: int, jpipe=None):
-    """The port's tiny pipeline on the CPU, with the JAX pipeline's params."""
+def port_tiny_pipeline(steps: int, jpipe=None, model_id: str = "test/tiny-audioldm"):
+    """The port's tiny mel-family pipeline on the CPU, with the JAX
+    pipeline's params."""
     from audioeditingcode_tpu_torch.models.bridge import flax_to_torch_state_dict
     from audioeditingcode_tpu_torch.models.registry import load_model
 
-    jpipe = jpipe or jax_tiny_pipeline(steps)
-    pipe = load_model("test/tiny-audioldm", steps, device="cpu")
+    jpipe = jpipe or jax_tiny_pipeline(steps, model_id)
+    pipe = load_model(model_id, steps, device="cpu")
     for mod, params in ((pipe.unet, jpipe.unet_params), (pipe.vae, jpipe.vae_params),
                         (pipe.vocoder, jpipe.vocoder_params)):
         mod.load_state_dict(flax_to_torch_state_dict(flatten_dict(params), mod))

@@ -288,7 +288,6 @@ def test_ts_chunk_equals_one_step_chunks(clips, model, tmp_path):
     (["--weights_dir", "w"], "item 13"),
     (["--dp", "2"], "item 12"),
     (["--tp", "2"], "item 12"),
-    (["--model_id", "cvssp/audioldm2-music"], "item 7"),
 ])
 def test_extract_rejects_unported_flags(clips, tmp_path, argv, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -86,9 +86,6 @@ def main(argv=None):
     ex_args = load["args"]
     if args.weights_dir is None and getattr(ex_args, "weights_dir", None):
         args.weights_dir = ex_args.weights_dir
-    if args.weights_dir is not None:
-        raise NotImplementedError("--weights_dir is not ported to PyTorch yet "
-                                  "(ROADMAP Queue A item 13)")
     resolve_spec(ex_args.model_id)  # raises for model families not ported yet
     device = resolve_device(args.device, args.device_num)
     seed = set_reproducibility(args.seed)
@@ -104,7 +101,8 @@ def main(argv=None):
         f"_a{args.amount}"
     )
     wandb = init_wandb(args, "pc_application", run_name)
-    warnings.warn("running with RANDOM weights.")
+    if args.weights_dir is None:
+        warnings.warn("running with RANDOM weights.")
 
     eigdata = load["eigdata"]
     latents = torch.as_tensor(load["latents"], device=device)
@@ -122,7 +120,7 @@ def main(argv=None):
     S = int(ex_args.num_diffusion_steps)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     pipe = load_model(ex_args.model_id, S, device=device, dtype=dtype,
-                      seed=int(ex_args.seed))
+                      seed=int(ex_args.seed), weights_dir=args.weights_dir)
     if resolve_spec(ex_args.model_id).family == "stable-audio":
         # the extraction's duration conditioning and decode crop (an
         # extraction that records none conditions on the model's full length)

@@ -106,9 +106,6 @@ def _reject_unported(args) -> None:
     if args.dp != 1 or args.tp != 1:
         raise NotImplementedError("--dp/--tp are not ported to PyTorch yet "
                                   "(ROADMAP Queue A item 12)")
-    if args.weights_dir is not None:
-        raise NotImplementedError("--weights_dir is not ported to PyTorch yet "
-                                  "(ROADMAP Queue A item 13)")
 
 
 def main(argv=None):
@@ -129,7 +126,8 @@ def main(argv=None):
         + f"_{timestamp_name()}"
     )
     wandb = init_wandb(args, "pc_extraction_inv", image_name)
-    warnings.warn("--weights_dir not given: running with RANDOM weights.")
+    if args.weights_dir is None:
+        warnings.warn("--weights_dir not given: running with RANDOM weights.")
 
     if args.dtype == "bfloat16":
         # power iteration probes the denoiser Jacobian by finite differences
@@ -141,7 +139,7 @@ def main(argv=None):
                       "quantization); overriding to float32.")
         args.dtype = "float32"
     pipe = load_model(args.model_id, args.num_diffusion_steps, device=device,
-                      dtype=torch.float32, seed=seed)
+                      dtype=torch.float32, seed=seed, weights_dir=args.weights_dir)
     stable_audio = resolve_spec(args.model_id).family == "stable-audio"
     S = args.num_diffusion_steps
     if args.drift_start is None:

@@ -105,9 +105,6 @@ def _reject_unported(args) -> None:
     if args.dp != 1 or args.tp != 1 or args.sp not in (None, 0, 1):
         raise NotImplementedError("--dp/--tp/--sp are not ported to PyTorch yet "
                                   "(ROADMAP Queue A item 12)")
-    if args.weights_dir is not None:
-        raise NotImplementedError("--weights_dir is not ported to PyTorch yet "
-                                  "(ROADMAP Queue A item 13)")
     if args.profile_dir is not None:
         raise NotImplementedError("--profile_dir is not ported to PyTorch yet "
                                   "(ROADMAP Queue A item 14)")
@@ -141,8 +138,9 @@ def main(argv=None):
     device = resolve_device(args.device, args.device_num)
     seed = set_reproducibility(args.seed)
     gen = torch.Generator(device=device).manual_seed(seed)
-    warnings.warn("--weights_dir not given: running with RANDOM weights "
-                  "(smoke-test mode, outputs are not meaningful audio).")
+    if args.weights_dir is None:
+        warnings.warn("--weights_dir not given: running with RANDOM weights "
+                      "(smoke-test mode, outputs are not meaningful audio).")
 
     if len(args.tstart) != len(args.target_prompt):
         if len(args.tstart) == 1:
@@ -157,7 +155,7 @@ def main(argv=None):
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     pipe = load_model(args.model_id, args.num_diffusion_steps, device=device,
-                      dtype=dtype, seed=seed)
+                      dtype=dtype, seed=seed, weights_dir=args.weights_dir)
 
     x0_np, sr, duration = load_audio(args.init_aud, pipe.mel_config, stft=not stable_audio,
                                      model_sr=pipe.get_sr(), device=device)

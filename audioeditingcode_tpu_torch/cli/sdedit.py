@@ -65,9 +65,6 @@ def main(argv=None):
     if not os.path.exists(args.init_aud):
         raise FileNotFoundError(f"--init_aud: no such file: {args.init_aud}")
     spec = resolve_spec(args.model_id)  # raises for model families not ported yet
-    if args.weights_dir is not None:
-        raise NotImplementedError("--weights_dir is not ported to PyTorch yet "
-                                  "(ROADMAP Queue A item 13)")
     device = resolve_device(args.device, args.device_num)
     seed = set_reproducibility(args.seed)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -75,11 +72,12 @@ def main(argv=None):
     skip = args.num_diffusion_steps - args.tstart
     image_name = f"s{args.seed}_skip{skip}_cfg{args.cfg_tar}"
     wandb = init_wandb(args, "sdedit", image_name)
-    warnings.warn("--weights_dir not given: running with RANDOM weights.")
+    if args.weights_dir is None:
+        warnings.warn("--weights_dir not given: running with RANDOM weights.")
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     pipe = load_model(args.model_id, args.num_diffusion_steps, device=device,
-                      dtype=dtype, seed=seed)
+                      dtype=dtype, seed=seed, weights_dir=args.weights_dir)
     stable_audio = spec.family == "stable-audio"
 
     x0_np, sr, duration = load_audio(args.init_aud, pipe.mel_config, stft=not stable_audio,

@@ -26,6 +26,24 @@ from .vae import AutoencoderKLConfig
 
 
 @dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    """AudioLDM2's GPT-2 language model (embeddings in, hidden states out)."""
+
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    n_positions: int = 1024
+    layer_norm_epsilon: float = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioLDM2ProjectionConfig:
+    text_encoder_dim: int = 512  # CLAP
+    text_encoder_1_dim: int = 1024  # FLAN-T5
+    langauge_model_dim: int = 768  # (sic: diffusers' field spelling)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelSpec:
     model_id: str
     family: str  # 'audioldm' | 'audioldm2' | 'tango' | 'stable-audio'
@@ -35,7 +53,7 @@ class ModelSpec:
     scheduler: DDIMConfig
     mel: Optional[MelConfig]
     sample_rate: int = 16000
-    text_encoder: str = "clap"  # 'clap' | 't5' | 'clap+t5+gpt2' (need a checkpoint) | 'null'
+    text_encoder: str = "clap"  # 'clap' | 't5' | 'clap+t5+gpt2' (with a checkpoint) | 'null'
     text_embed_dim: int = 512
     text_seq_len: int = 1
     recommended_steps: int = 200
@@ -44,6 +62,9 @@ class ModelSpec:
     oobleck: Optional[OobleckConfig] = None
     cosine_scheduler: Optional[CosineDPMConfig] = None
     projection: Optional[ProjectionConfig] = None
+    # AudioLDM2 language-model chain (None: the full-size defaults)
+    gpt2: Optional[GPT2Config] = None
+    projection_lm: Optional[AudioLDM2ProjectionConfig] = None
 
 
 _AUDIOLDM_SCHED = DDIMConfig(
@@ -248,6 +269,10 @@ MODEL_SPECS = {
         scheduler=_AUDIOLDM_SCHED, mel=_MEL_16K,
         text_encoder="null", text_embed_dim=24, text_seq_len=6,
         recommended_steps=8,
+        gpt2=GPT2Config(n_embd=24, n_layer=2, n_head=2, n_positions=64),
+        projection_lm=AudioLDM2ProjectionConfig(
+            text_encoder_dim=16, text_encoder_1_dim=40, langauge_model_dim=24,
+        ),
     ),
     "test/tiny-tango": ModelSpec(
         model_id="test/tiny-tango", family="tango",

@@ -1,14 +1,28 @@
 """Model factory: model_id -> LatentAudioPipeline (the mel UNet families:
 AudioLDM, AudioLDM2, TANGO) or StableAudioPipeline (Stable Audio family).
 
-Counterpart of ``audioeditingcode_tpu/models/registry.py``. Without a
-checkpoint the modules get a seeded random init of the JAX package's
-magnitudes: norm scales one, biases zero, weights N(0, 1/fan_in), Fourier
-feature weights N(0, 1), Snake params zero.
+Counterpart of ``audioeditingcode_tpu/models/registry.py``. Weights come
+from a converted-checkpoint directory (``weights_dir``, the layout that
+``tools/convert_checkpoint.py`` writes):
+
+  <dir>/unet.msgpack  vae.msgpack  vocoder.msgpack          (mel families)
+  <dir>/dit.msgpack   oobleck.msgpack  projection.msgpack   (Stable Audio)
+  <dir>/gpt2.msgpack  projection_lm.msgpack                 (AudioLDM2)
+  <dir>/t5/  clap_text/                                     (text towers)
+
+A load goes through ``bridge.flax_to_torch_state_dict``, strict both ways:
+a missing or left-over leaf or a wrong shape raises and names the file.
+Without a checkpoint the modules get a seeded random init of the JAX
+package's magnitudes: norm scales one, biases zero, weights N(0, 1/fan_in),
+Fourier feature weights N(0, 1), Snake params zero. Where a text tower is
+absent from ``weights_dir`` the registry falls back to the null encoder, as
+the JAX one does; where it is present, it is loaded or the load raises.
 """
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Callable, Optional, Union
 
 import torch
@@ -17,14 +31,27 @@ from torch import nn
 from ..editing.solvers import CosineDPMSolver
 from ..schedulers.cosine_dpm import make_cosine_dpm_schedule
 from ..schedulers.ddim import make_schedule
-from .configs import MODEL_SPECS, ModelSpec
+from . import flax_msgpack
+from .audioldm2_cond import AudioLDM2ProjectionModel, AudioLDM2TextEncoder, GPT2Model
+from .bridge import flax_to_torch_state_dict, torch_to_flax_tree
+from .configs import MODEL_SPECS, AudioLDM2ProjectionConfig, GPT2Config, ModelSpec
 from .dit1d import StableAudioDiT
 from .hifigan import HifiGanGenerator
 from .oobleck import AutoencoderOobleck
 from .pipeline import LatentAudioPipeline
 from .pipeline1d import StableAudioPipeline
 from .projection import StableAudioProjectionModel
-from .text_encoders import NullTextEncoder, TextCond
+from .text_encoders import (
+    ClapFilmEncoder,
+    NullTextEncoder,
+    T5ProjectedEncoder,
+    T5TextEncoder,
+    TextCond,
+    clap_text_features,
+    load_clap_projection,
+    load_text_tower,
+)
+from .tokenizers import Tokenizer
 from .unet2d import UNet2DConditionModel
 from .vae import AutoencoderKL
 
@@ -72,15 +99,55 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+def load_params_(module: nn.Module, path: str) -> nn.Module:
+    """Load a converted ``.msgpack`` file into ``module`` (strict)."""
+    t0 = time.perf_counter()
+    flat = flax_msgpack.flatten(flax_msgpack.read_file(path))
+    try:
+        sd = flax_to_torch_state_dict(flat, module)
+    except (KeyError, ValueError) as e:
+        raise ValueError(f"{path} does not match the {type(module).__name__} of this "
+                         f"model: {e}") from e
+    module.load_state_dict(sd, assign=True)
+    flax_msgpack.LOAD_SECONDS[path] = (os.path.getsize(path), time.perf_counter() - t0)
+    return module
+
+
+def _weights(factory: Callable[[], nn.Module], weights_dir: Optional[str], name: str,
+             g: torch.Generator, required: bool = True) -> nn.Module:
+    """The module from ``<weights_dir>/<name>.msgpack``, else seeded random
+    (a missing file raises unless it is not ``required``)."""
+    if weights_dir is None:
+        return random_init_(factory(), g)
+    path = os.path.join(weights_dir, f"{name}.msgpack")
+    if not os.path.exists(path):
+        if required:
+            raise FileNotFoundError(f"missing converted weights: {path}")
+        return random_init_(factory(), g)
+    return load_params_(_meta(factory), path)
+
+
+def _meta(factory: Callable[[], nn.Module]) -> nn.Module:
+    """The module with no init: every param comes from a file."""
+    with torch.device("meta"):
+        return factory()
+
+
+def save_params(module: nn.Module, path: str) -> int:
+    """Write ``module`` as the JAX package's ``save_params`` writes its
+    params (the JAX nesting, under ``params``); returns the bytes written."""
+    return flax_msgpack.write_file(torch_to_flax_tree(module), path)
+
+
 def to_model_dtype_(module: nn.Module, device, dtype: torch.dtype) -> nn.Module:
     """Move an inference module to ``device`` in ``dtype``, keeping float32
-    the params its classes list in ``float32_params`` (those the Flax
-    modules use uncast in every dtype)."""
+    (and their float32 values) the params its classes list in
+    ``float32_params`` (those the Flax modules use uncast in every dtype)."""
+    keep = [(m, name, m.get_parameter(name).detach()) for m in module.modules()
+            for name in getattr(m, "float32_params", ())]
     module.to(device=device, dtype=dtype).eval().requires_grad_(False)
-    for m in module.modules():
-        for name in getattr(m, "float32_params", ()):
-            p = m.get_parameter(name)
-            p.data = p.data.float()
+    for m, name, t in keep:
+        m.get_parameter(name).data = t.to(device=device, dtype=torch.float32)
     return module
 
 
@@ -92,19 +159,15 @@ def load_model(
     seed: int = 0,
     weights_dir: Optional[str] = None,
 ) -> Union[LatentAudioPipeline, StableAudioPipeline]:
-    """Build the pipeline for ``model_id`` on ``device`` with seeded random
-    weights (converted checkpoints are not supported yet)."""
+    """Build the pipeline for ``model_id`` on ``device``: weights from the
+    converted checkpoint ``weights_dir``, else seeded random ones."""
     spec = resolve_spec(model_id)
-    if weights_dir is not None:
-        raise NotImplementedError(
-            "--weights_dir: loading converted checkpoints into the PyTorch port "
-            "is not supported yet (ROADMAP Queue A item 13)")
     if spec.family == "stable-audio":
-        return _load_stable_audio(spec, num_diffusion_steps, device, dtype, seed)
+        return _load_stable_audio(spec, num_diffusion_steps, device, dtype, seed, weights_dir)
     g = torch.Generator().manual_seed(seed)
-    unet = random_init_(UNet2DConditionModel(spec.unet), g)
-    vae = random_init_(AutoencoderKL(spec.vae), g)
-    vocoder = random_init_(HifiGanGenerator(spec.vocoder), g)
+    unet = _weights(lambda: UNet2DConditionModel(spec.unet), weights_dir, "unet", g)
+    vae = _weights(lambda: AutoencoderKL(spec.vae), weights_dir, "vae", g)
+    vocoder = _weights(lambda: HifiGanGenerator(spec.vocoder), weights_dir, "vocoder", g)
     for m in (unet, vae, vocoder):
         to_model_dtype_(m, device, dtype)
     return LatentAudioPipeline(
@@ -113,7 +176,7 @@ def load_model(
         unet=unet,
         vae=vae,
         vocoder=vocoder,
-        text_encoder=_make_text_encoder(spec, device),
+        text_encoder=_make_text_encoder(spec, device, weights_dir),
         mel_config=spec.mel,
         sample_rate=spec.sample_rate,
         vae_pad_multiple=spec.vae.downscale_factor,
@@ -121,13 +184,20 @@ def load_model(
     )
 
 
-def _make_text_encoder(spec: ModelSpec, device) -> Callable[..., TextCond]:
-    """The weight-free prompt encoder of a mel family, as the JAX registry
-    builds it without converted weights (the text towers need a checkpoint:
-    ROADMAP Queue A item 13): AudioLDM's FiLM vector; AudioLDM2's two token
+def _make_text_encoder(spec: ModelSpec, device,
+                       weights_dir: Optional[str] = None) -> Callable[..., TextCond]:
+    """The prompt encoder of a mel family: the checkpoint's text towers
+    where ``weights_dir`` holds them, else the weight-free one, as the JAX
+    registry builds it: AudioLDM's FiLM vector; AudioLDM2's two token
     streams, 8 tokens at the GPT-2 width and text_seq_len at the projected
     width; TANGO's T5 stream of min(text_seq_len, 64) tokens."""
     unet = spec.unet
+    if weights_dir is not None:
+        build = {"audioldm": _try_clap_film, "audioldm2": _try_audioldm2_chain,
+                 "tango": _try_t5_encoder}[spec.family]
+        enc = build(spec, weights_dir, device)
+        if enc is not None:
+            return enc
     if spec.family == "audioldm2":
         return NullTextEncoder(hidden_dim=unet.cross_attention_dim, seq_len=8,
                                hidden_dim_1=unet.cross_attention_dim_1,
@@ -139,16 +209,23 @@ def _make_text_encoder(spec: ModelSpec, device) -> Callable[..., TextCond]:
 
 
 def _load_stable_audio(spec: ModelSpec, num_diffusion_steps: int, device,
-                       dtype: torch.dtype, seed: int) -> StableAudioPipeline:
+                       dtype: torch.dtype, seed: int,
+                       weights_dir: Optional[str] = None) -> StableAudioPipeline:
     """DiT + Oobleck VAE + projection + cosine DPM solver, with the duration
     conditioning set up for the model's full length (as the JAX registry
-    does eagerly)."""
+    does eagerly). A checkpoint without ``projection.msgpack`` keeps the
+    seeded projection, as the JAX registry keeps its init."""
     g = torch.Generator().manual_seed(seed)
-    dit = random_init_(StableAudioDiT(spec.dit), g)
-    vae = random_init_(AutoencoderOobleck(spec.oobleck), g)
-    projection = random_init_(StableAudioProjectionModel(spec.projection), g)
+    dit = _weights(lambda: StableAudioDiT(spec.dit), weights_dir, "dit", g)
+    vae = _weights(lambda: AutoencoderOobleck(spec.oobleck), weights_dir, "oobleck", g)
+    projection = _weights(lambda: StableAudioProjectionModel(spec.projection), weights_dir,
+                          "projection", g, required=False)
     for m in (dit, vae, projection):
         to_model_dtype_(m, device, dtype)
+    text_encoder = NullTextEncoder(hidden_dim=spec.projection.conditioning_dim,
+                                   seq_len=spec.text_seq_len or 8, device=device)
+    if weights_dir is not None:
+        text_encoder = _try_t5_projected(spec, weights_dir, projection, device) or text_encoder
     pipe = StableAudioPipeline(
         model_id=spec.model_id,
         sched=CosineDPMSolver(make_cosine_dpm_schedule(
@@ -156,10 +233,83 @@ def _load_stable_audio(spec: ModelSpec, num_diffusion_steps: int, device,
         dit=dit,
         vae=vae,
         projection=projection,
-        text_encoder=NullTextEncoder(hidden_dim=spec.projection.conditioning_dim,
-                                     seq_len=spec.text_seq_len or 8, device=device),
+        text_encoder=text_encoder,
         sample_rate=spec.sample_rate,
         sample_size=spec.dit.sample_size,
     )
     pipe.setup_duration()
     return pipe
+
+
+# ------------------------------------------------------------ text towers
+def _tower(weights_dir: str, name: str, device):
+    """(model, tokenizer) of ``<weights_dir>/<name>/``, or None where the
+    directory is absent."""
+    d = os.path.join(weights_dir, name)
+    if not os.path.isdir(d):
+        return None
+    return load_text_tower(d, device), Tokenizer.from_dir(d)
+
+
+def _try_clap_film(spec: ModelSpec, weights_dir: str, device):
+    """AudioLDM's CLAP text branch: RoBERTa + MLP projection, the
+    L2-normalized pooled vector as the FiLM conditioning."""
+    tower = _tower(weights_dir, "clap_text", device)
+    if tower is None:
+        return None
+    d = os.path.join(weights_dir, "clap_text")
+    return ClapFilmEncoder(tower[0], tower[1], load_clap_projection(d, device))
+
+
+def _try_t5_encoder(spec: ModelSpec, weights_dir: str, device):
+    """FLAN-T5 sequence conditioning (TANGO)."""
+    tower = _tower(weights_dir, "t5", device)
+    if tower is None:
+        return None
+    return T5TextEncoder(tower[0], tower[1], max_length=min(spec.text_seq_len or 512, 512))
+
+
+def _try_t5_projected(spec: ModelSpec, weights_dir: str, projection, device):
+    """Stable Audio: the T5 encoder through the learned text projection."""
+    tower = _tower(weights_dir, "t5", device)
+    if tower is None:
+        return None
+    return T5ProjectedEncoder(T5TextEncoder(tower[0], tower[1],
+                                            max_length=spec.text_seq_len or 128), projection)
+
+
+def _try_audioldm2_chain(spec: ModelSpec, weights_dir: str, device):
+    """The CLAP + T5 + GPT-2 chain of ``clap_text/``, ``t5/``,
+    ``gpt2.msgpack`` and ``projection_lm.msgpack``; None where none of them
+    is there (a part of them raises)."""
+    parts = ("gpt2.msgpack", "projection_lm.msgpack", "t5", "clap_text")
+    have = [os.path.exists(os.path.join(weights_dir, p)) for p in parts]
+    if not any(have):
+        return None
+    if not all(have):
+        missing = [p for p, h in zip(parts, have) if not h]
+        raise FileNotFoundError(f"{weights_dir}: the AudioLDM2 text chain lacks {missing}")
+    roberta, clap_tok = _tower(weights_dir, "clap_text", device)
+    clap_proj = load_clap_projection(os.path.join(weights_dir, "clap_text"), device)
+    t5, t5_tok = _tower(weights_dir, "t5", device)
+
+    def t5_features(prompts):
+        ids, mask = t5_tok(prompts, padding=True, max_length=t5_tok.model_max_length)
+        ids = torch.as_tensor(ids, device=device)
+        mask = torch.as_tensor(mask, device=device)
+        return t5(ids, mask), mask
+
+    def clap_features(prompts):
+        return clap_text_features(roberta, clap_tok, clap_proj, prompts)
+
+    gpt2 = load_params_(_meta(lambda: GPT2Model(spec.gpt2 or GPT2Config())),
+                        os.path.join(weights_dir, "gpt2.msgpack"))
+    projection = load_params_(
+        _meta(lambda: AudioLDM2ProjectionModel(spec.projection_lm
+                                               or AudioLDM2ProjectionConfig())),
+        os.path.join(weights_dir, "projection_lm.msgpack"))
+    return AudioLDM2TextEncoder(clap_features, t5_features,
+                                to_model_dtype_(projection, device, torch.float32),
+                                to_model_dtype_(gpt2, device, torch.float32))
+
+

@@ -75,10 +75,17 @@ prints no result):
    (``cli/sdedit.py``) on AudioLDM-s (200 steps, tstart 100) and on Stable
    Audio (100 steps, tstart 50, Brownian noise) in float32 and bfloat16;
    each wav must differ from its orig.wav.
+8a. a full-width AudioLDM2-music checkpoint (``weights_dir``) from seeded
+   random modules, written by the port (UNet, VAE, vocoder, GPT-2, the
+   projection model, T5 at FLAN-T5-large's config and the CLAP text tower
+   at transformers' defaults, with small tokenizers written here), loaded
+   back on the card bit-equal (each file's bytes and load seconds); the
+   full-width text chain card vs CPU (<= 1e-3 max relative error).
 8. ``--mode ours`` on the other families on phase 3's clip: AudioLDM2-music
-   at 200 + 100 steps as a float32 edit, a float32 selfcheck and a
-   bfloat16 edit; AudioLDM-l and TANGO as selfchecks at 50 + 25 steps in
-   float32 and bfloat16; every selfcheck >= 40 dB.
+   from phase 8a's checkpoint at 200 + 100 steps as a float32 edit, a
+   float32 selfcheck and a bfloat16 edit; AudioLDM-l and TANGO as
+   selfchecks at 50 + 25 steps in float32 and bfloat16; every selfcheck
+   >= 40 dB.
 Every kernel launch count is set to 0 just before each main-path run and
 read just after it; each run is held to its launches per denoiser forward
 (its run_args.json counts the forwards of each stage). Each phase's
@@ -1254,12 +1261,206 @@ def phase7_baselines(fa, sw, tmp: str) -> dict:
     return runs
 
 
-def phase8_families(fa, sw, tmp: str) -> dict:
+# phase 8's checkpoint: FLAN-T5-large's public config, transformers'
+# ClapTextConfig defaults (the CLAP text tower) and CLAP's 768 -> 512 -> 512
+# text projection; GPT-2 and the projection model at the spec's defaults
+T5_LARGE = {"model_type": "t5", "d_model": 1024, "d_kv": 64, "d_ff": 2816, "num_layers": 24,
+            "num_heads": 16, "relative_attention_num_buckets": 32,
+            "relative_attention_max_distance": 128, "feed_forward_proj": "gated-gelu",
+            "vocab_size": 32128, "layer_norm_epsilon": 1e-6}
+CLAP_TEXT = {"model_type": "roberta", "vocab_size": 50265, "hidden_size": 768,
+             "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
+             "max_position_embeddings": 514, "layer_norm_eps": 1e-12, "pad_token_id": 1,
+             "type_vocab_size": 1, "hidden_act": "gelu"}
+CLAP_PROJECTION = (768, 512, 512)
+TEXT_CHAIN_TOL = 1e-3  # the text chain card vs CPU, max relative error in float32
+CHECKPOINT_SEED = 11
+_WORDS = ("a", "sine", "tone", "dog", "barking", "cello", "the", "of", "and", "music")
+
+
+def _added(tokens) -> list:
+    return [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+             "normalized": False, "special": True} for i, t in tokens]
+
+
+def t5_tokenizer_json() -> dict:
+    """A small FLAN-T5-shaped tokenizer (Unigram, Metaspace, ``$A </s>``)
+    with ids inside T5's vocabulary."""
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    pieces = ([["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0], ["\u2581", -3.0]]
+              + [["\u2581" + w, -2.0 - 0.01 * i] for i, w in enumerate(_WORDS + tuple(letters))]
+              + [[c, -4.0 - 0.01 * i] for i, c in enumerate(letters)])
+    return {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": _added([(0, "<pad>"), (1, "</s>"), (2, "<unk>")]),
+            "normalizer": {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "},
+            "pre_tokenizer": {"type": "Metaspace", "replacement": "\u2581",
+                              "prepend_scheme": "always", "split": True},
+            "post_processor": {"type": "TemplateProcessing",
+                               "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                                          {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+                               "pair": [], "special_tokens": {"</s>": {
+                                   "id": "</s>", "ids": [1], "tokens": ["</s>"]}}},
+            "decoder": None,
+            "model": {"type": "Unigram", "unk_id": 2, "vocab": pieces, "byte_fallback": False}}
+
+
+def roberta_tokenizer_json() -> dict:
+    """A small RoBERTa-shaped tokenizer (byte-level BPE with merges for a
+    few words, ``<s> $A </s>``) with ids inside RoBERTa's vocabulary."""
+    from audioeditingcode_tpu_torch.models.tokenizers import _BYTE_CHARS
+
+    vocab = {t: i for i, t in enumerate(["<s>", "<pad>", "</s>", "<unk>", "<mask>"])}
+    for c in _BYTE_CHARS.values():
+        vocab.setdefault(c, len(vocab))
+    merges = []
+    for w in _WORDS:
+        tok = "\u0120" + w
+        for i in range(2, len(tok) + 1):
+            merges.append([tok[:i - 1], tok[i - 1]])
+            vocab.setdefault(tok[:i], len(vocab))
+    return {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": _added([(0, "<s>"), (1, "<pad>"), (2, "</s>"), (3, "<unk>")]),
+            "normalizer": None,
+            "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False,
+                              "trim_offsets": True, "use_regex": True},
+            "post_processor": {"type": "RobertaProcessing", "sep": ["</s>", 2],
+                               "cls": ["<s>", 0], "trim_offsets": True,
+                               "add_prefix_space": False},
+            "decoder": None,
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                      "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": merges}}
+
+
+def write_checkpoint(ckpt: str) -> dict:
+    """A complete AudioLDM2-music weights_dir from seeded random full-width
+    modules, in the layout of tools/convert_checkpoint.py, written by the
+    port's save_params and save_text_tower; returns each module's state
+    dict on the CPU and each file's bytes and write seconds."""
+    from audioeditingcode_tpu_torch.models import registry as treg
+    from audioeditingcode_tpu_torch.models.audioldm2_cond import (
+        AudioLDM2ProjectionModel,
+        GPT2Model,
+    )
+    from audioeditingcode_tpu_torch.models.configs import (
+        MODEL_SPECS,
+        AudioLDM2ProjectionConfig,
+        GPT2Config,
+    )
+    from audioeditingcode_tpu_torch.models.text_encoders import (
+        RobertaModel,
+        T5EncoderModel,
+        roberta_config,
+        save_text_tower,
+        t5_config,
+    )
+
+    spec = MODEL_SPECS[A2_MODEL_ID]
+    pipe = treg.load_model(A2_MODEL_ID, 4, device="cpu", seed=CHECKPOINT_SEED)
+    g = torch.Generator().manual_seed(CHECKPOINT_SEED + 1)
+    mods = {"unet": pipe.unet, "vae": pipe.vae, "vocoder": pipe.vocoder,
+            "gpt2": treg.random_init_(GPT2Model(spec.gpt2 or GPT2Config()), g),
+            "projection_lm": treg.random_init_(
+                AudioLDM2ProjectionModel(spec.projection_lm or AudioLDM2ProjectionConfig()), g),
+            "t5": treg.random_init_(T5EncoderModel(t5_config(T5_LARGE)), g),
+            "clap_text": treg.random_init_(RobertaModel(roberta_config(CLAP_TEXT)), g)}
+    written = {}
+    os.makedirs(ckpt, exist_ok=True)
+    for name, mod in mods.items():
+        t0 = time.perf_counter()
+        if name in ("t5", "clap_text"):
+            d = os.path.join(ckpt, name)
+            save_text_tower(mod, d, T5_LARGE if name == "t5" else CLAP_TEXT)
+            path = os.path.join(d, "flax_model.msgpack")
+            spec_json = t5_tokenizer_json() if name == "t5" else roberta_tokenizer_json()
+            with open(os.path.join(d, "tokenizer.json"), "w") as f:
+                json.dump(spec_json, f)
+            with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+                json.dump({"model_max_length": 512, "pad_token": "<pad>"}, f)
+        else:
+            path = os.path.join(ckpt, f"{name}.msgpack")
+            treg.save_params(mod, path)
+        written[name] = {"bytes": os.path.getsize(path), "write_s": time.perf_counter() - t0}
+    d_in, d_mid, d_out = CLAP_PROJECTION
+    np.savez(os.path.join(ckpt, "clap_text", "text_projection.npz"),
+             **{k: (torch.randn(shape, generator=g) / shape[-1] ** 0.5).numpy()
+                for k, shape in (("w1", (d_mid, d_in)), ("b1", (d_mid,)),
+                                 ("w2", (d_out, d_mid)), ("b2", (d_out,)))})
+    return {name: {k: v.detach().clone() for k, v in m.state_dict().items()}
+            for name, m in mods.items()}, written
+
+
+def _assert_bit_equal(name: str, got: dict, want: dict) -> None:
+    if set(got) != set(want):
+        raise AssertionError(f"{name}: loaded keys differ from the written module's")
+    for k, v in want.items():
+        if not torch.equal(got[k].cpu(), v):
+            raise AssertionError(f"{name}: {k} was not loaded bit-equal")
+
+
+def phase8a_checkpoint(tmp: str) -> dict:
+    """Write the full-width AudioLDM2-music checkpoint, load it back on the
+    card (state dicts bit-equal to the seeded modules; each file's bytes
+    and load seconds) and hold the full-width text chain (T5-large, RoBERTa
+    + CLAP projection, GPT-2 generating 8 tokens) card against CPU."""
+    from audioeditingcode_tpu_torch.models import flax_msgpack
+    from audioeditingcode_tpu_torch.models import registry as treg
+    from audioeditingcode_tpu_torch.models.configs import MODEL_SPECS
+    from audioeditingcode_tpu_torch.models.text_encoders import load_text_tower
+
+    ckpt = os.path.join(tmp, "audioldm2_music_ckpt")
+    t0 = time.perf_counter()
+    want, written = write_checkpoint(ckpt)
+    write_s = time.perf_counter() - t0
+    flax_msgpack.LOAD_SECONDS.clear()
+    t0 = time.perf_counter()
+    pipe = treg.load_model(A2_MODEL_ID, 4, device="cuda", weights_dir=ckpt)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    enc = pipe.text_encoder
+    loaded = {"unet": pipe.unet, "vae": pipe.vae, "vocoder": pipe.vocoder, "gpt2": enc.gpt2,
+              "projection_lm": enc.projection}
+    for name, mod in loaded.items():
+        _assert_bit_equal(name, mod.state_dict(), want[name])
+    for name in ("t5", "clap_text"):
+        _assert_bit_equal(name, load_text_tower(os.path.join(ckpt, name)).state_dict(),
+                          want[name])
+    files = {os.path.relpath(path, ckpt): {"bytes": b, "load_s": s}
+             for path, (b, s) in flax_msgpack.LOAD_SECONDS.items()}
+    log(f"[phase8a] wrote the checkpoint in {write_s:.1f} s: {written}")
+    log(f"[phase8a] load_model on the card in {load_s:.1f} s, every module bit-equal; "
+        f"per file: {files}")
+    cpu_enc = treg._try_audioldm2_chain(MODEL_SPECS[A2_MODEL_ID], ckpt, "cpu")
+    prompts = ["a sine tone", "a dog barking in the rain, then music"]
+    errs = {}
+    t0 = time.perf_counter()
+    card = enc(prompts)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = cpu_enc(prompts)
+    for f in ("hidden_states", "hidden_states_1"):
+        errs[f] = _max_rel(getattr(card, f).cpu(), getattr(cpu, f))
+    if not torch.equal(card.attention_mask_1.cpu(), cpu.attention_mask_1):
+        raise AssertionError("phase8a: the T5 masks differ between card and CPU")
+    log(f"[phase8a] text chain card vs CPU max rel err {errs} (bound {TEXT_CHAIN_TOL}); "
+        f"{card_s:.2f} s on the card for {len(prompts)} prompts")
+    if not max(errs.values()) <= TEXT_CHAIN_TOL:
+        raise AssertionError(f"phase8a: text chain card vs CPU {errs} > {TEXT_CHAIN_TOL}")
+    del pipe, enc, cpu_enc
+    torch.cuda.empty_cache()
+    return {"dir": ckpt, "checkpoint_files": files, "checkpoint_load_s": load_s,
+            "checkpoint_write_s": write_s, "text_chain_max_rel_err": errs,
+            "text_chain_card_s": card_s}
+
+
+def phase8_families(fa, sw, tmp: str, ckpt: str) -> dict:
     """--mode ours on the other mel families through the port's CLI, on
-    phase 3's clip: AudioLDM2-music at the bench.py config (200 + 100 steps)
-    as a float32 edit, a float32 selfcheck and a bfloat16 edit; AudioLDM-l
-    and TANGO (v-prediction) as selfchecks at 50 + 25 steps in float32 and
-    bfloat16. Every selfcheck must reach 40 dB."""
+    phase 3's clip: AudioLDM2-music from phase 8a's checkpoint
+    (``--weights_dir``, the full text chain) at the bench.py config (200 +
+    100 steps) as a float32 edit, a float32 selfcheck and a bfloat16 edit;
+    AudioLDM-l and TANGO (v-prediction) as selfchecks at 50 + 25 steps in
+    float32 and bfloat16. Every selfcheck must reach 40 dB."""
     from audioeditingcode_tpu_torch.cli.run import main as run_edit
 
     runs = {}
@@ -1272,6 +1473,7 @@ def phase8_families(fa, sw, tmp: str) -> dict:
         for name in names:
             selfcheck, bf16 = name.startswith("selfcheck"), name.endswith("bf16")
             argv = (edit_argv(model_id, clip, os.path.join(tmp, f"{tag}_{name}"))
+                    + (["--weights_dir", ckpt] if model_id == A2_MODEL_ID else [])
                     + (["--selfcheck"] if selfcheck else [])
                     + (["--dtype", "bfloat16"] if bf16 else []))
             runs[f"{tag}_{name}"] = _cli_run(
@@ -1413,7 +1615,9 @@ def main() -> int:
         runs["stable_audio_pc"] = timed("phase6", phase_pcs, fa, sw, tmp, SA_MODEL_ID,
                                         os.path.join(tmp, "clip44k.wav"), "phase6")
         runs["baselines"] = timed("phase7", phase7_baselines, fa, sw, tmp)
-        runs["families"] = timed("phase8", phase8_families, fa, sw, tmp)
+        ckpt = timed("phase8a", phase8a_checkpoint, tmp)
+        parity["checkpoint"] = {k: v for k, v in ckpt.items() if k != "dir"}
+        runs["families"] = timed("phase8", phase8_families, fa, sw, tmp, ckpt["dir"])
     if "--profile" in sys.argv[1:]:
         for dtype in (torch.float32, torch.bfloat16):
             profile_main_path_step(MODEL_ID, STEPS, LATENT, dtype)

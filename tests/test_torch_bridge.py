@@ -7,8 +7,8 @@ from flax.traverse_util import flatten_dict
 
 from audioeditingcode_tpu.models.convert import torch_to_flax_params
 from audioeditingcode_tpu_torch.models.bridge import (
+    flax_location,
     flax_to_torch_state_dict,
-    normalize_torch_key,
 )
 from test_torch_helpers import jax_tiny_pipeline, port_tiny_pipeline
 
@@ -41,7 +41,7 @@ def test_bridge_uses_diffusers_names(pipes):
     assert "down_blocks.0.attentions.0.transformer_blocks.0.ff.net.0.proj.weight" in keys
     assert "up_blocks.0.upsamplers.0.conv.weight" in keys
     assert "encoder.down_blocks.0.downsamplers.0.conv.weight" in set(pipe.vae.state_dict())
-    assert normalize_torch_key("ups.3.weight") == ("ups_3", "weight")
+    assert flax_location(pipe.vocoder, "ups.3.weight")[:2] == (("ups_3",), "kernel")
 
 
 def test_bridge_rejects_mismatches(pipes):

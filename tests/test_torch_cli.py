@@ -54,7 +54,6 @@ def test_cli_cuda_missing_raises(wav, tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra,item", [
     (["--dp", "2"], "item 12"),
     (["--sp", "2"], "item 12"),
-    (["--weights_dir", "w"], "item 13"),
     (["--profile_dir", "p"], "item 14"),
 ])
 def test_cli_unported_flags_raise(wav, tmp_path, extra, item):

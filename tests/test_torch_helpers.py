@@ -208,3 +208,123 @@ def test_cpu_tensors_take_the_plain_version():
     assert fa.flash_attention_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa.flash_attention_cuda(q, q, q)
+
+
+def build_converted_checkpoint(model_id: str, root: str) -> str:
+    """A complete fake checkpoint of a tiny model, built with the helpers of
+    tests/test_convert_integration.py and converted by the JAX converter
+    (tools/convert_checkpoint.py::convert); returns the weights_dir. The
+    text towers are real transformers models with offline tokenizers."""
+    import test_convert_integration as tci
+    from audioeditingcode_tpu.models.configs import MODEL_SPECS
+    from tools.convert_checkpoint import convert
+
+    src, out = os.path.join(root, "src"), os.path.join(root, "out")
+    spec = MODEL_SPECS[model_id]
+    torch.manual_seed(0)  # the transformers towers' init
+    if model_id == "test/tiny-stable-audio":
+        from test_convert_tool import make_dit_state_dict
+
+        jpipe = jax_tiny_stable_audio(3)
+        dit = {}
+        for k, v in make_dit_state_dict(spec.dit, np.random.RandomState(5)).items():
+            if v.ndim >= 2:  # N(0, 1) -> N(0, 1/fan_in), as the seeded init
+                v = v / np.sqrt(np.prod(v.shape[1:]))
+            elif k.endswith("norm1.weight") or k.endswith("norm2.weight") or \
+                    k.endswith("norm3.weight"):
+                v = 1.0 + 0.01 * v
+            elif k != "time_proj.weight":
+                v = 0.01 * v
+            dit[k] = v.astype(np.float32)
+        tci.save_safetensors(dit, os.path.join(src, "transformer"))
+        tci.save_safetensors(tci.flax_to_torch_sd(
+            jpipe.vae_params["params"], tc_markers=("conv_t1",),
+            tc_rule="flax_transpose_kernel", snake=True, transform=lambda x: x * 0.5),
+            os.path.join(src, "vae"))
+        pc, r = spec.projection, np.random.RandomState(6)
+        proj = {"text_projection.0.weight": r.randn(pc.conditioning_dim, pc.text_encoder_dim),
+                "text_projection.2.weight": r.randn(pc.conditioning_dim, pc.conditioning_dim)}
+        for side in ("start", "end"):
+            key = f"{side}_number_conditioner.time_positional_embedding"
+            proj |= {f"{key}.0.weights": r.randn(pc.internal_dim // 2),
+                     f"{key}.1.weight": r.randn(pc.conditioning_dim, pc.internal_dim + 1),
+                     f"{key}.1.bias": r.randn(pc.conditioning_dim)}
+        tci.save_safetensors({k: (0.2 * v).astype(np.float32) for k, v in proj.items()},
+                             os.path.join(src, "projection_model"))
+        tci.make_t5_model_dir(os.path.join(src, "text_encoder"), d_model=pc.text_encoder_dim)
+        tci.make_t5_tokenizer_dir(os.path.join(src, "tokenizer"))
+    else:
+        # mildly perturbed seed-0 params: the test's usual 1.5x + 0.01 makes
+        # the tiny vocoder amplify float32 roundoff ~100x into the wav
+        jpipe = jax_tiny_pipeline(4, model_id)
+        for part in ("unet", "vae", "vocoder"):
+            tci.save_safetensors(tci.flax_to_torch_sd(getattr(jpipe, part + "_params")["params"],
+                                                      transform=lambda x: x * 1.01 + 1e-3),
+                                 os.path.join(src, part))
+    if spec.family == "audioldm":
+        tci.make_clap_text_model_dir(os.path.join(src, "text_encoder"), projection_dim=32)
+        tci.make_roberta_tokenizer_dir(os.path.join(src, "tokenizer"))
+    elif spec.family == "tango":
+        tci.make_t5_model_dir(os.path.join(src, "text_encoder"), d_model=32)
+        tci.make_t5_tokenizer_dir(os.path.join(src, "tokenizer"))
+    elif spec.family == "audioldm2":
+        from transformers import GPT2Config as TorchGPT2Config
+        from transformers import GPT2Model as TorchGPT2
+
+        lm = spec.projection_lm
+        tci.make_clap_text_model_dir(os.path.join(src, "text_encoder"),
+                                     projection_dim=lm.text_encoder_dim)
+        tci.make_roberta_tokenizer_dir(os.path.join(src, "tokenizer"))
+        tci.make_t5_model_dir(os.path.join(src, "text_encoder_2"), d_model=lm.text_encoder_1_dim)
+        tci.make_t5_tokenizer_dir(os.path.join(src, "tokenizer_2"))
+        g = spec.gpt2
+        torch.manual_seed(0)
+        gpt2 = TorchGPT2(TorchGPT2Config(n_embd=g.n_embd, n_layer=g.n_layer, n_head=g.n_head,
+                                         n_positions=g.n_positions, vocab_size=50))
+        tci.save_safetensors({k: v.detach().numpy() for k, v in gpt2.state_dict().items()},
+                             os.path.join(src, "language_model"))
+        D, r = lm.langauge_model_dim, np.random.RandomState(2)
+        proj = {"projection.weight": r.randn(D, lm.text_encoder_dim),
+                "projection.bias": r.randn(D),
+                "projection_1.weight": r.randn(D, lm.text_encoder_1_dim),
+                "projection_1.bias": r.randn(D)}
+        proj |= {k: r.randn(D) for k in ("sos_embed", "eos_embed", "sos_embed_1", "eos_embed_1")}
+        tci.save_safetensors({k: (0.2 * v).astype(np.float32) for k, v in proj.items()},
+                             os.path.join(src, "projection_model"))
+    convert(model_id, src, out)
+    return out
+
+
+CKPT_STEPS = 6  # the diffusion steps of the converted_pipelines fixture
+
+
+@pytest.fixture(scope="module")
+def converted_dirs(tmp_path_factory):
+    """model id -> the weights_dir of a converted tiny checkpoint, each
+    built once per test module."""
+    cache = {}
+
+    def get(model_id):
+        if model_id not in cache:
+            cache[model_id] = build_converted_checkpoint(
+                model_id, str(tmp_path_factory.mktemp(model_id.split("/")[1])))
+        return cache[model_id]
+    return get
+
+
+@pytest.fixture(scope="module")
+def converted_pipelines(converted_dirs):
+    """model id -> (weights_dir, JAX pipeline, port pipeline) at CKPT_STEPS
+    steps, each loaded once per test module."""
+    from audioeditingcode_tpu.models.registry import load_model as jload
+    from audioeditingcode_tpu_torch.models.registry import load_model
+
+    cache = {}
+
+    def get(model_id):
+        if model_id not in cache:
+            wd = converted_dirs(model_id)
+            cache[model_id] = (wd, jload(model_id, CKPT_STEPS, weights_dir=wd),
+                               load_model(model_id, CKPT_STEPS, device="cpu", weights_dir=wd))
+        return cache[model_id]
+    return get

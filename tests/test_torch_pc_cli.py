@@ -285,7 +285,6 @@ def test_ts_chunk_equals_one_step_chunks(clips, model, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--weights_dir", "w"], "item 13"),
     (["--dp", "2"], "item 12"),
     (["--tp", "2"], "item 12"),
 ])
@@ -295,11 +294,13 @@ def test_extract_rejects_unported_flags(clips, tmp_path, argv, item):
                   "--device", "cpu", "--results_path", str(tmp_path)] + argv)
 
 
-def test_apply_rejects_unported_flags(extractions):
+def test_apply_rejects_unported_flags(extractions, tmp_path):
+    """--weights_dir is ported: a directory without converted weights
+    raises as the JAX registry does."""
     path = extractions["audioldm", "two_pcs"][1]
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(FileNotFoundError, match="missing converted weights"):
         tpa.main(["--extraction_path", path, "--drift_start", "4", "--drift_end", "2",
-                  "--amount", "1", "--weights_dir", "w", "--device", "cpu"])
+                  "--amount", "1", "--weights_dir", str(tmp_path), "--device", "cpu"])
 
 
 def test_clis_need_a_card_unless_told_cpu(clips, extractions, tmp_path, monkeypatch):

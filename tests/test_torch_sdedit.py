@@ -189,7 +189,9 @@ def test_sdedit_cli_seeds_reproduce(tmp_path):
 
 
 def test_sdedit_cli_rejects_unported(tmp_path):
+    """--weights_dir is ported: a directory without converted weights
+    raises as the JAX registry does."""
     wav = write_test_wav(str(tmp_path / "clip.wav"), seconds=0.3)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(FileNotFoundError, match="missing converted weights"):
         tcli.main(["--device", "cpu", "--model_id", "test/tiny-audioldm", "--init_aud", wav,
-                   "--weights_dir", "w"])
+                   "--weights_dir", str(tmp_path)])

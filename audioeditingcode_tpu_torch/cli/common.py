@@ -33,6 +33,14 @@ def set_reproducibility(seed: Optional[int]) -> int:
     return seed
 
 
+def reject_parallel(args) -> None:
+    """dp, tp and sp above 1 need the parallel port (a CLI without --sp
+    has none to check)."""
+    if args.dp != 1 or args.tp != 1 or getattr(args, "sp", None) not in (None, 0, 1):
+        raise NotImplementedError("--dp/--tp/--sp are not ported to PyTorch yet "
+                                  "(ROADMAP Queue A item 12)")
+
+
 def timestamp_name() -> int:
     return calendar.timegm(time.gmtime())
 

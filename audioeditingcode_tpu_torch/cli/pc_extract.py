@@ -45,6 +45,7 @@ from .common import (
     log_edit_artifacts,
     log_pc_corrs,
     plot_corrs,
+    reject_parallel,
     save_spectrogram_png,
     set_reproducibility,
     timestamp_name,
@@ -103,9 +104,7 @@ def parse_args(argv=None):
 
 def _reject_unported(args) -> None:
     resolve_spec(args.model_id)  # raises for model families not ported yet
-    if args.dp != 1 or args.tp != 1:
-        raise NotImplementedError("--dp/--tp are not ported to PyTorch yet "
-                                  "(ROADMAP Queue A item 12)")
+    reject_parallel(args)
 
 
 def main(argv=None):

@@ -29,6 +29,7 @@ from .common import (
     dump_run_summary,
     edit_image_name,
     edit_save_path,
+    reject_parallel,
     save_spectrogram_png,
     set_reproducibility,
 )
@@ -102,9 +103,7 @@ def parse_args(argv=None):
 
 def _reject_unported(args) -> None:
     resolve_spec(args.model_id)  # raises for model families not ported yet
-    if args.dp != 1 or args.tp != 1 or args.sp not in (None, 0, 1):
-        raise NotImplementedError("--dp/--tp/--sp are not ported to PyTorch yet "
-                                  "(ROADMAP Queue A item 12)")
+    reject_parallel(args)
     if args.profile_dir is not None:
         raise NotImplementedError("--profile_dir is not ported to PyTorch yet "
                                   "(ROADMAP Queue A item 14)")

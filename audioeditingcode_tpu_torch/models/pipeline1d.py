@@ -40,8 +40,8 @@ class StableAudioPipeline:
     sample_size: int = 1024  # latent length (DiT sample_size)
 
     # set by setup_duration:
-    _duration_embeds: Optional[torch.Tensor] = None  # (1, 2, D) start/end
-    _global_states: Optional[torch.Tensor] = None  # (1, 1, 2D)
+    _duration_embeds: Optional[torch.Tensor] = None  # (1 or N clips, 2, D) start/end
+    _global_states: Optional[torch.Tensor] = None  # (1 or N clips, 1, 2D)
     _rotary: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # (L+1, rot) each
     _waveform_start: int = 0
     _waveform_end: Optional[int] = None
@@ -89,9 +89,36 @@ class StableAudioPipeline:
         self._rotary = rotary_tables(self.dit.config.rotary_embed_dim,
                                      self.sample_size + 1, device=dev)
 
+    @torch.no_grad()
+    def setup_clip_durations(self, durations_in_s: List[float]) -> None:
+        """Duration conditioning per clip, for N clips edited in one batch:
+        row i of the duration embeds and the global token conditions clip i
+        on [0, durations_in_s[i]] (each row as :meth:`setup_duration` makes
+        it for that clip alone). The rotary tables and the decode crop cover
+        the longest clip."""
+        rows = []
+        for d in durations_in_s:
+            self.setup_duration(0.0, d)
+            rows.append((self._duration_embeds, self._global_states))
+        self.setup_duration(0.0, max(durations_in_s))
+        self._duration_embeds = torch.cat([r[0] for r in rows], dim=0)  # (N, 2, D)
+        self._global_states = torch.cat([r[1] for r in rows], dim=0)  # (N, 1, 2D)
+
     def _require_setup(self):
         if self._duration_embeds is None:
             self.setup_duration()
+
+    @staticmethod
+    def _rows(state: torch.Tensor, B: int) -> torch.Tensor:
+        """The duration state for a forward of B rows: one row for all, or
+        per-clip rows repeated along the CFG fold (the N unconditional rows,
+        then the N conditional ones)."""
+        n = state.shape[0]
+        if n == 1:
+            return state.expand((B,) + tuple(state.shape[1:]))
+        if B % n:
+            raise ValueError(f"a forward of {B} rows for {n} clips' duration conditioning")
+        return state.repeat((B // n,) + (1,) * (state.dim() - 1))
 
     # ----------------------------------------------------------- text
     def encode_text(self, prompts: List[str], negative: bool = False) -> TextCond:
@@ -115,14 +142,14 @@ class StableAudioPipeline:
         self._require_setup()
         B = x.shape[0]
         hs = cond.hidden_states
-        dur = self._duration_embeds.expand((B,) + tuple(self._duration_embeds.shape[1:]))
+        dur = self._rows(self._duration_embeds, B)
         embeds = torch.cat([hs, dur.to(hs.dtype)], dim=1)
         if cond.attention_mask is not None:
             # an all-zero mask is the unconditional branch: zero the whole
             # stream, duration embeds included
             valid = (cond.attention_mask.sum(dim=1) > 0).to(embeds.dtype)
             embeds = embeds * valid[:, None, None]
-        glob = self._global_states.expand((B,) + tuple(self._global_states.shape[1:]))
+        glob = self._rows(self._global_states, B)
         ts = torch.as_tensor(t, device=x.device).reshape(()).expand(B)
         out = self.dit(x.transpose(1, 2), ts, embeds, glob, self._rotary)
         return out.transpose(1, 2).to(x.dtype)

@@ -118,13 +118,21 @@ def _weights(factory: Callable[[], nn.Module], weights_dir: Optional[str], name:
     """The module from ``<weights_dir>/<name>.msgpack``, else seeded random
     (a missing file raises unless it is not ``required``)."""
     if weights_dir is None:
-        return random_init_(factory(), g)
+        return seeded(factory, g)
     path = os.path.join(weights_dir, f"{name}.msgpack")
     if not os.path.exists(path):
         if required:
             raise FileNotFoundError(f"missing converted weights: {path}")
-        return random_init_(factory(), g)
+        return seeded(factory, g)
     return load_params_(_meta(factory), path)
+
+
+def seeded(factory: Callable[[], nn.Module], g: torch.Generator) -> nn.Module:
+    """The module with seeded random weights, built without torch's default
+    init (``random_init_`` writes every parameter, and the modules hold no
+    buffers): the weights of ``random_init_(factory(), g)`` at about half
+    the host time (a 1 B-parameter DiT spends ~5 s in the default init)."""
+    return random_init_(_meta(factory).to_empty(device="cpu"), g)
 
 
 def _meta(factory: Callable[[], nn.Module]) -> nn.Module:

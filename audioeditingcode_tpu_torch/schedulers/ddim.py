@@ -83,6 +83,10 @@ class DiffusionSchedule:
     num_inference_steps: int = 50
     prediction_type: str = "epsilon"
 
+    @property
+    def step_ratio(self) -> int:
+        return self.num_train_timesteps // self.num_inference_steps
+
 
 def make_schedule(config: DDIMConfig, num_inference_steps: int,
                   dtype: torch.dtype = torch.float32,

@@ -47,12 +47,11 @@ prints no result):
    3xTF32 route in float32 and on the tensor-core route in bfloat16.
 4. the Stable Audio Open main path: the CLI's ``--mode ours`` edit of a
    synthetic 10 s, 44.1 kHz stereo clip at 100 inversion + 50 edit steps,
-   in float32 as an edit, with ``--selfcheck`` (>= 40 dB), and as an edit
-   with AEC_ROTARY_IN_KERNEL=1, and in bfloat16 as an edit and with
-   ``--selfcheck`` (>= 40 dB), each also with AEC_ROTARY_IN_KERNEL=1; B1
-   (B2 in the rotary runs) and B3 must each launch 24 times per DiT
-   forward, on the 3xTF32 routes in float32 and on the tensor-core routes
-   in bfloat16.
+   in float32 with ``--selfcheck`` (>= 40 dB) and as an edit with
+   AEC_ROTARY_IN_KERNEL=1, and in bfloat16 with ``--selfcheck`` (>= 40 dB),
+   also with AEC_ROTARY_IN_KERNEL=1; B1 (B2 in the rotary runs) and B3 must
+   each launch 24 times per DiT forward, on the 3xTF32 routes in float32
+   and on the tensor-core routes in bfloat16.
 5. AudioLDM-s PC editing through the port's CLIs on phase 3's clip: PC
    extraction in float32 (200 steps, 2 PCs, 50 power iterations at each of
    the two window steps 100 and 99), then its application in bfloat16 along
@@ -86,6 +85,20 @@ prints no result):
    float32 selfcheck and a bfloat16 edit; AudioLDM-l and TANGO as
    selfchecks at 50 + 25 steps in float32 and bfloat16; every selfcheck
    >= 40 dB.
+9. the generation, long-form, batch and sweep CLIs through their main(argv)
+   at full width: AudioLDM-s generation (100 steps), style transfer at
+   strength 0.5 and at 0 (which must give back the VAE round trip of the
+   input), inpainting of seconds 3-6 and super-resolution in float32, and
+   generation and inpainting in bfloat16; Stable Audio generation and
+   inpainting in bfloat16 (100 steps, Brownian noise); long-form edits
+   (100 + 50 steps) of a 25 s clip in three AudioLDM-s windows (float32
+   and bfloat16: B1 at batch 6) and of a 15 s stereo clip in two Stable
+   Audio windows (bfloat16: B1 at batch 4, B3 at M = 4100); a float32 batch
+   of three AudioLDM-s clips of 10, 7.5 and 5 s; a float32 2 x 2 tstart x
+   cfg_tar sweep. Checks: window 0 of the float32 long-form edit against
+   its single-window edit (<= 1e-3 max relative error), inpainting's kept
+   region bit-exact (run_args.json), each sweep point within 1 LSB of
+   ``cli/run.py --mode ours`` at its tstart and cfg_tar.
 Every kernel launch count is set to 0 just before each main-path run and
 read just after it; each run is held to its launches per denoiser forward
 (its run_args.json counts the forwards of each stage). Each phase's
@@ -170,8 +183,8 @@ HOST_BOUND = 1.5
 
 # (B, S, H, H_kv, D): the two AudioLDM-s UNet levels, then the Stable Audio
 # DiT's attn1 (ragged S = 1025 with the global token, 24 q / 12 kv heads),
-# at the edit's CFG batch 2; then each at the PC paths' batch 4 (two PCs
-# times the CFG pair)
+# at the edit's CFG batch 2; then each at batch 4 (the PC paths' two PCs
+# times the CFG pair, and the Stable Audio long-form edit's two windows)
 ATTN_CASES = [
     ((2, 4096, 8, 8, 16), torch.float32),
     ((2, 1024, 8, 8, 32), torch.float32),
@@ -185,6 +198,12 @@ ATTN_CASES = [
     ((4, 1024, 8, 8, 32), torch.bfloat16),
     ((4, 1025, 24, 12, 64), torch.float32),
     ((4, 1025, 24, 12, 64), torch.bfloat16),
+    # the AudioLDM-s long-form edit's batch 6: three windows times the CFG
+    # pair (phase 9)
+    ((6, 4096, 8, 8, 16), torch.float32),
+    ((6, 1024, 8, 8, 32), torch.float32),
+    ((6, 4096, 8, 8, 16), torch.bfloat16),
+    ((6, 1024, 8, 8, 32), torch.bfloat16),
     # the other UNet families' shapes at the CFG batch: AudioLDM-l (D = 32
     # at S = 4096, 64 at 1024), TANGO (40 and 80), AudioLDM2-large (48 at
     # 1024); the tensor-core kernel pads D = 40, 48 and 80 to 64 and 128
@@ -271,6 +290,29 @@ PC_APPLICATIONS = [
 # it from the bf16 amount-0 wav of its PC (the same batch and kernels, so a
 # drift that moves nothing gives the same wav), and from the other PC's.
 AMOUNT0_MAX_LSB = 33
+# phase 9: the generation, long-form, batch and sweep CLIs at full width.
+# Depths: generation at 100 steps (the AudioLDM CLI's default is 200), the
+# edits at 100 inversion + 50 edit steps on AudioLDM-s (the edit config's
+# 200 + 100 halved) and at Stable Audio's 100 + 50.
+GEN_STEPS = 100
+P9_STEPS, P9_TSTART = 100, 50
+# a 25 s clip in 10 s windows overlapping by 1 s: 3 mel windows of 1024
+# frames (starts 0, 920, 1536), a UNet forward of 6 rows; a 15 s stereo clip
+# in 10 s windows: 2 Stable Audio windows, a DiT forward of 4 rows (B3 at
+# M = 4 x 1025 = 4100)
+LONG_SECONDS, SA_LONG_SECONDS, CHUNK_S, OVERLAP_S = 25.0, 15.0, 10.0, 1.0
+LONG_WINDOWS = {"mel": 3, "stable_audio": 2}
+GEN_SECONDS = 10.0  # the generation CLI's --duration
+INPAINT_WINDOW = ["3", "6"]  # seconds of the clip that inpainting regenerates
+BATCH_SECONDS = (10.0, 7.5, 5.0)  # run_batch's three clips of different lengths
+SWEEP_TSTARTS, SWEEP_CFGS = (50, 25), (12.0, 6.0)  # a 2 x 2 grid off 100 steps
+# the fold check: window 0 of the folded float32 long-form edit against its
+# single-window edit with window 0's noise (max relative error); the same
+# ops on 6 rows or on 2, which cuDNN and cuBLAS may sum in other orders
+FOLD_MAX_REL = 1e-3
+# a sweep grid point against cli/run.py at its tstart and cfg_tar (the same
+# weights, draws and kernels): int16 LSB
+SWEEP_MAX_LSB = 1
 
 
 def log(msg: str) -> None:
@@ -1036,10 +1078,13 @@ def phase3_main_path(fa, sw, tmp: str):
 
 
 def phase4_stable_audio(fa, sw, tmp: str):
-    """The Stable Audio Open edit through the CLI: in float32 an edit, a
-    selfcheck, and an edit with the rotary inside the attention kernel (B2);
-    in bfloat16 an edit and a selfcheck, each with host rotary + B1 and with
-    B2."""
+    """The Stable Audio Open edit through the CLI: in float32 a selfcheck and
+    an edit with the rotary inside the attention kernel (B2); in bfloat16 a
+    selfcheck with host rotary + B1 and one with B2. A selfcheck runs the
+    edit's 150 forwards through the same kernels (its reverse pass takes the
+    source conditioning), so its seconds are the edit's. An edit with the
+    target prompt runs here in float32 (B2) and in bfloat16 in phase 9's
+    long-form edit (host rotary + B1)."""
     from scipy.io import wavfile
 
     from audioeditingcode_tpu_torch.cli.run import main as run_edit
@@ -1048,10 +1093,9 @@ def phase4_stable_audio(fa, sw, tmp: str):
     write_clip(clip, **EDITS[SA_MODEL_ID][3])
     runs = {}
     bf16 = ["--dtype", "bfloat16"]
-    for name, extra, env in (("edit", [], "0"), ("selfcheck", ["--selfcheck"], "0"),
-                             ("edit_rotary_in_kernel", [], "1"), ("edit_bf16", bf16, "0"),
+    for name, extra, env in (("selfcheck", ["--selfcheck"], "0"),
+                             ("edit_rotary_in_kernel", [], "1"),
                              ("selfcheck_bf16", bf16 + ["--selfcheck"], "0"),
-                             ("edit_rotary_in_kernel_bf16", bf16, "1"),
                              ("selfcheck_rotary_in_kernel_bf16", bf16 + ["--selfcheck"], "1")):
         os.environ["AEC_ROTARY_IN_KERNEL"] = env
         reset_launches(fa, sw)
@@ -1184,22 +1228,35 @@ def phase_pcs(fa, sw, tmp: str, model_id: str, clip: str, tag: str) -> dict:
     return runs
 
 
-def _cli_run(fa, sw, name: str, call, per_forward: dict, forwards: int, seconds_key: str,
-             sr: int, channels: int, snr_min=None):
-    """One edit-CLI run from launch counts of 0, held to its denoiser
-    forwards (run_args.json's unet_steps), to per_forward launches of each
-    kernel per forward, to a wav of the model's rate and at least 10 s that
-    differs from its orig.wav and, with snr_min, to its selfcheck SNR."""
+def _counted_run(fa, sw, name: str, call, per_forward: dict, forwards: int, seconds_key: str):
+    """One CLI run from launch counts of 0: (its outputs, its run_args.json,
+    its record), held to the denoiser forwards its run_args.json counts
+    (unet_steps) and to per_forward launches of each kernel per forward."""
     reset_launches(fa, sw)
     t0 = time.perf_counter()
     out = call()
     wall = time.perf_counter() - t0
     counts = read_launches(fa, sw)
-    with open(os.path.join(os.path.dirname(out), "run_args.json")) as f:
+    first = out if isinstance(out, str) else out[0]
+    with open(os.path.join(os.path.dirname(first), "run_args.json")) as f:
         rec = json.load(f)
-    run = {"launches": counts, "forwards": rec["unet_steps"], "dtype": rec["dtype"],
-           "loop_s": rec[seconds_key], "steps_per_s": rec["unet_steps"] / rec[seconds_key],
-           "wall_s": wall, "selfcheck_snr_db": rec.get("selfcheck_snr_db")}
+    n = rec["unet_steps"]
+    run = {"launches": counts, "forwards": n, "dtype": rec["dtype"], "wall_s": wall,
+           "loop_s": rec[seconds_key], "steps_per_s": n / rec[seconds_key] if n else None}
+    want = expected_launches(per_forward, n)
+    if n != forwards or counts != want:
+        raise AssertionError(f"{name}: launches {counts} for {n} denoiser forwards "
+                             f"(expected {forwards}), expected {want}")
+    return out, rec, run
+
+
+def _cli_run(fa, sw, name: str, call, per_forward: dict, forwards: int, seconds_key: str,
+             sr: int, channels: int, snr_min=None):
+    """One edit-CLI run (``_counted_run``), its wav of the model's rate and
+    at least 10 s differing from its orig.wav and, with snr_min, its
+    selfcheck SNR."""
+    out, rec, run = _counted_run(fa, sw, name, call, per_forward, forwards, seconds_key)
+    run["selfcheck_snr_db"] = rec.get("selfcheck_snr_db")
     if rec.get("noise_seconds"):
         run["noise_s"] = rec["noise_seconds"]
     wav = _check_wav(name, out, sr, channels)
@@ -1208,10 +1265,6 @@ def _cli_run(fa, sw, name: str, call, per_forward: dict, forwards: int, seconds_
     n = min(len(wav), len(orig))
     run["max_lsb_from_orig"] = int(np.abs(wav[:n] - orig[:n]).max())
     log(f"[{name}] {run}")
-    want = expected_launches(per_forward, forwards)
-    if rec["unet_steps"] != forwards or counts != want:
-        raise AssertionError(f"{name}: launches {counts} for {rec['unet_steps']} forwards "
-                             f"(expected {forwards}), expected {want}")
     if run["max_lsb_from_orig"] == 0:
         raise AssertionError(f"{name}: the wav is orig.wav")
     if snr_min is not None and not run["selfcheck_snr_db"] >= snr_min:
@@ -1483,6 +1536,200 @@ def phase8_families(fa, sw, tmp: str, ckpt: str) -> dict:
     return runs
 
 
+def _wav_samples(name: str, path: str, sr_want: int, shape=None, min_len=None):
+    """The wav of a phase-9 run: its rate, its exact shape (or mono of at
+    least min_len samples), not silent; as int64 samples."""
+    from scipy.io import wavfile
+
+    sr, wav = wavfile.read(path)
+    ok = (tuple(wav.shape) == tuple(shape) if shape is not None
+          else wav.ndim == 1 and wav.shape[0] >= min_len)
+    if sr != sr_want or not ok or not np.any(wav):
+        raise AssertionError(f"{name}: bad output wav {path}: sr {sr}, shape {wav.shape}")
+    return wav.astype(np.int64)
+
+
+def _vae_round_trip_wav(clip: str) -> np.ndarray:
+    """The AudioLDM-s VAE round trip of ``clip``, vocoded and written as
+    the generation CLI writes its wav (seed 0 weights, float32)."""
+    from audioeditingcode_tpu_torch.models.registry import load_model
+    from audioeditingcode_tpu_torch.utils.audio_io import load_audio
+
+    pipe = load_model(MODEL_ID, GEN_STEPS, device="cuda", seed=0)
+    x0, _, _ = load_audio(clip, pipe.mel_config, model_sr=pipe.get_sr(), device="cuda")
+    audio = pipe.decode_latent_to_waveform(pipe.vae_encode(torch.as_tensor(x0, device="cuda")))
+    audio = np.clip(audio[0].float().cpu().numpy(), -1.0, 1.0)
+    return (audio * 32767.0).astype(np.int16).astype(np.int64)
+
+
+def phase9_new_clis(fa, sw, tmp: str) -> dict:
+    """The generation, long-form, batch and sweep CLIs through their
+    main(argv) at full width with seeded weights: AudioLDM-s generation,
+    style transfer (strength 0.5, and 0: the VAE round trip), inpainting
+    and super-resolution in float32, generation and inpainting in
+    bfloat16; Stable Audio generation and inpainting in bfloat16 (Brownian
+    noise); long-form edits of a 25 s clip (3 AudioLDM-s windows, float32
+    and bfloat16; the fold check) and of a 15 s stereo clip (2 Stable Audio
+    windows, bfloat16); a batch of three AudioLDM-s clips (float32); a 2 x 2
+    tstart x cfg_tar sweep on AudioLDM-s (float32), each grid point held to
+    cli/run.py's edit."""
+    from audioeditingcode_tpu_torch.cli import run_long
+    from audioeditingcode_tpu_torch.cli.generate import main as generate
+    from audioeditingcode_tpu_torch.cli.run import main as run_edit
+    from audioeditingcode_tpu_torch.cli.run_batch import main as run_batch
+    from audioeditingcode_tpu_torch.cli.sweep import main as sweep
+
+    runs, checks = {}, {}
+    bf16 = ["--dtype", "bfloat16"]
+    clip, clip44 = os.path.join(tmp, "clip.wav"), os.path.join(tmp, "clip44k.wav")
+    mel_per, sa_per = (lambda b: _per_forward(MODEL_ID, b)), (lambda b: _per_forward(SA_MODEL_ID, b))
+
+    def record(name, run, extra=""):
+        runs[name] = run
+        log(f"[phase9] {name}: {run}{extra}")
+
+    # --- cli/generate.py
+    gen_base = ["--model_id", MODEL_ID, "-t", "a dog barking", "--ddim_steps", str(GEN_STEPS),
+                "-dur", str(GEN_SECONDS), "--seed", "0"]
+    plan = [("generate", ["--mode", "generation"], GEN_STEPS),
+            ("transfer", ["-f", clip, "--transfer_strength", "0.5"], GEN_STEPS // 2),
+            ("inpaint", ["-f", clip, "--mode", "inpaint", "--inpaint_window", *INPAINT_WINDOW],
+             GEN_STEPS),
+            ("sr", ["-f", clip, "--mode", "sr"], GEN_STEPS),
+            ("generate_bf16", ["--mode", "generation"] + bf16, GEN_STEPS),
+            ("inpaint_bf16", ["-f", clip, "--mode", "inpaint", "--inpaint_window", *INPAINT_WINDOW]
+             + bf16, GEN_STEPS),
+            ("transfer_strength0", ["-f", clip, "--transfer_strength", "0"], 0)]
+    for name, extra, forwards in plan:
+        argv = gen_base + extra + ["--save_path", os.path.join(tmp, "gen_" + name)]
+        outs, rec, run = _counted_run(fa, sw, f"phase9 {name}", lambda: generate(argv),
+                                 mel_per("bfloat16" in extra), forwards, "generate_seconds")
+        wav = _wav_samples(name, outs[0], 16000, min_len=10 * 16000)
+        if "inpaint" in name or name == "sr":
+            run["kept_region_bit_exact"] = rec["kept_region_bit_exact"]
+            if rec["kept_region_bit_exact"] is not True:
+                raise AssertionError(f"{name}: the kept region is not the source latent")
+        if name == "transfer_strength0":
+            want = _vae_round_trip_wav(clip)
+            run["max_lsb_from_vae_round_trip"] = int(np.abs(wav - want).max()) \
+                if wav.shape == want.shape else None
+            if run["max_lsb_from_vae_round_trip"] is None or \
+                    run["max_lsb_from_vae_round_trip"] > 1:
+                raise AssertionError(f"{name}: not the VAE round trip of the input: {run}")
+        record("generate_" + name if not name.startswith("generate") else name, run)
+    sa_gen = ["--model_id", SA_MODEL_ID, "-t", "a cello", "--ddim_steps", str(SA_STEPS),
+              "-dur", str(GEN_SECONDS), "--seed", "0"] + bf16
+    for name, extra in (("sa_generate_bf16", ["--mode", "generation"]),
+                        ("sa_inpaint_bf16", ["-f", clip44, "--mode", "inpaint",
+                                             "--inpaint_window", *INPAINT_WINDOW])):
+        argv = sa_gen + extra + ["--save_path", os.path.join(tmp, name)]
+        outs, rec, run = _counted_run(fa, sw, f"phase9 {name}", lambda: generate(argv), sa_per(True),
+                                 SA_STEPS, "generate_seconds")
+        _wav_samples(name, outs[0], 44100, shape=(10 * 44100, 2))
+        if "inpaint" in name:
+            run["kept_region_bit_exact"] = rec["kept_region_bit_exact"]
+            if rec["kept_region_bit_exact"] is not True:
+                raise AssertionError(f"{name}: the kept region is not the source latent")
+        record(name, run)
+
+    # --- cli/run_long.py, with the fold check on the float32 AudioLDM-s run
+    long_clip, long44 = os.path.join(tmp, "long.wav"), os.path.join(tmp, "long44k.wav")
+    write_clip(long_clip, seconds=LONG_SECONDS)
+    write_clip(long44, seconds=SA_LONG_SECONDS, sr=44100, channels=2)
+    edit_flags = ["--source_prompt", "a sine tone", "--cfg_src", "3", "--cfg_tar", "12",
+                  "--tstart", str(P9_TSTART), "--seed", "0"]
+    captured = {}
+    real_edit_batch = run_long.edit_batch
+
+    def capture(pipe, w0, noise, args, tstart):
+        out = real_edit_batch(pipe, w0, noise, args, tstart)
+        captured.update(pipe=pipe, w0=w0, noise=noise, args=args, tstart=tstart, w=out[0])
+        return out
+
+    for name, model_id, clip_path, extra in (
+            ("long", MODEL_ID, long_clip, []), ("long_bf16", MODEL_ID, long_clip, bf16),
+            ("sa_long_bf16", SA_MODEL_ID, long44, bf16)):
+        sa = model_id == SA_MODEL_ID
+        steps = SA_STEPS if sa else P9_STEPS
+        argv = (["--model_id", model_id, "--init_aud", clip_path, "--target_prompt",
+                 EDITS[model_id][2], "--num_diffusion_steps", str(steps),
+                 "--chunk_seconds", str(CHUNK_S), "--overlap_seconds", str(OVERLAP_S),
+                 "--results_path", os.path.join(tmp, name)] + edit_flags + extra)
+        run_long.edit_batch = capture if name == "long" else real_edit_batch
+        try:
+            out, rec, run = _counted_run(fa, sw, f"phase9 {name}", lambda: run_long.main(argv),
+                                    sa_per(True) if sa else mel_per(bool(extra)),
+                                    steps + P9_TSTART, "edit_seconds")
+        finally:
+            run_long.edit_batch = real_edit_batch
+        n_win = LONG_WINDOWS["stable_audio" if sa else "mel"]
+        shape = ((int(SA_LONG_SECONDS * 44100), 2) if sa
+                 else (int(LONG_SECONDS * 102.4) * 160,))
+        _wav_samples(name, out, 44100 if sa else 16000, shape=shape)
+        run["n_windows"] = rec["n_windows"]
+        if rec["n_windows"] != n_win:
+            raise AssertionError(f"{name}: {rec['n_windows']} windows, expected {n_win}")
+        if name == "long":
+            c = captured
+            single, _, _ = real_edit_batch(c["pipe"], c["w0"][:1], c["noise"][:, :1], c["args"],
+                                           c["tstart"])
+            run["fold_max_rel_err"] = checks["fold_max_rel_err"] = _max_rel(c["w"][:1], single)
+            captured.clear()
+            log(f"[phase9] fold check: window 0 of the 3-window float32 edit against its "
+                f"single-window edit: max rel err {run['fold_max_rel_err']:.3g} "
+                f"(limit {FOLD_MAX_REL})")
+            if not run["fold_max_rel_err"] <= FOLD_MAX_REL:
+                raise AssertionError(f"fold check: {run['fold_max_rel_err']} > {FOLD_MAX_REL}")
+        record(name, run)
+
+    # --- cli/run_batch.py: three clips of different lengths, float32
+    bdir = os.path.join(tmp, "batch_clips")
+    os.makedirs(bdir)
+    for i, s in enumerate(BATCH_SECONDS):
+        write_clip(os.path.join(bdir, f"clip{i}.wav"), seconds=s)
+    argv = (["--model_id", MODEL_ID, "--init_aud", bdir, "--target_prompt", "a dog barking",
+             "--num_diffusion_steps", str(P9_STEPS), "--results_path",
+             os.path.join(tmp, "batch")] + edit_flags)
+    outs, _, run = _counted_run(fa, sw, "phase9 batch", lambda: run_batch(argv), mel_per(False),
+                           P9_STEPS + P9_TSTART, "edit_seconds")
+    for o, s in zip(outs, BATCH_SECONDS):
+        _wav_samples("batch", o, 16000, shape=(int(s * 102.4) * 160,))
+    run["clips"] = len(outs)
+    record("batch", run)
+
+    # --- cli/sweep.py: a 2 x 2 grid, each point held to cli/run.py
+    argv = (["--model_id", MODEL_ID, "--init_aud", clip, "--target_prompt", "a dog barking",
+             "--source_prompt", "a sine tone", "--cfg_src", "3", "--num_diffusion_steps",
+             str(P9_STEPS), "--tstarts", *map(str, SWEEP_TSTARTS), "--cfg_tars",
+             *map(str, SWEEP_CFGS), "--seed", "0", "--results_path", os.path.join(tmp, "sweep")])
+    grid = [(t, c) for t in SWEEP_TSTARTS for c in SWEEP_CFGS]
+    outs, _, run = _counted_run(fa, sw, "phase9 sweep", lambda: sweep(argv), mel_per(False),
+                           P9_STEPS + sum(t for t, _ in grid), "edit_seconds")
+    record("sweep", run)
+    lsb = []
+    for out, (t, c) in zip(outs, grid):
+        name = f"sweep_check_t{t}_cfg{c:g}"
+        argv = ["--model_id", MODEL_ID, "--init_aud", clip, "--source_prompt", "a sine tone",
+                "--target_prompt", "a dog barking", "--cfg_src", "3", "--cfg_tar", str(c),
+                "--num_diffusion_steps", str(P9_STEPS), "--tstart", str(t), "--seed", "0",
+                "--results_path", os.path.join(tmp, name)]
+        edit, _, erun = _counted_run(fa, sw, f"phase9 {name}", lambda: run_edit(argv),
+                                mel_per(False), P9_STEPS + t, "edit_seconds")
+        a = _wav_samples(name, out, 16000, min_len=10 * 16000)
+        b = _wav_samples(name, edit, 16000, min_len=10 * 16000)
+        erun["max_lsb_from_sweep"] = int(np.abs(a - b).max()) if a.shape == b.shape else None
+        lsb.append(erun["max_lsb_from_sweep"])
+        record(name, erun)
+    checks["sweep_max_lsb_from_run"] = lsb
+    log(f"[phase9] sweep check: each grid point against cli/run.py: {lsb} LSB "
+        f"(limit {SWEEP_MAX_LSB})")
+    if any(x is None or x > SWEEP_MAX_LSB for x in lsb):
+        raise AssertionError(f"sweep check: {lsb} LSB from cli/run.py")
+    checks["kept_region_bit_exact"] = all(r.get("kept_region_bit_exact", True)
+                                          for r in runs.values())
+    return runs, checks
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     for key, b1, b2 in (("attn_fwd_kernel", "attention kernel B1 (3xTF32)",
@@ -1618,6 +1865,7 @@ def main() -> int:
         ckpt = timed("phase8a", phase8a_checkpoint, tmp)
         parity["checkpoint"] = {k: v for k, v in ckpt.items() if k != "dir"}
         runs["families"] = timed("phase8", phase8_families, fa, sw, tmp, ckpt["dir"])
+        runs["phase9"], p9_checks = timed("phase9", phase9_new_clis, fa, sw, tmp)
     if "--profile" in sys.argv[1:]:
         for dtype in (torch.float32, torch.bfloat16):
             profile_main_path_step(MODEL_ID, STEPS, LATENT, dtype)
@@ -1684,22 +1932,27 @@ def main() -> int:
               "selfcheck_snr_db": ald["selfcheck"]["selfcheck_snr_db"],
               "bf16_edit_s": ald["edit_bf16"]["edit_s"],
               "bf16_steps_per_s": ald["edit_bf16"]["steps_per_s"],
-              "stable_audio_edit_s": sa["edit"]["edit_s"],
-              "stable_audio_steps_per_s": sa["edit"]["steps_per_s"],
+              # phase 4's edit seconds: its selfchecks run the edit's loops
+              "stable_audio_edit_s": sa["selfcheck"]["edit_s"],
+              "stable_audio_steps_per_s": sa["selfcheck"]["steps_per_s"],
               "stable_audio_selfcheck_snr_db": sa["selfcheck"]["selfcheck_snr_db"],
               "stable_audio_rotary_in_kernel_edit_s": sa["edit_rotary_in_kernel"]["edit_s"],
-              "stable_audio_bf16_edit_s": sa["edit_bf16"]["edit_s"],
-              "stable_audio_bf16_steps_per_s": sa["edit_bf16"]["steps_per_s"],
+              "stable_audio_bf16_edit_s": sa["selfcheck_bf16"]["edit_s"],
+              "stable_audio_bf16_steps_per_s": sa["selfcheck_bf16"]["steps_per_s"],
               "stable_audio_bf16_selfcheck_snr_db": sa["selfcheck_bf16"]["selfcheck_snr_db"],
               "stable_audio_rotary_in_kernel_bf16_edit_s":
-                  sa["edit_rotary_in_kernel_bf16"]["edit_s"],
+                  sa["selfcheck_rotary_in_kernel_bf16"]["edit_s"],
               "stable_audio_rotary_in_kernel_bf16_selfcheck_snr_db":
                   sa["selfcheck_rotary_in_kernel_bf16"]["selfcheck_snr_db"],
               "loop_s": {name: r["loop_s"] for name, r in {**base, **fam}.items()},
               "selfcheck_snr_db_by_run": {name: r["selfcheck_snr_db"]
                                           for name, r in {**base, **fam}.items()
                                           if r["selfcheck_snr_db"] is not None},
-              "sdedit_stable_audio_noise_s": base["sdedit_stable_audio"]["noise_s"]}
+              "sdedit_stable_audio_noise_s": base["sdedit_stable_audio"]["noise_s"],
+              "phase9": {**p9_checks, "runs": {
+                  name: {k: r[k] for k in ("forwards", "dtype", "loop_s", "steps_per_s",
+                                           "wall_s")}
+                  for name, r in runs["phase9"].items()}}}
     print(json.dumps(record), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -530,3 +530,44 @@ def test_get_eigenvectors_card_matches_cpu(cuda, model_id):
     norm_rel = ((got.in_norms.cpu() - want.in_norms).abs().max()
                 / want.in_norms.abs().max()).item()
     assert norm_rel <= 1e-4
+
+
+# --- the window-batched edits (cli/run_long.py, cli/run_batch.py): N windows
+# or clips folded into one CFG forward of 2N rows
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D", [(6, 4096, 8, 8, 16), (6, 1024, 8, 8, 32),
+                                         (4, 1025, 24, 12, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_at_the_window_batch(cuda, B, S, H, Hkv, D, dtype):
+    """B1 at batch 2N: three AudioLDM-s windows (both UNet levels) and two
+    Stable Audio windows, on the route of each dtype."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(B, S, H, D, device=cuda, generator=g).to(dtype)
+    k = torch.randn(B, S, Hkv, D, device=cuda, generator=g).to(dtype)
+    v = torch.randn(B, S, Hkv, D, device=cuda, generator=g).to(dtype)
+    route = fa.attention_route(dtype)
+    before = fa.flash_attention_cuda.launches_by_route[route]
+    got = fa.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches_by_route[route] == before + 1
+    tol = fa.BF16_TOL if dtype == torch.bfloat16 else fa.F32_TOL
+    torch.testing.assert_close(got.float(), fa.attention_reference(q, k, v).float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swiglu_at_the_window_batch(cuda, dtype):
+    """B3 at M = 4100: the DiT feed-forward of two Stable Audio windows'
+    CFG rows (2 x 2 x 1025 tokens), on the route of each dtype."""
+    M, E, N = 4100, 1536, 6144
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(M, E, device=cuda, generator=g).to(dtype)
+    w = (torch.randn(2 * N, E, device=cuda, generator=g) / E ** 0.5).to(dtype)
+    b = torch.randn(2 * N, device=cuda, generator=g) * 0.1
+    route = swiglu.swiglu_route(dtype)
+    before = swiglu.swiglu_cuda.launches_by_route[route]
+    got = swiglu.swiglu_cuda(x, w, b)
+    torch.cuda.synchronize()
+    assert swiglu.swiglu_cuda.launches_by_route[route] == before + 1
+    tol = swiglu.BF16_TOL if dtype == torch.bfloat16 else swiglu.F32_TOL
+    torch.testing.assert_close(got.float(), swiglu.swiglu_reference(x, w, b).float(), **tol)

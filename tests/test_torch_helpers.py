@@ -69,6 +69,94 @@ def port_tiny_stable_audio(steps: int, jpipe=None, dtype=torch.float32):
                                           dtype=dtype), jpipe)
 
 
+def bridged_loader(model_id: str, steps: int, dtype=torch.float32):
+    """A stand-in for a port CLI's ``load_model``: the port pipeline with the
+    JAX CLI's weights (the JAX CLIs load with seed 0) carried over by the
+    bridge, built once."""
+    if model_id == "test/tiny-stable-audio":
+        pipe = port_tiny_stable_audio(steps, dtype=dtype)
+    else:
+        pipe = port_tiny_pipeline(steps, jax_tiny_pipeline(steps, model_id), model_id)
+
+    def load(mid, num_steps, device="cpu", dtype=torch.float32, seed=0, weights_dir=None):
+        assert (mid, num_steps, str(device)) == (model_id, steps, "cpu")
+        return pipe
+
+    return load
+
+
+def jax_vae_noise(jpipe, n: int, rng):
+    """The JAX Stable Audio ``vae_encode``'s latent-sample draw for n rows,
+    in the port's (n, C, L) layout."""
+    import jax
+
+    L, C = jpipe.sample_size, jpipe.vae.config.decoder_input_channels
+    return torch.from_numpy(
+        np.asarray(jax.random.normal(rng, (n, L, C))).transpose(0, 2, 1).copy())
+
+
+def jax_row_noise(rng, steps: int, w0) -> torch.Tensor:
+    """The inversion draws of the JAX CLIs' ``jax.vmap`` over N windows or
+    clips: row i from key i of ``jax.random.split(rng, N)``, as the port's
+    (S, N, ...) tensor."""
+    import jax
+
+    keys = jax.random.split(rng, w0.shape[0])
+    per = [np.asarray(jax.random.normal(k, (steps, 1) + tuple(w0.shape[1:]))) for k in keys]
+    return torch.from_numpy(np.concatenate(per, axis=1))
+
+
+def record_stable_audio_decodes(monkeypatch) -> dict:
+    """Record every latent the two Stable Audio pipelines decode, in order
+    ("jax", "port"; the JAX one from inside jit by a debug callback).
+
+    The CLI tests on test/tiny-stable-audio compare these latents, not the
+    wavs: the tiny random Oobleck decoder saturates on them (peaks of
+    ~30-140, clipped to 1 in the wav) and lifts a float32 difference of the
+    latent ~4000x, so that two latents 1e-5 apart decode 1e-2 apart and
+    the clipped wavs part by thousands of LSB."""
+    import jax
+
+    from audioeditingcode_tpu.models.pipeline1d import StableAudioPipeline as JPipe
+    from audioeditingcode_tpu_torch.models.pipeline1d import StableAudioPipeline as TPipe
+
+    seen = {"jax": [], "port": []}
+    real_j, real_t = JPipe.vae_decode, TPipe.vae_decode
+
+    def jdec(self, z):
+        jax.debug.callback(lambda v: seen["jax"].append(np.asarray(v)), z)
+        return real_j(self, z)
+
+    def tdec(self, z):
+        seen["port"].append(to_np(z))
+        return real_t(self, z)
+
+    monkeypatch.setattr(JPipe, "vae_decode", jdec)
+    monkeypatch.setattr(TPipe, "vae_decode", tdec)
+    return seen
+
+
+def results_layout(out: str, root) -> tuple:
+    """An output's directory under ``root`` and the names beside it, with
+    the timestamps dropped."""
+    d = os.path.dirname(out)
+    return (os.path.relpath(d, root),
+            sorted(re.sub(r"_\d{6,}", "", f) for f in os.listdir(d)))
+
+
+def wav_close(got_path: str, want_path: str, rel: float) -> float:
+    """Two int16 wavs of one rate and shape agree within one LSB beside
+    ``rel`` of the larger's peak; returns the max difference in LSB."""
+    from scipy.io import wavfile
+
+    (sa, a), (sb, b) = wavfile.read(got_path), wavfile.read(want_path)
+    assert sa == sb and a.shape == b.shape and np.any(b), (sa, sb, a.shape, b.shape)
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    diff = float(np.abs(a - b).max())
+    assert diff <= 1 + rel * np.abs(b).max(), diff
+    return diff
+
+
 def rel_err(got, ref) -> float:
     """max |got - ref| / max |ref|."""
     got = np.asarray(got, np.float64)

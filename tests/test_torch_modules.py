@@ -117,3 +117,25 @@ def test_hifigan(pipes):
     got = to_np(pipe.decode_to_mel(torch.from_numpy(mel)))
     assert got.shape == want.shape
     assert rel_err(got, want) < TOL
+
+
+@pytest.mark.parametrize("model_id", ["test/tiny-audioldm", "test/tiny-audioldm2",
+                                      "test/tiny-tango", "test/tiny-stable-audio"])
+def test_seeded_weights_skip_the_default_init_and_stay_the_same(model_id):
+    """registry.seeded (built on the meta device, no default init) gives
+    random_init_(factory(), g)'s weights bit for bit, and every module of
+    the pipeline holds no buffer the meta build would leave empty."""
+    from audioeditingcode_tpu_torch.models import registry
+
+    spec = registry.resolve_spec(model_id)
+    pipe = registry.load_model(model_id, 4, device="cpu", seed=3)
+    if model_id == "test/tiny-stable-audio":
+        mods = [(pipe.dit, spec.dit), (pipe.vae, spec.oobleck), (pipe.projection, spec.projection)]
+    else:
+        mods = [(pipe.unet, spec.unet), (pipe.vae, spec.vae), (pipe.vocoder, spec.vocoder)]
+    g = torch.Generator().manual_seed(3)
+    for mod, cfg in mods:
+        assert not list(mod.buffers())
+        want = registry.random_init_(type(mod)(cfg), g).state_dict()
+        for k, v in mod.state_dict().items():
+            assert torch.equal(v, want[k].to(v.dtype)), k

@@ -13,14 +13,14 @@ import calendar
 import json
 import os
 import random
-import struct
 import time
-import zlib
 from contextlib import contextmanager
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from ..utils.image_io import write_png
 
 
 def set_reproducibility(seed: Optional[int]) -> int:
@@ -84,19 +84,7 @@ def save_spectrogram_png(path: str, spec: np.ndarray) -> None:
     if spec.shape[0] > spec.shape[1]:
         spec = spec.T
     lo, hi = float(np.min(spec)), float(np.max(spec))
-    img = np.round(255.0 * (spec - lo) / max(hi - lo, 1e-12)).astype(np.uint8)
-    h, w = img.shape
-    raw = b"".join(b"\x00" + img[r].tobytes() for r in range(h))
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw)))
-        f.write(chunk(b"IEND", b""))
+    write_png(path, np.round(255.0 * (spec - lo) / max(hi - lo, 1e-12)).astype(np.uint8))
 
 
 def dump_run_summary(save_path: str, args, extra=None) -> None:

@@ -213,10 +213,14 @@ def main(argv=None):
 def patch_mask(shape, patch, fade: int = 0) -> np.ndarray:
     """1 inside the ``--patch`` window of the time axis (axis 2 of the mel
     latent (1, C, T, F) and of the 1-D latent (1, C, L)), with a linear ramp
-    of ``fade`` frames on each side; all ones without a patch."""
+    of ``fade`` frames on each side; an image CLI's four-value patch (top,
+    bottom, left, right of the latent) has no ramp; all ones without a
+    patch."""
     mask = np.zeros(shape, dtype=np.float32)
     if patch is None:
         mask[...] = 1
+    elif len(patch) == 4:
+        mask[:, :, patch[0]: patch[1], patch[2]: patch[3]] = 1
     else:
         mask[:, :, patch[0]: patch[1]] = 1
         if fade > 0:

@@ -1,12 +1,13 @@
-"""Model specs of the port: the AudioLDM, AudioLDM2 and TANGO mel UNets and
-Stable Audio Open.
+"""Model specs of the port: the AudioLDM, AudioLDM2 and TANGO mel UNets,
+Stable Audio Open and the image models.
 
-The port's own copies of the ``audioeditingcode_tpu/models/configs.py``
-entries of the audio models (AudioLDM-s and -l, AudioLDM2, -large and
--music, both TANGO checkpoints, Stable Audio Open 1.0) and of their tiny
-test configs (``test/tiny-audioldm``, ``test/tiny-audioldm2``,
-``test/tiny-tango``, ``test/tiny-stable-audio``). The image models
-(Stable Diffusion, CelebA-HQ) are not ported yet.
+The port's own copies of every ``audioeditingcode_tpu/models/configs.py``
+entry: the audio models (AudioLDM-s and -l, AudioLDM2, -large and -music,
+both TANGO checkpoints, Stable Audio Open 1.0), the image models (Stable
+Diffusion v1.4 with its CLIP text tower, the CelebA-HQ LDM with its VQ
+autoencoder) and their tiny test configs (``test/tiny-audioldm``,
+``test/tiny-audioldm2``, ``test/tiny-tango``, ``test/tiny-stable-audio``,
+``test/tiny-sd``, ``test/tiny-celebahq``).
 """
 
 from __future__ import annotations
@@ -46,14 +47,14 @@ class AudioLDM2ProjectionConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     model_id: str
-    family: str  # 'audioldm' | 'audioldm2' | 'tango' | 'stable-audio'
+    family: str  # 'audioldm' | 'audioldm2' | 'tango' | 'stable-audio' | 'stable-diffusion' | 'celebahq'
     unet: Optional[UNet2DConditionConfig]
     vae: Optional[AutoencoderKLConfig]
     vocoder: Optional[HifiGanConfig]
     scheduler: DDIMConfig
     mel: Optional[MelConfig]
     sample_rate: int = 16000
-    text_encoder: str = "clap"  # 'clap' | 't5' | 'clap+t5+gpt2' (with a checkpoint) | 'null'
+    text_encoder: str = "clap"  # 'clap' | 't5' | 'clap+t5+gpt2' | 'clip' (with a checkpoint) | 'null' | 'none'
     text_embed_dim: int = 512
     text_seq_len: int = 1
     recommended_steps: int = 200
@@ -288,5 +289,77 @@ MODEL_SPECS = {
         scheduler=_SD21_V_SCHED, mel=_MEL_16K,
         text_encoder="t5", text_embed_dim=32, text_seq_len=16,
         recommended_steps=8,
+    ),
+    "CompVis/stable-diffusion-v1-4": ModelSpec(
+        model_id="CompVis/stable-diffusion-v1-4", family="stable-diffusion",
+        unet=UNet2DConditionConfig(
+            in_channels=4, out_channels=4,
+            down_block_types=("CrossAttnDownBlock2D",) * 3 + ("DownBlock2D",),
+            up_block_types=("UpBlock2D",) + ("CrossAttnUpBlock2D",) * 3,
+            block_out_channels=(320, 640, 1280, 1280),
+            layers_per_block=2, cross_attention_dim=768,
+            num_attention_heads=8,
+        ),
+        vae=AutoencoderKLConfig(
+            in_channels=3, out_channels=3, latent_channels=4,
+            block_out_channels=(128, 256, 512, 512), layers_per_block=2,
+            scaling_factor=0.18215,
+        ),
+        vocoder=None, scheduler=_SD_SCHED, mel=None,
+        text_encoder="clip", text_embed_dim=768, text_seq_len=77,
+        recommended_steps=100,
+    ),
+    "CompVis/ldm-celebahq-256": ModelSpec(
+        model_id="CompVis/ldm-celebahq-256", family="celebahq",
+        unet=UNet2DConditionConfig(
+            in_channels=3, out_channels=3,
+            down_block_types=("DownBlock2D",) * 4,
+            up_block_types=("UpBlock2D",) * 4,
+            block_out_channels=(224, 448, 672, 896),
+            layers_per_block=2, cross_attention_dim=None,
+            num_attention_heads=8, mid_block_type=None,
+        ),
+        vae=AutoencoderKLConfig(
+            in_channels=3, out_channels=3, latent_channels=3,
+            block_out_channels=(128, 256, 512), layers_per_block=2,
+            scaling_factor=1.0, double_z=False, num_vq_embeddings=8192,
+        ),
+        vocoder=None, scheduler=_AUDIOLDM_SCHED, mel=None,
+        text_encoder="none", recommended_steps=100,
+    ),
+    "test/tiny-sd": ModelSpec(
+        model_id="test/tiny-sd", family="stable-diffusion",
+        unet=UNet2DConditionConfig(
+            in_channels=4, out_channels=4,
+            down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+            up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+            block_out_channels=(32, 64), layers_per_block=1, norm_num_groups=8,
+            cross_attention_dim=32, num_attention_heads=4,
+        ),
+        vae=AutoencoderKLConfig(
+            in_channels=3, out_channels=3, latent_channels=4,
+            block_out_channels=(16, 32), layers_per_block=1, norm_num_groups=8,
+            scaling_factor=0.18215,
+        ),
+        vocoder=None, scheduler=_SD_SCHED, mel=None,
+        text_encoder="clip", text_embed_dim=32, text_seq_len=8,
+        recommended_steps=10,
+    ),
+    "test/tiny-celebahq": ModelSpec(
+        model_id="test/tiny-celebahq", family="celebahq",
+        unet=UNet2DConditionConfig(
+            in_channels=3, out_channels=3,
+            down_block_types=("DownBlock2D", "DownBlock2D"),
+            up_block_types=("UpBlock2D", "UpBlock2D"),
+            block_out_channels=(32, 64), layers_per_block=1, norm_num_groups=8,
+            cross_attention_dim=None, num_attention_heads=4, mid_block_type=None,
+        ),
+        vae=AutoencoderKLConfig(
+            in_channels=3, out_channels=3, latent_channels=3,
+            block_out_channels=(16, 32), layers_per_block=1, norm_num_groups=8,
+            scaling_factor=1.0, double_z=False, num_vq_embeddings=32,
+        ),
+        vocoder=None, scheduler=_AUDIOLDM_SCHED, mel=None,
+        text_encoder="none", recommended_steps=10,
     ),
 }

@@ -3,13 +3,16 @@
 Counterpart of ``audioeditingcode_tpu/models/pipeline.py``: the model seam
 the editing loops consume. Latents are NCHW at this boundary; the UNet's
 cond and uncond streams run in ONE batched forward per step. Modules run in
-the pipeline's dtype; latents and the schedule math stay float32.
+the pipeline's dtype; latents and the schedule math stay float32. The image
+models go through the same pipeline: an RGB image (B, 3, H, W) in [-1, 1]
+takes the place of the mel image, the VAE may be a ``VQModel``
+(CelebA-HQ), and there is no vocoder.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Union
 
 import torch
 from torch.nn import functional as F
@@ -20,7 +23,7 @@ from ..schedulers.ddim import DiffusionSchedule
 from .hifigan import HifiGanGenerator
 from .text_encoders import TextCond, concat_conds, repeat_cond
 from .unet2d import UNet2DConditionModel
-from .vae import AutoencoderKL
+from .vae import AutoencoderKL, VQModel
 
 
 @dataclasses.dataclass
@@ -28,8 +31,8 @@ class LatentAudioPipeline:
     model_id: str
     sched: DiffusionSchedule
     unet: UNet2DConditionModel
-    vae: AutoencoderKL
-    vocoder: HifiGanGenerator
+    vae: Union[AutoencoderKL, VQModel]
+    vocoder: Optional[HifiGanGenerator]
     text_encoder: Callable[..., TextCond]
     mel_config: MelConfig
     sample_rate: int = 16000
@@ -77,8 +80,9 @@ class LatentAudioPipeline:
 
     @torch.no_grad()
     def vae_encode(self, x: torch.Tensor) -> torch.Tensor:
-        """mel image (B, 1, T, n_mels) -> latent (B, C, T/4, n_mels/4); the
-        time axis is padded at its START to a multiple of the VAE scale."""
+        """mel image (B, 1, T, n_mels) -> latent (B, C, T/4, n_mels/4), or
+        an RGB image (B, 3, H, W) -> (B, C, H/f, W/f); the height (time)
+        axis is padded at its START to a multiple of the VAE scale f."""
         h = x.shape[2]
         if self.max_mel_frames is not None and h > self.max_mel_frames:
             raise ValueError(f"Audio too long: {h} mel frames > model maximum "
@@ -95,6 +99,8 @@ class LatentAudioPipeline:
     @torch.no_grad()
     def decode_to_mel(self, x_dec: torch.Tensor) -> torch.Tensor:
         """Decoded mel image (B, 1, T, n_mels) -> waveform (B, ~T*hop)."""
+        if self.vocoder is None:
+            raise ValueError(f"{self.model_id} has no vocoder")
         return self.vocoder(x_dec[:, 0].to(self.dtype)).to(x_dec.dtype)
 
     def decode_latent_to_waveform(self, z: torch.Tensor) -> torch.Tensor:

@@ -1,20 +1,23 @@
 """Model factory: model_id -> LatentAudioPipeline (the mel UNet families:
-AudioLDM, AudioLDM2, TANGO) or StableAudioPipeline (Stable Audio family).
+AudioLDM, AudioLDM2, TANGO; and the image models: Stable Diffusion,
+CelebA-HQ) or StableAudioPipeline (Stable Audio family).
 
 Counterpart of ``audioeditingcode_tpu/models/registry.py``. Weights come
 from a converted-checkpoint directory (``weights_dir``, the layout that
 ``tools/convert_checkpoint.py`` writes):
 
-  <dir>/unet.msgpack  vae.msgpack  vocoder.msgpack          (mel families)
+  <dir>/unet.msgpack  vae.msgpack  vocoder.msgpack          (mel families;
+                                                            images: no vocoder)
   <dir>/dit.msgpack   oobleck.msgpack  projection.msgpack   (Stable Audio)
   <dir>/gpt2.msgpack  projection_lm.msgpack                 (AudioLDM2)
-  <dir>/t5/  clap_text/                                     (text towers)
+  <dir>/t5/  clap_text/  clip/                              (text towers)
 
 A load goes through ``bridge.flax_to_torch_state_dict``, strict both ways:
 a missing or left-over leaf or a wrong shape raises and names the file.
 Without a checkpoint the modules get a seeded random init of the JAX
 package's magnitudes: norm scales one, biases zero, weights N(0, 1/fan_in),
-Fourier feature weights N(0, 1), Snake params zero. Where a text tower is
+Fourier feature weights N(0, 1), Snake params zero, a VQ codebook
+U(0, 2 / N) (the Flax initializer). Where a text tower is
 absent from ``weights_dir`` the registry falls back to the null encoder, as
 the JAX one does; where it is present, it is loaded or the load raises.
 """
@@ -29,6 +32,7 @@ import torch
 from torch import nn
 
 from ..editing.solvers import CosineDPMSolver
+from ..ops.stft import MelConfig
 from ..schedulers.cosine_dpm import make_cosine_dpm_schedule
 from ..schedulers.ddim import make_schedule
 from . import flax_msgpack
@@ -43,6 +47,7 @@ from .pipeline1d import StableAudioPipeline
 from .projection import StableAudioProjectionModel
 from .text_encoders import (
     ClapFilmEncoder,
+    ClipTextEncoder,
     NullTextEncoder,
     T5ProjectedEncoder,
     T5TextEncoder,
@@ -53,24 +58,12 @@ from .text_encoders import (
 )
 from .tokenizers import Tokenizer
 from .unet2d import UNet2DConditionModel
-from .vae import AutoencoderKL
-
-# model ids of the JAX package that this port does not cover yet, with the
-# ROADMAP item that adds them
-_NOT_PORTED = {
-    "CompVis/stable-diffusion-v1-4": "Queue A item 11 (cli/images.py)",
-    "CompVis/ldm-celebahq-256": "Queue A item 11 (cli/images.py)",
-    "test/tiny-sd": "Queue A item 11 (cli/images.py)",
-    "test/tiny-celebahq": "Queue A item 11 (cli/images.py)",
-}
+from .vae import AutoencoderKL, VQModel
 
 
 def resolve_spec(model_id: str) -> ModelSpec:
     if model_id in MODEL_SPECS:
         return MODEL_SPECS[model_id]
-    if model_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{model_id} is not ported to PyTorch yet: ROADMAP {_NOT_PORTED[model_id]}")
     raise KeyError(f"unknown model_id {model_id!r}; known: {sorted(MODEL_SPECS)}")
 
 
@@ -87,6 +80,8 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             p.copy_(torch.randn(p.shape, generator=generator))
         elif leaf in ("alpha", "beta"):  # Snake log-scales
             p.zero_()
+        elif leaf == "codebook":  # the Flax VQ init, uniform(scale=2 / N)
+            p.copy_(torch.rand(p.shape, generator=generator) * (2.0 / p.shape[0]))
         elif p.dim() == 1:  # norm weights (and the vocoder's mean/scale stats)
             p.fill_(0.0 if leaf == "mean" else 1.0)
         else:
@@ -174,10 +169,14 @@ def load_model(
         return _load_stable_audio(spec, num_diffusion_steps, device, dtype, seed, weights_dir)
     g = torch.Generator().manual_seed(seed)
     unet = _weights(lambda: UNet2DConditionModel(spec.unet), weights_dir, "unet", g)
-    vae = _weights(lambda: AutoencoderKL(spec.vae), weights_dir, "vae", g)
-    vocoder = _weights(lambda: HifiGanGenerator(spec.vocoder), weights_dir, "vocoder", g)
+    vae_cls = VQModel if spec.vae.num_vq_embeddings > 0 else AutoencoderKL
+    vae = _weights(lambda: vae_cls(spec.vae), weights_dir, "vae", g)
+    vocoder = None  # the image models decode to pixels
+    if spec.vocoder is not None:
+        vocoder = _weights(lambda: HifiGanGenerator(spec.vocoder), weights_dir, "vocoder", g)
     for m in (unet, vae, vocoder):
-        to_model_dtype_(m, device, dtype)
+        if m is not None:
+            to_model_dtype_(m, device, dtype)
     return LatentAudioPipeline(
         model_id=model_id,
         sched=make_schedule(spec.scheduler, num_diffusion_steps, device=device),
@@ -185,7 +184,7 @@ def load_model(
         vae=vae,
         vocoder=vocoder,
         text_encoder=_make_text_encoder(spec, device, weights_dir),
-        mel_config=spec.mel,
+        mel_config=spec.mel or MelConfig(),
         sample_rate=spec.sample_rate,
         vae_pad_multiple=spec.vae.downscale_factor,
         max_mel_frames=1700 if spec.family == "tango" else None,
@@ -194,15 +193,19 @@ def load_model(
 
 def _make_text_encoder(spec: ModelSpec, device,
                        weights_dir: Optional[str] = None) -> Callable[..., TextCond]:
-    """The prompt encoder of a mel family: the checkpoint's text towers
-    where ``weights_dir`` holds them, else the weight-free one, as the JAX
-    registry builds it: AudioLDM's FiLM vector; AudioLDM2's two token
-    streams, 8 tokens at the GPT-2 width and text_seq_len at the projected
-    width; TANGO's T5 stream of min(text_seq_len, 64) tokens."""
+    """The prompt encoder of a mel family or an image model: the
+    checkpoint's text towers where ``weights_dir`` holds them, else the
+    weight-free one, as the JAX registry builds it: AudioLDM's FiLM vector;
+    AudioLDM2's two token streams, 8 tokens at the GPT-2 width and
+    text_seq_len at the projected width; TANGO's T5 stream and Stable
+    Diffusion's CLIP stream of min(text_seq_len, 64) tokens; CelebA-HQ takes
+    no conditioning."""
     unet = spec.unet
+    if spec.family == "celebahq":
+        return NullTextEncoder(device=device)
     if weights_dir is not None:
         build = {"audioldm": _try_clap_film, "audioldm2": _try_audioldm2_chain,
-                 "tango": _try_t5_encoder}[spec.family]
+                 "tango": _try_t5_encoder, "stable-diffusion": _try_clip_encoder}[spec.family]
         enc = build(spec, weights_dir, device)
         if enc is not None:
             return enc
@@ -210,7 +213,7 @@ def _make_text_encoder(spec: ModelSpec, device,
         return NullTextEncoder(hidden_dim=unet.cross_attention_dim, seq_len=8,
                                hidden_dim_1=unet.cross_attention_dim_1,
                                seq_len_1=spec.text_seq_len or 8, device=device)
-    if spec.family == "tango":
+    if spec.family in ("tango", "stable-diffusion"):
         return NullTextEncoder(hidden_dim=unet.cross_attention_dim,
                                seq_len=min(spec.text_seq_len, 64), device=device)
     return NullTextEncoder(class_dim=unet.projection_class_embeddings_input_dim, device=device)
@@ -275,6 +278,14 @@ def _try_t5_encoder(spec: ModelSpec, weights_dir: str, device):
     if tower is None:
         return None
     return T5TextEncoder(tower[0], tower[1], max_length=min(spec.text_seq_len or 512, 512))
+
+
+def _try_clip_encoder(spec: ModelSpec, weights_dir: str, device):
+    """CLIP text conditioning (Stable Diffusion)."""
+    tower = _tower(weights_dir, "clip", device)
+    if tower is None:
+        return None
+    return ClipTextEncoder(*tower)
 
 
 def _try_t5_projected(spec: ModelSpec, weights_dir: str, projection, device):

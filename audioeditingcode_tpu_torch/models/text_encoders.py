@@ -13,10 +13,14 @@ transformers' parameter names so that the Flax files of ``t5/`` and
   scores, bidirectional relative position buckets held by layer 0 and
   shared by all layers; ``feed_forward_proj`` from config.json);
 - ``RobertaModel``: CLAP's text tower with its pooler, tanh(dense(h[:, 0]));
+- ``CLIPTextModel``: Stable Diffusion's CLIP text tower (pre-LN layers,
+  quick_gelu, a causal mask combined with the padding mask, the final
+  layer norm);
 
 and the encoders built on them: ``ClapFilmEncoder`` (AudioLDM's FiLM
-vector), ``T5TextEncoder`` (TANGO) and ``T5ProjectedEncoder`` (Stable
-Audio). The towers always run in float32, as transformers' Flax models do.
+vector), ``T5TextEncoder`` (TANGO), ``T5ProjectedEncoder`` (Stable Audio)
+and ``ClipTextEncoder`` (Stable Diffusion). The towers always run in
+float32, as transformers' Flax models do.
 """
 
 from __future__ import annotations
@@ -153,7 +157,8 @@ class NullTextEncoder:
 def _act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     """transformers' Flax ACT2FN entries the text towers use."""
     acts = {"relu": F.relu, "gelu": F.gelu,
-            "gelu_new": lambda x: F.gelu(x, approximate="tanh"), "silu": F.silu}
+            "gelu_new": lambda x: F.gelu(x, approximate="tanh"), "silu": F.silu,
+            "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x)}
     if name not in acts:
         raise NotImplementedError(f"activation {name!r} is not implemented in the port")
     return acts[name]
@@ -447,12 +452,115 @@ class RobertaModel(nn.Module):
         return h, torch.tanh(self.pooler.dense(h[:, 0]))
 
 
-_TOWERS = {"t5": (T5EncoderModel, t5_config), "roberta": (RobertaModel, roberta_config)}
+class CLIPAttention(nn.Module):
+    def __init__(self, cfg: dict):
+        super().__init__()
+        H = cfg["hidden_size"]
+        self.heads = cfg["num_attention_heads"]
+        self.q_proj = nn.Linear(H, H)
+        self.k_proj = nn.Linear(H, H)
+        self.v_proj = nn.Linear(H, H)
+        self.out_proj = nn.Linear(H, H)
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        B, S, H = x.shape
+        q, k, v = (m(x).view(B, S, self.heads, -1).transpose(1, 2)
+                   for m in (self.q_proj, self.k_proj, self.v_proj))
+        q = q / math.sqrt(q.shape[-1])
+        o = torch.softmax(q @ k.transpose(-1, -2) + bias, dim=-1) @ v
+        return self.out_proj(o.transpose(1, 2).reshape(B, S, H))
+
+
+class CLIPMLP(nn.Module):
+    def __init__(self, cfg: dict):
+        super().__init__()
+        self.fc1 = nn.Linear(cfg["hidden_size"], cfg["intermediate_size"])
+        self.fc2 = nn.Linear(cfg["intermediate_size"], cfg["hidden_size"])
+        self.act = _act(cfg["hidden_act"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(x)))
+
+
+class CLIPEncoderLayer(nn.Module):
+    """Pre-LN: x + attn(ln1(x)), then x + mlp(ln2(x))."""
+
+    def __init__(self, cfg: dict):
+        super().__init__()
+        self.self_attn = CLIPAttention(cfg)
+        self.layer_norm1 = nn.LayerNorm(cfg["hidden_size"], eps=cfg["layer_norm_eps"])
+        self.mlp = CLIPMLP(cfg)
+        self.layer_norm2 = nn.LayerNorm(cfg["hidden_size"], eps=cfg["layer_norm_eps"])
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        x = x + self.self_attn(self.layer_norm1(x), bias)
+        return x + self.mlp(self.layer_norm2(x))
+
+
+class CLIPEncoder(nn.Module):
+    def __init__(self, cfg: dict):
+        super().__init__()
+        self.layers = nn.ModuleList([CLIPEncoderLayer(cfg)
+                                     for _ in range(cfg["num_hidden_layers"])])
+
+
+class CLIPEmbeddings(nn.Module):
+    def __init__(self, cfg: dict):
+        super().__init__()
+        self.token_embedding = nn.Embedding(cfg["vocab_size"], cfg["hidden_size"])
+        self.position_embedding = nn.Embedding(cfg["max_position_embeddings"],
+                                               cfg["hidden_size"])
+
+
+class CLIPTextTransformer(nn.Module):
+    def __init__(self, cfg: dict):
+        super().__init__()
+        self.embeddings = CLIPEmbeddings(cfg)
+        self.encoder = CLIPEncoder(cfg)
+        self.final_layer_norm = nn.LayerNorm(cfg["hidden_size"], eps=cfg["layer_norm_eps"])
+
+
+def clip_config(raw: dict) -> dict:
+    cfg = {k: raw[k] for k in ("vocab_size", "hidden_size", "intermediate_size",
+                               "num_hidden_layers", "num_attention_heads",
+                               "max_position_embeddings")}
+    cfg["hidden_act"] = raw.get("hidden_act", "quick_gelu")
+    cfg["layer_norm_eps"] = raw.get("layer_norm_eps", 1e-5)
+    cfg["model_type"] = "clip_text_model"
+    return cfg
+
+
+class CLIPTextModel(nn.Module):
+    """transformers' CLIPTextModel: the last hidden state, with the causal
+    mask and the padding mask of ``attention_mask`` combined, as
+    FlaxCLIPTextModel combines them when it is given the mask."""
+
+    def __init__(self, cfg: dict):
+        super().__init__()
+        self.config = cfg
+        self.text_model = CLIPTextTransformer(cfg)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        tm = self.text_model
+        S = input_ids.shape[1]
+        pos = torch.arange(S, device=input_ids.device)
+        h = tm.embeddings.token_embedding(input_ids) + tm.embeddings.position_embedding(pos)
+        causal = torch.ones((S, S), dtype=torch.bool, device=h.device).tril()
+        keep = causal[None, None] & (attention_mask[:, None, None, :] > 0)
+        bias = torch.where(keep, 0.0, torch.finfo(torch.float32).min)
+        for layer in tm.encoder.layers:
+            h = layer(h, bias)
+        return tm.final_layer_norm(h)
+
+
+_TOWERS = {"t5": (T5EncoderModel, t5_config), "roberta": (RobertaModel, roberta_config),
+           "clip_text_model": (CLIPTextModel, clip_config)}
 
 
 def load_text_tower(d: str, device: Union[str, torch.device] = "cpu") -> nn.Module:
     """A transformers-Flax directory (config.json + flax_model.msgpack, or
-    its ``.index.json`` shards) as a float32 T5 encoder or RoBERTa."""
+    its ``.index.json`` shards) as a float32 T5 encoder, RoBERTa or CLIP
+    text model."""
     with open(os.path.join(d, "config.json")) as f:
         raw = json.load(f)
     kind = raw.get("model_type")
@@ -564,3 +672,19 @@ class T5ProjectedEncoder:
             hs = hs * cond.attention_mask[..., None].to(hs.dtype)
         hs = self.projection.project_text(hs)
         return TextCond(hidden_states=hs, attention_mask=cond.attention_mask)
+
+
+class ClipTextEncoder:
+    """Stable Diffusion's CLIP conditioning: the last hidden state of the
+    prompts padded to the tokenizer's ``model_max_length`` (77), with no
+    mask on the stream (the JAX registry's ``_try_clip_encoder``)."""
+
+    def __init__(self, clip: CLIPTextModel, tok: Tokenizer):
+        self.clip, self.tok = clip, tok
+
+    @torch.no_grad()
+    def __call__(self, prompts: List[str], negative: bool = False) -> TextCond:
+        dev = self.clip.text_model.final_layer_norm.weight.device
+        ids, mask = _ids(self.tok, list(prompts), dev, padding="max_length",
+                         max_length=self.tok.model_max_length)
+        return TextCond(hidden_states=self.clip(ids, mask))

@@ -15,7 +15,13 @@ components of the two tokenizers the audio models use:
 - RoBERTa (CLAP's text tower): a byte-level ``BPE`` model (merges by rank),
   the ``ByteLevel`` pre-tokenizer (GPT-2's split regex, written as a
   scanner over Unicode categories, and its byte-to-unicode table) and the
-  ``RobertaProcessing`` post-processor (``<s> $A </s>``).
+  ``RobertaProcessing`` post-processor (``<s> $A </s>``);
+- CLIP (Stable Diffusion's text tower): the ``NFC``, ``Replace`` (each
+  whitespace run to one space) and ``Lowercase`` normalizers, a
+  ``Sequence`` of CLIP's ``Split`` (its regex written as a scanner, as
+  GPT-2's is) and ``ByteLevel``, a byte-level ``BPE`` with the ``</w>``
+  end-of-word suffix, and ``RobertaProcessing`` with ``<|startoftext|>``
+  and ``<|endoftext|>``.
 
 Added tokens are split out first, leftmost-longest, as the crate's added
 vocabulary does. A component the file names that is not implemented here
@@ -162,10 +168,31 @@ class Precompiled:
         return "".join(out)
 
 
+_WS_CLASS = "".join(re.escape(c) for c in sorted(_WHITE_SPACE))
+
+
 def _pattern(spec: dict) -> "re.Pattern":
-    if "Regex" in spec:
-        return re.compile(spec["Regex"])
-    return re.compile(re.escape(spec["String"]))
+    """A Replace pattern in Python ``re``: ``\\s`` becomes the Unicode
+    White_Space class of the Rust regex (Python's own ``\\s`` also takes the
+    separators U+001C-U+001F)."""
+    if "Regex" not in spec:
+        return re.compile(re.escape(spec["String"]))
+    out, i, pat, in_class = [], 0, spec["Regex"], False
+    while i < len(pat):
+        c = pat[i]
+        if c == "\\" and i + 1 < len(pat):
+            if pat[i + 1] == "s":
+                out.append(_WS_CLASS if in_class else f"[{_WS_CLASS}]")
+            elif pat[i + 1] in "pPS":
+                raise _unsupported("regex", pat)
+            else:
+                out.append(pat[i:i + 2])
+            i += 2
+            continue
+        in_class = (in_class and c != "]") or (not in_class and c == "[")
+        out.append(c)
+        i += 1
+    return re.compile("".join(out))
 
 
 def _normalizer(spec: Optional[dict]) -> Callable[[str], str]:
@@ -185,6 +212,11 @@ def _normalizer(spec: Optional[dict]) -> Callable[[str], str]:
     if kind == "Replace":
         pat, content = _pattern(spec["pattern"]), spec["content"]
         return lambda s: pat.sub(lambda m: content, s)
+    if kind in ("NFC", "NFD", "NFKC", "NFKD"):
+        return lambda s: unicodedata.normalize(kind, s)
+    if kind == "Lowercase":
+        # char by char, as the crate does (no final-sigma rule)
+        return lambda s: "".join(c.lower() for c in s)
     raise _unsupported("normalizer", spec)
 
 
@@ -267,6 +299,54 @@ def gpt2_split(s: str) -> List[str]:
     return out
 
 
+# CLIP's Split pattern, which ``clip_split`` implements
+CLIP_SPLIT = r"""'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+"""
+
+
+def clip_split(s: str) -> List[str]:
+    """The matches of CLIP's ``'s|'t|'re|'ve|'m|'ll|'d|[\\p{L}]+|[\\p{N}]|
+    [^\\s\\p{L}\\p{N}]+`` over s, left to right; whitespace between them is
+    dropped (``Split`` with ``behavior: Removed, invert: true``)."""
+    out, i, n = [], 0, len(s)
+    while i < n:
+        if s[i] == "'":
+            m = next((c for c in _CONTRACTIONS if s.startswith(c, i + 1)), None)
+            if m is not None:
+                out.append(s[i:i + 1 + len(m)])
+                i += 1 + len(m)
+                continue
+        k = _cls(s[i])
+        if k == "s":
+            i += 1
+            continue
+        e = i + 1
+        if k != "N":  # a digit is a match of its own
+            while e < n and _cls(s[e]) == k:
+                e += 1
+        out.append(s[i:e])
+        i = e
+    return out
+
+
+def _split(spec: dict) -> Callable[[str, bool], List[str]]:
+    regex = spec.get("pattern", {}).get("Regex")
+    if regex != CLIP_SPLIT or spec.get("behavior") != "Removed" or not spec.get("invert"):
+        raise _unsupported("pre-tokenizer", f"Split {spec.get('pattern')} "
+                           f"{spec.get('behavior')} invert={spec.get('invert')}")
+    return lambda s, first: clip_split(s)
+
+
+def _sequence(spec: dict, config: dict) -> Callable[[str, bool], List[str]]:
+    parts = [_pre_tokenizer(p, config) for p in spec["pretokenizers"]]
+
+    def pre(s: str, first: bool) -> List[str]:
+        pieces = [s]
+        for part in parts:
+            pieces = [w for j, piece in enumerate(pieces) for w in part(piece, first and j == 0)]
+        return pieces
+    return pre
+
+
 def _byte_level(spec: dict, config: dict) -> Callable[[str, bool], List[str]]:
     prefix = spec.get("add_prefix_space", False)
     if isinstance(config.get("add_prefix_space", False), bool) and "add_prefix_space" in spec:
@@ -289,6 +369,10 @@ def _pre_tokenizer(spec: Optional[dict], config: dict) -> Callable[[str, bool], 
         return _metaspace(spec)
     if kind == "ByteLevel":
         return _byte_level(spec, config)
+    if kind == "Split":
+        return _split(spec)
+    if kind == "Sequence":
+        return _sequence(spec, config)
     raise _unsupported("pre-tokenizer", spec)
 
 
@@ -349,12 +433,16 @@ class Unigram:
 
 
 class BPE:
-    """A BPE model: each pre-tokenized word's characters merged by rank."""
+    """A BPE model, as the ``tokenizers`` crate's: each pre-tokenized word's
+    characters, the last one with ``end_of_word_suffix`` (CLIP's ``</w>``),
+    become symbols; a symbol not in the vocabulary becomes the unknown token
+    and takes part in no merge; the others merge by rank."""
 
     def __init__(self, spec: dict):
-        for opt in ("dropout", "continuing_subword_prefix", "end_of_word_suffix"):
-            if spec.get(opt):
-                raise _unsupported("model option", f"BPE {opt}")
+        if spec.get("dropout"):
+            raise _unsupported("model option", "BPE dropout")
+        if spec.get("continuing_subword_prefix"):
+            raise _unsupported("model option", "BPE continuing_subword_prefix")
         if spec.get("byte_fallback"):
             raise _unsupported("model option", "BPE byte_fallback")
         self.vocab = spec["vocab"]
@@ -363,11 +451,13 @@ class BPE:
         self.unk = spec.get("unk_token")
         self.fuse_unk = spec.get("fuse_unk", False)
         self.ignore_merges = spec.get("ignore_merges", False)
+        self.suffix = spec.get("end_of_word_suffix") or ""
 
-    def _merge(self, syms: List[str]) -> List[str]:
+    def _merge(self, syms: List[Optional[str]]) -> List[Optional[str]]:
         while len(syms) > 1:
-            pairs = [(self.ranks.get((a, b)), i) for i, (a, b) in enumerate(zip(syms, syms[1:]))]
-            ranked = [(r, i) for r, i in pairs if r is not None]
+            ranked = [(self.ranks.get((a, b)), i) for i, (a, b) in enumerate(zip(syms, syms[1:]))
+                      if a is not None and b is not None]
+            ranked = [(r, i) for r, i in ranked if r is not None]
             if not ranked:
                 break
             _, first = min(ranked)
@@ -386,10 +476,11 @@ class BPE:
     def __call__(self, word: str) -> List[int]:
         if self.ignore_merges and word in self.vocab:
             return [self.vocab[word]]
+        syms = [c + (self.suffix if i == len(word) - 1 else "") for i, c in enumerate(word)]
         ids: List[int] = []
         prev_unk = False
-        for tok in self._merge(list(word)):
-            if tok in self.vocab:
+        for tok in self._merge([t if t in self.vocab else None for t in syms]):
+            if tok is not None:
                 ids.append(self.vocab[tok])
                 prev_unk = False
             elif self.unk is not None:

@@ -1,8 +1,12 @@
-"""AutoencoderKL (NCHW) — the latent VAE for mel-spectrogram "images".
+"""AutoencoderKL and VQModel (NCHW) — the latent autoencoders of the mel
+"images" and of the image models.
 
-Counterpart of ``audioeditingcode_tpu/models/vae.py`` (the KL variant):
+Counterpart of ``audioeditingcode_tpu/models/vae.py``. AutoencoderKL:
 ``encode`` gives the posterior mode times ``scaling_factor``, ``decode``
-divides by it first. GroupNorm and resnet epsilons are 1e-6 throughout.
+divides by it first. VQModel (CelebA-HQ): ``encode`` gives the continuous
+pre-quantization latent, the space the edits run in; ``decode`` snaps it
+to the nearest codebook row first. GroupNorm and resnet epsilons are 1e-6
+throughout.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ class AutoencoderKLConfig:
     norm_num_groups: int = 32
     mid_block_add_attention: bool = True
     scaling_factor: float = 1.0
-    double_z: bool = True
+    double_z: bool = True  # KL: (mean, logvar); VQ: one latent
+    num_vq_embeddings: int = 0  # > 0 for the VQ variant (CelebA-HQ: 8192)
 
     @property
     def downscale_factor(self) -> int:
@@ -147,6 +152,46 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z / self.config.scaling_factor))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decode(self.encode(x))
+
+
+class VQModel(nn.Module):
+    """VQ-VAE (diffusers' VQModel), the CelebA-HQ LDM autoencoder. The
+    codebook stays float32 in every dtype, as the Flax param does."""
+
+    float32_params = ("codebook",)
+
+    def __init__(self, config: AutoencoderKLConfig):
+        super().__init__()
+        if config.double_z or config.num_vq_embeddings <= 0:
+            raise ValueError("VQModel takes double_z=False and num_vq_embeddings > 0")
+        self.config = config
+        C = config.latent_channels
+        self.encoder = Encoder(config)
+        self.decoder = Decoder(config)
+        self.quant_conv = nn.Conv2d(C, C, 1)
+        self.post_quant_conv = nn.Conv2d(C, C, 1)
+        self.codebook = nn.Parameter(torch.empty(config.num_vq_embeddings, C))
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return self.quant_conv(self.encoder(x))
+
+    def quantize(self, z: torch.Tensor) -> torch.Tensor:
+        """The nearest codebook row of each latent pixel, by the expanded
+        distance |z|^2 - 2 z.C + |C|^2 in float32, then argmin."""
+        flat = z.permute(0, 2, 3, 1).reshape(-1, z.shape[1]).float()
+        cb = self.codebook.float()
+        d = (flat.square().sum(dim=1, keepdim=True) - 2.0 * flat @ cb.T
+             + cb.square().sum(dim=1)[None, :])
+        q = cb[d.argmin(dim=1)]
+        return q.reshape(z.shape[0], z.shape[2], z.shape[3], -1).permute(0, 3, 1, 2).to(z.dtype)
+
+    def decode(self, z: torch.Tensor, force_not_quantize: bool = False) -> torch.Tensor:
+        if not force_not_quantize:
+            z = self.quantize(z)
+        return self.decoder(self.post_quant_conv(z))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decode(self.encode(x))

@@ -1,14 +1,19 @@
-"""STFT / mel-spectrogram frontend as framed matmuls.
+"""STFT / mel-spectrogram frontend as framed matmuls, and its inverse.
 
 Counterpart of ``audioeditingcode_tpu/ops/stft.py`` (no kernel there: XLA
 fuses the framed matmuls). Parity targets: periodic Hann window, reflect
 padding by n_fft//2, librosa slaney mel filterbank, log(clamp(x, 1e-5)).
+``stft_transform`` (magnitude and phase), ``inverse_stft`` (weighted
+overlap-add with window-sum-square compensation) and ``griffin_lim``
+(phase recovery, its initial phase an argument or drawn from a
+``torch.Generator``) synthesise a waveform without a vocoder.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +63,16 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float) -
     return weights.astype(np.float64)
 
 
+def _window(config: "MelConfig") -> np.ndarray:
+    """The periodic Hann window, centre-padded to n_fft (float64)."""
+    window = hann_window(config.win_length)
+    n_fft = config.filter_length
+    if config.win_length < n_fft:
+        p = (n_fft - config.win_length) // 2
+        window = np.pad(window, (p, n_fft - config.win_length - p))
+    return window
+
+
 def dynamic_range_compression(x: torch.Tensor, clip_val: float = 1e-5, C: float = 1.0):
     """log-clamp compression."""
     return torch.log(torch.clamp(x, min=clip_val) * C)
@@ -83,10 +98,7 @@ class MelConfig:
         n = np.arange(n_fft, dtype=np.float64)
         k = np.arange(cutoff, dtype=np.float64)[:, None]
         ang = 2.0 * np.pi * k * n[None, :] / n_fft
-        window = hann_window(self.win_length)
-        if self.win_length < n_fft:  # center-pad window to n_fft
-            pad = (n_fft - self.win_length) // 2
-            window = np.pad(window, (pad, n_fft - self.win_length - pad))
+        window = _window(self)
         cos_b = (np.cos(ang) * window[None, :]).astype(np.float32)
         sin_b = (-np.sin(ang) * window[None, :]).astype(np.float32)
         mel_b = mel_filterbank(
@@ -95,18 +107,65 @@ class MelConfig:
         return cos_b, sin_b, mel_b
 
 
-def stft_magnitude(wave: torch.Tensor, config: MelConfig) -> torch.Tensor:
-    """|STFT| of waveforms (B, L) -> (B, n_fft//2+1, T): reflect pad by
-    n_fft//2, hop-strided frames, windowed DFT as two matmuls."""
+def _stft(wave: torch.Tensor, config: MelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(real, imag) of the STFT of waveforms (B, L), each (B, n_fft//2+1,
+    T): reflect pad by n_fft//2, hop-strided frames, windowed DFT as two
+    matmuls."""
     cos_b, sin_b, _ = config.bases()
     cos_t = torch.as_tensor(cos_b, device=wave.device)
     sin_t = torch.as_tensor(sin_b, device=wave.device)
     pad = config.filter_length // 2
     x = torch.nn.functional.pad(wave[:, None, :], (pad, pad), mode="reflect")[:, 0]
     frames = x.unfold(-1, config.filter_length, config.hop_length)  # (B, T, n_fft)
-    real = torch.matmul(frames, cos_t.T).transpose(1, 2)
-    imag = torch.matmul(frames, sin_t.T).transpose(1, 2)
+    return (torch.matmul(frames, cos_t.T).transpose(1, 2),
+            torch.matmul(frames, sin_t.T).transpose(1, 2))
+
+
+def stft_magnitude(wave: torch.Tensor, config: MelConfig) -> torch.Tensor:
+    """|STFT| of waveforms (B, L) -> (B, n_fft//2+1, T)."""
+    real, imag = _stft(wave, config)
     return torch.sqrt(real ** 2 + imag ** 2)
+
+
+def stft_transform(wave: torch.Tensor, config: MelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(magnitude, phase) of waveforms (B, L), each (B, n_fft//2+1, T)."""
+    real, imag = _stft(wave, config)
+    return torch.sqrt(real ** 2 + imag ** 2), torch.atan2(imag, real)
+
+
+def inverse_stft(magnitude: torch.Tensor, phase: torch.Tensor,
+                 config: MelConfig) -> torch.Tensor:
+    """ISTFT of (B, n_fft//2+1, T) magnitude and phase by weighted
+    overlap-add, divided by the window's overlapped sum of squares; (B, L)
+    with the reflect padding trimmed."""
+    n_fft, hop = config.filter_length, config.hop_length
+    window = torch.as_tensor(_window(config), dtype=torch.float32, device=magnitude.device)
+    spec = torch.polar(magnitude.float(), phase.float()).transpose(1, 2)  # (B, T, C)
+    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * window
+    B, T = frames.shape[0], frames.shape[1]
+    out_len = (T - 1) * hop + n_fft
+    idx = (torch.arange(T, device=frames.device)[:, None] * hop
+           + torch.arange(n_fft, device=frames.device)[None, :]).reshape(-1)
+    sig = frames.new_zeros((B, out_len)).index_add_(1, idx, frames.reshape(B, -1))
+    wss = frames.new_zeros(out_len).index_add_(0, idx, (window ** 2).repeat(T))
+    sig = sig / torch.clamp(wss, min=1e-8)[None, :]
+    return sig[:, n_fft // 2: -(n_fft // 2)]
+
+
+def griffin_lim(magnitudes: torch.Tensor, config: MelConfig, n_iters: int = 30,
+                phase: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Phase recovery by alternating projection from (B, n_fft//2+1, T)
+    magnitudes: ``phase`` is the initial phase, or it is drawn uniform in
+    [-pi, pi) from ``generator``."""
+    if phase is None:
+        phase = (torch.rand(magnitudes.shape, generator=generator, device=magnitudes.device)
+                 * 2.0 - 1.0) * math.pi
+    signal = inverse_stft(magnitudes, phase, config)
+    for _ in range(n_iters):
+        _, ang = stft_transform(signal, config)
+        signal = inverse_stft(magnitudes, ang[..., : magnitudes.shape[-1]], config)
+    return signal
 
 
 def mel_spectrogram(wave: torch.Tensor, config: MelConfig

@@ -36,7 +36,7 @@ prints no result):
    versions on the CPU; and the full-width Oobleck encode and decode on 16
    latent frames, card against CPU.
 2c. the finite-difference probe of PC extraction, ab = x0(xt + c v) -
-   x0(xt) at c = 1e-3 for two PCs (batch 4), on the full-width AudioLDM-s
+   x0(xt) at c = 1e-3 for one PC (batch 2), on the full-width AudioLDM-s
    UNet and on phase 2b's 2-layer DiT, in float32 on the card (3xTF32
    kernels) against the card's plain versions, each against a float64
    probe on the CPU; and the card against the CPU's float32 probe.
@@ -59,8 +59,8 @@ prints no result):
    the amount-0 wav of its PC, and the two PCs' wavs from each other), and
    in float32 along PC 1 at amount 0, which must give back the extraction's
    drift-free wav.
-6. Stable Audio PC editing likewise on phase 4's clip (100 steps, window
-   steps 50 and 49); the float32 amount-0 application also shows that the
+6. Stable Audio PC editing likewise on phase 4's clip (100 steps, one
+   window step, 50); the float32 amount-0 application also shows that the
    application conditions on the duration the extraction recorded.
 2d. one full-width UNet forward of each other mel family, AudioLDM2-music
    (two transformers per attention position, one per text stream),
@@ -81,12 +81,12 @@ prints no result):
    back on the card bit-equal (each file's bytes and load seconds); the
    full-width text chain card vs CPU (<= 1e-3 max relative error).
 8. ``--mode ours`` on the other families on phase 3's clip: AudioLDM2-music
-   from phase 8a's checkpoint at 200 + 100 steps as a float32 edit, a
-   float32 selfcheck and a bfloat16 edit; AudioLDM-l and TANGO as
+   from phase 8a's checkpoint at 200 + 100 steps as a float32 selfcheck
+   and a bfloat16 edit; AudioLDM-l and TANGO as
    selfchecks at 50 + 25 steps in float32 and bfloat16; every selfcheck
    >= 40 dB.
 9. the generation, long-form, batch and sweep CLIs through their main(argv)
-   at full width: AudioLDM-s generation (100 steps), style transfer at
+   at full width: AudioLDM-s generation (50 steps), style transfer at
    strength 0.5 and at 0 (which must give back the VAE round trip of the
    input), inpainting of seconds 3-6 and super-resolution in float32, and
    generation and inpainting in bfloat16; Stable Audio generation and
@@ -99,6 +99,29 @@ prints no result):
    its single-window edit (<= 1e-3 max relative error), inpainting's kept
    region bit-exact (run_args.json), each sweep point within 1 LSB of
    ``cli/run.py --mode ours`` at its tstart and cfg_tar.
+10a. a full-width Stable Diffusion v1.4 checkpoint from seeded random
+   modules, written by the port (UNet, VAE, the CLIP text tower at CLIP
+   ViT-L/14's text config with a small CLIP-shaped tokenizer; phase 8a's
+   checkpoint is deleted first), loaded back on the card bit-equal; the
+   CLIP tower card vs CPU (<= 1e-3); one SD UNet CFG forward at 256 px
+   (B1 at (2, 1024, 8, 40)) card vs CPU in float32 (<= 1e-3) and in
+   bfloat16 (within 1.25x the error of the bf16 plain versions on the
+   card); the full-width CelebA-HQ VQ autoencoder card vs CPU (codes equal
+   off near-ties, the unquantized decode <= 1e-4).
+10. the image CLIs through their main(argv): SDEdit on SD from phase 10a's
+   checkpoint at 512 px (100 steps, tstart 50) in float32 and bfloat16;
+   PC extraction at 256 px (float32, one PC, 50 iterations at two window
+   steps) and its applications in bfloat16 at amounts 0 and 2 and in
+   float32 at amount 0 (within 1 uint8 step of the drift-free image); SDEdit
+   on the seeded CelebA-HQ LDM at 256 px (no kernel launch). Every output
+   PNG decodes through the port's reader at the expected size and differs
+   from orig.png.
+11. the edit server (serve.py) on 127.0.0.1 over HTTP at 50 steps in
+   bfloat16: AudioLDM-s (/healthz, three edits, two concurrent requests
+   each bit-equal to the same request alone, a response bit-equal to
+   EditService.edit in process, 400 for a malformed body and for tstart
+   out of range), then Stable Audio with a 5 s and a 10 s clip, each
+   response cropped to its clip; each request's wall and loop seconds.
 Every kernel launch count is set to 0 just before each main-path run and
 read just after it; each run is held to its launches per denoiser forward
 (its run_args.json counts the forwards of each stage). Each phase's
@@ -218,6 +241,12 @@ ATTN_CASES = [
     ((2, 1024, 8, 8, 80), torch.bfloat16),
     ((2, 1024, 8, 8, 48), torch.float32),
     ((2, 1024, 8, 8, 48), torch.bfloat16),
+    # SD v1.4 at 256 px (phases 10a and 10: the finest level, D = 40; the
+    # PC extraction's unconditional inversion at batch 1); at 512 px SD runs
+    # TANGO's two shapes above
+    ((2, 1024, 8, 8, 40), torch.float32),
+    ((2, 1024, 8, 8, 40), torch.bfloat16),
+    ((1, 1024, 8, 8, 40), torch.float32),
 ]
 # float32 attention (B1, B2) is held to flash_attention.F32_TOL, 1e-5 +
 # 1e-5 |ref|, which a single TF32 product fails; bf16 to
@@ -258,8 +287,10 @@ SWIGLU_CASES = [((2050, 1536, 6144), torch.float32), ((1025, 1536, 6144), torch.
 # kernels'. Bound: the probe through the kernels lies at most PROBE_RATIO
 # times as far from the float64 probe as the same probe on the card
 # through the plain versions (relative Frobenius error): the kernels keep
-# the probe at float32 accuracy.
-PROBE_CONST, PROBE_N_EV, PROBE_CFG = 1e-3, 2, 3.0
+# the probe at float32 accuracy. One PC (a batch-2 forward; two ran in
+# PRs 9-12, the cut that made room for phases 10 and 11: the CPU's float32
+# and float64 UNet probes took 90 of the phase's 104 s at two PCs).
+PROBE_CONST, PROBE_N_EV, PROBE_CFG = 1e-3, 1, 3.0
 PROBE_RATIO = 1.25
 # The card's probe against the CPU's float32 one (relative Frobenius
 # error), by model: 1.5x what the first runs on an H100 read (UNet 0.0144,
@@ -269,9 +300,11 @@ PROBE_RATIO = 1.25
 # orders, and a probe past it has changed by more than an order of sums.
 PROBE_CARD_CPU_MAX = {"unet": 0.0215, "dit": 0.0775}
 # phases 5 and 6: each model's PC extraction (steps, --drift_start,
-# --drift_end: a two-step window) and its applications
+# --drift_end: the window) and its applications
 PC_N_EVS, PC_ITERS = 2, 50
-PCS = {MODEL_ID: (STEPS, 100, 98), SA_MODEL_ID: (SA_STEPS, 50, 48)}
+# (Stable Audio at 50 steps and one window step, 25: the cut that made
+# room for phases 10 and 11; in PRs 9-12, 100 steps and two window steps)
+PCS = {MODEL_ID: (STEPS, 100, 98), SA_MODEL_ID: (SA_STEPS // 2, 25, 24)}
 # (name, flags): the same on both models, in this order
 PC_APPLICATIONS = [
     ("apply_bf16_amount0", ["--evs", "1", "2", "--amount", "0", "--dtype", "bfloat16"]),
@@ -291,10 +324,11 @@ PC_APPLICATIONS = [
 # drift that moves nothing gives the same wav), and from the other PC's.
 AMOUNT0_MAX_LSB = 33
 # phase 9: the generation, long-form, batch and sweep CLIs at full width.
-# Depths: generation at 100 steps (the AudioLDM CLI's default is 200), the
-# edits at 100 inversion + 50 edit steps on AudioLDM-s (the edit config's
-# 200 + 100 halved) and at Stable Audio's 100 + 50.
-GEN_STEPS = 100
+# Depths: AudioLDM-s generation at 50 steps (the CLI's default is 200; 100
+# until PR 12, cut to make room for phases 10 and 11), Stable Audio's at
+# 100, the edits at 100 inversion + 50 edit steps on AudioLDM-s (the edit
+# config's 200 + 100 halved) and at Stable Audio's 100 + 50.
+GEN_STEPS = 50
 P9_STEPS, P9_TSTART = 100, 50
 # a 25 s clip in 10 s windows overlapping by 1 s: 3 mel windows of 1024
 # frames (starts 0, 920, 1536), a UNet forward of 6 rows; a 15 s stereo clip
@@ -313,6 +347,44 @@ FOLD_MAX_REL = 1e-3
 # a sweep grid point against cli/run.py at its tstart and cfg_tar (the same
 # weights, draws and kernels): int16 LSB
 SWEEP_MAX_LSB = 1
+# phase 10: the image CLIs. Stable Diffusion v1.4 from a seeded full-width
+# checkpoint (UNet, VAE and the CLIP text tower at CLIP ViT-L/14's text
+# config, SD v1.4's text_encoder/config.json, with a small CLIP-shaped
+# tokenizer written here); the CelebA-HQ LDM with seeded weights
+SD_MODEL_ID = "CompVis/stable-diffusion-v1-4"
+CELEBA_MODEL_ID = "CompVis/ldm-celebahq-256"
+CLIP_TEXT = {"model_type": "clip_text_model", "vocab_size": 49408, "hidden_size": 768,
+             "intermediate_size": 3072, "num_hidden_layers": 12, "num_attention_heads": 12,
+             "max_position_embeddings": 77, "hidden_act": "quick_gelu",
+             "layer_norm_eps": 1e-5, "bos_token_id": 49406, "eos_token_id": 49407}
+# the image SDEdit CLI's defaults: 100 steps, tstart 50 (50 forwards); SD at
+# its default 512 px, CelebA-HQ at its 256
+IMG_STEPS, IMG_TSTART = 100, 50
+# B1 launches per SD UNet forward: attn1 of the five transformers of each
+# level with S >= 1024 (attn2 is cross-attention to the 77 text tokens and
+# takes the plain path). 512 px: a 64 x 64 latent, levels 0 (S = 4096, D =
+# 40) and 1 (1024, D = 80); 256 px: level 0 only (1024, D = 40). The
+# CelebA-HQ UNet has no attention.
+SD_CALLS_PER_FORWARD = {512: 10, 256: 5}
+# phase 10c: PC extraction on SD at 256 px (the CLI's default -r), float32,
+# one PC, PC_ITERS iterations at the two window steps 50 and 49
+IMG_PC = (IMG_STEPS, 50, 48)
+# the float32 amount-0 image against the extraction's drift-free image, in
+# uint8 steps (bound fixed before the first run: amount 0 changes the latent
+# by float32 roundoff, phases 5 and 6)
+IMG_AMOUNT0_MAX = 1
+# VQ codes card vs CPU: equal wherever the two nearest codes are not
+# within this relative distance of each other (a tie float32 may break
+# either way)
+VQ_TIE_REL = 1e-5
+VQ_DECODE_TOL = 1e-4  # decode(force_not_quantize=True), card vs CPU, max rel err
+IMG_PROMPTS = ["a photo of a cat", ""]
+# phase 11: the edit server at the JAX server's defaults (50 steps,
+# bfloat16), on AudioLDM-s with phase 3's clip and on Stable Audio with a
+# 5 s and phase 4's 10 s clip
+SERVE_STEPS = 50
+SERVE_EDITS = [  # (name, request fields beside the clip and prompts)
+    ("default", {}), ("cfg_tar_6", {"cfg_tar": 6.0}), ("tstart_40", {"tstart": 40})]
 
 
 def log(msg: str) -> None:
@@ -1511,14 +1583,16 @@ def phase8_families(fa, sw, tmp: str, ckpt: str) -> dict:
     """--mode ours on the other mel families through the port's CLI, on
     phase 3's clip: AudioLDM2-music from phase 8a's checkpoint
     (``--weights_dir``, the full text chain) at the bench.py config (200 +
-    100 steps) as a float32 edit, a float32 selfcheck and a bfloat16 edit;
+    100 steps) as a float32 selfcheck and a bfloat16 edit (the selfcheck
+    runs the edit's 300 float32 forwards through the same kernels, so the
+    float32 edit run was cut to make room for phases 10 and 11);
     AudioLDM-l and TANGO (v-prediction) as selfchecks at 50 + 25 steps in
     float32 and bfloat16. Every selfcheck must reach 40 dB."""
     from audioeditingcode_tpu_torch.cli.run import main as run_edit
 
     runs = {}
     clip = os.path.join(tmp, "clip.wav")
-    plan = [(A2_MODEL_ID, "audioldm2", ("edit", "selfcheck", "edit_bf16")),
+    plan = [(A2_MODEL_ID, "audioldm2", ("selfcheck", "edit_bf16")),
             (AL_MODEL_ID, "audioldm_l", ("selfcheck", "selfcheck_bf16")),
             (TANGO_MODEL_ID, "tango", ("selfcheck", "selfcheck_bf16"))]
     for model_id, tag, names in plan:
@@ -1730,6 +1804,469 @@ def phase9_new_clis(fa, sw, tmp: str) -> dict:
     return runs, checks
 
 
+def clip_tokenizer_json() -> dict:
+    """A small CLIP-shaped tokenizer (NFC, whitespace runs to one space and
+    lowercase; CLIP's split, then byte level; BPE with the ``</w>`` suffix
+    and merges for a few words; ``<|startoftext|> $A <|endoftext|>``) with
+    ids inside CLIP's vocabulary."""
+    from audioeditingcode_tpu_torch.models.tokenizers import _BYTE_CHARS, CLIP_SPLIT
+
+    vocab = {}
+    for c in _BYTE_CHARS.values():
+        vocab.setdefault(c, len(vocab))
+    for c in list(_BYTE_CHARS.values()):
+        vocab.setdefault(c + "</w>", len(vocab))
+    merges = []
+    for w in _WORDS + ("photo", "cat"):  # ASCII words: their bytes are their letters
+        syms = list(w[:-1]) + [w[-1] + "</w>"]
+        while len(syms) > 1:
+            if [syms[0], syms[1]] not in merges:
+                merges.append([syms[0], syms[1]])
+            vocab.setdefault(syms[0] + syms[1], len(vocab))
+            syms = [syms[0] + syms[1]] + syms[2:]
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = 49406, 49407
+    added = [dict(t, normalized=True) for t in _added([(49406, "<|startoftext|>"),
+                                                        (49407, "<|endoftext|>")])]
+    return {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+            "normalizer": {"type": "Sequence", "normalizers": [
+                {"type": "NFC"}, {"type": "Replace", "pattern": {"Regex": "\\s+"}, "content": " "},
+                {"type": "Lowercase"}]},
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": CLIP_SPLIT}, "behavior": "Removed",
+                 "invert": True},
+                {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                 "use_regex": True}]},
+            "post_processor": {"type": "RobertaProcessing", "sep": ["<|endoftext|>", 49407],
+                               "cls": ["<|startoftext|>", 49406], "trim_offsets": False,
+                               "add_prefix_space": False},
+            "decoder": None,
+            "model": {"type": "BPE", "dropout": None, "unk_token": "<|endoftext|>",
+                      "continuing_subword_prefix": "", "end_of_word_suffix": "</w>",
+                      "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": merges}}
+
+
+def write_sd_checkpoint(ckpt: str):
+    """A Stable Diffusion v1.4 weights_dir (unet.msgpack, vae.msgpack and
+    clip/) from seeded random full-width modules, written by the port;
+    returns each module's state dict on the CPU and each file's bytes and
+    write seconds."""
+    from audioeditingcode_tpu_torch.models import registry as treg
+    from audioeditingcode_tpu_torch.models.text_encoders import (
+        CLIPTextModel,
+        clip_config,
+        save_text_tower,
+    )
+
+    pipe = treg.load_model(SD_MODEL_ID, 4, device="cpu", seed=CHECKPOINT_SEED)
+    clip = treg.seeded(lambda: CLIPTextModel(clip_config(CLIP_TEXT)),
+                       torch.Generator().manual_seed(CHECKPOINT_SEED + 1))
+    mods = {"unet": pipe.unet, "vae": pipe.vae, "clip": clip}
+    written = {}
+    os.makedirs(ckpt, exist_ok=True)
+    for name, mod in mods.items():
+        t0 = time.perf_counter()
+        if name == "clip":
+            d = os.path.join(ckpt, "clip")
+            save_text_tower(mod, d, CLIP_TEXT)
+            path = os.path.join(d, "flax_model.msgpack")
+            with open(os.path.join(d, "tokenizer.json"), "w") as f:
+                json.dump(clip_tokenizer_json(), f)
+            with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+                json.dump({"model_max_length": 77, "pad_token": "<|endoftext|>"}, f)
+        else:
+            path = os.path.join(ckpt, f"{name}.msgpack")
+            treg.save_params(mod, path)
+        written[name] = {"bytes": os.path.getsize(path), "write_s": time.perf_counter() - t0}
+    return {name: {k: v.detach().clone() for k, v in m.state_dict().items()}
+            for name, m in mods.items()}, written
+
+
+def _vq_check(fa, sw) -> dict:
+    """The full-width CelebA-HQ VQ autoencoder (seeded) on a 256 px image,
+    card vs CPU: the encode, the codes (equal wherever the two nearest
+    codes are not within VQ_TIE_REL of each other) and the decode without
+    quantization of the same latent."""
+    from audioeditingcode_tpu_torch.models import registry as treg
+    from audioeditingcode_tpu_torch.models.configs import MODEL_SPECS
+    from audioeditingcode_tpu_torch.models.vae import VQModel
+
+    vq = treg.seeded(lambda: VQModel(MODEL_SPECS[CELEBA_MODEL_ID].vae),
+                     torch.Generator().manual_seed(12)).eval().requires_grad_(False)
+    img = torch.rand((1, 3, 256, 256), generator=torch.Generator().manual_seed(13)) * 2 - 1
+    gpu = copy.deepcopy(vq).cuda()
+    reset_launches(fa, sw)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        z = vq.encode(img)
+        q = vq.quantize(z)
+        dec = vq.decode(z, force_not_quantize=True)
+        cpu_s = time.perf_counter() - t0
+        gz = gpu.encode(img.cuda())
+        gq = gpu.quantize(gz).cpu()
+        gdec = gpu.decode(z.cuda(), force_not_quantize=True).cpu()
+    launched = read_launches(fa, sw)
+    flat = z.permute(0, 2, 3, 1).reshape(-1, z.shape[1]).double()
+    cb = vq.codebook.double()
+    d = (flat.square().sum(1, keepdim=True) - 2 * flat @ cb.T + cb.square().sum(1)[None]
+         ).topk(2, dim=1, largest=False).values
+    tie = (d[:, 1] - d[:, 0]) <= VQ_TIE_REL * d[:, 0].abs()
+    same = (q == gq).all(dim=1).reshape(-1)
+    out = {"vq_encode_max_rel_err": _max_rel(gz.cpu(), z),
+           "vq_decode_max_rel_err": _max_rel(gdec, dec),
+           "vq_codes": int(same.numel()), "vq_codes_equal": int(same.sum()),
+           "vq_code_ties": int(tie.sum()), "vq_codes_differing_off_ties": int((~same & ~tie).sum()),
+           "vq_cpu_s": cpu_s}
+    log(f"[phase10a] CelebA-HQ VQ at 256 px, card vs CPU: {out} (decode limit {VQ_DECODE_TOL})")
+    if out["vq_codes_differing_off_ties"] or not out["vq_decode_max_rel_err"] <= VQ_DECODE_TOL:
+        raise AssertionError(f"phase10a: VQ card vs CPU {out}")
+    if any(launched.values()):
+        raise AssertionError(f"phase10a: the VQ autoencoder launched kernels: {launched}")
+    return out
+
+
+def phase10a_checkpoint(fa, sw, tmp: str) -> dict:
+    """Write the full-width SD v1.4 checkpoint (phase 8's is deleted first:
+    nothing after phase 8 reads it), load it back on the card bit-equal,
+    hold the full-width CLIP tower card vs CPU, one SD UNet CFG forward at
+    256 px card vs CPU in float32 and in bfloat16 (against the float32 CPU
+    forward, within BF16_FORWARD_RATIO times the bf16 plain versions' error
+    on the card), and the CelebA-HQ VQ autoencoder."""
+    import shutil
+
+    from audioeditingcode_tpu_torch.models import flax_msgpack
+    from audioeditingcode_tpu_torch.models import registry as treg
+    from audioeditingcode_tpu_torch.models.configs import MODEL_SPECS
+    from audioeditingcode_tpu_torch.models.unet2d import UNet2DConditionModel
+
+    shutil.rmtree(os.path.join(tmp, "audioldm2_music_ckpt"), ignore_errors=True)
+    ckpt = os.path.join(tmp, "sd_ckpt")
+    t0 = time.perf_counter()
+    want, written = write_sd_checkpoint(ckpt)
+    write_s = time.perf_counter() - t0
+    flax_msgpack.LOAD_SECONDS.clear()
+    t0 = time.perf_counter()
+    pipe = treg.load_model(SD_MODEL_ID, 4, device="cuda", weights_dir=ckpt)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for name, mod in (("unet", pipe.unet), ("vae", pipe.vae), ("clip", pipe.text_encoder.clip)):
+        _assert_bit_equal(name, mod.state_dict(), want[name])
+    files = {os.path.relpath(path, ckpt): {"bytes": b, "load_s": s}
+             for path, (b, s) in flax_msgpack.LOAD_SECONDS.items()}
+    log(f"[phase10a] wrote the SD checkpoint in {write_s:.1f} s: {written}")
+    log(f"[phase10a] load_model on the card in {load_s:.1f} s, every module bit-equal; "
+        f"per file: {files}")
+    spec = MODEL_SPECS[SD_MODEL_ID]
+    prompts = ["", "a photo of a cat"]  # the CFG pair: unconditional, then the prompt
+    card = pipe.encode_text(prompts).hidden_states.cpu()
+    cpu = treg._try_clip_encoder(spec, ckpt, "cpu")(prompts).hidden_states
+    clip_err = _max_rel(card, cpu)
+    log(f"[phase10a] CLIP text tower {list(card.shape)} card vs CPU max rel err "
+        f"{clip_err:.3g} (limit {TEXT_CHAIN_TOL})")
+    if not clip_err <= TEXT_CHAIN_TOL:
+        raise AssertionError(f"phase10a: CLIP card vs CPU {clip_err} > {TEXT_CHAIN_TOL}")
+
+    unet_cpu = treg._meta(lambda: UNet2DConditionModel(spec.unet))
+    unet_cpu.load_state_dict(want["unet"], assign=True)
+    unet_cpu.eval().requires_grad_(False)
+    x = torch.randn((1, 4, 32, 32), generator=torch.Generator().manual_seed(14)).repeat(2, 1, 1, 1)
+    t = torch.tensor([501, 501])
+
+    def forward(model, dev, dtype):
+        with torch.no_grad():
+            return model(x.to(dev, dtype), t.to(dev), cpu.to(dev)).cpu()
+
+    t0 = time.perf_counter()
+    cpu_out = forward(unet_cpu, "cpu", torch.float32)
+    cpu_s = time.perf_counter() - t0
+    del unet_cpu
+    reset_launches(fa, sw)
+    gpu_out = forward(pipe.unet, "cuda", torch.float32)
+    launched = read_launches(fa, sw)
+    rel = _max_rel(gpu_out, cpu_out)
+    unet = treg.to_model_dtype_(pipe.unet, "cuda", torch.bfloat16)
+    reset_launches(fa, sw)
+    bf16_out = forward(unet, "cuda", torch.bfloat16)
+    launched_tc = read_launches(fa, sw)
+    with _plain_ops():
+        plain_out = forward(unet, "cuda", torch.bfloat16)
+    err, plain_err = _rel_fro(bf16_out, cpu_out), _rel_fro(plain_out, cpu_out)
+    limit = BF16_FORWARD_RATIO * plain_err
+    calls = SD_CALLS_PER_FORWARD[256]
+    log(f"[phase10a] SD UNet CFG forward {list(x.shape)} (256 px), 77 CLIP tokens: card vs CPU "
+        f"max rel err {rel:.3g} (limit 1e-3, TF32 off), launches {launched}, CPU {cpu_s:.1f} s; "
+        f"bf16 card vs float32 CPU relative Frobenius error {err:.4g}, the bf16 plain versions "
+        f"on the card {plain_err:.4g} (limit {limit:.4g}), launches {launched_tc}")
+    if not np.isfinite(rel) or rel > 1e-3:
+        raise AssertionError(f"phase10a: SD UNet card/CPU parity {rel} > 1e-3")
+    if not np.isfinite(err) or err > limit:
+        raise AssertionError(f"phase10a: SD UNet bf16 card error {err} > {limit}")
+    if (launched != expected_launches({"flash_attention": calls}, 1)
+            or launched_tc != expected_launches({"flash_attention_tc": calls}, 1)):
+        raise AssertionError(f"phase10a: SD UNet launches {launched}, {launched_tc}; expected "
+                             f"{calls} per forward")
+    del pipe, unet
+    torch.cuda.empty_cache()
+    out = {"dir": ckpt, "sd_checkpoint_files": files, "sd_checkpoint_load_s": load_s,
+           "sd_checkpoint_write_s": write_s, "clip_max_rel_err": clip_err,
+           "sd_unet_rel_err": rel, "sd_unet_bf16_rel_fro_err": err,
+           "sd_unet_bf16_plain_rel_fro_err": plain_err, "sd_unet_cpu_s": cpu_s}
+    return out | _vq_check(fa, sw)
+
+
+def write_image(path: str, size: int = 512) -> None:
+    """A synthetic RGB image: smooth colour waves over seeded noise."""
+    from audioeditingcode_tpu_torch.utils.image_io import save_image
+
+    y, x = np.mgrid[0:size, 0:size] / size
+    img = np.stack([np.sin(2 * np.pi * (3 * x + k / 3)) * np.cos(2 * np.pi * (2 * y - k / 5))
+                    for k in range(3)])[None] * 0.7
+    img += 0.1 * np.random.default_rng(0).standard_normal(img.shape)
+    save_image(path, img.astype(np.float32))
+
+
+def _check_png(name: str, path: str, size: int, orig: np.ndarray) -> np.ndarray:
+    """An output image: size x size RGB through the port's PNG reader, not
+    the input image."""
+    from audioeditingcode_tpu_torch.utils.image_io import read_png_rgb
+
+    img = read_png_rgb(path)
+    if img.shape != (size, size, 3) or (orig.shape == img.shape and np.array_equal(img, orig)):
+        raise AssertionError(f"{name}: bad output image {path}: shape {img.shape}, or orig.png")
+    return img.astype(np.int64)
+
+
+def phase10_images(fa, sw, tmp: str, ckpt: str):
+    """The image CLIs through their main(argv): SDEdit on SD v1.4 from
+    phase 10a's checkpoint at 512 px (100 steps, tstart 50) in float32 and
+    bfloat16; PC extraction on it at 256 px (float32, one PC, PC_ITERS
+    iterations at two window steps), then applications in bfloat16 at
+    amounts 0 and 2 and in float32 at amount 0 (within IMG_AMOUNT0_MAX of the
+    drift-free image); SDEdit on the CelebA-HQ LDM (seeded, VQ, 256 px,
+    float32; no attention, so no kernel launch). Returns (runs, checks)."""
+    from audioeditingcode_tpu_torch.cli.images import pc_apply_main, pc_extract_main, sdedit_main
+    from audioeditingcode_tpu_torch.utils.image_io import read_png_rgb
+
+    runs, checks = {}, {}
+    im = os.path.join(tmp, "face.png")
+    write_image(im)
+    bf16 = ["--dtype", "bfloat16"]
+
+    def per(px, bf):
+        return {"flash_attention" + ("_tc" if bf else ""): SD_CALLS_PER_FORWARD[px]}
+
+    for name, extra in (("sd_sdedit", []), ("sd_sdedit_bf16", bf16)):
+        argv = ["--model_id", SD_MODEL_ID, "--init_im", im, "--target_prompt", "a photo of a cat",
+                "--num_diffusion_steps", str(IMG_STEPS), "--tstart", str(IMG_TSTART), "--seed",
+                "0", "--weights_dir", ckpt, "--wandb_disable",
+                "--results_path", os.path.join(tmp, name)] + extra
+        out, _, run = _counted_run(fa, sw, f"phase10 {name}", lambda: sdedit_main(argv),
+                                   per(512, bool(extra)), IMG_TSTART, "sdedit_seconds")
+        orig = read_png_rgb(os.path.join(os.path.dirname(out), "orig.png"))
+        _check_png(name, out, 512, orig)
+        runs[name] = run
+        log(f"[phase10] {name}: {run}")
+
+    steps, start, end = IMG_PC
+    argv = ["--model_id", SD_MODEL_ID, "--init_im", im, "--num_diffusion_steps", str(steps),
+            "--n_evs", "1", "--iters", str(PC_ITERS), "--drift_start", str(start),
+            "--drift_end", str(end), "--seed", "0", "--weights_dir", ckpt, "--wandb_disable",
+            "--results_path", os.path.join(tmp, "img_pc")]
+    window = start - end
+    pc_ckpt, runs["sd_pc_extract"] = _pc_run(fa, sw, "phase10 sd pc extract",
+                                             lambda: pc_extract_main(argv), per(256, False),
+                                             2 * steps + window * PC_ITERS)
+    orig = read_png_rgb(os.path.join(os.path.dirname(pc_ckpt), "orig.png"))
+    free = _check_png("sd pc extract", pc_ckpt[: -len(".npz")] + ".png", 256, orig)
+    base = ["--extraction_path", pc_ckpt, "--drift_start", str(start), "--drift_end", str(end),
+            "--seed", "0", "--wandb_disable"]
+    imgs = {}
+    for name, extra in (("sd_pc_apply_bf16_amount0", ["--amount", "0"] + bf16),
+                        ("sd_pc_apply_bf16", ["--amount", "2"] + bf16),
+                        ("sd_pc_apply_amount0", ["--amount", "0"])):
+        outs, runs[name] = _pc_run(fa, sw, f"phase10 {name}", lambda: pc_apply_main(base + extra),
+                                   per(256, "bfloat16" in extra), steps)
+        imgs[name] = _check_png(name, outs[0], 256, orig)
+        runs[name]["max_from_drift_free"] = int(np.abs(imgs[name] - free).max())
+    checks["sd_pc_amount0_max_from_drift_free"] = runs["sd_pc_apply_amount0"]["max_from_drift_free"]
+    checks["sd_pc_bf16_amount2_max_from_amount0"] = int(
+        np.abs(imgs["sd_pc_apply_bf16"] - imgs["sd_pc_apply_bf16_amount0"]).max())
+    log(f"[phase10] PC applications: float32 amount 0 {checks['sd_pc_amount0_max_from_drift_free']}"
+        f" uint8 steps from the drift-free image (limit {IMG_AMOUNT0_MAX}); bf16 amount 2 "
+        f"{checks['sd_pc_bf16_amount2_max_from_amount0']} from bf16 amount 0 (must exceed it)")
+    if checks["sd_pc_amount0_max_from_drift_free"] > IMG_AMOUNT0_MAX:
+        raise AssertionError(f"phase10: float32 amount 0 is {checks} from the drift-free image")
+    if checks["sd_pc_bf16_amount2_max_from_amount0"] <= IMG_AMOUNT0_MAX:
+        raise AssertionError(f"phase10: the drift did not move the image: {checks}")
+
+    argv = ["--model_id", CELEBA_MODEL_ID, "--init_im", im, "--num_diffusion_steps",
+            str(IMG_STEPS), "--tstart", str(IMG_TSTART), "--seed", "0", "--wandb_disable",
+            "--results_path", os.path.join(tmp, "celebahq")]
+    out, _, run = _counted_run(fa, sw, "phase10 celebahq_sdedit", lambda: sdedit_main(argv), {},
+                               IMG_TSTART, "sdedit_seconds")
+    _check_png("celebahq_sdedit", out, 256,
+               read_png_rgb(os.path.join(os.path.dirname(out), "orig.png")))
+    runs["celebahq_sdedit"] = run
+    log(f"[phase10] celebahq_sdedit: {run}")
+    return runs, checks
+
+
+def _post(url: str, payload=None, raw: bytes = None):
+    """(status, body, wall seconds) of a POST /edit."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + "/edit", data=raw if raw is not None
+                                 else json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.perf_counter() - t0
+
+
+def _serve_request(model_id: str, clip: str, **fields) -> dict:
+    import base64
+
+    with open(clip, "rb") as f:
+        audio = base64.b64encode(f.read()).decode()
+    return {"audio_b64": audio, "source_prompt": "a sine tone",
+            "target_prompt": EDITS[model_id][2], "seed": 0, **fields}
+
+
+@contextlib.contextmanager
+def _serving(service):
+    """The service's HTTP server on 127.0.0.1 (a free port) in a thread."""
+    import threading
+
+    from audioeditingcode_tpu_torch.serve import make_server
+
+    server = make_server(service, "127.0.0.1", 0)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join()
+
+
+def _served(fa, sw, name, url, service, payload, per_forward, sr, shape):
+    """One request from launch counts of 0, held to its forwards (the
+    service's record) and launches per forward; its wav's rate and shape."""
+    import io
+
+    from scipy.io import wavfile
+
+    reset_launches(fa, sw)
+    code, body, wall = _post(url, payload)
+    counts = read_launches(fa, sw)
+    if code != 200:
+        raise AssertionError(f"{name}: HTTP {code}: {body[:300]}")
+    timing = service.timings[-1]
+    n = timing["unet_steps"]
+    want_n = SERVE_STEPS + payload.get("tstart", SERVE_STEPS // 2)
+    rate, wav = wavfile.read(io.BytesIO(body))
+    run = {"launches": counts, "forwards": n, "dtype": "bfloat16", "wall_s": wall,
+           "loop_s": timing["edit_seconds"], "steps_per_s": n / timing["edit_seconds"],
+           "wav_shape": list(wav.shape)}
+    log(f"[phase11] {name}: {run}")
+    if n != want_n or counts != expected_launches(per_forward, n):
+        raise AssertionError(f"{name}: launches {counts} for {n} forwards (expected {want_n}), "
+                             f"expected {expected_launches(per_forward, n)}")
+    if rate != sr or not (wav.shape == shape if isinstance(shape, tuple) else
+                          wav.ndim == 1 and wav.shape[0] >= shape) or not np.any(wav):
+        raise AssertionError(f"{name}: bad wav: rate {rate}, shape {wav.shape}")
+    return body, run
+
+
+def phase11_serve(fa, sw, tmp: str):
+    """The edit server (serve.py) on 127.0.0.1 at the JAX server's defaults
+    (50 steps, bfloat16), driven over HTTP: AudioLDM-s with phase 3's clip
+    (/healthz, three edits, two concurrent requests each bit-equal to the
+    same request alone, a response bit-equal to EditService.edit in
+    process, a malformed body and an out-of-range tstart answered 400);
+    then Stable Audio with a 5 s and a 10 s stereo clip, each response
+    cropped to its clip. Returns (runs, checks)."""
+    import threading
+    import urllib.request
+
+    from audioeditingcode_tpu_torch.serve import EditService, _wav_bytes
+
+    runs, checks = {}, {}
+    clip = os.path.join(tmp, "clip.wav")
+    t0 = time.perf_counter()
+    service = EditService(MODEL_ID, SERVE_STEPS, dtype="bfloat16")
+    checks["setup_s"] = {"audioldm": time.perf_counter() - t0}
+    per = {"flash_attention_tc": ATTN_CALLS_PER_FORWARD}
+    with _serving(service) as url:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if health.get("status") != "ok" or health.get("backend") != "cuda":
+            raise AssertionError(f"phase11: /healthz {health}")
+        bodies, reqs = {}, {}
+        for name, fields in SERVE_EDITS:
+            reqs[name] = _serve_request(MODEL_ID, clip, **fields)
+            bodies[name], runs[f"serve_{name}"] = _served(
+                fa, sw, f"serve_{name}", url, service, reqs[name], per, 16000, 10 * 16000)
+        # two requests at once, from two threads: each the same bytes as alone
+        pair = ["default", "cfg_tar_6"]
+        got = {}
+        reset_launches(fa, sw)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=lambda n=n: got.__setitem__(n, _post(url, reqs[n])))
+                   for n in pair]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        counts = read_launches(fa, sw)
+        n = sum(t["unet_steps"] for t in list(service.timings)[-2:])
+        checks["concurrent_bit_equal"] = all(got[k][0] == 200 and got[k][1] == bodies[k]
+                                             for k in pair)
+        runs["serve_concurrent"] = {"launches": counts, "forwards": n, "wall_s": wall,
+                                    "request_wall_s": [got[k][2] for k in pair]}
+        log(f"[phase11] two concurrent requests: {runs['serve_concurrent']}; each bit-equal to "
+            f"the same request alone: {checks['concurrent_bit_equal']}")
+        if not checks["concurrent_bit_equal"] or counts != expected_launches(per, n):
+            raise AssertionError(f"phase11: concurrent requests {checks}, launches {counts}")
+        audio, sr = service.edit(open(clip, "rb").read(), EDITS[MODEL_ID][2],
+                                 source_prompt="a sine tone", tstart=40, seed=0)
+        checks["in_process_bit_equal"] = _wav_bytes(audio, sr) == bodies["tstart_40"]
+        checks["bad_body_status"] = _post(url, raw=b"{not json")[0]
+        checks["bad_tstart_status"] = _post(url, dict(reqs["default"],
+                                                      tstart=SERVE_STEPS + 1))[0]
+        log(f"[phase11] in-process edit bit-equal to the HTTP response: "
+            f"{checks['in_process_bit_equal']}; a malformed body -> "
+            f"{checks['bad_body_status']}, tstart {SERVE_STEPS + 1} -> "
+            f"{checks['bad_tstart_status']}")
+        if not checks["in_process_bit_equal"] or (checks["bad_body_status"],
+                                                  checks["bad_tstart_status"]) != (400, 400):
+            raise AssertionError(f"phase11: {checks}")
+    del service
+    torch.cuda.empty_cache()
+
+    clip5 = os.path.join(tmp, "clip44k_5s.wav")
+    write_clip(clip5, seconds=5.0, sr=44100, channels=2)
+    t0 = time.perf_counter()
+    service = EditService(SA_MODEL_ID, SERVE_STEPS, dtype="bfloat16")
+    checks["setup_s"]["stable_audio"] = time.perf_counter() - t0
+    per = {"flash_attention_tc": SA_CALLS_PER_FORWARD, "swiglu_tc": SA_CALLS_PER_FORWARD}
+    with _serving(service) as url:
+        for name, path, secs in (("serve_sa_5s", clip5, 5),
+                                 ("serve_sa_10s", os.path.join(tmp, "clip44k.wav"), 10)):
+            _, runs[name] = _served(fa, sw, name, url, service,
+                                    _serve_request(SA_MODEL_ID, path), per, 44100,
+                                    (secs * 44100, 2))
+    del service
+    torch.cuda.empty_cache()
+    return runs, checks
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     for key, b1, b2 in (("attn_fwd_kernel", "attention kernel B1 (3xTF32)",
@@ -1866,6 +2403,10 @@ def main() -> int:
         parity["checkpoint"] = {k: v for k, v in ckpt.items() if k != "dir"}
         runs["families"] = timed("phase8", phase8_families, fa, sw, tmp, ckpt["dir"])
         runs["phase9"], p9_checks = timed("phase9", phase9_new_clis, fa, sw, tmp)
+        sd = timed("phase10a", phase10a_checkpoint, fa, sw, tmp)
+        parity["images"] = {k: v for k, v in sd.items() if k != "dir"}
+        runs["phase10"], p10_checks = timed("phase10", phase10_images, fa, sw, tmp, sd["dir"])
+        runs["phase11"], p11_checks = timed("phase11", phase11_serve, fa, sw, tmp)
     if "--profile" in sys.argv[1:]:
         for dtype in (torch.float32, torch.bfloat16):
             profile_main_path_step(MODEL_ID, STEPS, LATENT, dtype)
@@ -1952,7 +2493,15 @@ def main() -> int:
               "phase9": {**p9_checks, "runs": {
                   name: {k: r[k] for k in ("forwards", "dtype", "loop_s", "steps_per_s",
                                            "wall_s")}
-                  for name, r in runs["phase9"].items()}}}
+                  for name, r in runs["phase9"].items()}},
+              "phase10": {**p10_checks, "runs": {
+                  name: {k: r.get(k) for k in ("forwards", "dtype", "loop_s", "steps_per_s",
+                                               "wall_s", "stage_seconds", "forwards_per_s")}
+                  for name, r in runs["phase10"].items()}},
+              "phase11": {**p11_checks, "runs": {
+                  name: {k: r.get(k) for k in ("forwards", "loop_s", "steps_per_s", "wall_s",
+                                               "request_wall_s")}
+                  for name, r in runs["phase11"].items()}}}
     print(json.dumps(record), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -33,12 +33,32 @@ def set_reproducibility(seed: Optional[int]) -> int:
     return seed
 
 
-def reject_parallel(args) -> None:
-    """dp, tp and sp above 1 need the parallel port (a CLI without --sp
-    has none to check)."""
-    if args.dp != 1 or args.tp != 1 or getattr(args, "sp", None) not in (None, 0, 1):
-        raise NotImplementedError("--dp/--tp/--sp are not ported to PyTorch yet "
-                                  "(ROADMAP Queue A item 12)")
+def check_sp(sp: Optional[int], stable_audio: bool) -> None:
+    """An sp above 1 (``parallel.launch.requested_sp``) splits the DiT's
+    token axis: only Stable Audio has one (the JAX CLIs' ValueError)."""
+    if sp is not None and sp > 1 and not stable_audio:
+        raise ValueError("--sp shards the DiT latent sequence axis; it requires a "
+                         "stable-audio model (mel families scale via --dp/--tp)")
+
+
+def maybe_shard_pipeline(pipe, dp: int, tp: int, sp: Optional[int] = None):
+    """The mesh of a parallel run, with the pipeline's UNet, VAE, vocoder and
+    DiT sharded over its tp axis (JAX ``cli/run.py::maybe_shard_pipeline``);
+    None where nothing is asked for. sp is ``parallel.launch.requested_sp``:
+    None where not asked for; an explicit sp, 1 included, gives the 3-axis
+    mesh, under which the DiT's attention takes the sp route
+    (``ops.flash_attention.sp_mesh_scope``). Every rank calls it, inside the
+    run's process group (``parallel.launch.run_on_ranks``)."""
+    if dp * tp == 1 and sp is None:
+        return None
+    from ..parallel.mesh import make_mesh, shard_module_params
+
+    mesh = make_mesh(dp * tp * (sp or 1), dp=dp, tp=tp, sp=sp)
+    for attr in ("unet", "vae", "vocoder", "dit"):
+        module = getattr(pipe, attr, None)
+        if module is not None:
+            shard_module_params(module, mesh)
+    return mesh
 
 
 def timestamp_name() -> int:

@@ -37,7 +37,7 @@ import torch
 from ..editing.pcdata import load_extraction
 from ..editing.sdedit import sdedit_loop
 from ..models.registry import load_model, resolve_spec
-from ..ops.flash_attention import _MAX_KERNEL_HEAD_DIM, _MIN_SEQ_FOR_KERNEL
+from ..ops.flash_attention import KERNEL_HEAD_DIMS, _MIN_SEQ_FOR_KERNEL
 from ..utils.device import resolve_device
 from ..utils.image_io import load_image, save_image
 from .common import StageClock, dump_run_summary, init_wandb, set_reproducibility, timestamp_name
@@ -91,16 +91,17 @@ def attention_levels(model_id: str, resize: Tuple[int, int]):
 
 def check_kernel_shapes(model_id: str, resize: Tuple[int, int], device: torch.device) -> None:
     """On the card, raise before loading where the UNet would send the
-    attention kernel (S >= 1024) a head dim above the kernels' 128."""
+    attention kernel (S >= 1024) a head dim it has no instance for (none of
+    the supported models does: SD v1.4 reaches 160 at 1024 px)."""
     if device.type != "cuda":
         return
     for tokens, head_dim in attention_levels(model_id, resize):
-        if tokens >= _MIN_SEQ_FOR_KERNEL and head_dim > _MAX_KERNEL_HEAD_DIM:
+        if tokens >= _MIN_SEQ_FOR_KERNEL and head_dim not in KERNEL_HEAD_DIMS:
             raise NotImplementedError(
                 f"--resize {resize[0]} {resize[1]}: {model_id} would run self-attention "
                 f"over {tokens} tokens at head dim {head_dim}, and the port's attention "
-                f"kernels stop at head dim {_MAX_KERNEL_HEAD_DIM} (ROADMAP Queue C open "
-                f"fault, Queue B step 5: B1 at D = 160); use a smaller --resize or "
+                f"kernels take head dims {KERNEL_HEAD_DIMS[0]}-128 in steps of 8 and "
+                f"{KERNEL_HEAD_DIMS[-1]} (ROADMAP Queue C); use a smaller --resize or "
                 f"--device cpu")
 
 

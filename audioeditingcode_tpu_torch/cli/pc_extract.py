@@ -12,6 +12,13 @@ the ``--drift_start`` / ``--drift_end`` window, power iteration for the top
 ``--n_evs`` posterior PCs, the ev batch fused into the denoiser batch.
 Checkpoints land after the trajectory and after every ``--ts_chunk`` window
 steps. Each stage's seconds and denoiser forwards go into run_args.json.
+
+``--dp`` splits the power iteration over that many ranks, as the JAX CLI
+shards it: the ev batch of each window step at ``--ts_chunk 1``, the window
+steps of each chunk above it (every rank makes each step's draw, in window
+order; the results are gathered in step order). ``--tp`` shards the
+models' output channels (``parallel/launch.py`` starts the ranks; rank 0
+writes the checkpoint and the results).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 from ..editing.cfg import build_cfg_tensors
 from ..editing.invert import inversion_forward_process
 from ..editing.pc_drift import (
+    EigResult,
     PCStreamChoice,
     forward_directional,
     get_eigenvectors,
@@ -35,6 +43,8 @@ from ..editing.pc_drift import (
 from ..editing.pcdata import load_extraction, save_extraction, step_timestep_key
 from ..editing.solvers import as_solver
 from ..models.registry import load_model, resolve_spec
+from ..parallel.launch import is_writer, run_on_ranks
+from ..parallel.mesh import batch_sharding
 from ..models.text_encoders import repeat_cond
 from ..utils.audio_io import load_audio, write_wav
 from ..utils.device import resolve_device
@@ -44,8 +54,8 @@ from .common import (
     init_wandb,
     log_edit_artifacts,
     log_pc_corrs,
+    maybe_shard_pipeline,
     plot_corrs,
-    reject_parallel,
     save_spectrogram_png,
     set_reproducibility,
     timestamp_name,
@@ -102,16 +112,17 @@ def parse_args(argv=None):
     return args
 
 
-def _reject_unported(args) -> None:
-    resolve_spec(args.model_id)  # raises for model families not ported yet
-    reject_parallel(args)
-
-
 def main(argv=None):
     args = parse_args(argv)
     if not os.path.exists(args.init_aud):
         raise FileNotFoundError(f"--init_aud: no such file: {args.init_aud}")
-    _reject_unported(args)
+    resolve_spec(args.model_id)  # raises for model families not ported yet
+    return run_on_ranks(_run, args)
+
+
+def _run(args):
+    """The extraction on this rank (rank 0 writes the checkpoint and the
+    results and returns the checkpoint's path, the others None)."""
     device = resolve_device(args.device, args.device_num)
     seed = set_reproducibility(args.seed)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -139,6 +150,7 @@ def main(argv=None):
         args.dtype = "float32"
     pipe = load_model(args.model_id, args.num_diffusion_steps, device=device,
                       dtype=torch.float32, seed=seed, weights_dir=args.weights_dir)
+    mesh = maybe_shard_pipeline(pipe, args.dp, args.tp)
     stable_audio = resolve_spec(args.model_id).family == "stable-audio"
     S = args.num_diffusion_steps
     if args.drift_start is None:
@@ -165,11 +177,20 @@ def main(argv=None):
         "pmt_" + "__".join(x.replace(" ", "_") for x in args.source_prompt)
         + "__neg__" + "__".join(x.replace(" ", "_") for x in args.target_neg_prompt),
     )
-    os.makedirs(save_path, exist_ok=True)
+    writer = is_writer()
+    if writer:
+        os.makedirs(save_path, exist_ok=True)
 
     clock = StageClock(device)
     ckpt_path, xt = run_pc_extraction(args, pipe, w0, gen, cfg_tar, save_path, image_name,
-                                      seed, clock=clock)
+                                      seed, clock=clock, mesh=mesh)
+    # the final decode of the drift-free trajectory's end (every rank: the
+    # decoders may be tp-sharded)
+    x_dec = pipe.vae_decode(xt)
+    audio = pipe.decode_to_mel(x_dec).float().cpu().numpy()
+    orig_audio = pipe.decode_to_mel(x0).float().cpu().numpy()
+    if not writer:
+        return None
 
     loaded = load_extraction(ckpt_path[: -len(".npz")])
     plot_corrs(loaded["corrs"], loaded["in_corrs"], args.n_evs, save_path=save_path)
@@ -177,10 +198,6 @@ def main(argv=None):
     log_pc_corrs(wandb, loaded["corrs"], loaded["in_corrs"],
                  [eigdata[t]["eigval"] for t in sorted(eigdata)], args.n_evs)
 
-    # final decode of the drift-free trajectory's end
-    x_dec = pipe.vae_decode(xt)
-    audio = pipe.decode_to_mel(x_dec).float().cpu().numpy()
-    orig_audio = pipe.decode_to_mel(x0).float().cpu().numpy()
     if audio.ndim == 3:  # Stable Audio waveform (B, C, T)
         audio = audio[0]
     if orig_audio.ndim == 3:
@@ -198,6 +215,7 @@ def main(argv=None):
         "seed": seed, "duration": duration, "device": str(device), **clock.record(),
         "window_steps": window,
         "power_iteration_seconds_per_window_step": power_s / window if window else None,
+        "mesh": None if mesh is None else mesh.shape,
     })
     log_edit_artifacts(
         wandb, image_name, sr,
@@ -237,7 +255,7 @@ def run_pc_extraction(args, pipe, w0: torch.Tensor,
                       image_name: str, seed: int,
                       inv_noise: Union[torch.Tensor, torch.Generator, None] = None,
                       v0s: Optional[Sequence[torch.Tensor]] = None,
-                      clock: Optional[StageClock] = None):
+                      clock: Optional[StageClock] = None, mesh=None):
     """Edit-friendly inversion, the drift-free trajectory, power iteration at
     each window step, incremental npz checkpoints. Returns (ckpt_path, the
     trajectory's final latent).
@@ -245,7 +263,9 @@ def run_pc_extraction(args, pipe, w0: torch.Tensor,
     The draws: ``inv_noise`` is the inversion's (S, *w0.shape) draw (default:
     drawn from ``gen``), ``v0s`` one (n_evs, ...) standard-normal draw per
     window step, in window order (default: each drawn from ``gen`` in
-    turn)."""
+    turn). On a mesh with a dp axis the power iteration splits over it: the
+    ev batch at ``--ts_chunk`` 1, each chunk's window steps above it; only
+    the writing rank writes the checkpoint."""
     S = args.num_diffusion_steps
     drift_start_it = S - args.drift_start
     drift_end_it = S - args.drift_end
@@ -282,7 +302,14 @@ def run_pc_extraction(args, pipe, w0: torch.Tensor,
     def stacked(xs):
         return np.asarray(xs) if xs else np.zeros((0,))
 
+    dp = batch_sharding(mesh)
+    ts_chunk = max(1, int(getattr(args, "ts_chunk", 1)))
+    ev_dp = dp if ts_chunk == 1 else None  # JAX dp_on_ev
+    step_dp = dp if ts_chunk > 1 else None
+
     def save():
+        if not is_writer():
+            return
         save_extraction(
             ckpt_path, vars(args) | {"seed": seed, "cfg_tar_scalar": cfg_tar},
             eig_ts, eig_its, stacked(eig_vecs), stacked(eig_vals), stacked(interm_vecs),
@@ -309,7 +336,8 @@ def run_pc_extraction(args, pipe, w0: torch.Tensor,
     window = [] if args.dry else [it for it in range(S) if drift_start_it <= it < drift_end_it]
     if v0s is not None and len(v0s) != len(window):
         raise ValueError(f"{len(v0s)} v0 draws for {len(window)} window steps")
-    uncond_ev, text_ev = repeat_cond(uncond, n_ev), repeat_cond(text, n_ev)
+    ev_rows = n_ev if ev_dp is None else ev_dp.block(n_ev)
+    uncond_ev, text_ev = repeat_cond(uncond, ev_rows), repeat_cond(text, ev_rows)
     eps_pair_ev = clock.counted("power_iteration", pipe.make_eps_pair(uncond_ev, text_ev))
 
     def widen(x):
@@ -337,17 +365,35 @@ def run_pc_extraction(args, pipe, w0: torch.Tensor,
         in_corrs.append(res.in_corrs.float().cpu().numpy())
         in_norms.append(res.in_norms.float().cpu().numpy())
 
-    ts_chunk = max(1, int(getattr(args, "ts_chunk", 1)))
+    def eig(it, v0):
+        # the incoming solver state stays batch 1: it broadcasts
+        return get_eigenvectors(
+            solver, eps_pair_ev, widen(xts[it]), widen(latents[it + 1]), mask, it,
+            widen(x0_preds[it]), v0=v0, generator=gen, mode=PCStreamChoice.BOTH,
+            const=args.const, cfg_tar=cfg_tar, iters=args.iters, eta=args.eta, n_ev=n_ev,
+            state=states[it], dp=ev_dp)
+
     for start in range(0, len(window), ts_chunk):
-        for j, it in enumerate(window[start: start + ts_chunk]):
+        chunk = window[start: start + ts_chunk]
+        if step_dp is None:
+            for j, it in enumerate(chunk):
+                with clock.stage("power_iteration"):
+                    record(it, eig(it, None if v0s is None else v0s[start + j]))
+        else:
+            # every rank draws each step's v0 in window order, runs its block
+            # of the chunk's steps, and the results are gathered in step order
+            draws = [v0s[start + j] if v0s is not None else
+                     torch.randn(widen(xts[it]).shape, generator=gen, device=device,
+                                 dtype=xts[it].dtype) for j, it in enumerate(chunk)]
             with clock.stage("power_iteration"):
-                # the incoming solver state stays batch 1: it broadcasts
-                res = get_eigenvectors(
-                    solver, eps_pair_ev, widen(xts[it]), widen(latents[it + 1]), mask, it,
-                    widen(x0_preds[it]), v0=None if v0s is None else v0s[start + j],
-                    generator=gen, mode=PCStreamChoice.BOTH, const=args.const,
-                    cfg_tar=cfg_tar, iters=args.iters, eta=args.eta, n_ev=n_ev, state=states[it])
-                record(it, res)
+                mine = step_dp.shard(torch.arange(len(chunk))).tolist()
+                local = [eig(chunk[j], draws[j]) for j in mine]
+                fields = {f: step_dp.gather(torch.stack([getattr(r, f) for r in local]),
+                                            len(chunk))
+                          for f in EigResult._fields if f != "snapshot_iters"}
+            for j, it in enumerate(chunk):
+                record(it, EigResult(**{f: v[j] for f, v in fields.items()},
+                                     snapshot_iters=snaps))
         save()
     save()
     return ckpt_path, xts[-1]

@@ -6,6 +6,12 @@ results layout. Run it as ``python -m audioeditingcode_tpu_torch.cli.run``.
 It runs on the CUDA card ``--device_num`` unless ``--device cpu`` is given;
 a missing card is an error. Flags this port does not cover yet raise an
 error that names the ROADMAP item that adds them.
+
+``--dp``, ``--tp`` and ``--sp`` run the edit on that many ranks
+(``parallel/launch.py``; rank r on card ``--device_num`` + r): tp shards
+the models' output channels, sp (Stable Audio) splits the DiT's token
+axis, and dp ranks run the same replicated edit of the one clip, as the
+JAX CLI's GSPMD program does. Rank 0 writes the results.
 """
 
 from __future__ import annotations
@@ -23,13 +29,16 @@ from ..editing.cfg import build_cfg_tensors
 from ..editing.ddim import ddim_generation_loop, ddim_inversion_loop
 from ..editing.invert import inversion_forward_process, inversion_reverse_process
 from ..models.registry import load_model, resolve_spec
+from ..ops.flash_attention import sp_mesh_scope
+from ..parallel.launch import is_writer, requested_sp, run_on_ranks
 from ..utils.audio_io import load_audio, write_wav
 from ..utils.device import resolve_device
 from .common import (
+    check_sp,
     dump_run_summary,
     edit_image_name,
     edit_save_path,
-    reject_parallel,
+    maybe_shard_pipeline,
     save_spectrogram_png,
     set_reproducibility,
 )
@@ -87,7 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "reconstruction SNR ('ours' mode: >= 40 dB)")
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel ways")
     p.add_argument("--dp", type=int, default=1, help="data-parallel ways")
-    p.add_argument("--sp", type=int, default=None, help="sequence-parallel ways")
+    p.add_argument("--sp", type=int, default=None,
+                   help="sequence-parallel ways (Stable Audio only): split the DiT's "
+                        "token axis; an explicit --sp 1 runs the sp route on one device")
     return p
 
 
@@ -102,8 +113,8 @@ def parse_args(argv=None):
 
 
 def _reject_unported(args) -> None:
-    resolve_spec(args.model_id)  # raises for model families not ported yet
-    reject_parallel(args)
+    spec = resolve_spec(args.model_id)  # raises for model families not ported yet
+    check_sp(requested_sp(args), spec.family == "stable-audio")
     if args.profile_dir is not None:
         raise NotImplementedError("--profile_dir is not ported to PyTorch yet "
                                   "(ROADMAP Queue A item 14)")
@@ -134,6 +145,12 @@ def main(argv=None):
     if not os.path.exists(args.init_aud):
         raise FileNotFoundError(f"--init_aud: no such file: {args.init_aud}")
     _reject_unported(args)
+    return run_on_ranks(_run, args)
+
+
+def _run(args):
+    """The edit on this rank (every rank of a parallel run runs it; rank 0
+    writes the results and returns the wav's path, the others None)."""
     device = resolve_device(args.device, args.device_num)
     seed = set_reproducibility(args.seed)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -155,6 +172,9 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     pipe = load_model(args.model_id, args.num_diffusion_steps, device=device,
                       dtype=dtype, seed=seed, weights_dir=args.weights_dir)
+    # an explicit --sp 1 on a mel family is a no-op: only the DiT has an sp path
+    mesh = maybe_shard_pipeline(pipe, args.dp, args.tp,
+                                requested_sp(args) if stable_audio else None)
 
     x0_np, sr, duration = load_audio(args.init_aud, pipe.mel_config, stft=not stable_audio,
                                      model_sr=pipe.get_sr(), device=device)
@@ -219,7 +239,8 @@ def main(argv=None):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    w_edit, recon_ref = edit()
+    with sp_mesh_scope(mesh):
+        w_edit, recon_ref = edit()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     edit_s = time.perf_counter() - t0
@@ -247,6 +268,8 @@ def main(argv=None):
         verdict = (("PASS" if selfcheck_snr >= 40.0 else "WEAK") if args.mode == "ours"
                    else "ddim-approx")
         print(f"[selfcheck] latent reconstruction SNR: {selfcheck_snr:.1f} dB ({verdict})")
+    if not is_writer():
+        return None
 
     save_path = edit_save_path(args.results_path, args.model_id, args.init_aud,
                                args.source_prompt, args.target_prompt,
@@ -267,6 +290,7 @@ def main(argv=None):
     dump_run_summary(save_path, args, {
         "seed": seed, "duration": duration, "selfcheck_snr_db": selfcheck_snr,
         "device": str(device), "edit_seconds": edit_s, "unet_steps": n_steps,
+        "mesh": None if mesh is None else mesh.shape,
     })
     print(f"[+] saved {os.path.join(save_path, name + '.wav')}")
     return os.path.join(save_path, name + ".wav")

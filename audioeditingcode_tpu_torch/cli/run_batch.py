@@ -20,6 +20,11 @@ noise is its own slice of one draw from a ``torch.Generator`` seeded with
 ``--seed``. Each clip's ``run_args.json`` records the batch's edit seconds
 (``edit_seconds``, synchronised host clock), its denoiser forwards
 (``unet_steps``) and the batch size (``n_clips``).
+
+``--dp`` splits the clips over that many ranks (each makes every draw and
+edits its block, with its clips' duration rows), ``--tp`` shards the
+models' output channels, ``--sp`` (Stable Audio) splits the DiT's token
+axis (``parallel/launch.py`` starts the ranks; rank 0 writes the results).
 """
 
 from __future__ import annotations
@@ -33,13 +38,15 @@ import numpy as np
 import torch
 
 from ..models.registry import load_model, resolve_spec
+from ..parallel.launch import is_writer, requested_sp, run_on_ranks
 from ..utils.audio_io import load_audio, write_wav
 from ..utils.device import resolve_device
 from .common import (
+    check_sp,
     dump_run_summary,
     edit_image_name,
     edit_save_path,
-    reject_parallel,
+    maybe_shard_pipeline,
     save_spectrogram_png,
     set_reproducibility,
 )
@@ -127,9 +134,17 @@ def main(argv=None):
     args.numerical_fix = True
 
     files = _collect_files(args.init_aud)
-    n_clip = len(files)
     spec = resolve_spec(args.model_id)  # raises for model families not ported yet
-    reject_parallel(args)
+    check_sp(requested_sp(args), spec.family == "stable-audio")
+    return run_on_ranks(_run, args)
+
+
+def _run(args):
+    """The batch edit on this rank (rank 0 writes the results and returns
+    their paths, the others None)."""
+    files = _collect_files(args.init_aud)
+    n_clip = len(files)
+    spec = resolve_spec(args.model_id)
     stable_audio = spec.family == "stable-audio"
     device = resolve_device(args.device, args.device_num)
     seed = set_reproducibility(args.seed)
@@ -151,6 +166,7 @@ def main(argv=None):
                              + ", ".join(f"{f}: {c.shape[0]}ch" for f, c in zip(files, clips)))
         pipe = load_model(args.model_id, args.num_diffusion_steps, device=device, dtype=dtype,
                           seed=seed, weights_dir=args.weights_dir)
+        mesh = maybe_shard_pipeline(pipe, args.dp, args.tp, requested_sp(args))
         sr = pipe.sample_rate
         max_s = pipe.audio_vae_length / sr
         # duration conditioning per clip, as each clip's cli/run.py edit has
@@ -175,12 +191,13 @@ def main(argv=None):
             x0[i, :, : m.shape[2]] = m[0]
         pipe = load_model(args.model_id, args.num_diffusion_steps, device=device, dtype=dtype,
                           seed=seed, weights_dir=args.weights_dir)
+        mesh = maybe_shard_pipeline(pipe, args.dp, args.tp)
         sr = pipe.get_sr()
         x0 = torch.as_tensor(x0, device=device)
         w0 = pipe.vae_encode(x0)  # (N, C, T/4, M/4)
 
     noise = _inversion_noise(gen, args.num_diffusion_steps, w0)
-    w_edit, edit_s, forwards = edit_batch(pipe, w0, noise, args, tstart)
+    w_edit, edit_s, forwards = edit_batch(pipe, w0, noise, args, tstart, mesh)
     x_dec = pipe.vae_decode(w_edit)
     audio = pipe.decode_to_mel(x_dec).float().cpu().numpy()
     x_dec = x_dec.float().cpu().numpy()
@@ -188,6 +205,8 @@ def main(argv=None):
         raise FloatingPointError("the edit produced non-finite audio")
     # orig.wav vocodes the original input, as cli/run.py's does
     orig_audio = pipe.decode_to_mel(x0).float().cpu().numpy()
+    if not is_writer():
+        return None
 
     outputs = []
     for i, f in enumerate(files):
@@ -201,7 +220,8 @@ def main(argv=None):
             xd = x_dec[i][None, :, : frames[i]]  # (1, 1, T_i, M) for the PNG
         outputs.append(_save_clip(args, f, a, xd, oa, sr, stable_audio, skip, {
             "seed": seed, "duration": durations[i], "device": str(device),
-            "edit_seconds": edit_s, "unet_steps": forwards, "n_clips": n_clip}))
+            "edit_seconds": edit_s, "unet_steps": forwards, "n_clips": n_clip,
+            "mesh": None if mesh is None else mesh.shape}))
     print(f"[+] batch-edited {n_clip} clips -> {args.results_path}")
     return outputs
 

@@ -17,6 +17,11 @@ fixed VAE length inside ``vae_encode``). Each window's inversion noise is
 its own slice of one draw from a ``torch.Generator`` seeded with
 ``--seed``. ``run_args.json`` records the edit's seconds (``edit_seconds``,
 synchronised host clock) and its denoiser forwards (``unet_steps``).
+
+``--dp`` splits the windows over that many ranks (each makes every draw and
+edits its block; ``editing/batched.py``), ``--tp`` shards the models'
+output channels, ``--sp`` (Stable Audio) splits the DiT's token axis
+(``parallel/launch.py`` starts the ranks; rank 0 writes the result).
 """
 
 from __future__ import annotations
@@ -32,12 +37,16 @@ from ..editing.batched import edit_windows, make_window_denoiser
 from ..editing.cfg import build_cfg_tensors
 from ..editing.longform import overlap_add, split_windows, window_starts
 from ..models.registry import load_model, resolve_spec
+from ..ops.flash_attention import sp_mesh_scope
+from ..parallel.launch import is_writer, requested_sp, run_on_ranks
+from ..parallel.mesh import batch_sharding
 from ..utils.audio_io import load_audio, write_wav
 from ..utils.device import resolve_device
 from .common import (
     StageClock,
+    check_sp,
     dump_run_summary,
-    reject_parallel,
+    maybe_shard_pipeline,
     set_reproducibility,
     timestamp_name,
 )
@@ -75,10 +84,16 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def edit_batch(pipe, w0: torch.Tensor, noise: torch.Tensor, args, tstart: int) -> tuple:
+def edit_batch(pipe, w0: torch.Tensor, noise: torch.Tensor, args, tstart: int,
+               mesh=None) -> tuple:
     """The text edit of the N rows of ``w0`` (windows or clips) under one
     prompt pair, all rows in each denoiser forward; returns (the (N, ...)
-    edited latents, the edit's seconds, its denoiser forwards)."""
+    edited latents, the edit's seconds, its denoiser forwards). On a mesh
+    the rows split over its dp axis (per-clip duration rows too) and the
+    DiT's tokens over its sp axis."""
+    dp = batch_sharding(mesh)
+    if dp is not None and hasattr(pipe, "shard_clip_rows"):
+        pipe.shard_clip_rows(dp.shard)
     shape = (1,) + tuple(w0.shape[1:])
     device = w0.device
     uncond = pipe.encode_text([args.target_neg_prompt], negative=True)
@@ -93,11 +108,12 @@ def edit_batch(pipe, w0: torch.Tensor, noise: torch.Tensor, args, tstart: int) -
         pipe.make_eps_pair(empty, src), cfg_src_t if src is not None else None))
     rev_den = clock.counted("edit", make_window_denoiser(pipe.make_eps_pair(uncond, tgt),
                                                          cfg_tar_t))
-    with clock.stage("edit"):
+    with clock.stage("edit"), sp_mesh_scope(mesh):
         w_edit = edit_windows(pipe.sched, fwd_den, rev_den, w0, noise, tstart,
-                              eta=args.eta, numerical_fix=args.numerical_fix)
+                              eta=args.eta, numerical_fix=args.numerical_fix, dp=dp)
     seconds, forwards = clock.seconds["edit"], clock.forwards["edit"]
-    print(f"[edit] {seconds:.3f} s for {forwards} denoiser forwards of {w0.shape[0]} "
+    rows = w0.shape[0] if dp is None else dp.block(w0.shape[0])
+    print(f"[edit] {seconds:.3f} s for {forwards} denoiser forwards of {rows} "
           f"rows each on {device}")
     return w_edit, seconds, forwards
 
@@ -110,6 +126,8 @@ def _inversion_noise(gen: torch.Generator, steps: int, w0: torch.Tensor) -> torc
 def _save(args, stitched: np.ndarray, sr: int, tstart: int, record: dict) -> str:
     if not np.all(np.isfinite(stitched)):
         raise FloatingPointError("the edit produced non-finite audio")
+    if not is_writer():
+        return None
     save_path = os.path.join(args.results_path, args.model_id.split("/")[-1],
                              os.path.basename(args.init_aud).split(".")[0])
     os.makedirs(save_path, exist_ok=True)
@@ -123,7 +141,7 @@ def _save(args, stitched: np.ndarray, sr: int, tstart: int, record: dict) -> str
     return out_path
 
 
-def _main_stable_audio(args, pipe, gen, seed: int, device) -> str:
+def _main_stable_audio(args, pipe, gen, seed: int, device, mesh) -> str:
     """Waveform-domain overlapping windows, each edited by the same
     solver-history-threaded inversion as ``cli/run.py``'s Stable Audio
     path, decoded in one batch and stitched with a linear crossfade."""
@@ -148,7 +166,7 @@ def _main_stable_audio(args, pipe, gen, seed: int, device) -> str:
     w0 = pipe.vae_encode(torch.as_tensor(wins, device=device), gen)  # (N, 64, L)
     tstart = min(args.tstart, args.num_diffusion_steps)
     noise = _inversion_noise(gen, args.num_diffusion_steps, w0)
-    w_edit, edit_s, forwards = edit_batch(pipe, w0, noise, args, tstart)
+    w_edit, edit_s, forwards = edit_batch(pipe, w0, noise, args, tstart, mesh)
 
     audio = pipe.vae_decode(w_edit).float().cpu().numpy()  # (N, 2, ~win)
     if audio.shape[-1] != win:
@@ -162,7 +180,8 @@ def _main_stable_audio(args, pipe, gen, seed: int, device) -> str:
     return _save(args, stitched, sr, tstart, {
         "seed": seed, "duration": duration, "n_windows": n_win,
         "win_samples": win, "hop_samples": hop, "device": str(device),
-        "edit_seconds": edit_s, "unet_steps": forwards})
+        "edit_seconds": edit_s, "unet_steps": forwards,
+        "mesh": None if mesh is None else mesh.shape})
 
 
 def main(argv=None):
@@ -172,7 +191,14 @@ def main(argv=None):
     if not os.path.exists(args.init_aud):
         raise FileNotFoundError(f"--init_aud: no such file: {args.init_aud}")
     spec = resolve_spec(args.model_id)  # raises for model families not ported yet
-    reject_parallel(args)
+    check_sp(requested_sp(args), spec.family == "stable-audio")
+    return run_on_ranks(_run, args)
+
+
+def _run(args):
+    """The long-form edit on this rank (rank 0 writes the result and returns
+    its path, the others None)."""
+    spec = resolve_spec(args.model_id)
     device = resolve_device(args.device, args.device_num)
     seed = set_reproducibility(args.seed)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -183,7 +209,9 @@ def main(argv=None):
     pipe = load_model(args.model_id, args.num_diffusion_steps, device=device, dtype=dtype,
                       seed=seed, weights_dir=args.weights_dir)
     if spec.family == "stable-audio":
-        return _main_stable_audio(args, pipe, gen, seed, device)
+        mesh = maybe_shard_pipeline(pipe, args.dp, args.tp, requested_sp(args))
+        return _main_stable_audio(args, pipe, gen, seed, device, mesh)
+    mesh = maybe_shard_pipeline(pipe, args.dp, args.tp)
 
     # window geometry in mel frames, multiples of the VAE pad (4)
     win = max(int(round(args.chunk_seconds * MEL_FPS / 4)) * 4, 8)
@@ -197,7 +225,7 @@ def main(argv=None):
     w0 = pipe.vae_encode(torch.as_tensor(wins, device=device))  # (N, C, win/4, 16)
     tstart = min(args.tstart, args.num_diffusion_steps)
     noise = _inversion_noise(gen, args.num_diffusion_steps, w0)
-    w_edit, edit_s, forwards = edit_batch(pipe, w0, noise, args, tstart)
+    w_edit, edit_s, forwards = edit_batch(pipe, w0, noise, args, tstart, mesh)
 
     audio = pipe.decode_to_mel(pipe.vae_decode(w_edit)).float().cpu().numpy()
     if audio.ndim == 2:  # (N, Tw) -> (N, 1, Tw)
@@ -210,7 +238,8 @@ def main(argv=None):
     return _save(args, stitched, sr, tstart, {
         "seed": seed, "duration": duration, "n_windows": n_win,
         "win_frames": win, "hop_frames": hop, "device": str(device),
-        "edit_seconds": edit_s, "unet_steps": forwards})
+        "edit_seconds": edit_s, "unet_steps": forwards,
+        "mesh": None if mesh is None else mesh.shape})
 
 
 if __name__ == "__main__":

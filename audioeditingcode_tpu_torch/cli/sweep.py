@@ -19,6 +19,10 @@ cfg_tar with the same seed. Results land under ``edit_save_path`` as
 ``edit_image_name("ours", ...)``; ``run_args.json`` records the
 inversion's and each reverse pass's seconds (synchronised host clock) and
 denoiser forwards.
+
+``--tp`` shards the models' output channels over that many ranks; ``--dp``
+ranks run the same replicated sweep, as the JAX CLI's program does
+(``parallel/launch.py`` starts the ranks; rank 0 writes the results).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from ..editing.cfg import build_cfg_tensors
 from ..editing.invert import inversion_forward_process, inversion_reverse_process
 from ..models.registry import load_model, resolve_spec
+from ..parallel.launch import is_writer, run_on_ranks
 from ..utils.audio_io import load_audio, write_wav
 from ..utils.device import resolve_device
 from .common import (
@@ -40,7 +45,7 @@ from .common import (
     dump_run_summary,
     edit_image_name,
     edit_save_path,
-    reject_parallel,
+    maybe_shard_pipeline,
     save_spectrogram_png,
     set_reproducibility,
 )
@@ -79,8 +84,15 @@ def main(argv=None):
     args.numerical_fix = True
     if not os.path.exists(args.init_aud):
         raise FileNotFoundError(f"--init_aud: no such file: {args.init_aud}")
-    spec = resolve_spec(args.model_id)  # raises for model families not ported yet
-    reject_parallel(args)
+    resolve_spec(args.model_id)  # raises for model families not ported yet
+    return run_on_ranks(_run, args)
+
+
+def _run(args):
+    """The sweep on this rank (rank 0 writes the results and returns their
+    paths, the others None)."""
+    spec = resolve_spec(args.model_id)
+    writer = is_writer()
     stable_audio = spec.family == "stable-audio"
     device = resolve_device(args.device, args.device_num)
     seed = set_reproducibility(args.seed)
@@ -92,6 +104,7 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     pipe = load_model(args.model_id, S, device=device, dtype=dtype, seed=seed,
                       weights_dir=args.weights_dir)
+    maybe_shard_pipeline(pipe, args.dp, args.tp)
     x0_np, sr, duration = load_audio(args.init_aud, pipe.mel_config, stft=not stable_audio,
                                      model_sr=pipe.get_sr(), device=device)
     x0 = torch.as_tensor(x0_np, device=device)
@@ -120,9 +133,10 @@ def main(argv=None):
     save_path = edit_save_path(args.results_path, args.model_id, args.init_aud,
                                [args.source_prompt], [args.target_prompt],
                                [args.target_neg_prompt])
-    os.makedirs(save_path, exist_ok=True)
     orig = pipe.decode_to_mel(x0).float().cpu().numpy()
-    write_wav(os.path.join(save_path, "orig.wav"), orig[0] if orig.ndim == 3 else orig, sr)
+    if writer:
+        os.makedirs(save_path, exist_ok=True)
+        write_wav(os.path.join(save_path, "orig.wav"), orig[0] if orig.ndim == 3 else orig, sr)
 
     outs = []
     for tstart in args.tstarts:
@@ -141,12 +155,16 @@ def main(argv=None):
                 raise FloatingPointError("the edit produced non-finite audio")
             name = edit_image_name("ours", [args.cfg_src], [cfg_tar], S - t, S)
             out = os.path.join(save_path, name + ".wav")
+            if not writer:
+                continue
             write_wav(out, audio[0] if audio.ndim == 3 else audio, sr)
             if not stable_audio:
                 save_spectrogram_png(os.path.join(save_path, name + ".png"),
                                      x_dec.float().cpu().numpy())
             outs.append(out)
             print(f"[+] tstart={t} cfg_tar={cfg_tar}: {out}")
+    if not writer:
+        return None
     dump_run_summary(save_path, args, {
         "seed": seed, "n_edits": len(outs), "device": str(device),
         "edit_seconds": sum(clock.seconds.values()),

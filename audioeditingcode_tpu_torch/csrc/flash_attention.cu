@@ -11,7 +11,8 @@
 //   - grouped-query attention: q head h reads kv head h / (H / H_kv).
 // Inputs are (B, S, H, D) tensors addressed through their strides (the
 // last dim must be contiguous), so no transpose copy is made. D a multiple
-// of 8 up to 128.
+// of 8 up to 128, or 160 (Stable Diffusion's coarsest levels; no rotary
+// variant there).
 //
 // Products in 3xTF32. Both products, S = (q * scale) K^T and O += P V, run
 // as warp-level mma.sync m16n8k8 TF32 tiles with f32 accumulators. Each
@@ -30,7 +31,8 @@
 // Blocking. The TPU kernel keeps the whole K/V of one head in VMEM and does
 // a one-pass softmax; a Hopper block has at most 227 KB of shared memory,
 // so this kernel streams K/V tiles of BN = 64 keys through shared memory
-// and keeps an online softmax. A block of 4 warps takes BM = 64 query rows
+// (32 above D = 128: q's two split halves and two stages of 64-key tiles
+// would take 244 KB at D = 160) and keeps an online softmax. A block of 4 warps takes BM = 64 query rows
 // of one (batch, head); each warp owns 16 rows, and each thread rows g and
 // g + 8 of them (g = lane / 4) at the columns 2t, 2t + 1 of every 8-wide
 // accumulator tile (t = lane % 4). The four lanes of a row reduce its max
@@ -103,10 +105,10 @@ using aec_tc::split;
 constexpr int WARPS = 4;          // each owns 16 query rows
 constexpr int BM = 16 * WARPS;    // query rows per block
 constexpr int THREADS = 32 * WARPS;
-constexpr int BN = 64;            // keys per K/V tile
 
 template <int D>
 struct Cfg {
+  static constexpr int BN = D > 128 ? 32 : 64;  // keys per K/V tile
   static constexpr int LD = D + 4;         // floats of a shared K/V row (padded)
   static constexpr int KC = D / 8;         // k8 steps over the features
   static constexpr int Q = BM * D;         // floats of one split half of q
@@ -194,6 +196,7 @@ template <int D>
 __device__ __forceinline__ void load_tile(float* tile, const float* src, int64_t stride,
                                           int n0, int kv_len, bool vec) {
   constexpr int LD = Cfg<D>::LD;
+  constexpr int BN = Cfg<D>::BN;
   if (vec) {
     constexpr int CHUNKS = D / 4;
 #pragma unroll
@@ -273,6 +276,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 int Sq, int kv_len, float scale, Strides qs, Strides ks, Strides vs,
                 Strides os, Rotary rt, bool vec) {
   using C = Cfg<D>;
+  constexpr int BN = C::BN;
   extern __shared__ float4 smem[];
   float4* q_hi = smem;              // [WARPS][KC][32 lanes]
   float4* q_lo = smem + C::Q / 4;
@@ -476,11 +480,16 @@ int launch(const float* q, const float* k, const float* v, float* o, int B, int 
   using C = Cfg<D>;
   const dim3 grid((Sq + BM - 1) / BM, B * H);
   if (rt.rot > 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd_kernel<D, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_fwd_kernel<D, true><<<grid, THREADS, C::SMEM, stream>>>(
-        q, k, v, o, H, rep, Sq, kv_len, scale, qs, ks, vs, os, rt, vec);
+    // the rotary variant has instances up to D = 128 (the DiT's is 64)
+    if constexpr (D > 128) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      const cudaError_t err = cudaFuncSetAttribute(
+          attn_fwd_kernel<D, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      attn_fwd_kernel<D, true><<<grid, THREADS, C::SMEM, stream>>>(
+          q, k, v, o, H, rep, Sq, kv_len, scale, qs, ks, vs, os, rt, vec);
+    }
   } else {
     const cudaError_t err = cudaFuncSetAttribute(
         attn_fwd_kernel<D, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
@@ -528,6 +537,7 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H, int 
     AEC_CASE(112)
     AEC_CASE(120)
     AEC_CASE(128)
+    AEC_CASE(160)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -14,7 +14,8 @@
 //   - grouped-query attention: q head h reads kv head h / (H / H_kv).
 // Inputs are (B, S, H, D) bf16 tensors addressed through their strides: the
 // last dim contiguous, the base 16-byte aligned and the other strides
-// multiples of 8 elements (what TMA takes). D a multiple of 8 up to 128.
+// multiples of 8 elements (what TMA takes). D a multiple of 8 up to 128,
+// or 160 (Stable Diffusion's coarsest levels; no rotary variant there).
 //
 // Design. A block of 384 threads takes BM = 128 query rows of one (batch,
 // head): warpgroups 0 and 1 each own 64 rows, and warpgroup 2 is the
@@ -31,12 +32,17 @@
 // MN-major (the transpose flag). The two consumer warpgroups are not in
 // lock step, so one's softmax overlaps the other's wgmma.
 //
-// Head dims are padded to a swizzle width, DP in {16, 32, 64, 128}: a K/V
-// row of DP bf16 is one 32-, 64- or 128-byte swizzle atom (two 128-byte
-// atoms at DP = 128), TMA's out-of-bounds zero fill pads D up to DP and
+// Head dims are padded to a swizzle width, DP in {16, 32, 64, 128, 192}: a
+// K/V row of DP bf16 is one 32-, 64- or 128-byte swizzle atom (two 128-byte
+// atoms at DP = 128, three at DP = 192), TMA's out-of-bounds zero fill pads
+// D up to DP (160 to 192) and
 // the sequence up to a whole tile, and the scores of keys >= kv_len are
 // masked in the last tile. Query rows beyond Sq read zeros and are not
-// stored. No atomics and a fixed order of every sum: the result is
+// stored. At DP = 192 a consumer thread holds 96 accumulators, 48 q
+// registers and a 64-key tile's scores and P: more than the 168 registers
+// a thread of 384 may have, so that instance runs one consumer warpgroup
+// (BM = 64, 256 threads, up to 255 registers) and its PV product as three
+// m64n64 wgmma, one per 128-byte column block of V. No atomics and a fixed order of every sum: the result is
 // deterministic.
 //
 // Rotary variant (ROT, the Stable Audio DiT's attn1 behind
@@ -82,15 +88,15 @@ namespace {
 
 using namespace aec_tc;
 
-constexpr int CONSUMERS = 2;                    // warpgroups of 64 query rows
-constexpr int BM = 64 * CONSUMERS;              // query rows per block
-constexpr int THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgroup
 constexpr int STAGES = 3;
 constexpr int ROTATORS = 96;  // the producer warpgroup's warps 1-3 (ROT)
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DP>
 struct Cfg {
+  static constexpr int CONSUMERS = DP > 128 ? 1 : 2;      // warpgroups of 64 query rows
+  static constexpr int BM = 64 * CONSUMERS;               // query rows per block
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);   // + the producer warpgroup
   static constexpr int W = DP * 2 < 128 ? DP * 2 : 128;  // swizzle width, bytes
   static constexpr int ATOMS = DP * 2 / W;                // column blocks of a row
   static constexpr int BN = DP <= 64 ? 128 : 64;          // keys per tile
@@ -98,8 +104,9 @@ struct Cfg {
   static constexpr int TILE = SUB * ATOMS;                // bytes of a K or V tile
   static constexpr int SMEM = STAGES * 2 * TILE + 1024;   // + alignment slack
   // V's leading offset steps between its two 64-feature column blocks at
-  // DP = 128; with one block it is unused and set equal to the stride offset
-  static constexpr int LBO_V = ATOMS > 1 ? SUB : 8 * W;
+  // DP = 128; with one block (and at DP = 192, whose PV product takes one
+  // block a wgmma) it is unused and set equal to the stride offset
+  static constexpr int LBO_V = ATOMS == 2 ? SUB : 8 * W;
   static_assert(TILE % 1024 == 0, "tiles keep the 1024-byte swizzle alignment");
 };
 
@@ -248,13 +255,14 @@ __device__ __forceinline__ void rotate_k_tile_vec(uint8_t* kt, int n0, int rows,
 }
 
 template <int DP, bool ROT>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Cfg<DP>::THREADS, 1)
 attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap,
                const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
                int H, int rep, int Sq, int kv_len, int D, float scale, Strides qs,
                Strides os, Rotary rt) {
   using C = Cfg<DP>;
+  constexpr int CONSUMERS = C::CONSUMERS;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES];
   __shared__ __align__(8) uint64_t empty[STAGES];
@@ -319,7 +327,7 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
     // 8 j + c2 and + 1 of every accumulator block j
     const int tid = threadIdx.x % 128;
     const int lane = tid % 32;
-    const int r = blockIdx.y * BM + wg * 64 + (tid / 32) * 16 + lane / 4;
+    const int r = blockIdx.y * C::BM + wg * 64 + (tid / 32) * 16 + lane / 4;
     const int c2 = (lane % 4) * 2;
 
     uint32_t qf[DP / 16][4];
@@ -419,10 +427,22 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < C::BN / 16; ++kk) {
-        WgmmaRS<DP, 1>::run(acc, pf[kk],
-                            smem_desc(vt + kk * 16 * C::W, C::LBO_V, 8 * C::W,
-                                      wgmma_layout(C::W)),
-                            1);
+        if constexpr (DP <= 128) {
+          WgmmaRS<DP, 1>::run(acc, pf[kk],
+                              smem_desc(vt + kk * 16 * C::W, C::LBO_V, 8 * C::W,
+                                        wgmma_layout(C::W)),
+                              1);
+        } else {
+          // column block a holds features 64 a ... 64 a + 63, which are
+          // accumulators 32 a ... 32 a + 31 of the m64nDP layout
+#pragma unroll
+          for (int a = 0; a < C::ATOMS; ++a) {
+            WgmmaRS<64, 1>::run(*reinterpret_cast<float(*)[32]>(acc + 32 * a), pf[kk],
+                                smem_desc(vt + a * C::SUB + kk * 16 * C::W, C::LBO_V,
+                                          8 * C::W, wgmma_layout(C::W)),
+                                1);
+          }
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -484,8 +504,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   cudaError_t err = cudaFuncSetAttribute(
       attn_tc_kernel<DP, ROT>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (Sq + BM - 1) / BM);
-  attn_tc_kernel<DP, ROT><<<grid, THREADS, C::SMEM, stream>>>(
+  const dim3 grid(B * H, (Sq + C::BM - 1) / C::BM);
+  attn_tc_kernel<DP, ROT><<<grid, C::THREADS, C::SMEM, stream>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q),
       static_cast<__nv_bfloat16*>(o), H, H / H_kv, Sq, kv_len, D, scale, qs, os, rt);
   return static_cast<int>(cudaGetLastError());
@@ -496,7 +516,7 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H, int 
         int Sq, int kv_len, int D, float scale, const Strides& qs, const Strides& ks,
         const Strides& vs, const Strides& os, const Rotary& rt, void* stream) {
   if (B < 1 || H < 1 || H_kv < 1 || H % H_kv != 0 || Sq < 1 || kv_len < 1 ||
-      D < 8 || D > 128 || D % 8 != 0 || (Sq + BM - 1) / BM > 65535) {
+      D < 8 || D % 8 != 0 || (D > 128 && D != 160) || (Sq + 63) / 64 > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -519,8 +539,17 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H, int 
     return launch<64, ROT>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs,
                            os, rt, st);
   }
-  return launch<128, ROT>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs,
-                          os, rt, st);
+  if (D <= 128) {
+    return launch<128, ROT>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs,
+                            os, rt, st);
+  }
+  if constexpr (ROT) {
+    // the rotary variant has instances up to D = 128 (the DiT's is 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return launch<192, false>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs,
+                              os, rt, st);
+  }
 }
 
 }  // namespace

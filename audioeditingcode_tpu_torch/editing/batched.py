@@ -19,6 +19,13 @@ one. Here the window axis is folded in explicitly instead:
   cosine solver's history is per row).
 
 So the result of every window equals its single-window edit.
+
+With a dp axis (``--dp``; the counterpart of JAX ``longform.py::
+dp_constraint``) each rank folds its block of the windows into its forwards
+(``parallel.mesh.Axis.shard``: blocks of ceil(N / dp), the last padded by
+repeating a window) with the same block of every draw, and the edited
+latents are all-gathered in window order: each window's edit is the one it
+gets on one device.
 """
 
 from __future__ import annotations
@@ -63,18 +70,24 @@ def edit_windows(
     tstart: int,
     eta: float = 1.0,
     numerical_fix: bool = True,
+    dp=None,  # parallel.mesh.Axis of the dp ranks, or None
 ) -> torch.Tensor:
     """The edit-friendly inversion of every window, then its reverse pass
     from ``tstart`` (with the cosine solver's 2nd-order history carried over
     from the forward pass), all N windows in each denoiser call. Returns the
     (N, ...) edited latents. Build the denoisers with
-    :func:`make_window_denoiser`."""
+    :func:`make_window_denoiser`. With ``dp``, this rank edits its block of
+    the windows and the blocks are gathered (every rank returns all N)."""
     S = noise.shape[0]
     if tuple(noise.shape[1:]) != tuple(w0.shape):
         raise ValueError(f"noise shape {tuple(noise.shape)} != {(S,) + tuple(w0.shape)}")
+    N = w0.shape[0]
+    if dp is not None:
+        w0, noise = dp.shard(w0, 0), dp.shard(noise, 1)
     _, zs, xts, extras = inversion_forward_process(
         sched, fwd_denoise, w0, noise, eta=eta, numerical_fix=numerical_fix,
         return_extras=True)
-    return inversion_reverse_process(
+    out = inversion_reverse_process(
         sched, rev_denoise, xts, zs[:tstart], eta=eta,
         init_history=None if extras is None else extras[tstart - 1])
+    return out if dp is None else dp.gather(out, N, dim=0)

@@ -9,7 +9,10 @@ Counterpart of ``audioeditingcode_tpu/editing/pc_drift.py``:
   v -> (x0hat(xt + eps v) - x0hat(xt)) / eps. The n_ev eigenvector batch
   rides the denoiser batch: one CFG-pair forward of batch 2 n_ev per
   iteration. The 50-iteration ``lax.scan`` of the JAX version is a Python
-  loop here.
+  loop here. With a dp axis (``--dp``) each rank runs the forwards of its
+  block of the ev batch, and the shifted x0 predictions are all-gathered
+  before the norms and the QR, which every rank then computes alike (JAX
+  ``pc_extract.py``'s ``dp_on_ev``).
 - ``apply_drift``: shift x0hat along the extracted PCs and redo the step.
 
 The model seam is ``eps_pair_fn(x_uncond_in, x_cond_in, k) -> (eps_u,
@@ -111,9 +114,11 @@ def get_eigenvectors(
     eta: float = 1.0,
     n_ev: int = 1,
     state=None,  # incoming multistep history at step k (Stable Audio)
+    dp=None,  # parallel.mesh.Axis splitting the ev batch, or None
 ) -> EigResult:
     """Power iteration for the top n_ev posterior PCs at one timestep; the
-    returned eigvecs are unit-norm."""
+    returned eigvecs are unit-norm. With ``dp``, ``eps_pair_fn`` takes this
+    rank's block of ``dp.block(n_ev)`` rows."""
     solver = as_solver(sched, eta=eta)
     sigma2 = _pc_sigma2(solver, k)
     flat_mask = mask.bool().to(xt.dtype)
@@ -130,11 +135,18 @@ def get_eigenvectors(
     snaps = snapshot_iterations(iters)
     scaled, prev = v0, v0 / const  # scaled = unit vectors * const
     corrs, norms, snap_vecs = [], [], []
+
+    def rows(x):
+        return x if dp is None or x.shape[0] != n_ev else dp.shard(x)
+
+    xt_rows, latent_rows = rows(xt), rows(latents)
     for i in range(iters):
         _, x0_shift = forward_directional(
-            solver, eps_pair_fn, xt, k, latents, cfg_tar, eta=eta,
-            eigvecs=scaled, amount=1.0, mode=mode, state=state,
+            solver, eps_pair_fn, xt_rows, k, latent_rows, cfg_tar, eta=eta,
+            eigvecs=rows(scaled), amount=1.0, mode=mode, state=state,
         )
+        if dp is not None:
+            x0_shift = dp.gather(x0_shift, n_ev)
         ab = x0_shift * flat_mask - x0_pred
         norm_ab = torch.sqrt(torch.sum((ab * flat_mask) ** 2, dim=dims))  # (n_ev,)
         vecs = ab / norm_ab.reshape(expand) * flat_mask

@@ -14,6 +14,13 @@ names ``tools/convert_checkpoint.py::convert_dit`` reads.
 - The SwiGLU feed-forward goes through :func:`..ops.swiglu.fused_swiglu`
   (kernel B3) with ``ff.net.0.proj``'s weight and bias, value half then
   gate half, with no copy.
+- Under ``sp_mesh_scope`` with an sp axis (``--sp``), the token axis is
+  split by hand, as GSPMD splits it in JAX: after the global token is
+  prepended, the sequence is padded to a multiple of 8 sp and each rank
+  keeps its block of rows (and of the rotary tables) through every block;
+  self-attention gathers K/V over the sp group and masks the padded keys;
+  cross-attention reads the whole (replicated) text stream. The rows are
+  gathered before ``proj_out``, and the pad and the global token dropped.
 - LayerNorm eps is 1e-6, as the Flax modules have it. The Fourier feature
   weights stay float32 in every model dtype, as the Flax params do; the
   rest runs in the model dtype.
@@ -30,8 +37,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops.flash_attention import fused_attention
+from ..ops.flash_attention import fused_attention, sp_mesh
 from ..ops.swiglu import fused_swiglu
+from ..parallel.mesh import seq_sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,7 +118,8 @@ class GQAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 context_bias: Optional[torch.Tensor] = None,
-                rotary: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                rotary: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                kv_len: Optional[int] = None) -> torch.Tensor:
         B, S, _ = x.shape
         ctx = x if context is None else context
         K = ctx.shape[1]
@@ -120,7 +129,7 @@ class GQAttention(nn.Module):
         k = self.to_k(ctx).reshape(B, K, self.kv_heads, self.head_dim)
         v = self.to_v(ctx).reshape(B, K, self.kv_heads, self.head_dim)
         bias = None if context_bias is None else context_bias[:, None, None, :].float()
-        out = fused_attention(q, k, v, bias=bias, rotary=rotary)
+        out = fused_attention(q, k, v, bias=bias, rotary=rotary, kv_len=kv_len)
         return self.to_out[0](out.reshape(B, S, self.heads * self.head_dim))
 
 
@@ -137,6 +146,28 @@ class _SwiGLUProj(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return fused_swiglu(x, self.proj.weight, self.proj.bias)
+
+    def tp_shard(self, axis) -> None:
+        """Tensor-parallel split (``parallel.mesh.shard_module_params``): the
+        (2N, E) weight holds value rows, then gate rows. Rank r keeps value
+        rows and gate rows [r N/tp, (r + 1) N/tp), so its (2N/tp, E) weight
+        is again value rows then gate rows and kernel B3 gives its (M, N/tp)
+        slice of the output, all-gathered on the last axis."""
+        lin = self.proj
+        N = lin.weight.shape[0] // 2
+        n = N // axis.size
+        if N % axis.size:
+            raise ValueError(f"tp {axis.size} does not divide the SwiGLU width {N}")
+        if lin.weight.shape[1] % 128 == 0 and N % 128 == 0 and n % 128:
+            raise ValueError(f"tp {axis.size}: the SwiGLU shard width {n} breaks the "
+                             f"kernels' 128-column tiles (TMA alignment); use a tp that "
+                             f"keeps N / tp a multiple of 128")
+        rows = torch.cat([torch.arange(axis.index * n, (axis.index + 1) * n),
+                          torch.arange(N + axis.index * n, N + (axis.index + 1) * n)])
+        rows = rows.to(lin.weight.device)
+        lin.weight = nn.Parameter(lin.weight.detach()[rows].contiguous(), requires_grad=False)
+        lin.bias = nn.Parameter(lin.bias.detach()[rows].contiguous(), requires_grad=False)
+        self.register_forward_hook(lambda module, inputs, out: axis.gather(out, dim=out.dim() - 1))
 
 
 class SwiGLUFeedForward(nn.Module):
@@ -169,14 +200,30 @@ class DiTBlock(nn.Module):
         self.norm3 = nn.LayerNorm(E, eps=1e-6)
         self.ff = SwiGLUFeedForward(E)
 
-    def forward(self, x, context, context_bias, rotary):
-        x = x + self.attn1(self.norm1(x), rotary=rotary)
+    def forward(self, x, context, context_bias, rotary, kv_len=None):
+        x = x + self.attn1(self.norm1(x), rotary=rotary, kv_len=kv_len)
         x = x + self.attn2(self.norm2(x), context=context, context_bias=context_bias)
         return x + self.ff(self.norm3(x))
 
 
+def _sp_rows(x: torch.Tensor, rotary: Tuple[torch.Tensor, torch.Tensor], axis):
+    """This rank's block of the (B, S0, E) tokens, padded to a multiple of
+    8 sp (the pad's rows are zeros, its rotary rows zeros), and the rotary
+    rows of the same positions."""
+    S0 = x.shape[1]
+    S = -(-S0 // (8 * axis.size)) * (8 * axis.size)
+    n = S // axis.size
+    lo = axis.index * n
+    x = F.pad(x, (0, 0, 0, S - S0))[:, lo: lo + n]
+    cos, sin = (F.pad(t[:S0], (0, 0, 0, S - S0))[lo: lo + n] for t in rotary)
+    return x, (cos, sin)
+
+
 class StableAudioDiT(nn.Module):
     """Latent (B, L, C) + t + text/duration conditioning -> v-prediction."""
+
+    # read as F.linear weights in forward: tensor parallelism keeps them whole
+    tp_replicate = ("preprocess_conv", "postprocess_conv")
 
     def __init__(self, cfg: DiT1DConfig):
         super().__init__()
@@ -216,7 +263,14 @@ class StableAudioDiT(nn.Module):
         x = sample + F.linear(sample.to(dtype), self.preprocess_conv.weight[:, :, 0])
         x = self.proj_in(x.to(dtype))
         x = torch.cat([g.to(x.dtype), x], dim=1)  # prepend the global token
+        sp = seq_sharding(sp_mesh())
+        S0 = x.shape[1]
+        if sp is not None:
+            x, rotary = _sp_rows(x, rotary, sp)
         for block in self.transformer_blocks:
-            x = block(x, ctx, encoder_attention_bias, rotary)
+            x = block(x, ctx, encoder_attention_bias, rotary,
+                      kv_len=None if sp is None else S0)
+        if sp is not None:
+            x = sp.gather(x, S0, dim=1)
         x = self.proj_out(x)[:, 1:]  # drop the global token
         return x + F.linear(x, self.postprocess_conv.weight[:, :, 0])

@@ -104,6 +104,14 @@ class StableAudioPipeline:
         self._duration_embeds = torch.cat([r[0] for r in rows], dim=0)  # (N, 2, D)
         self._global_states = torch.cat([r[1] for r in rows], dim=0)  # (N, 1, 2D)
 
+    def shard_clip_rows(self, shard) -> None:
+        """Keep this rank's rows of per-clip duration state (N clips split
+        over dp; ``shard`` is ``parallel.mesh.Axis.shard``). One row for all
+        clips stays as it is."""
+        if self._duration_embeds is not None and self._duration_embeds.shape[0] > 1:
+            self._duration_embeds = shard(self._duration_embeds)
+            self._global_states = shard(self._global_states)
+
     def _require_setup(self):
         if self._duration_embeds is None:
             self.setup_duration()

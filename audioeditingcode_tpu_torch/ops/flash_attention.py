@@ -29,10 +29,19 @@ the JAX package's: q is (B, Sq, H, D), k and v are (B, Skv, H_kv, D).
   calls take plain matmul + f32 softmax. A ``rotary`` (cos, sin) pair is
   applied on the host (``_host_rotary``) before B1, or inside B2 with
   ``AEC_ROTARY_IN_KERNEL=1``, as the JAX dispatcher does.
+- ``sp_mesh_scope`` and ``_sp_blocked_attention``: sequence-parallel
+  self-attention. Under a scope whose mesh has an sp axis, a call that
+  passes ``kv_len`` holds this rank's rows of a sequence padded to a
+  multiple of 8 sp (``models/dit1d.py`` splits it so): K/V are all-gathered
+  over the sp group, the rotary applied on the host first, at the rows'
+  global positions, and the local query rows attend to the whole with the
+  padded keys masked (B1 with ``kv_len`` on the card).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import os
 from typing import Optional, Tuple
@@ -42,7 +51,12 @@ import torch
 # the JAX dispatcher's threshold (flash_attention.py:36): below it the
 # plain path is used on every device
 _MIN_SEQ_FOR_KERNEL = 1024
-_MAX_KERNEL_HEAD_DIM = 128
+# the head dims both kernels have an instance for: multiples of 8 up to
+# 128, and 160 (Stable Diffusion v1.4's coarsest levels)
+KERNEL_HEAD_DIMS = tuple(range(8, 129, 8)) + (160,)
+_MAX_KERNEL_HEAD_DIM = max(KERNEL_HEAD_DIMS)
+# the rotary variant B2's: up to 128 (the DiT's is 64)
+ROTARY_HEAD_DIMS = tuple(range(8, 129, 8))
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _FNS = {}
@@ -117,9 +131,9 @@ def _check_kernel_args(q, k, v):
     B, _, H, D = q.shape
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"k/v shape {tuple(k.shape)} does not fit q {tuple(q.shape)}")
-    if D % 8 or not 8 <= D <= _MAX_KERNEL_HEAD_DIM:
-        raise ValueError(f"head dim {D}: the kernel takes multiples of 8 up to "
-                         f"{_MAX_KERNEL_HEAD_DIM}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {D}: the kernel takes multiples of 8 up to 128, "
+                         f"and {_MAX_KERNEL_HEAD_DIM}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
 
@@ -183,6 +197,9 @@ def flash_attention_rotary_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     if q.shape[1] != k.shape[1]:
         raise ValueError(f"in-kernel rotary takes square self-attention, got "
                          f"{q.shape[1]} queries and {k.shape[1]} keys")
+    if q.shape[3] not in ROTARY_HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[3]}: the rotary kernel takes multiples of 8 "
+                         f"up to {max(ROTARY_HEAD_DIMS)}")
     cos, sin = _check_rotary_tables(q, cos, sin)
     B, S, H, D = q.shape
     route = attention_route(q.dtype, rotary=True)
@@ -276,20 +293,87 @@ def kernel_eligible(q: torch.Tensor, k: torch.Tensor,
     """The JAX dispatcher's rule (flash_attention.py:481-489) without its
     VMEM clause: that clause bounds the K/V blocks a TPU kernel keeps whole
     in VMEM, and a kernel that streams K/V tiles has no such limit."""
-    Q, D = q.shape[1], q.shape[3]
-    return (bias is None and Q == k.shape[1] and Q >= _MIN_SEQ_FOR_KERNEL
-            and D <= 256 and q.shape[2] % k.shape[2] == 0)
+    return bias is None and q.shape[1] == k.shape[1] and _kernel_rule(q.shape[1], q, k)
+
+
+def _kernel_rule(seq_len: int, q: torch.Tensor, k: torch.Tensor) -> bool:
+    """The shape half of ``kernel_eligible``, for a sequence of seq_len
+    tokens (all of them, where the sp route holds a rank's rows): long
+    enough, D <= 256 and whole query groups per kv head."""
+    return (seq_len >= _MIN_SEQ_FOR_KERNEL and q.shape[3] <= 256
+            and q.shape[2] % k.shape[2] == 0)
+
+
+_SP_MESH_SCOPE = contextvars.ContextVar("aec_sp_mesh", default=None)
+
+
+@contextlib.contextmanager
+def sp_mesh_scope(mesh):
+    """Route sequence-parallel self-attention over ``mesh``'s sp axis for
+    the duration (the CLIs enter it around their edit; the DiT reads it to
+    split its token rows). A mesh of None or one without an sp axis is a
+    no-op, so callers wrap unconditionally. An sp axis of size 1 counts: it
+    runs the sp route's collectives on one device."""
+    tok = _SP_MESH_SCOPE.set(mesh if mesh is not None and "sp" in mesh.shape else None)
+    try:
+        yield
+    finally:
+        _SP_MESH_SCOPE.reset(tok)
+
+
+def sp_mesh():
+    """The mesh of the innermost ``sp_mesh_scope`` that has an sp axis, else
+    None."""
+    return _SP_MESH_SCOPE.get()
+
+
+def _sp_blocked_attention(q, kf, vf, kv_len: int):
+    """Sequence-parallel kernel attention (JAX ``_sp_blocked_attention``):
+    q holds this rank's rows of a sequence of ``kv_len`` tokens padded to a
+    multiple of 8 sp, kf and vf the K/V all-gathered over the sp group
+    (``_sp_attention`` gathers them); the local query rows attend to them
+    with keys >= kv_len masked: B1 on the card, its plain version on the
+    CPU. Returns the local rows' output."""
+    if q.is_cuda:
+        return flash_attention_cuda(q, kf, vf, kv_len=kv_len)
+    return attention_reference(q, kf, vf, kv_len=kv_len)
+
+
+def _sp_attention(q, k, v, mesh, kv_len: int, rotary):
+    """The sp route of ``fused_attention``: the rotary on the host at the
+    rows' global positions (the tables the caller passes are the local
+    rows'), K/V all-gathered over the sp group, then the kernel where the
+    whole sequence is eligible, or the plain path with the padded keys
+    masked."""
+    if rotary is not None:
+        q, k = _host_rotary(q, *rotary), _host_rotary(k, *rotary)
+    axis = mesh.axis("sp")
+    kf, vf = axis.gather(k, dim=1), axis.gather(v, dim=1)
+    if _kernel_rule(kv_len, q, k):
+        return _sp_blocked_attention(q, kf, vf, kv_len)
+    bias = torch.zeros(kf.shape[1], dtype=torch.float32, device=q.device)
+    bias[kv_len:] = float("-inf")
+    return _plain_attention(q, kf, vf, bias)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
-                    rotary: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                    rotary: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
     """(B, Q, H, D) attention, with an optional partial rotary (cos, sin),
     each (Q, rot), applied to q and k. Eligible calls launch a kernel on a
-    CUDA tensor or raise (D > 128 included), and take its plain version on a
-    CPU tensor; the rest take the plain matmul path. The rotary goes inside
-    the kernel (B2) with ``AEC_ROTARY_IN_KERNEL=1`` and an even width, and
-    is applied on the host before B1 otherwise (the JAX default)."""
+    CUDA tensor or raise (a head dim outside ``KERNEL_HEAD_DIMS``
+    included), and take its plain version on a CPU tensor; the rest take
+    the plain matmul path. The rotary goes inside the kernel (B2) with
+    ``AEC_ROTARY_IN_KERNEL=1`` and an even width, and is applied on the
+    host before B1 otherwise (the JAX default). ``kv_len`` marks
+    self-attention over this rank's rows of an sp-split sequence of
+    ``kv_len`` tokens (``sp_mesh_scope``; the sp route above)."""
+    if kv_len is not None:
+        mesh = sp_mesh()
+        if mesh is None:
+            raise ValueError("kv_len marks sp-split rows: it needs an sp_mesh_scope")
+        return _sp_attention(q, k, v, mesh, kv_len, rotary)
     if kernel_eligible(q, k, bias):
         if (rotary is not None and rotary[0].shape[-1] % 2 == 0
                 and os.environ.get("AEC_ROTARY_IN_KERNEL", "0") == "1"):

@@ -21,7 +21,9 @@ prints no result):
    (flash_attention_rotary_tc, flash_attention_rotary; beside SDPA it is
    also timed against the default dispatcher's host rotary + B1), B3 in
    bfloat16 on the tensor cores (swiglu_tc) and in float32 as three TF32
-   products on the tensor cores (swiglu).
+   products on the tensor cores (swiglu). Since PR 14 also B1 at SD v1.4's
+   1024 px shapes: (2, 16384, 8, 40), (2, 4096, 8, 80) and (2, 1024, 8,
+   160), head dim 160 in both dtypes.
 2. one full-width AudioLDM-s UNet forward (random seeded weights, batch 2
    on the (8, 256, 16) latent of a 10 s clip) on the card, through the
    kernel, against the same forward on the CPU, through the plain version;
@@ -113,7 +115,9 @@ prints no result):
    PC extraction at 256 px (float32, one PC, 50 iterations at two window
    steps) and its applications in bfloat16 at amounts 0 and 2 and in
    float32 at amount 0 (within 1 uint8 step of the drift-free image); SDEdit
-   on the seeded CelebA-HQ LDM at 256 px (no kernel launch). Every output
+   on the seeded CelebA-HQ LDM at 256 px (no kernel launch); SDEdit on SD at
+   1024 px (``-r 1024 1024``, 4 forwards) in float32 and bfloat16, with its
+   launches at head dim 160 counted (5 per forward). Every output
    PNG decodes through the port's reader at the expected size and differs
    from orig.png.
 11. the edit server (serve.py) on 127.0.0.1 over HTTP at 50 steps in
@@ -122,6 +126,22 @@ prints no result):
    EditService.edit in process, 400 for a malformed body and for tstart
    out of range), then Stable Audio with a 5 s and a 10 s clip, each
    response cropped to its clip; each request's wall and loop seconds.
+12a. the kernels on the parallel paths' shapes, in one process: B1 over
+   each sp block (sp 2 and 4) of the DiT's padded 1025 tokens against the
+   whole padded K/V with kv_len 1025; B3 over the tp column shards (tp 2
+   and 4: matching value and gate row blocks of the SwiGLU weight) and over
+   the sp row blocks of the CFG pair's padded tokens; float32 and bfloat16,
+   each against the unsharded kernel (bit-equal expected) and its plain
+   version.
+12. the --sp 1 rehearsal of sequence parallelism: phase 4's float32 Stable
+   Audio selfcheck through ``cli/run.py --sp 1``, in a real NCCL process
+   group of one: B1 launched 24 times per forward at (2, 1032, 24, 64)
+   against (2, 1032, 12, 64) with kv_len 1025, B3 24 times, the selfcheck
+   within 1 dB of phase 4's. (NCCL takes one rank per card: groups of
+   several ranks run on the CPU tests' gloo ranks and on machines with as
+   many cards.)
+From phase 3 on, each CLI run's seeded weights and checkpoint reads are
+reused from an earlier run that built the same ones (``reuse_setup``).
 Every kernel launch count is set to 0 just before each main-path run and
 read just after it; each run is held to its launches per denoiser forward
 (its run_args.json counts the forwards of each stage). Each phase's
@@ -247,6 +267,14 @@ ATTN_CASES = [
     ((2, 1024, 8, 8, 40), torch.float32),
     ((2, 1024, 8, 8, 40), torch.bfloat16),
     ((1, 1024, 8, 8, 40), torch.float32),
+    # SD v1.4 at 1024 px (phase 10): levels 0 (S = 16384, D = 40), 1 (4096,
+    # 80) and 2 (1024, 160: f32 in 32-key tiles, bf16 padded to DP 192)
+    ((2, 16384, 8, 8, 40), torch.float32),
+    ((2, 16384, 8, 8, 40), torch.bfloat16),
+    ((2, 4096, 8, 8, 80), torch.float32),
+    ((2, 4096, 8, 8, 80), torch.bfloat16),
+    ((2, 1024, 8, 8, 160), torch.float32),
+    ((2, 1024, 8, 8, 160), torch.bfloat16),
 ]
 # float32 attention (B1, B2) is held to flash_attention.F32_TOL, 1e-5 +
 # 1e-5 |ref|, which a single TF32 product fails; bf16 to
@@ -363,9 +391,14 @@ IMG_STEPS, IMG_TSTART = 100, 50
 # B1 launches per SD UNet forward: attn1 of the five transformers of each
 # level with S >= 1024 (attn2 is cross-attention to the 77 text tokens and
 # takes the plain path). 512 px: a 64 x 64 latent, levels 0 (S = 4096, D =
-# 40) and 1 (1024, D = 80); 256 px: level 0 only (1024, D = 40). The
-# CelebA-HQ UNet has no attention.
-SD_CALLS_PER_FORWARD = {512: 10, 256: 5}
+# 40) and 1 (1024, D = 80); 256 px: level 0 only (1024, D = 40); 1024 px:
+# levels 0 (16384, 40), 1 (4096, 80) and 2 (1024, 160). The CelebA-HQ UNet
+# has no attention.
+SD_CALLS_PER_FORWARD = {512: 10, 256: 5, 1024: 15}
+# phase 10's SDEdit at 1024 px: 100 steps, tstart 4 (4 forwards; each
+# launches B1 five times at head dim 160)
+SD_1024_TSTART = 4
+SD_1024_D160_PER_FORWARD = 5
 # phase 10c: PC extraction on SD at 256 px (the CLI's default -r), float32,
 # one PC, PC_ITERS iterations at the two window steps 50 and 49
 IMG_PC = (IMG_STEPS, 50, 48)
@@ -385,6 +418,31 @@ IMG_PROMPTS = ["a photo of a cat", ""]
 SERVE_STEPS = 50
 SERVE_EDITS = [  # (name, request fields beside the clip and prompts)
     ("default", {}), ("cfg_tar_6", {"cfg_tar": 6.0}), ("tstart_40", {"tstart": 40})]
+# phase 12: the parallel paths on one card. Under --sp the DiT's 1025 tokens
+# are padded to a multiple of 8 sp (1032 at sp = 1, 1040 at 2, 1056 at 4)
+# and split in row blocks; B1 takes each block's query rows against the
+# padded K/V with kv_len 1025. Under --tp the SwiGLU weight (2N, E) is split
+# in matching value and gate row blocks: B3 runs on (2N/tp, E). Each shard
+# is held to the unsharded kernel's output (bit-equal expected) and to the
+# plain version within its tolerance.
+SP_WAYS = (1, 2, 4)
+TP_WAYS = (2, 4)
+DIT_TOKENS = 1025
+# the --sp 1 rehearsal's selfcheck against phase 4's float32 selfcheck
+SP1_SNR_MAX_DB = 1.0
+# the --sp 1 float32 edit against the same edit without --sp: max relative
+# error of the edited latent (bound fixed before the first run). B1 and B3
+# give the unpadded rows bit for bit (phase 12a); the DiT's other matmuls
+# run at 2 x 1032 rows instead of 2 x 1025, which cuBLAS may sum in other
+# orders: the fold check's bound (FOLD_MAX_REL, the same ops on other row
+# counts). A route that drops kv_len, misplaces the rotary rows or gathers
+# in the wrong order moves the latent by O(1). The wavs are reported, not
+# compared: the seeded Oobleck decoder lifts float32 differences of the
+# latent to full scale (as the tiny one does, tests/test_torch_helpers.py).
+SP1_LATENT_MAX_REL = 1e-3
+# the seeded weights and checkpoint reads of the CLI runs, kept for reuse
+# (bytes of host memory)
+SETUP_CACHE_BYTES = 24e9
 
 
 def log(msg: str) -> None:
@@ -696,9 +754,12 @@ def _probe(solver, pipe, xt, z, v, k, prompt, state=None):
     return (x0s - x0).cpu()
 
 
-def _attention_f64(q, k, v, bias=None, rotary=None):
+def _attention_f64(q, k, v, bias=None, rotary=None, kv_len=None):
     """Attention wholly in float64, rotary included (the plain versions
-    compute in float32), for phase 2c's float64 probes."""
+    compute in float32), for phase 2c's float64 probes (no sp route:
+    kv_len is None)."""
+    if kv_len is not None:
+        raise ValueError("phase 2c's probes run no sp route")
     def rotate(x, cos, sin):
         rot, half = cos.shape[-1], cos.shape[-1] // 2
         xr = x[..., :rot]
@@ -743,7 +804,9 @@ def _plain_ops():
     from audioeditingcode_tpu_torch.ops import flash_attention as fa
     from audioeditingcode_tpu_torch.ops import swiglu as sw
 
-    def attention_fn(q, k, v, bias=None, rotary=None):
+    def attention_fn(q, k, v, bias=None, rotary=None, kv_len=None):
+        if kv_len is not None:
+            raise ValueError("the plain-version swap takes no sp route")
         if not fa.kernel_eligible(q, k, bias):
             return fa.fused_attention(q, k, v, bias, rotary)
         if rotary is not None:
@@ -1115,6 +1178,82 @@ def edit_argv(model_id: str, clip: str, results_path: str) -> list:
             "--seed", "0", "--results_path", results_path]
 
 
+# reuse_setup's hits and misses; a run whose set-up hit it gets
+# "setup_cached": true, and its wall_s then holds no real weight building or
+# checkpoint read
+SETUP_STATS = {"hits": 0, "misses": 0}
+
+
+@contextlib.contextmanager
+def reuse_setup():
+    """Reuse each CLI run's set-up: the seeded weights of a module (keyed by
+    its parameters' names and shapes and the generator's state before the
+    draws; a hit copies the weights and sets the generator to its state
+    after them, so every run gets the weights and draws it would have made)
+    and a checkpoint file's state dict (keyed by path, size and mtime; a
+    hit clones it). Least recently used entries go beyond
+    SETUP_CACHE_BYTES. Every check is unchanged: the modules are equal to
+    the ones the runs would have built. This is a cache of this script's
+    alone: the CLIs' own set-up is unchanged, so a run's set-up seconds are
+    real only where it is not ``setup_cached``. A hit reads no file, so it
+    drops the file's entry of ``flax_msgpack.LOAD_SECONDS``."""
+    from collections import OrderedDict
+
+    from audioeditingcode_tpu_torch.models import flax_msgpack, registry
+
+    real_init, real_load = registry.random_init_, registry.load_params_
+    cache, stats = OrderedDict(), SETUP_STATS
+    stats.update(hits=0, misses=0)
+
+    def put(key, value, nbytes):
+        cache[key] = (value, nbytes)
+        while sum(n for _, n in cache.values()) > SETUP_CACHE_BYTES and len(cache) > 1:
+            cache.popitem(last=False)
+
+    def get(key):
+        if key in cache:
+            cache.move_to_end(key)
+            stats["hits"] += 1
+            return cache[key][0]
+        stats["misses"] += 1
+        return None
+
+    @torch.no_grad()
+    def random_init(module, g):
+        key = ("seeded", tuple((n, tuple(p.shape)) for n, p in module.named_parameters()),
+               bytes(g.get_state().numpy()))
+        hit = get(key)
+        if hit is None:
+            real_init(module, g)
+            weights = {n: p.detach().clone() for n, p in module.named_parameters()}
+            put(key, (weights, g.get_state()), sum(t.nbytes for t in weights.values()))
+            return module
+        weights, state = hit
+        for n, p in module.named_parameters():
+            p.copy_(weights[n])
+        g.set_state(state)
+        return module
+
+    def load_params(module, path):
+        st = os.stat(path)
+        key = ("file", path, st.st_size, st.st_mtime_ns)
+        hit = get(key)
+        if hit is None:
+            real_load(module, path)
+            sd = {k: v.detach().clone() for k, v in module.state_dict().items()}
+            put(key, sd, sum(t.nbytes for t in sd.values()))
+            return module
+        module.load_state_dict({k: v.clone() for k, v in hit.items()}, assign=True)
+        flax_msgpack.LOAD_SECONDS.pop(path, None)
+        return module
+
+    registry.random_init_, registry.load_params_ = random_init, load_params
+    try:
+        yield stats
+    finally:
+        registry.random_init_, registry.load_params_ = real_init, real_load
+
+
 def phase3_main_path(fa, sw, tmp: str):
     from scipy.io import wavfile
 
@@ -1126,7 +1265,9 @@ def phase3_main_path(fa, sw, tmp: str):
     for name, extra in (("edit", []), ("selfcheck", ["--selfcheck"]),
                         ("edit_bf16", ["--dtype", "bfloat16"])):
         reset_launches(fa, sw)
+        hits, t0 = SETUP_STATS["hits"], time.perf_counter()
         out = run_edit(edit_argv(MODEL_ID, clip, os.path.join(tmp, name)) + extra)
+        wall = time.perf_counter() - t0
         counts = read_launches(fa, sw)
         with open(os.path.join(os.path.dirname(out), "run_args.json")) as f:
             rec = json.load(f)
@@ -1135,8 +1276,10 @@ def phase3_main_path(fa, sw, tmp: str):
         attn = "flash_attention_tc" if name.endswith("bf16") else "flash_attention"
         want = expected_launches({attn: ATTN_CALLS_PER_FORWARD}, forwards)
         run = {"launches": counts, "unet_forwards": forwards, "dtype": rec["dtype"],
-               "edit_s": rec["edit_seconds"], "steps_per_s": forwards / rec["edit_seconds"],
-               "wav_samples": int(wav.shape[-1]), "selfcheck_snr_db": rec["selfcheck_snr_db"]}
+               "wall_s": wall, "edit_s": rec["edit_seconds"],
+               "steps_per_s": forwards / rec["edit_seconds"],
+               "wav_samples": int(wav.shape[-1]), "selfcheck_snr_db": rec["selfcheck_snr_db"],
+               "setup_cached": SETUP_STATS["hits"] > hits}
         log(f"[phase3] {name}: {run}")
         if forwards != STEPS + TSTART or counts != want:
             raise AssertionError(f"{name}: launches {counts} for {forwards} UNet forwards, "
@@ -1171,7 +1314,9 @@ def phase4_stable_audio(fa, sw, tmp: str):
                              ("selfcheck_rotary_in_kernel_bf16", bf16 + ["--selfcheck"], "1")):
         os.environ["AEC_ROTARY_IN_KERNEL"] = env
         reset_launches(fa, sw)
+        hits, t0 = SETUP_STATS["hits"], time.perf_counter()
         out = run_edit(edit_argv(SA_MODEL_ID, clip, os.path.join(tmp, "sa_" + name)) + extra)
+        wall = time.perf_counter() - t0
         counts = read_launches(fa, sw)
         with open(os.path.join(os.path.dirname(out), "run_args.json")) as f:
             rec = json.load(f)
@@ -1182,9 +1327,10 @@ def phase4_stable_audio(fa, sw, tmp: str):
         want = expected_launches({attn: SA_CALLS_PER_FORWARD,
                                   "swiglu" + tc: SA_CALLS_PER_FORWARD}, forwards)
         run = {"launches": counts, "dit_forwards": forwards, "dtype": rec["dtype"],
-               "edit_s": rec["edit_seconds"],
+               "wall_s": wall, "edit_s": rec["edit_seconds"],
                "steps_per_s": forwards / rec["edit_seconds"], "wav_shape": list(wav.shape),
-               "sr": sr, "selfcheck_snr_db": rec["selfcheck_snr_db"]}
+               "sr": sr, "selfcheck_snr_db": rec["selfcheck_snr_db"],
+               "setup_cached": SETUP_STATS["hits"] > hits}
         log(f"[phase4] {name}: {run}")
         if forwards != SA_STEPS + SA_TSTART or counts != want:
             raise AssertionError(f"{name}: launches {counts} for {forwards} DiT forwards, "
@@ -1204,6 +1350,7 @@ def _pc_run(fa, sw, name: str, call, per_forward: dict, forwards_expected: int):
     record). Every kernel must have launched per_forward times for each
     denoiser forward its run_args.json counts."""
     reset_launches(fa, sw)
+    hits = SETUP_STATS["hits"]
     t0 = time.perf_counter()
     out = call()
     wall = time.perf_counter() - t0
@@ -1214,7 +1361,8 @@ def _pc_run(fa, sw, name: str, call, per_forward: dict, forwards_expected: int):
     forwards = sum(rec["stage_forwards"].values())
     want = expected_launches(per_forward, forwards)
     run = {"launches": counts, "forwards": forwards, "dtype": rec["dtype"], "wall_s": wall,
-           "stage_seconds": rec["stage_seconds"], "stage_forwards": rec["stage_forwards"],
+           "setup_cached": SETUP_STATS["hits"] > hits, "stage_seconds": rec["stage_seconds"],
+           "stage_forwards": rec["stage_forwards"],
            "forwards_per_s": forwards / sum(rec["stage_seconds"].values())}
     if "power_iteration_seconds_per_window_step" in rec:
         run["power_iteration_s_per_window_step"] = rec["power_iteration_seconds_per_window_step"]
@@ -1305,6 +1453,7 @@ def _counted_run(fa, sw, name: str, call, per_forward: dict, forwards: int, seco
     its record), held to the denoiser forwards its run_args.json counts
     (unet_steps) and to per_forward launches of each kernel per forward."""
     reset_launches(fa, sw)
+    hits = SETUP_STATS["hits"]
     t0 = time.perf_counter()
     out = call()
     wall = time.perf_counter() - t0
@@ -1314,7 +1463,8 @@ def _counted_run(fa, sw, name: str, call, per_forward: dict, forwards: int, seco
         rec = json.load(f)
     n = rec["unet_steps"]
     run = {"launches": counts, "forwards": n, "dtype": rec["dtype"], "wall_s": wall,
-           "loop_s": rec[seconds_key], "steps_per_s": n / rec[seconds_key] if n else None}
+           "setup_cached": SETUP_STATS["hits"] > hits, "loop_s": rec[seconds_key],
+           "steps_per_s": n / rec[seconds_key] if n else None}
     want = expected_launches(per_forward, n)
     if n != forwards or counts != want:
         raise AssertionError(f"{name}: launches {counts} for {n} denoiser forwards "
@@ -1715,8 +1865,8 @@ def phase9_new_clis(fa, sw, tmp: str) -> dict:
     captured = {}
     real_edit_batch = run_long.edit_batch
 
-    def capture(pipe, w0, noise, args, tstart):
-        out = real_edit_batch(pipe, w0, noise, args, tstart)
+    def capture(pipe, w0, noise, args, tstart, mesh=None):
+        out = real_edit_batch(pipe, w0, noise, args, tstart, mesh)
         captured.update(pipe=pipe, w0=w0, noise=noise, args=args, tstart=tstart, w=out[0])
         return out
 
@@ -2036,6 +2186,36 @@ def _check_png(name: str, path: str, size: int, orig: np.ndarray) -> np.ndarray:
     return img.astype(np.int64)
 
 
+def phase10_sd_1024(fa, sw, tmp: str, ckpt: str, im: str) -> dict:
+    """SDEdit on SD v1.4 at -r 1024 1024 (4 forwards) in float32 and
+    bfloat16: B1 at (2, 16384, 8, 40), (2, 4096, 8, 80) and (2, 1024, 8,
+    160); the head-dim-160 launches are counted by a spy on B1's wrapper."""
+    from audioeditingcode_tpu_torch.cli.images import sdedit_main
+    from audioeditingcode_tpu_torch.utils.image_io import read_png_rgb
+
+    runs = {}
+    for name, extra in (("sd_sdedit_1024", []), ("sd_sdedit_1024_bf16", ["--dtype", "bfloat16"])):
+        argv = ["--model_id", SD_MODEL_ID, "--init_im", im, "--target_prompt", "a photo of a cat",
+                "--num_diffusion_steps", str(IMG_STEPS), "--tstart", str(SD_1024_TSTART),
+                "-r", "1024", "1024", "--seed", "0", "--weights_dir", ckpt, "--wandb_disable",
+                "--results_path", os.path.join(tmp, name)] + extra
+        per = {"flash_attention" + ("_tc" if extra else ""): SD_CALLS_PER_FORWARD[1024]}
+        with _b1_shapes(fa) as shapes:
+            out, _, run = _counted_run(fa, sw, f"phase10 {name}", lambda: sdedit_main(argv),
+                                       per, SD_1024_TSTART, "sdedit_seconds")
+        run["b1_shapes"] = {str(k): n for k, n in sorted(shapes.items())}
+        run["d160_launches"] = sum(n for (q, _, _), n in shapes.items() if q[3] == 160)
+        want = SD_1024_D160_PER_FORWARD * SD_1024_TSTART
+        if run["d160_launches"] != want:
+            raise AssertionError(f"phase10 {name}: {run['d160_launches']} launches at head "
+                                 f"dim 160, expected {want}: {run['b1_shapes']}")
+        orig = read_png_rgb(os.path.join(os.path.dirname(out), "orig.png"))
+        _check_png(name, out, 1024, orig)
+        runs[name] = run
+        log(f"[phase10] {name}: {run}")
+    return runs
+
+
 def phase10_images(fa, sw, tmp: str, ckpt: str):
     """The image CLIs through their main(argv): SDEdit on SD v1.4 from
     phase 10a's checkpoint at 512 px (100 steps, tstart 50) in float32 and
@@ -2066,6 +2246,8 @@ def phase10_images(fa, sw, tmp: str, ckpt: str):
         _check_png(name, out, 512, orig)
         runs[name] = run
         log(f"[phase10] {name}: {run}")
+
+    runs.update(phase10_sd_1024(fa, sw, tmp, ckpt, im))
 
     steps, start, end = IMG_PC
     argv = ["--model_id", SD_MODEL_ID, "--init_im", im, "--num_diffusion_steps", str(steps),
@@ -2109,6 +2291,32 @@ def phase10_images(fa, sw, tmp: str, ckpt: str):
     runs["celebahq_sdedit"] = run
     log(f"[phase10] celebahq_sdedit: {run}")
     return runs, checks
+
+
+@contextlib.contextmanager
+def _b1_shapes(fa):
+    """Count B1's launches by (q shape, k shape, kv_len) while inside: a spy
+    takes the wrapper's place, with counters of its own that the wrapper's
+    body raises (it names itself through the module), so the run's counts
+    read as always; the wrapper and its counters are put back after, with
+    the run's counts added."""
+    real = fa.flash_attention_cuda
+    shapes = {}
+
+    def spy(q, k, v, kv_len=None):
+        key = (tuple(q.shape), tuple(k.shape), k.shape[1] if kv_len is None else int(kv_len))
+        shapes[key] = shapes.get(key, 0) + 1
+        return real(q, k, v, kv_len)
+
+    spy.launches = real.launches
+    spy.launches_by_route = dict(real.launches_by_route)
+    fa.flash_attention_cuda = spy
+    try:
+        yield shapes
+    finally:
+        real.launches = spy.launches
+        real.launches_by_route = spy.launches_by_route
+        fa.flash_attention_cuda = real
 
 
 def _post(url: str, payload=None, raw: bytes = None):
@@ -2198,9 +2406,10 @@ def phase11_serve(fa, sw, tmp: str):
 
     runs, checks = {}, {}
     clip = os.path.join(tmp, "clip.wav")
-    t0 = time.perf_counter()
+    t0, hits = time.perf_counter(), SETUP_STATS["hits"]
     service = EditService(MODEL_ID, SERVE_STEPS, dtype="bfloat16")
     checks["setup_s"] = {"audioldm": time.perf_counter() - t0}
+    checks["setup_cached"] = {"audioldm": SETUP_STATS["hits"] > hits}
     per = {"flash_attention_tc": ATTN_CALLS_PER_FORWARD}
     with _serving(service) as url:
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
@@ -2252,9 +2461,10 @@ def phase11_serve(fa, sw, tmp: str):
 
     clip5 = os.path.join(tmp, "clip44k_5s.wav")
     write_clip(clip5, seconds=5.0, sr=44100, channels=2)
-    t0 = time.perf_counter()
+    t0, hits = time.perf_counter(), SETUP_STATS["hits"]
     service = EditService(SA_MODEL_ID, SERVE_STEPS, dtype="bfloat16")
     checks["setup_s"]["stable_audio"] = time.perf_counter() - t0
+    checks["setup_cached"]["stable_audio"] = SETUP_STATS["hits"] > hits
     per = {"flash_attention_tc": SA_CALLS_PER_FORWARD, "swiglu_tc": SA_CALLS_PER_FORWARD}
     with _serving(service) as url:
         for name, path, secs in (("serve_sa_5s", clip5, 5),
@@ -2265,6 +2475,190 @@ def phase11_serve(fa, sw, tmp: str):
     del service
     torch.cuda.empty_cache()
     return runs, checks
+
+
+def _shard_case(kernel, dtype, shard, got, whole, plain, tol, times, bound):
+    """One phase-12 shard check: its output against the unsharded kernel's
+    rows or columns (bit-equal expected; otherwise the difference is
+    reported) and against the plain version within ``tol``; ``times``: the
+    kernel's, the plain version's and the library call's ms."""
+    errors = _check(got, plain, tol)
+    case = {"shard": shard, "dtype": str(dtype).split(".")[-1],
+            "bit_equal_to_unsharded": torch.equal(got, whole),
+            "max_abs_from_unsharded": (got.float() - whole.float()).abs().max().item(),
+            "max_abs_err": errors[0], "err_over_allowed": errors[1], **times,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+    log(f"[phase12] {kernel} {shard} {case['dtype']}: {case}")
+    return case
+
+
+def phase12_shards(fa, sw) -> dict:
+    """The kernels on the shapes the parallel paths give them, in one
+    process: B1 over each sp block of the DiT's padded sequence (its query
+    rows against the whole padded K/V, kv_len 1025) at sp 1, 2 and 4; B3 over
+    the tp column shards of the SwiGLU weight (matching value and gate row
+    blocks) at tp 2 and 4 and over the sp row blocks of the CFG batch's
+    tokens; float32 and bfloat16; each timed by CUDA events, the plain
+    version and the library call (SDPA with the padded keys masked;
+    F.linear + silu * mul) beside it. Comparison launches: no main-path
+    count."""
+    from torch.nn import functional as F
+
+    from audioeditingcode_tpu_torch.utils.timing import cuda_ms
+
+    def times_by_events(kernel, plain, library):
+        """``_times`` without its torch.profiler half: this late in one
+        process a run of profiles may all come back empty (CUPTI)."""
+        return {"ms": cuda_ms(kernel, 10), "plain_ms": cuda_ms(plain, reps=5, warmup=1),
+                "library_ms": cuda_ms(library, 10)}
+
+    def swiglu_library(x, w, b):
+        h, gate = F.linear(x, w, b.to(x.dtype)).chunk(2, dim=-1)
+        return h * F.silu(gate)
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    B, H, Hkv, D = 2, 24, 12, 64
+    out = {"flash_attention": [], "swiglu": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = fa.BF16_TOL if dtype == torch.bfloat16 else fa.F32_TOL
+        for sp in SP_WAYS:
+            S = -(-DIT_TOKENS // (8 * sp)) * 8 * sp
+            q, k, v = (torch.randn(B, S, h, D, device="cuda", generator=g).to(dtype)
+                       for h in (H, Hkv, Hkv))
+            whole = fa.flash_attention_cuda(q[:, :DIT_TOKENS], k[:, :DIT_TOKENS],
+                                            v[:, :DIT_TOKENS])
+            n = S // sp
+            # the library yardstick: SDPA with the padded keys masked, GQA's
+            # kv heads repeated beforehand
+            kr, vr = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) for t in (k, v))
+            keep = (torch.arange(S, device="cuda") < DIT_TOKENS)[None, None, None, :]
+            for r in range(sp):
+                rows = slice(r * n, (r + 1) * n)
+                got = fa.flash_attention_cuda(q[:, rows], k, v, kv_len=DIT_TOKENS)
+                real = min(n, DIT_TOKENS - r * n)
+                plain = fa.attention_reference(q[:, rows], k, v, kv_len=DIT_TOKENS)
+                qt = q[:, rows].transpose(1, 2)
+                times = times_by_events(
+                    lambda: fa.flash_attention_cuda(q[:, rows], k, v, kv_len=DIT_TOKENS),
+                    lambda: fa.attention_reference(q[:, rows], k, v, kv_len=DIT_TOKENS),
+                    lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=keep))
+                # the work of n query rows against 1025 keys
+                bytes_ = (2 * B * n * H * D + 2 * B * S * Hkv * D) * (torch.finfo(dtype).bits // 8)
+                rate = TF32X3_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+                bound = _bound(bytes_ / HBM_BYTES_PER_S,
+                               4.0 * B * H * n * DIT_TOKENS * D / rate,
+                               1.0 * B * H * n * DIT_TOKENS / EXP_PER_S)
+                out["flash_attention"].append(_shard_case(
+                    "flash_attention", dtype, f"sp {sp} block {r} ({list(q[:, rows].shape)} "
+                    f"against {list(k.shape)}, kv_len {DIT_TOKENS})", got[:, :real],
+                    whole[:, r * n: r * n + real], plain[:, :real], tol, times, bound))
+            del q, k, v, whole, kr, vr
+        stol = sw.BF16_TOL if dtype == torch.bfloat16 else sw.F32_TOL
+        M, E, N = 2 * DIT_TOKENS, 1536, 6144
+        x = torch.randn(M, E, device="cuda", generator=g).to(dtype)
+        w = (torch.randn(2 * N, E, device="cuda", generator=g) / E ** 0.5).to(dtype)
+        b = torch.randn(2 * N, device="cuda", generator=g) * 0.1
+        whole = sw.swiglu_cuda(x, w, b)
+        for tp in TP_WAYS:
+            n = N // tp
+            for r in range(tp):
+                rows = torch.cat([torch.arange(r * n, (r + 1) * n),
+                                  torch.arange(N + r * n, N + (r + 1) * n)]).cuda()
+                ws, bs = w[rows].contiguous(), b[rows].contiguous()
+                got = sw.swiglu_cuda(x, ws, bs)
+                out["swiglu"].append(_shard_case(
+                    "swiglu", dtype, f"tp {tp} shard {r} (W {list(ws.shape)})", got,
+                    whole[:, r * n: (r + 1) * n], sw.swiglu_reference(x, ws, bs), stol,
+                    times_by_events(lambda: sw.swiglu_cuda(x, ws, bs),
+                                    lambda: sw.swiglu_reference(x, ws, bs),
+                                    lambda: swiglu_library(x, ws, bs)),
+                    swiglu_bound_ms(M, E, n, dtype)))
+        for sp in SP_WAYS:
+            # the CFG pair's padded tokens, each rank's row block of both,
+            # against the unsharded kernel on the unpadded 2 x 1025 rows
+            S = -(-DIT_TOKENS // (8 * sp)) * 8 * sp
+            n = S // sp
+            x3 = torch.randn(2, S, E, device="cuda", generator=g).to(dtype)
+            whole3 = sw.swiglu_cuda(x3[:, :DIT_TOKENS].reshape(-1, E), w, b).reshape(
+                2, DIT_TOKENS, N)
+            for r in range(sp):
+                xs = x3[:, r * n: (r + 1) * n].reshape(-1, E).contiguous()
+                got = sw.swiglu_cuda(xs, w, b)
+                real = min(n, DIT_TOKENS - r * n)
+                out["swiglu"].append(_shard_case(
+                    "swiglu", dtype, f"sp {sp} rows {r} (x {list(xs.shape)})",
+                    got.reshape(2, n, N)[:, :real],
+                    whole3[:, r * n: r * n + real],
+                    sw.swiglu_reference(xs, w, b).reshape(2, n, N)[:, :real], stol,
+                    times_by_events(lambda: sw.swiglu_cuda(xs, w, b),
+                                    lambda: sw.swiglu_reference(xs, w, b),
+                                    lambda: swiglu_library(xs, w, b)),
+                    swiglu_bound_ms(xs.shape[0], E, N, dtype)))
+            del x3, whole3
+        del x, w, b, whole
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase12_sp1(fa, sw, tmp: str, phase4_snr: float) -> dict:
+    """The --sp 1 rehearsal through cli/run.py, inside a real NCCL process
+    group of one: the DiT's 1025 tokens padded to 1032, B1 on the sp route
+    (K/V all-gathered, kv_len 1025) and B3 on 2 x 1032 rows, 24 launches each
+    per forward. Phase 4's float32 selfcheck with --sp 1, within
+    SP1_SNR_MAX_DB of phase 4's; then phase 4's float32 edit with the target
+    prompt (host rotary + B1), without --sp and with --sp 1, the edited
+    latents (the decoder's input, by a spy) within SP1_LATENT_MAX_REL of
+    each other: a selfcheck reconstructs its start for any deterministic
+    denoiser, so only the edit can tell a wrong sp route."""
+    from audioeditingcode_tpu_torch.cli.run import main as run_edit
+    from audioeditingcode_tpu_torch.models.pipeline1d import StableAudioPipeline
+
+    clip = os.path.join(tmp, "clip44k.wav")
+    padded = -(-DIT_TOKENS // 8) * 8
+    forwards = SA_STEPS + SA_TSTART
+    sp_shapes = {((2, padded, 24, 64), (2, padded, 12, 64), DIT_TOKENS):
+                 SA_CALLS_PER_FORWARD * forwards}
+    latents, runs, wavs = {}, {}, {}
+    real_decode = StableAudioPipeline.vae_decode
+    for name, extra in (("sp1_selfcheck", ["--selfcheck", "--sp", "1"]), ("edit", []),
+                        ("sp1_edit", ["--sp", "1"])):
+        argv = edit_argv(SA_MODEL_ID, clip, os.path.join(tmp, "sa_" + name)) + extra
+
+        def spy(pipe, z, name=name):
+            latents[name] = z.detach().clone()
+            return real_decode(pipe, z)
+
+        StableAudioPipeline.vae_decode = spy
+        try:
+            with _b1_shapes(fa) as shapes:
+                out, rec, run = _counted_run(fa, sw, f"phase12 {name}", lambda: run_edit(argv),
+                                             _per_forward(SA_MODEL_ID, False), forwards,
+                                             "edit_seconds")
+        finally:
+            StableAudioPipeline.vae_decode = real_decode
+        run["b1_shapes"] = {str(k): n for k, n in shapes.items()}
+        run["selfcheck_snr_db"] = rec["selfcheck_snr_db"]
+        run["mesh"] = rec["mesh"]
+        wavs[name] = _check_wav(name, out, 44100, 2)
+        log(f"[phase12] {name}: {run}")
+        sp = name.startswith("sp1")
+        if sp and (shapes != sp_shapes or rec["mesh"] != {"dp": 1, "tp": 1, "sp": 1}):
+            raise AssertionError(f"phase12 {name}: B1 shapes {shapes}, mesh {rec['mesh']}; "
+                                 f"expected {sp_shapes}")
+        runs[name] = run
+    snr = runs["sp1_selfcheck"]["selfcheck_snr_db"]
+    if not abs(snr - phase4_snr) <= SP1_SNR_MAX_DB:
+        raise AssertionError(f"phase12 sp1: selfcheck {snr} dB, phase 4's {phase4_snr} dB")
+    err = _max_rel(latents["sp1_edit"], latents["edit"])
+    lsb = int(np.abs(wavs["sp1_edit"] - wavs["edit"]).max())
+    runs["sp1_edit"].update(latent_max_rel_err=err, wav_max_lsb_from_edit=lsb)
+    log(f"[phase12] --sp 1 edit against the edit without --sp: edited latent max rel err "
+        f"{err:.3g} (limit {SP1_LATENT_MAX_REL}); wav {lsb} LSB apart (not compared: the "
+        f"seeded decoder lifts latent roundoff to full scale)")
+    if not err <= SP1_LATENT_MAX_REL:
+        raise AssertionError(f"phase12: the --sp 1 edit is {err} from the edit without --sp "
+                             f"(limit {SP1_LATENT_MAX_REL})")
+    return runs
 
 
 def _kernel_class(name: str) -> str:
@@ -2391,7 +2785,7 @@ def main() -> int:
     parity.update(timed("phase2c", phase2c_probe, fa, sw, unet))
     del unet
     parity.update(timed("phase2d", phase2d_unet_families, fa, sw))
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, reuse_setup() as setup_cache:
         runs = {"audioldm": timed("phase3", phase3_main_path, fa, sw, tmp),
                 "stable_audio": timed("phase4", phase4_stable_audio, fa, sw, tmp)}
         runs["audioldm_pc"] = timed("phase5", phase_pcs, fa, sw, tmp, MODEL_ID,
@@ -2407,6 +2801,10 @@ def main() -> int:
         parity["images"] = {k: v for k, v in sd.items() if k != "dir"}
         runs["phase10"], p10_checks = timed("phase10", phase10_images, fa, sw, tmp, sd["dir"])
         runs["phase11"], p11_checks = timed("phase11", phase11_serve, fa, sw, tmp)
+        shards = timed("phase12a", phase12_shards, fa, sw)
+        runs["parallel"] = timed("phase12", phase12_sp1, fa, sw, tmp,
+                                 runs["stable_audio"]["selfcheck"]["selfcheck_snr_db"])
+    log(f"[setup] seeded weights and checkpoint reads reused: {setup_cache}")
     if "--profile" in sys.argv[1:]:
         for dtype in (torch.float32, torch.bfloat16):
             profile_main_path_step(MODEL_ID, STEPS, LATENT, dtype)
@@ -2455,6 +2853,10 @@ def main() -> int:
             "library_ms": main_case["library_ms"],
             "library_device_ms": main_case["library_device_ms"],
             "cases": kcases,
+            # phase 12: the shards the parallel paths give it (comparison
+            # launches, not counted)
+            "shard_cases": [c for c in shards.get(kname.replace("_tc", ""), [])
+                            if (c["dtype"] == "bfloat16") == kname.endswith("_tc")],
         })
         if not sum(by_run.values()):
             raise AssertionError(f"{kname} was launched no time on the main paths")
@@ -2492,16 +2894,27 @@ def main() -> int:
               "sdedit_stable_audio_noise_s": base["sdedit_stable_audio"]["noise_s"],
               "phase9": {**p9_checks, "runs": {
                   name: {k: r[k] for k in ("forwards", "dtype", "loop_s", "steps_per_s",
-                                           "wall_s")}
+                                           "wall_s", "setup_cached")}
                   for name, r in runs["phase9"].items()}},
               "phase10": {**p10_checks, "runs": {
                   name: {k: r.get(k) for k in ("forwards", "dtype", "loop_s", "steps_per_s",
-                                               "wall_s", "stage_seconds", "forwards_per_s")}
+                                               "wall_s", "setup_cached", "stage_seconds",
+                                               "forwards_per_s",
+                                               "d160_launches", "b1_shapes")}
                   for name, r in runs["phase10"].items()}},
               "phase11": {**p11_checks, "runs": {
                   name: {k: r.get(k) for k in ("forwards", "loop_s", "steps_per_s", "wall_s",
                                                "request_wall_s")}
-                  for name, r in runs["phase11"].items()}}}
+                  for name, r in runs["phase11"].items()}},
+              "phase12": runs["parallel"],
+              "setup_cache": setup_cache,
+              # wall minus loop (set-up, text towers, decode, writes) of each
+              # run whose set-up reuse_setup did not serve: a CLI's own
+              "outside_loop_s_uncached": {
+                  f"{group}_{name}": r["wall_s"] - (r.get("loop_s") or r.get("edit_s") or
+                                                    sum(r["stage_seconds"].values()))
+                  for group, group_runs in runs.items() for name, r in group_runs.items()
+                  if r.get("setup_cached") is False and r.get("wall_s") is not None}}
     print(json.dumps(record), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -157,9 +157,9 @@ def test_per_clip_duration_rows_follow_the_cfg_fold():
     ("collide", ValueError, "share the results basename"),
     ("missing", FileNotFoundError, "no such file"),
     ("empty", FileNotFoundError, "no .wav files"),
-    ("dp", NotImplementedError, "item 12"),
+    ("dp", ValueError, "CUDA device"),
 ])
-def test_run_batch_errors(tmp_path, case, error, match):
+def test_run_batch_errors(tmp_path, monkeypatch, case, error, match):
     d = tmp_path / "c"
     d.mkdir()
     model_id, clips = MEL, [write_test_wav(str(d / "a.wav"), seconds=0.2)]
@@ -177,7 +177,11 @@ def test_run_batch_errors(tmp_path, case, error, match):
         clips = [str(tmp_path / "other_dir")]
         os.makedirs(clips[0])
     else:
-        extra = ["--dp", "2"]
+        # --dp is ported (tests/test_torch_parallel_cli.py): on the card two
+        # ranks on a machine of one card (the count patched) raise first
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        extra = ["--dp", "2", "--device", "cuda"]
     with pytest.raises(error, match=match):
         trb.main(["--device", "cpu", "--model_id", model_id, "--init_aud", *clips,
                   "--target_prompt", "a trumpet", "--num_diffusion_steps", "4",
@@ -248,10 +252,15 @@ def test_sweep_points_equal_the_edit_cli(tmp_path, model_id):
         assert wav_close(out, edit, 0.0) == 0.0
 
 
-def test_sweep_rejects_parallel_flags(tmp_path):
+def test_sweep_rejects_parallel_flags(tmp_path, monkeypatch):
+    """--dp/--tp are ported (the sweep runs them as cli/run.py does): two
+    ranks on a machine of one card (the count patched) raise before any
+    rank starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     wav = write_test_wav(str(tmp_path / "clip.wav"), seconds=0.3)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tsw.main(["--device", "cpu", "--model_id", MEL, "--init_aud", wav,
+    with pytest.raises(ValueError, match="CUDA device"):
+        tsw.main(["--device", "cuda", "--model_id", MEL, "--init_aud", wav,
                   "--target_prompt", "a trumpet", "--dp", "2", "--results_path",
                   str(tmp_path)])
 

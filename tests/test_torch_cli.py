@@ -51,13 +51,18 @@ def test_cli_cuda_missing_raises(wav, tmp_path, monkeypatch):
                      "--results_path", str(tmp_path)])
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--dp", "2"], "item 12"),
-    (["--sp", "2"], "item 12"),
-    (["--profile_dir", "p"], "item 14"),
+@pytest.mark.parametrize("extra,error,match", [
+    # --dp/--tp/--sp are ported (tests/test_torch_parallel_cli.py): two ranks
+    # on a machine of one card raise before any rank starts, and --sp 2 on a
+    # mel family raises the JAX CLI's ValueError
+    (["--dp", "2", "--device", "cuda"], ValueError, "CUDA device"),
+    (["--sp", "2"], ValueError, "requires a stable-audio model"),
+    (["--profile_dir", "p"], NotImplementedError, "item 14"),
 ])
-def test_cli_unported_flags_raise(wav, tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_cli_unported_flags_raise(wav, tmp_path, monkeypatch, extra, error, match):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(error, match=match):
         main(BASE + ["--device", "cpu", "--init_aud", wav, "--target_prompt", "x",
                      "--results_path", str(tmp_path)] + extra)
 

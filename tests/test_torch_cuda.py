@@ -38,7 +38,9 @@ def cuda():
                                          (1, 1000, 3, 3, 8),
                                          # AudioLDM-l and TANGO (bf16 pads D 40, 80)
                                          (2, 4096, 8, 8, 32), (2, 1024, 8, 8, 64),
-                                         (2, 4096, 8, 8, 40), (2, 1024, 8, 8, 80)])
+                                         (2, 4096, 8, 8, 40), (2, 1024, 8, 8, 80),
+                                         # SD v1.4 at 1024 px's coarsest levels
+                                         (2, 1024, 8, 8, 160), (1, 1100, 4, 2, 160)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(cuda, B, S, H, Hkv, D, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -96,6 +98,9 @@ def test_rotary_kernel_rejects_what_it_does_not_take(cuda):
         fa.flash_attention_rotary_cuda(q, q, q, cos[:, :3], sin[:, :3])
     with pytest.raises(ValueError, match="positions"):
         fa.flash_attention_rotary_cuda(q, q, q, cos[:100], sin[:100])
+    q160 = torch.randn(1, 1024, 2, 160, device=cuda)
+    with pytest.raises(ValueError, match="head dim 160: the rotary kernel"):
+        fa.flash_attention_rotary_cuda(q160, q160, q160, cos, sin)
 
 
 def test_dispatcher_routes_rotary(cuda, monkeypatch):
@@ -158,6 +163,27 @@ def test_tensor_core_attention_every_head_dim(cuda, D, S):
     assert fa.flash_attention_cuda.launches_by_route[fa.TF32X3] == before[fa.TF32X3]
     torch.testing.assert_close(got.float(), fa.attention_reference(q, k, v).float(),
                                **fa.BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_160_masks_kv_len_and_takes_sp_query_blocks(cuda, dtype):
+    """D = 160 (f32: 32-key tiles; bf16: DP 192, one consumer warpgroup):
+    the sp route's query blocks against the padded K/V with kv_len give the
+    unsharded kernel's rows bit for bit, and a D without an instance raises."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    q, k, v = (torch.randn(1, 1040, h, 160, device=cuda, generator=g).to(dtype)
+               for h in (4, 2, 2))
+    tol = fa.BF16_TOL if dtype == torch.bfloat16 else fa.F32_TOL
+    whole = fa.flash_attention_cuda(q[:, :1025], k[:, :1025], v[:, :1025])
+    torch.testing.assert_close(
+        whole.float(), fa.attention_reference(q[:, :1025], k[:, :1025], v[:, :1025]).float(),
+        **tol)
+    for r in range(2):
+        part = fa.flash_attention_cuda(q[:, 520 * r: 520 * (r + 1)], k, v, kv_len=1025)
+        n = min(520, 1025 - 520 * r)
+        assert torch.equal(part[:, :n], whole[:, 520 * r: 520 * r + n])
+    with pytest.raises(ValueError, match="head dim 152"):
+        fa.flash_attention_cuda(q[..., :152], k[..., :152], v[..., :152])
 
 
 def test_tensor_core_attention_masks_kv_len_and_reads_strided_heads(cuda):

@@ -514,14 +514,21 @@ def test_pc_apply_cli_needs_a_card_unless_told_cpu(image_extractions, monkeypatc
                             "--drift_start", "4", "--drift_end", "2", "--amount", "1"])
 
 
-@pytest.mark.parametrize("resize,raises", [((1024, 1024), True), ((512, 512), False),
-                                           ((256, 256), False)])
+@pytest.mark.parametrize("resize,head_dim,raises", [
+    ((1024, 1024), None, False), ((512, 512), None, False), ((256, 256), None, False),
+    ((1024, 1024), 168, True)])
 def test_head_dim_above_the_kernels_raises_before_loading(face, tmp_path, monkeypatch,
-                                                          resize, raises):
-    """On the card, SD at -r 1024 sends B1 head dim 160 at 1024 tokens:
-    the CLI raises before any model loads (the device check patched to a
-    card; the first step past the shape check must not be reached)."""
+                                                          resize, head_dim, raises):
+    """On the card, SD at -r 1024 sends B1 head dim 160 at 1024 tokens, which
+    the kernels take: the CLI passes its shape check (the device check
+    patched to a card; the first step past the check raises "past the
+    check"). A head dim the kernels have no instance for (SD's config
+    patched to 168 at its coarsest levels) raises before any model loads."""
     monkeypatch.setattr(tcli, "resolve_device", lambda *a: torch.device("cuda", 0))
+    if head_dim is not None:
+        levels = tcli.attention_levels
+        monkeypatch.setattr(tcli, "attention_levels", lambda m, r: [
+            (t, head_dim if d == 160 else d) for t, d in levels(m, r)])
 
     def past_the_check(*a, **k):
         raise AssertionError("past the check")
@@ -530,7 +537,10 @@ def test_head_dim_above_the_kernels_raises_before_loading(face, tmp_path, monkey
     argv = ["--model_id", "CompVis/stable-diffusion-v1-4", "--init_im", face,
             "-r", str(resize[0]), str(resize[1]), "--results_path", str(tmp_path)]
     with pytest.raises(NotImplementedError if raises else AssertionError,
-                       match="head dim 160" if raises else "past the check"):
+                       match=f"head dim {head_dim}" if raises else "past the check"):
         tcli.sdedit_main(argv)
+    monkeypatch.undo()
     assert tcli.attention_levels("CompVis/stable-diffusion-v1-4", (512, 512)) == [
         (4096, 40), (1024, 80), (256, 160), (64, 160)]
+    assert tcli.attention_levels("CompVis/stable-diffusion-v1-4", (1024, 1024))[2] == (
+        1024, 160)

@@ -210,8 +210,15 @@ def test_cli_matches_jax_cli(tmp_path, monkeypatch, model_id):
 
 
 @pytest.mark.parametrize("extra", [["--dp", "2"], ["--tp", "2"], ["--sp", "2"]])
-def test_cli_rejects_parallel_flags(tmp_path, extra):
+def test_cli_rejects_parallel_flags(tmp_path, monkeypatch, extra):
+    """--dp/--tp/--sp are ported (tests/test_torch_parallel_cli.py): on the
+    card two ranks on a machine of one card (the count patched) raise before
+    any rank starts, and --sp 2 on a mel family raises the JAX ValueError."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     wav = write_test_wav(str(tmp_path / "clip.wav"), seconds=0.3)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        trl.main(["--device", "cpu", "--model_id", "test/tiny-audioldm", "--init_aud", wav,
-                  "--target_prompt", "a trumpet", "--results_path", str(tmp_path)] + extra)
+    sp = extra[0] == "--sp"
+    with pytest.raises(ValueError, match="requires a stable-audio" if sp else "CUDA device"):
+        trl.main(["--device", "cpu" if sp else "cuda", "--model_id", "test/tiny-audioldm",
+                  "--init_aud", wav, "--target_prompt", "a trumpet",
+                  "--results_path", str(tmp_path)] + extra)

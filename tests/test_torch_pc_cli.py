@@ -285,13 +285,18 @@ def test_ts_chunk_equals_one_step_chunks(clips, model, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--dp", "2"], "item 12"),
-    (["--tp", "2"], "item 12"),
+    (["--dp", "2"], "CUDA device"),
+    (["--tp", "2"], "CUDA device"),
 ])
-def test_extract_rejects_unported_flags(clips, tmp_path, argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_extract_rejects_unported_flags(clips, tmp_path, monkeypatch, argv, item):
+    """--dp/--tp are ported (tests/test_torch_parallel_cli.py runs them on
+    gloo ranks): on the card, two ranks on a machine of one card (the count
+    patched) raise before any rank starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=item):
         tpe.main(["--init_aud", clips["audioldm"], "--model_id", MODELS["audioldm"],
-                  "--device", "cpu", "--results_path", str(tmp_path)] + argv)
+                  "--device", "cuda", "--results_path", str(tmp_path)] + argv)
 
 
 def test_apply_rejects_unported_flags(extractions, tmp_path):

@@ -15,16 +15,13 @@ given; a missing card is an error. Images are read and written as PNG
 ``torch.Generator`` seeded with ``--seed``. ``run_args.json`` records the
 loop's seconds and denoiser forwards (``sdedit_seconds`` and
 ``unet_steps``; the PC CLIs' ``stage_seconds`` and ``stage_forwards``).
-
-On the card, an ``--resize`` at which the UNet would send the attention
-kernel a head dim it does not take (above 128 at 1024 or more tokens: SD
-v1.4 at ``-r 1024 1024`` or more) raises before any model loads.
+The attention kernels take every head dim up to 256, so any ``--resize``
+runs on the card.
 """
 
 from __future__ import annotations
 
 import argparse
-import math
 import os
 import sys
 import time
@@ -36,8 +33,7 @@ import torch
 
 from ..editing.pcdata import load_extraction
 from ..editing.sdedit import sdedit_loop
-from ..models.registry import load_model, resolve_spec
-from ..ops.flash_attention import KERNEL_HEAD_DIMS, _MIN_SEQ_FOR_KERNEL
+from ..models.registry import load_model
 from ..utils.device import resolve_device
 from ..utils.image_io import load_image, save_image
 from .common import StageClock, dump_run_summary, init_wandb, set_reproducibility, timestamp_name
@@ -62,47 +58,6 @@ def _add_device_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="run on a CUDA card (default) or on the CPU")
     p.add_argument("--device_num", type=int, default=0, help="CUDA card number")
-
-
-def attention_levels(model_id: str, resize: Tuple[int, int]):
-    """(tokens, head dim) of each UNet level that holds a transformer, for
-    an image of ``resize`` = (width, height)."""
-    spec = resolve_spec(model_id)
-    cfg = spec.unet
-    # the VAE pads the height to a multiple of its scale; its downsamplers
-    # (pad 0/1, stride 2) halve the width rounding down, the UNet's (pad 1,
-    # stride 2) round up
-    f = spec.vae.downscale_factor
-    h = math.ceil(resize[1] / f)
-    w = resize[0]
-    for _ in range(len(spec.vae.block_out_channels) - 1):
-        w //= 2
-    n = len(cfg.block_out_channels)
-    out = []
-    for i in range(n):
-        has = (cfg.down_block_types[i].startswith("CrossAttn")
-               or cfg.up_block_types[n - 1 - i].startswith("CrossAttn")
-               or (cfg.mid_block_type is not None and i == n - 1))
-        if has:
-            out.append((h * w, cfg.block_out_channels[i] // cfg.heads_for_block(i)))
-        h, w = math.ceil(h / 2), math.ceil(w / 2)
-    return out
-
-
-def check_kernel_shapes(model_id: str, resize: Tuple[int, int], device: torch.device) -> None:
-    """On the card, raise before loading where the UNet would send the
-    attention kernel (S >= 1024) a head dim it has no instance for (none of
-    the supported models does: SD v1.4 reaches 160 at 1024 px)."""
-    if device.type != "cuda":
-        return
-    for tokens, head_dim in attention_levels(model_id, resize):
-        if tokens >= _MIN_SEQ_FOR_KERNEL and head_dim not in KERNEL_HEAD_DIMS:
-            raise NotImplementedError(
-                f"--resize {resize[0]} {resize[1]}: {model_id} would run self-attention "
-                f"over {tokens} tokens at head dim {head_dim}, and the port's attention "
-                f"kernels take head dims {KERNEL_HEAD_DIMS[0]}-128 in steps of 8 and "
-                f"{KERNEL_HEAD_DIMS[-1]} (ROADMAP Queue C); use a smaller --resize or "
-                f"--device cpu")
 
 
 def _save_path(results_path: str, model_id: str, init_im: str, prompts, neg) -> str:
@@ -157,7 +112,6 @@ def sdedit_main(argv=None):
         raise FileNotFoundError(f"--init_im: no such file: {args.init_im}")
     resize = _resize_for(args.model_id, args.resize)
     device = resolve_device(args.device, args.device_num)
-    check_kernel_shapes(args.model_id, resize, device)
     seed = set_reproducibility(args.seed)
     gen = torch.Generator(device=device).manual_seed(seed)
     skip = args.num_diffusion_steps - args.tstart
@@ -243,7 +197,6 @@ def pc_extract_main(argv=None):
         raise FileNotFoundError(f"--init_im: no such file: {args.init_im}")
     resize = tuple(args.resize)
     device = resolve_device(args.device, args.device_num)
-    check_kernel_shapes(args.model_id, resize, device)
     seed = set_reproducibility(args.seed)
     gen = torch.Generator(device=device).manual_seed(seed)
     cfg_tar = float(np.atleast_1d(args.cfg_tar)[0])
@@ -307,8 +260,6 @@ def pc_apply_main(argv=None):
     if args.weights_dir is None and getattr(ex_args, "weights_dir", None):
         args.weights_dir = ex_args.weights_dir
     device = resolve_device(args.device, args.device_num)
-    check_kernel_shapes(ex_args.model_id, tuple(getattr(ex_args, "resize", (256, 256))),
-                        device)
     seed = set_reproducibility(args.seed)
     wandb = init_wandb(args, "pc_application_images",
                        f"drift{args.drift_start}-{args.drift_end}_a{args.amount}")

@@ -4,8 +4,8 @@ DDPM inversion) and ``--mode ddim`` (the plain DDIM-inversion baseline).
 Counterpart of ``audioeditingcode_tpu/cli/run.py``, with the same flags and
 results layout. Run it as ``python -m audioeditingcode_tpu_torch.cli.run``.
 It runs on the CUDA card ``--device_num`` unless ``--device cpu`` is given;
-a missing card is an error. Flags this port does not cover yet raise an
-error that names the ROADMAP item that adds them.
+a missing card is an error. ``--profile_dir DIR`` writes a torch.profiler
+trace of the edit into DIR (``utils/profiling.py``).
 
 ``--dp``, ``--tp`` and ``--sp`` run the edit on that many ranks
 (``parallel/launch.py``; rank r on card ``--device_num`` + r): tp shards
@@ -19,7 +19,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import time
 import warnings
 
 import numpy as np
@@ -33,6 +32,7 @@ from ..ops.flash_attention import sp_mesh_scope
 from ..parallel.launch import is_writer, requested_sp, run_on_ranks
 from ..utils.audio_io import load_audio, write_wav
 from ..utils.device import resolve_device
+from ..utils.profiling import PhaseTimer, trace
 from .common import (
     check_sp,
     dump_run_summary,
@@ -115,9 +115,6 @@ def parse_args(argv=None):
 def _reject_unported(args) -> None:
     spec = resolve_spec(args.model_id)  # raises for model families not ported yet
     check_sp(requested_sp(args), spec.family == "stable-audio")
-    if args.profile_dir is not None:
-        raise NotImplementedError("--profile_dir is not ported to PyTorch yet "
-                                  "(ROADMAP Queue A item 14)")
 
 
 def _check_ddim_args(args, skip, stable_audio: bool) -> None:
@@ -238,12 +235,13 @@ def _run(args):
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    with sp_mesh_scope(mesh):
+    timer = PhaseTimer()
+    with trace(args.profile_dir), timer.phase("edit", steps=n_steps), sp_mesh_scope(mesh):
         w_edit, recon_ref = edit()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    edit_s = time.perf_counter() - t0
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    timer.report()
+    edit_s = timer.phases["edit"]["seconds"]
     print(f"[edit] {edit_s:.3f} s for {n_steps} denoiser steps "
           f"({n_steps / edit_s:.2f} steps/s) on {device}")
 

@@ -10,9 +10,20 @@
 //   - keys at index >= kv_len masked out of the softmax,
 //   - grouped-query attention: q head h reads kv head h / (H / H_kv).
 // Inputs are (B, S, H, D) tensors addressed through their strides (the
-// last dim must be contiguous), so no transpose copy is made. D a multiple
-// of 8 up to 128, or 160 (Stable Diffusion's coarsest levels; no rotary
-// variant there).
+// last dim must be contiguous), so no transpose copy is made. Any head dim
+// 1 <= D <= 256, in both variants: each instance has a width DK (the next
+// multiple of 8 up to 128, then 160, 192 or 256), features D ... DK - 1 of q,
+// K and V are zero-filled in shared memory and registers (they add 0 to
+// q k^T and give output columns that are not stored), and the caller's
+// scale is 1/sqrt(D) of the true D.
+//
+// Wide heads (DK = 192, 256) split V's output features across blocks: a
+// grid axis over column blocks of DV = 96 or 128 features. Each block
+// computes the whole S = q K^T over all DK features (q and K read in full)
+// and the PV product for its own DV columns only, so its accumulators and
+// V tile keep the sizes of a D = 96 or 128 instance; the price is one
+// extra q K^T per extra column block. Each block runs the same sums in the
+// same order, so the softmax statistics agree bit for bit across them.
 //
 // Products in 3xTF32. Both products, S = (q * scale) K^T and O += P V, run
 // as warp-level mma.sync m16n8k8 TF32 tiles with f32 accumulators. Each
@@ -106,15 +117,22 @@ constexpr int WARPS = 4;          // each owns 16 query rows
 constexpr int BM = 16 * WARPS;    // query rows per block
 constexpr int THREADS = 32 * WARPS;
 
-template <int D>
+// DK: the width of q and K (features >= D zero-filled); DV: the V and
+// output columns of one block (DV = DK, or DK split in column blocks)
+template <int DK, int DV>
 struct Cfg {
-  static constexpr int BN = D > 128 ? 32 : 64;  // keys per K/V tile
-  static constexpr int LD = D + 4;         // floats of a shared K/V row (padded)
-  static constexpr int KC = D / 8;         // k8 steps over the features
-  static constexpr int Q = BM * D;         // floats of one split half of q
-  static constexpr int TILE = BN * LD;     // floats of a K or V tile
+  static constexpr int BN = DK > 128 ? 32 : 64;  // keys per K/V tile
+  static constexpr int LDK = DK + 4;       // floats of a shared K row (padded)
+  static constexpr int LDV = DV + 4;       // floats of a shared V row (padded)
+  static constexpr int KC = DK / 8;        // k8 steps over the features
+  static constexpr int VC = DV / 8;        // 8-wide output column blocks
+  static constexpr int Q = BM * DK;        // floats of one split half of q
+  static constexpr int TILE_K = BN * LDK;  // floats of a K tile
+  static constexpr int TILE_V = BN * LDV;  // floats of a V tile
+  static constexpr int STAGE = TILE_K + TILE_V;
   // q hi and lo, then two stages of (K, V)
-  static constexpr int SMEM = (2 * Q + 4 * TILE) * 4;
+  static constexpr int SMEM = (2 * Q + 2 * STAGE) * 4;
+  static_assert(DK % DV == 0 && DV % 8 == 0, "column blocks of whole 8-wide tiles");
   static_assert(SMEM <= 232448, "a block takes at most 227 KB of shared memory");
 };
 
@@ -189,31 +207,31 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Start the copy of keys n0 ... n0 + BN - 1 of one head (rows `stride`
-// floats apart) into a padded shared tile; rows at or past kv_len are
-// zero-filled. 16-byte copies where `vec` (base and strides multiples of 4
-// floats), 4-byte copies otherwise.
-template <int D>
+// floats apart), W features from src on, into a shared tile of rows LD
+// floats apart; rows at or past kv_len and features at or past `cols`
+// (what is left of the true D from src on) are zero-filled. 16-byte copies
+// where `vec` (base, strides and D multiples of 4 floats), 4-byte copies
+// otherwise.
+template <int W, int LD, int BN>
 __device__ __forceinline__ void load_tile(float* tile, const float* src, int64_t stride,
-                                          int n0, int kv_len, bool vec) {
-  constexpr int LD = Cfg<D>::LD;
-  constexpr int BN = Cfg<D>::BN;
+                                          int n0, int kv_len, int cols, bool vec) {
   if (vec) {
-    constexpr int CHUNKS = D / 4;
+    constexpr int CHUNKS = W / 4;
 #pragma unroll
     for (int i = 0; i < (BN * CHUNKS + THREADS - 1) / THREADS; ++i) {
       const int e = i * THREADS + threadIdx.x;
       if (BN * CHUNKS % THREADS != 0 && e >= BN * CHUNKS) break;
       const int j = e / CHUNKS;
       const int c = (e - j * CHUNKS) * 4;
-      const bool in = n0 + j < kv_len;
+      const bool in = n0 + j < kv_len && c < cols;
       cp_async16(tile + j * LD + c, in ? src + (int64_t)(n0 + j) * stride + c : src,
                  in ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < BN * D; e += THREADS) {
-      const int j = e / D;
-      const int c = e - j * D;
-      const bool in = n0 + j < kv_len;
+    for (int e = threadIdx.x; e < BN * W; e += THREADS) {
+      const int j = e / W;
+      const int c = e - j * W;
+      const bool in = n0 + j < kv_len && c < cols;
       cp_async4(tile + j * LD + c, in ? src + (int64_t)(n0 + j) * stride + c : src,
                 in ? 4 : 0);
     }
@@ -227,9 +245,9 @@ __device__ __forceinline__ void load_tile(float* tile, const float* src, int64_t
 // rotates any, so their latencies overlap (the block waits for this pass);
 // four above D = 96, where eight pairs' tables beside the 64 accumulators
 // of O would spill.
-template <int D>
+template <class C>
 __device__ __forceinline__ void rotate_k_tile(float* kt, int n0, int rows, const Rotary& rt) {
-  constexpr int BATCH = D > 96 ? 4 : 8;
+  constexpr int BATCH = C::KC * 8 > 96 ? 4 : 8;
   const int half = rt.rot >> 1;
   const int total = rows * half;
   const int jstep = THREADS / half;
@@ -241,7 +259,7 @@ __device__ __forceinline__ void rotate_k_tile(float* kt, int n0, int rows, const
     int at[BATCH];
 #pragma unroll
     for (int i = 0; i < BATCH; ++i) {
-      at[i] = j * Cfg<D>::LD + d;
+      at[i] = j * C::LDK + d;
       if (e0 + i * THREADS < total) {
         const int64_t p = (int64_t)(n0 + j) * rt.rot + d;
         c0[i] = __ldg(rt.cos + p);
@@ -269,13 +287,13 @@ __device__ __forceinline__ void rotate_k_tile(float* kt, int n0, int rows, const
   }
 }
 
-template <int D, bool ROT>
+template <int DK, int DV, bool ROT>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o, int H, int rep,
-                int Sq, int kv_len, float scale, Strides qs, Strides ks, Strides vs,
-                Strides os, Rotary rt, bool vec) {
-  using C = Cfg<D>;
+                int Sq, int kv_len, int D, float scale, Strides qs, Strides ks,
+                Strides vs, Strides os, Rotary rt, bool vec) {
+  using C = Cfg<DK, DV>;
   constexpr int BN = C::BN;
   extern __shared__ float4 smem[];
   float4* q_hi = smem;              // [WARPS][KC][32 lanes]
@@ -291,14 +309,15 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = bh % H;
   const int hk = h / rep;
   const int r0 = blockIdx.x * BM + warp * 16 + g;  // this thread's rows r0, r0 + 8
+  const int c0 = blockIdx.z * DV;                   // this block's output columns
   const int tiles = (kv_len + BN - 1) / BN;
 
   const float* kp = k + b * ks.b + hk * ks.h;
-  const float* vp = v + b * vs.b + hk * vs.h;
+  const float* vp = v + b * vs.b + hk * vs.h + c0;
 
   // the first tile's copy runs while q is read and split
-  load_tile<D>(kv, kp, ks.s, 0, kv_len, vec);
-  load_tile<D>(kv + C::TILE, vp, vs.s, 0, kv_len, vec);
+  load_tile<DK, C::LDK, BN>(kv, kp, ks.s, 0, kv_len, D, vec);
+  load_tile<DV, C::LDV, BN>(kv + C::TILE_K, vp, vs.s, 0, kv_len, D - c0, vec);
   cp_async_commit();
 
   // q * scale (rotated first with ROT) as TF32 A fragments: step kc holds
@@ -314,7 +333,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int row = r0 + (i & 1) * 8;
         const int d = 8 * kc + t + (i >> 1) * 4;
         float x = 0.f;
-        if (row < Sq) {
+        if (row < Sq && d < D) {
           const float* p = qp + (int64_t)row * qs.s;
           x = __ldg(p + d);
           if (ROT && d < rt.rot) x = rotate(p, d, x, rt, row);
@@ -329,10 +348,10 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  // O of rows r0 (elements 0, 1) and r0 + 8 (2, 3), features 8 nf + 2t, + 1
-  float acc[C::KC][4];
+  // O of rows r0 (elements 0, 1) and r0 + 8 (2, 3), columns c0 + 8 nf + 2t, + 1
+  float acc[C::VC][4];
 #pragma unroll
-  for (int nf = 0; nf < C::KC; ++nf) {
+  for (int nf = 0; nf < C::VC; ++nf) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[nf][c] = 0.f;
   }
@@ -340,12 +359,13 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float l[2] = {0.f, 0.f};
 
   for (int tile = 0; tile < tiles; ++tile) {
-    float* kt = kv + (tile & 1) * 2 * C::TILE;
-    float* vt = kt + C::TILE;
+    float* kt = kv + (tile & 1) * C::STAGE;
+    float* vt = kt + C::TILE_K;
     if (tile + 1 < tiles) {  // the other stage was released at the end of the last tile
-      float* next = kv + ((tile + 1) & 1) * 2 * C::TILE;
-      load_tile<D>(next, kp, ks.s, (tile + 1) * BN, kv_len, vec);
-      load_tile<D>(next + C::TILE, vp, vs.s, (tile + 1) * BN, kv_len, vec);
+      float* next = kv + ((tile + 1) & 1) * C::STAGE;
+      load_tile<DK, C::LDK, BN>(next, kp, ks.s, (tile + 1) * BN, kv_len, D, vec);
+      load_tile<DV, C::LDV, BN>(next + C::TILE_K, vp, vs.s, (tile + 1) * BN, kv_len, D - c0,
+                                vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -354,7 +374,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // this tile has landed for every thread
     const int n0 = tile * BN;
     if (ROT) {
-      rotate_k_tile<D>(kt, n0, min(BN, kv_len - n0), rt);
+      rotate_k_tile<C>(kt, n0, min(BN, kv_len - n0), rt);
       __syncthreads();
     }
 
@@ -378,7 +398,7 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         // B (feature, key): b0 = K[key 8 j + g][8 kc + t], b1 at feature + 4
-        const float* kr = kt + (8 * j + g) * C::LD + 8 * kc + t;
+        const float* kr = kt + (8 * j + g) * C::LDK + 8 * kc + t;
         uint32_t bh[2], bl[2];
         split(kr[0], bh[0], bl[0]);
         split(kr[4], bh[1], bl[1]);
@@ -417,9 +437,9 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // keys a step. P's A fragment comes straight from the S block: a0 =
     // p(r0, key 2t), a1 = p(r0 + 8, 2t), a2 = p(r0, 2t + 1), a3 = p(r0 + 8,
     // 2t + 1), so V's B fragment is read from key rows 2t and 2t + 1.
-    float pv[C::KC][4];
+    float pv[C::VC][4];
 #pragma unroll
-    for (int nf = 0; nf < C::KC; ++nf) {
+    for (int nf = 0; nf < C::VC; ++nf) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) pv[nf][c] = 0.f;
     }
@@ -435,18 +455,18 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       split(p[2], ah[1], al[1]);
       split(p[1], ah[2], al[2]);
       split(p[3], ah[3], al[3]);
-      const float* vr = vt + (8 * j + 2 * t) * C::LD + g;
+      const float* vr = vt + (8 * j + 2 * t) * C::LDV + g;
 #pragma unroll
-      for (int nf = 0; nf < C::KC; ++nf) {
+      for (int nf = 0; nf < C::VC; ++nf) {
         // B (key, feature): b0 = V[8 j + 2t][8 nf + g], b1 = V[8 j + 2t + 1][...]
         uint32_t bh[2], bl[2];
         split(vr[8 * nf], bh[0], bl[0]);
-        split(vr[C::LD + 8 * nf], bh[1], bl[1]);
+        split(vr[C::LDV + 8 * nf], bh[1], bl[1]);
         mma_3xtf32(pv[nf], ah, al, bh, bl);
       }
     }
 #pragma unroll
-    for (int nf = 0; nf < C::KC; ++nf) {
+    for (int nf = 0; nf < C::VC; ++nf) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[nf][c] = fmaf(acc[nf][c], alpha[c >> 1], pv[nf][c]);
     }
@@ -463,55 +483,57 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int x = 0; x < 2; ++x) {
     const int row = r0 + 8 * x;
     if (row >= Sq) continue;
-    float* orow = op + (int64_t)row * os.s + 2 * t;
+    float* orow = op + (int64_t)row * os.s;
 #pragma unroll
-    for (int nf = 0; nf < C::KC; ++nf) {
-      orow[8 * nf] = acc[nf][2 * x] / l[x];
-      orow[8 * nf + 1] = acc[nf][2 * x + 1] / l[x];
+    for (int nf = 0; nf < C::VC; ++nf) {
+      const int col = c0 + 8 * nf + 2 * t;
+      if (col < D) orow[col] = acc[nf][2 * x] / l[x];
+      if (col + 1 < D) orow[col + 1] = acc[nf][2 * x + 1] / l[x];
     }
   }
 }
 
-template <int D>
+template <int DK, int DV, bool ROT>
+int launch_variant(const float* q, const float* k, const float* v, float* o, int B, int H,
+                   int rep, int Sq, int kv_len, int D, float scale, const Strides& qs,
+                   const Strides& ks, const Strides& vs, const Strides& os, const Rotary& rt,
+                   bool vec, cudaStream_t stream) {
+  constexpr int SMEM = Cfg<DK, DV>::SMEM;
+  const dim3 grid((Sq + BM - 1) / BM, B * H, DK / DV);
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_kernel<DK, DV, ROT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_fwd_kernel<DK, DV, ROT><<<grid, THREADS, SMEM, stream>>>(
+      q, k, v, o, H, rep, Sq, kv_len, D, scale, qs, ks, vs, os, rt, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DK, int DV = DK>
 int launch(const float* q, const float* k, const float* v, float* o, int B, int H, int rep,
-           int Sq, int kv_len, float scale, const Strides& qs, const Strides& ks,
+           int Sq, int kv_len, int D, float scale, const Strides& qs, const Strides& ks,
            const Strides& vs, const Strides& os, const Rotary& rt, bool vec,
            cudaStream_t stream) {
-  using C = Cfg<D>;
-  const dim3 grid((Sq + BM - 1) / BM, B * H);
   if (rt.rot > 0) {
-    // the rotary variant has instances up to D = 128 (the DiT's is 64)
-    if constexpr (D > 128) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    } else {
-      const cudaError_t err = cudaFuncSetAttribute(
-          attn_fwd_kernel<D, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      attn_fwd_kernel<D, true><<<grid, THREADS, C::SMEM, stream>>>(
-          q, k, v, o, H, rep, Sq, kv_len, scale, qs, ks, vs, os, rt, vec);
-    }
-  } else {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd_kernel<D, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_fwd_kernel<D, false><<<grid, THREADS, C::SMEM, stream>>>(
-        q, k, v, o, H, rep, Sq, kv_len, scale, qs, ks, vs, os, rt, vec);
+    return launch_variant<DK, DV, true>(q, k, v, o, B, H, rep, Sq, kv_len, D, scale, qs, ks,
+                                        vs, os, rt, vec, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_variant<DK, DV, false>(q, k, v, o, B, H, rep, Sq, kv_len, D, scale, qs, ks,
+                                       vs, os, rt, vec, stream);
 }
 
 int run(const void* q, const void* k, const void* v, void* o, int B, int H, int H_kv,
         int Sq, int kv_len, int D, float scale, const Strides& qs, const Strides& ks,
         const Strides& vs, const Strides& os, const Rotary& rt, void* stream) {
-  if (B < 1 || H < 1 || H_kv < 1 || H % H_kv != 0 || Sq < 1 || kv_len < 1 ||
-      (int64_t)B * H > 65535) {
+  if (B < 1 || H < 1 || H_kv < 1 || H % H_kv != 0 || Sq < 1 || kv_len < 1 || D < 1 ||
+      D > 256 || (int64_t)B * H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int rep = H / H_kv;
-  // K and V take 16-byte copies when every row they copy from is 16-byte aligned
+  // K and V take 16-byte copies when every row they copy from is 16-byte
+  // aligned and a 4-float chunk lies wholly inside or outside D
   const uintptr_t bases = reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
   const int64_t strides = ks.b | ks.s | ks.h | vs.b | vs.s | vs.h;
-  const bool vec = bases % 16 == 0 && strides % 4 == 0;
+  const bool vec = bases % 16 == 0 && strides % 4 == 0 && D % 4 == 0;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -519,8 +541,17 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H, int 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define AEC_CASE(DD) \
   case DD:           \
-    return launch<DD>(qf, kf, vf, of, B, H, rep, Sq, kv_len, scale, qs, ks, vs, os, rt, vec, st);
-  switch (D) {
+    return launch<DD>(qf, kf, vf, of, B, H, rep, Sq, kv_len, D, scale, qs, ks, vs, os, rt, vec, st);
+  // the instance of the next multiple of 8 up to 128, then 160, 192, 256
+  if (D > 192) {
+    return launch<256, 128>(qf, kf, vf, of, B, H, rep, Sq, kv_len, D, scale, qs, ks, vs, os,
+                            rt, vec, st);
+  }
+  if (D > 160) {
+    return launch<192, 96>(qf, kf, vf, of, B, H, rep, Sq, kv_len, D, scale, qs, ks, vs, os,
+                           rt, vec, st);
+  }
+  switch (D > 128 ? 160 : (D + 7) / 8 * 8) {
     AEC_CASE(8)
     AEC_CASE(16)
     AEC_CASE(24)
@@ -546,8 +577,8 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H, int 
 
 }  // namespace
 
-// float32 (bfloat16 B1 is aec_flash_attention_tc_fwd). Strides are in
-// elements; the last dim of every tensor must be contiguous. Returns
+// float32 (bfloat16 B1 is aec_flash_attention_tc_fwd), 1 <= D <= 256.
+// Strides are in elements; the last dim of every tensor must be contiguous. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for arguments
 // the kernel does not take).
 extern "C" int aec_flash_attention_fwd(

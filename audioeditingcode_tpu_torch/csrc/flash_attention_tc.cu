@@ -14,8 +14,9 @@
 //   - grouped-query attention: q head h reads kv head h / (H / H_kv).
 // Inputs are (B, S, H, D) bf16 tensors addressed through their strides: the
 // last dim contiguous, the base 16-byte aligned and the other strides
-// multiples of 8 elements (what TMA takes). D a multiple of 8 up to 128,
-// or 160 (Stable Diffusion's coarsest levels; no rotary variant there).
+// multiples of 8 elements (what TMA takes). D a multiple of 8 up to 256, in
+// both variants (the wrapper zero-pads other head dims to the next multiple
+// of 8 and passes the scale of the true D).
 //
 // Design. A block of 384 threads takes BM = 128 query rows of one (batch,
 // head): warpgroups 0 and 1 each own 64 rows, and warpgroup 2 is the
@@ -32,18 +33,25 @@
 // MN-major (the transpose flag). The two consumer warpgroups are not in
 // lock step, so one's softmax overlaps the other's wgmma.
 //
-// Head dims are padded to a swizzle width, DP in {16, 32, 64, 128, 192}: a
-// K/V row of DP bf16 is one 32-, 64- or 128-byte swizzle atom (two 128-byte
-// atoms at DP = 128, three at DP = 192), TMA's out-of-bounds zero fill pads
-// D up to DP (160 to 192) and
+// Head dims are padded to a swizzle width, DP in {16, 32, 64, 128, 192, 256}:
+// a K/V row of DP bf16 is one 32-, 64- or 128-byte swizzle atom (two
+// 128-byte atoms at DP = 128, three at 192, four at 256), TMA's
+// out-of-bounds zero fill pads D up to DP (136-184 to 192, 200-248 to 256)
+// and
 // the sequence up to a whole tile, and the scores of keys >= kv_len are
 // masked in the last tile. Query rows beyond Sq read zeros and are not
 // stored. At DP = 192 a consumer thread holds 96 accumulators, 48 q
 // registers and a 64-key tile's scores and P: more than the 168 registers
 // a thread of 384 may have, so that instance runs one consumer warpgroup
 // (BM = 64, 256 threads, up to 255 registers) and its PV product as three
-// m64n64 wgmma, one per 128-byte column block of V. No atomics and a fixed order of every sum: the result is
-// deterministic.
+// m64n64 wgmma, one per 128-byte column block of V. At DP = 256 the block's
+// V columns are split: a grid axis over DV = 128-feature column blocks, each
+// block computing the whole S = q K^T over all 256 features and the PV
+// product (one m64n128 wgmma a step, as at DP = 128) for its own columns,
+// so its accumulators and V tile keep DP = 128 sizes for the price of one
+// extra q K^T. The blocks of one row block run the same QK sums in the same
+// order, so their softmax statistics agree bit for bit. No atomics and a
+// fixed order of every sum: the result is deterministic.
 //
 // Rotary variant (ROT, the Stable Audio DiT's attn1 behind
 // AEC_ROTARY_IN_KERNEL=1): a rotate-half rotary embedding is applied in f32
@@ -92,22 +100,29 @@ constexpr int STAGES = 3;
 constexpr int ROTATORS = 96;  // the producer warpgroup's warps 1-3 (ROT)
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int DP>
+// DP: the padded width of q and K; DV: the V and output columns of one
+// block (DV = DP, or 128 of DP = 256)
+template <int DP, int DV>
 struct Cfg {
   static constexpr int CONSUMERS = DP > 128 ? 1 : 2;      // warpgroups of 64 query rows
   static constexpr int BM = 64 * CONSUMERS;               // query rows per block
   static constexpr int THREADS = 128 * (CONSUMERS + 1);   // + the producer warpgroup
   static constexpr int W = DP * 2 < 128 ? DP * 2 : 128;  // swizzle width, bytes
-  static constexpr int ATOMS = DP * 2 / W;                // column blocks of a row
+  static constexpr int ATOMS = DP * 2 / W;                // column blocks of a K row
+  static constexpr int ATOMS_V = DV * 2 / W;              // column blocks of a V row
   static constexpr int BN = DP <= 64 ? 128 : 64;          // keys per tile
   static constexpr int SUB = BN * W;                      // bytes of a column block
-  static constexpr int TILE = SUB * ATOMS;                // bytes of a K or V tile
-  static constexpr int SMEM = STAGES * 2 * TILE + 1024;   // + alignment slack
+  static constexpr int TILE = SUB * ATOMS;                // bytes of a K tile
+  static constexpr int TILE_V = SUB * ATOMS_V;            // bytes of a V tile
+  static constexpr int STAGE = TILE + TILE_V;
+  static constexpr int SMEM = STAGES * STAGE + 1024;      // + alignment slack
   // V's leading offset steps between its two 64-feature column blocks at
-  // DP = 128; with one block (and at DP = 192, whose PV product takes one
+  // DV = 128; with one block (and at DV = 192, whose PV product takes one
   // block a wgmma) it is unused and set equal to the stride offset
-  static constexpr int LBO_V = ATOMS == 2 ? SUB : 8 * W;
-  static_assert(TILE % 1024 == 0, "tiles keep the 1024-byte swizzle alignment");
+  static constexpr int LBO_V = ATOMS_V == 2 ? SUB : 8 * W;
+  static_assert(DP % DV == 0 && (DV == DP || DV == 128), "V column blocks");
+  static_assert(TILE % 1024 == 0 && TILE_V % 1024 == 0,
+                "tiles keep the 1024-byte swizzle alignment");
 };
 
 struct Strides {
@@ -167,9 +182,8 @@ __device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* qp, int row, int
 // d / (W / 2), then the swizzle TMA wrote it with, which XORs the 16-byte
 // chunk index (offset bits 4 and up) with offset bits 7 and up. Column
 // blocks are 1024-byte aligned, so offset bits and address bits agree.
-template <int DP>
+template <class C>
 __device__ __forceinline__ uint32_t tile_offset(int row, int d) {
-  using C = Cfg<DP>;
   const uint32_t o = row * C::W + (d % (C::W / 2)) * 2;
   const uint32_t swizzled = o ^ (((o >> 7) & (C::W / 16 - 1)) << 4);
   return (d / (C::W / 2)) * C::SUB + swizzled;
@@ -178,15 +192,15 @@ __device__ __forceinline__ uint32_t tile_offset(int row, int d) {
 // Rotate the first `rows` keys of the K tile at kt (positions n0...) in
 // place, one (d, d + rot/2) pair at a time: thread `tid` of ROTATORS takes
 // whole pairs, so no pair is read by one thread and written by another.
-template <int DP>
+template <class C>
 __device__ __forceinline__ void rotate_k_tile(uint8_t* kt, int n0, int rows,
                                               const Rotary& rt, int tid) {
   const int half = rt.rot >> 1;
   for (int e = tid; e < rows * half; e += ROTATORS) {
     const int row = e / half;
     const int d = e - row * half;
-    auto* lo = reinterpret_cast<__nv_bfloat16*>(kt + tile_offset<DP>(row, d));
-    auto* hi = reinterpret_cast<__nv_bfloat16*>(kt + tile_offset<DP>(row, d + half));
+    auto* lo = reinterpret_cast<__nv_bfloat16*>(kt + tile_offset<C>(row, d));
+    auto* hi = reinterpret_cast<__nv_bfloat16*>(kt + tile_offset<C>(row, d + half));
     const float x0 = __bfloat162float(*lo);
     const float x1 = __bfloat162float(*hi);
     const int64_t t = (int64_t)(n0 + row) * rt.rot + d;
@@ -217,7 +231,7 @@ __device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
 // about a quarter of the per-pair loop's instructions, which the three
 // rotating warps would otherwise spend longer on than the consumers spend
 // on a tile.
-template <int DP>
+template <class C>
 __device__ __forceinline__ void rotate_k_tile_vec(uint8_t* kt, int n0, int rows,
                                                   const Rotary& rt, int tid) {
   const int half = rt.rot >> 1;
@@ -225,8 +239,8 @@ __device__ __forceinline__ void rotate_k_tile_vec(uint8_t* kt, int n0, int rows,
   for (int e = tid; e < rows * chunks; e += ROTATORS) {
     const int row = e / chunks;
     const int d0 = (e - row * chunks) * 8;
-    uint4* lo = reinterpret_cast<uint4*>(kt + tile_offset<DP>(row, d0));
-    uint4* hi = reinterpret_cast<uint4*>(kt + tile_offset<DP>(row, d0 + half));
+    uint4* lo = reinterpret_cast<uint4*>(kt + tile_offset<C>(row, d0));
+    uint4* hi = reinterpret_cast<uint4*>(kt + tile_offset<C>(row, d0 + half));
     const uint4 xl = *lo, xh = *hi;
     const int64_t t = (int64_t)(n0 + row) * rt.rot + d0;
     float c0[8], s0[8], c1[8], s1[8];
@@ -254,14 +268,14 @@ __device__ __forceinline__ void rotate_k_tile_vec(uint8_t* kt, int n0, int rows,
   }
 }
 
-template <int DP, bool ROT>
-__global__ void __launch_bounds__(Cfg<DP>::THREADS, 1)
+template <int DP, int DV, bool ROT>
+__global__ void __launch_bounds__(Cfg<DP, DV>::THREADS, 1)
 attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap,
                const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
                int H, int rep, int Sq, int kv_len, int D, float scale, Strides qs,
                Strides os, Rotary rt) {
-  using C = Cfg<DP>;
+  using C = Cfg<DP, DV>;
   constexpr int CONSUMERS = C::CONSUMERS;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES];
@@ -274,6 +288,7 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
   const int h = bh % H;
   const int tiles = (kv_len + C::BN - 1) / C::BN;
   const int wg = threadIdx.x / 128;
+  const int c0 = blockIdx.z * DV;  // this block's V and output columns
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -295,12 +310,12 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
         const int s = t % STAGES;
         mbar_wait(&full[s], (t / STAGES) & 1);
         const int n0 = t * C::BN;
-        uint8_t* kt = smem + s * 2 * C::TILE;
+        uint8_t* kt = smem + s * C::STAGE;
         const int rows = min(C::BN, kv_len - n0);
         if (rt.vec) {
-          rotate_k_tile_vec<DP>(kt, n0, rows, rt, tid);
+          rotate_k_tile_vec<C>(kt, n0, rows, rt, tid);
         } else {
-          rotate_k_tile<DP>(kt, n0, rows, rt, tid);
+          rotate_k_tile<C>(kt, n0, rows, rt, tid);
         }
         fence_proxy_async();  // the consumers' wgmma reads the rotated tile
         mbar_arrive(&rotated[s]);
@@ -310,14 +325,17 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
       for (int t = 0; t < tiles; ++t) {
         const int s = t % STAGES;
         if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
-        uint8_t* kt = smem + s * 2 * C::TILE;
+        uint8_t* kt = smem + s * C::STAGE;
         uint8_t* vt = kt + C::TILE;
-        mbar_arrive_expect_tx(&full[s], 2 * C::TILE);
+        mbar_arrive_expect_tx(&full[s], C::STAGE);
 #pragma unroll
         for (int a = 0; a < C::ATOMS; ++a) {
           tma_load_4d(kt + a * C::SUB, &kmap, &full[s], a * (C::W / 2), hk,
                       t * C::BN, b);
-          tma_load_4d(vt + a * C::SUB, &vmap, &full[s], a * (C::W / 2), hk,
+        }
+#pragma unroll
+        for (int a = 0; a < C::ATOMS_V; ++a) {
+          tma_load_4d(vt + a * C::SUB, &vmap, &full[s], c0 + a * (C::W / 2), hk,
                       t * C::BN, b);
         }
       }
@@ -342,9 +360,9 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
       }
     }
 
-    float acc[DP / 2];
+    float acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};
     float l[2] = {0.f, 0.f};
 
@@ -352,7 +370,7 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
       const int s = t % STAGES;
       mbar_wait(&full[s], (t / STAGES) & 1);
       if (ROT) mbar_wait(&rotated[s], (t / STAGES) & 1);
-      const uint8_t* kt = smem + s * 2 * C::TILE;
+      const uint8_t* kt = smem + s * C::STAGE;
       const uint8_t* vt = kt + C::TILE;
 
       // S = (q * scale) K^T: K is K-major, 32 bytes (16 features) a step
@@ -397,7 +415,7 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
         const float alpha = ex2((m[x] - mn[x]) * LOG2E);
         l[x] *= alpha;
 #pragma unroll
-        for (int j = 0; j < DP / 8; ++j) {
+        for (int j = 0; j < DV / 8; ++j) {
           acc[4 * j + 2 * x] *= alpha;
           acc[4 * j + 2 * x + 1] *= alpha;
         }
@@ -427,16 +445,16 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < C::BN / 16; ++kk) {
-        if constexpr (DP <= 128) {
-          WgmmaRS<DP, 1>::run(acc, pf[kk],
+        if constexpr (DV <= 128) {
+          WgmmaRS<DV, 1>::run(acc, pf[kk],
                               smem_desc(vt + kk * 16 * C::W, C::LBO_V, 8 * C::W,
                                         wgmma_layout(C::W)),
                               1);
         } else {
           // column block a holds features 64 a ... 64 a + 63, which are
-          // accumulators 32 a ... 32 a + 31 of the m64nDP layout
+          // accumulators 32 a ... 32 a + 31 of the m64nDV layout
 #pragma unroll
-          for (int a = 0; a < C::ATOMS; ++a) {
+          for (int a = 0; a < C::ATOMS_V; ++a) {
             WgmmaRS<64, 1>::run(*reinterpret_cast<float(*)[32]>(acc + 32 * a), pf[kk],
                                 smem_desc(vt + a * C::SUB + kk * 16 * C::W, C::LBO_V,
                                           8 * C::W, wgmma_layout(C::W)),
@@ -457,8 +475,8 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
     }
     __nv_bfloat16* op = o + b * os.b + h * os.h;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int d = 8 * j + c2;
+    for (int j = 0; j < DV / 8; ++j) {
+      const int d = c0 + 8 * j + c2;
       if (d >= D) continue;
 #pragma unroll
       for (int x = 0; x < 2; ++x) {
@@ -474,11 +492,10 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap kmap,
 }
 
 // K and V tensor maps over (D, H_kv, kv_len, B), tiles of (W / 2, 1, BN, 1)
-template <int DP>
+template <class C>
 int make_maps(CUtensorMap* kmap, CUtensorMap* vmap, const void* k, const void* v,
               int B, int H_kv, int kv_len, int D, const Strides& ks,
               const Strides& vs) {
-  using C = Cfg<DP>;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H_kv, (cuuint64_t)kv_len,
                               (cuuint64_t)B};
   const cuuint32_t box[4] = {(cuuint32_t)(C::W / 2), 1, (cuuint32_t)C::BN, 1};
@@ -492,20 +509,20 @@ int make_maps(CUtensorMap* kmap, CUtensorMap* vmap, const void* k, const void* v
   return rc;
 }
 
-template <int DP, bool ROT>
+template <int DP, bool ROT, int DV = DP>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int H_kv, int Sq, int kv_len, int D, float scale, const Strides& qs,
            const Strides& ks, const Strides& vs, const Strides& os, const Rotary& rt,
            cudaStream_t stream) {
-  using C = Cfg<DP>;
+  using C = Cfg<DP, DV>;
   CUtensorMap kmap, vmap;
-  const int rc = make_maps<DP>(&kmap, &vmap, k, v, B, H_kv, kv_len, D, ks, vs);
+  const int rc = make_maps<C>(&kmap, &vmap, k, v, B, H_kv, kv_len, D, ks, vs);
   if (rc != 0) return rc < 0 ? rc : -rc;
   cudaError_t err = cudaFuncSetAttribute(
-      attn_tc_kernel<DP, ROT>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      attn_tc_kernel<DP, DV, ROT>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (Sq + C::BM - 1) / C::BM);
-  attn_tc_kernel<DP, ROT><<<grid, C::THREADS, C::SMEM, stream>>>(
+  const dim3 grid(B * H, (Sq + C::BM - 1) / C::BM, DP / DV);
+  attn_tc_kernel<DP, DV, ROT><<<grid, C::THREADS, C::SMEM, stream>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q),
       static_cast<__nv_bfloat16*>(o), H, H / H_kv, Sq, kv_len, D, scale, qs, os, rt);
   return static_cast<int>(cudaGetLastError());
@@ -516,7 +533,7 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H, int 
         int Sq, int kv_len, int D, float scale, const Strides& qs, const Strides& ks,
         const Strides& vs, const Strides& os, const Rotary& rt, void* stream) {
   if (B < 1 || H < 1 || H_kv < 1 || H % H_kv != 0 || Sq < 1 || kv_len < 1 ||
-      D < 8 || D % 8 != 0 || (D > 128 && D != 160) || (Sq + 63) / 64 > 65535) {
+      D < 8 || D % 8 != 0 || D > 256 || (Sq + 63) / 64 > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -543,13 +560,12 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H, int 
     return launch<128, ROT>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs,
                             os, rt, st);
   }
-  if constexpr (ROT) {
-    // the rotary variant has instances up to D = 128 (the DiT's is 64)
-    return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    return launch<192, false>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs,
-                              os, rt, st);
+  if (D <= 192) {
+    return launch<192, ROT>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs,
+                            os, rt, st);
   }
+  return launch<256, ROT, 128>(q, k, v, o, B, H, H_kv, Sq, kv_len, D, scale, qs, ks, vs,
+                               os, rt, st);
 }
 
 }  // namespace

@@ -217,3 +217,56 @@ def torch_to_flax_tree(module: nn.Module, nesting: str = "jax",
         flat[levels + (name,)] = t if t.dtype == torch.bfloat16 else t.numpy()
     tree = unflatten(flat)
     return {root: tree} if root else tree
+
+
+def clap_state_dict_from_jax(audio: Mapping[str, Any], text: Mapping[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """The state dict of ``models/clap_audio.py::ClapModel`` from the JAX
+    package's CLAP param trees (``params_from_torch_clap`` and
+    ``text_params_from_torch_clap``). Their arrays are in torch layouts
+    already, under other names. The trees hold no index buffers and no
+    logit scales; ``clap_audio.load_clap_weights`` takes the model's own
+    for those."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(prefix: str, tree: Mapping[str, Any]) -> None:
+        for k, v in tree.items():
+            sd[f"{prefix}.{k}"] = torch.tensor(np.asarray(v))
+
+    enc = "audio_model.audio_encoder"
+    put(f"{enc}.batch_norm", audio["batch_norm"])
+    put(f"{enc}.patch_embed.proj", audio["patch_embed"]["proj"])
+    put(f"{enc}.patch_embed.norm", audio["patch_embed"]["norm"])
+    put(f"{enc}.norm", audio["norm"])
+    for i, stage in enumerate(audio["layers"]):
+        for j, block in enumerate(stage["blocks"]):
+            p = f"{enc}.layers.{i}.blocks.{j}"
+            attn = block["attn"]
+            for name in ("layernorm_before", "layernorm_after"):
+                put(f"{p}.{name}", block[name])
+            for name in ("query", "key", "value"):
+                put(f"{p}.attention.self.{name}", attn[name])
+            put(f"{p}.attention.self", {"relative_position_bias_table":
+                                        attn["relative_position_bias_table"]})
+            put(f"{p}.attention.output.dense", attn["output"])
+            put(f"{p}.intermediate.dense", block["intermediate"])
+            put(f"{p}.output.dense", block["output"])
+        if "downsample" in stage:
+            put(f"{enc}.layers.{i}.downsample.norm", stage["downsample"]["norm"])
+            put(f"{enc}.layers.{i}.downsample.reduction", stage["downsample"]["reduction"])
+    for name in ("linear1", "linear2"):
+        put(f"audio_projection.{name}", audio["projection"][name])
+        put(f"text_projection.{name}", text["projection"][name])
+    emb = text["embeddings"]
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        put(f"text_model.embeddings.{name}", {"weight": emb[name]})
+    put("text_model.embeddings.LayerNorm", emb["LayerNorm"])
+    put("text_model.pooler.dense", text["pooler"])
+    layer_names = {"query": "attention.self.query", "key": "attention.self.key",
+                   "value": "attention.self.value", "attn_out": "attention.output.dense",
+                   "attn_ln": "attention.output.LayerNorm", "intermediate": "intermediate.dense",
+                   "output": "output.dense", "out_ln": "output.LayerNorm"}
+    for i, layer in enumerate(text["layers"]):
+        for src, dst in layer_names.items():
+            put(f"text_model.encoder.layer.{i}.{dst}", layer[src])
+    return sd

@@ -10,9 +10,14 @@ the JAX package's: q is (B, Sq, H, D), k and v are (B, Skv, H_kv, D).
   (``csrc/flash_attention_tc.cu``: TMA, mbarriers, wgmma), float32 to the
   3xTF32 kernel (``csrc/flash_attention.cu``: each product as three TF32
   ``mma.sync`` products of split operands on the tensor cores, which keeps
-  float32 accuracy; K/V tiles by double-buffered ``cp.async``). Each launch
-  adds one to ``flash_attention_cuda.launches`` and to its route's entry of
-  ``flash_attention_cuda.launches_by_route``.
+  float32 accuracy; K/V tiles by double-buffered ``cp.async``). Both take
+  every head dim up to 256, as the Pallas kernel does: the float32 kernel
+  zero-fills the features past D in shared memory; the tensor-core kernel's
+  TMA loads need rows of whole 16 bytes, so a bfloat16 D that is not a
+  multiple of 8 is zero-padded on the device to the next one (a copy of q,
+  k and v, counted in ``pad_copies``) and the output sliced back. Each
+  launch adds one to ``flash_attention_cuda.launches`` and to its route's
+  entry of ``flash_attention_cuda.launches_by_route``.
 - ``flash_attention_rotary_cuda`` (B2): B1 with a partial rotate-half
   rotary applied to q and k inside the kernel, which replaces the Pallas
   ``_attn_rotary_kernel``. The routes are B1's: bfloat16 runs the ROT
@@ -51,12 +56,9 @@ import torch
 # the JAX dispatcher's threshold (flash_attention.py:36): below it the
 # plain path is used on every device
 _MIN_SEQ_FOR_KERNEL = 1024
-# the head dims both kernels have an instance for: multiples of 8 up to
-# 128, and 160 (Stable Diffusion v1.4's coarsest levels)
-KERNEL_HEAD_DIMS = tuple(range(8, 129, 8)) + (160,)
-_MAX_KERNEL_HEAD_DIM = max(KERNEL_HEAD_DIMS)
-# the rotary variant B2's: up to 128 (the DiT's is 64)
-ROTARY_HEAD_DIMS = tuple(range(8, 129, 8))
+# the widest head dim of the JAX dispatcher's kernel rule, which both
+# kernels and B2 take whole
+MAX_KERNEL_HEAD_DIM = 256
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _FNS = {}
@@ -131,31 +133,49 @@ def _check_kernel_args(q, k, v):
     B, _, H, D = q.shape
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"k/v shape {tuple(k.shape)} does not fit q {tuple(q.shape)}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {D}: the kernel takes multiples of 8 up to 128, "
-                         f"and {_MAX_KERNEL_HEAD_DIM}")
+    if not 1 <= D <= MAX_KERNEL_HEAD_DIM:
+        raise ValueError(f"head dim {D}: the kernels take head dims up to "
+                         f"{MAX_KERNEL_HEAD_DIM}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
 
 
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x with its head dim zero-padded to ``width``: the zero features add
+    nothing to q k^T and give zero output columns."""
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def _tc_padded(route: str, q, k, v):
+    """(q, k, v, D) as the kernel on ``route`` takes them: a tensor-core
+    launch at a head dim D that is not a multiple of 8 gets copies of q, k
+    and v zero-padded to the next one (TMA takes rows of whole 16 bytes)."""
+    D = q.shape[3]
+    if route != TENSOR_CORE or D % 8 == 0:
+        return q, k, v, D
+    width = -(-D // 8) * 8
+    return pad_head_dim(q, width), pad_head_dim(k, width), pad_head_dim(v, width), D
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_len: Optional[int] = None) -> torch.Tensor:
-    """Launch the CUDA kernel on (B, Sq, H, D) x (B, Skv, H_kv, D); keys at
-    index >= ``kv_len`` (default Skv) are masked. Raises on what it does not
-    take; never falls back."""
+    """Launch the CUDA kernel on (B, Sq, H, D) x (B, Skv, H_kv, D), D <= 256;
+    keys at index >= ``kv_len`` (default Skv) are masked. Raises on what it
+    does not take; never falls back."""
     _check_kernel_args(q, k, v)
     B, Sq, H, D = q.shape
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     if not 1 <= kv_len <= k.shape[1]:
         raise ValueError(f"kv_len {kv_len} outside 1..{k.shape[1]}")
     route = attention_route(q.dtype)
+    q, k, v, D = _tc_padded(route, q, k, v)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     if route == TENSOR_CORE:
         _check_tma_args(q, k, v, o)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _kernel_fn(route)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        B, H, k.shape[2], Sq, kv_len, D, 1.0 / (D ** 0.5),
+        B, H, k.shape[2], Sq, kv_len, q.shape[3], 1.0 / (D ** 0.5),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         stream,
     )
@@ -164,11 +184,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"CUDA error {rc}")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_by_route[route] += 1
+    if q.shape[3] != D:
+        flash_attention_cuda.pad_copies += 1
+        o = o[..., :D].contiguous()
     return o
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_by_route = {TENSOR_CORE: 0, TF32X3: 0}
+flash_attention_cuda.pad_copies = 0
 
 
 def _check_rotary_tables(q, cos, sin) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -191,18 +215,16 @@ def flash_attention_rotary_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
                                 cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Launch the rotary kernel B2 on (B, S, H, D) x (B, S, H_kv, D) square
     self-attention, with (>= S, rot) cos/sin tables, on the route of
-    ``attention_route(dtype, rotary=True)``. Raises on what it does not
-    take; never falls back."""
+    ``attention_route(dtype, rotary=True)``, D <= 256 and any even rotary
+    width up to D. Raises on what it does not take; never falls back."""
     _check_kernel_args(q, k, v)
     if q.shape[1] != k.shape[1]:
         raise ValueError(f"in-kernel rotary takes square self-attention, got "
                          f"{q.shape[1]} queries and {k.shape[1]} keys")
-    if q.shape[3] not in ROTARY_HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[3]}: the rotary kernel takes multiples of 8 "
-                         f"up to {max(ROTARY_HEAD_DIMS)}")
     cos, sin = _check_rotary_tables(q, cos, sin)
-    B, S, H, D = q.shape
+    B, S, H, _ = q.shape
     route = attention_route(q.dtype, rotary=True)
+    q, k, v, D = _tc_padded(route, q, k, v)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     if route == TENSOR_CORE:
         _check_tma_args(q, k, v, o)
@@ -210,7 +232,7 @@ def flash_attention_rotary_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     rc = _kernel_fn(route, rotary=True)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), cos.shape[-1],
-        B, H, k.shape[2], S, S, D, 1.0 / (D ** 0.5),
+        B, H, k.shape[2], S, S, q.shape[3], 1.0 / (D ** 0.5),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         stream,
     )
@@ -219,11 +241,15 @@ def flash_attention_rotary_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
                            f"CUDA error {rc}")
     flash_attention_rotary_cuda.launches += 1
     flash_attention_rotary_cuda.launches_by_route[route] += 1
+    if q.shape[3] != D:
+        flash_attention_rotary_cuda.pad_copies += 1
+        o = o[..., :D].contiguous()
     return o
 
 
 flash_attention_rotary_cuda.launches = 0
 flash_attention_rotary_cuda.launches_by_route = {TENSOR_CORE: 0, TF32X3: 0}
+flash_attention_rotary_cuda.pad_copies = 0
 
 
 def _repeat_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -232,12 +258,14 @@ def _repeat_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        kv_len: Optional[int] = None) -> torch.Tensor:
+                        kv_len: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """Plain version of the kernel (and of the Pallas ``_attn_core``): q is
-    scaled in f32 and rounded to its dtype, scores and softmax are f32, and
-    p is rounded to v's dtype before the PV product."""
+    scaled in f32 (by ``scale``, default 1/sqrt(D)) and rounded to its
+    dtype, scores and softmax are f32, and p is rounded to v's dtype before
+    the PV product."""
     B, Sq, H, D = q.shape
-    scale = 1.0 / (D ** 0.5)
+    scale = 1.0 / (D ** 0.5) if scale is None else scale
     qs = (q.float() * scale).to(q.dtype).float().transpose(1, 2)  # (B, H, Sq, D)
     kt = _repeat_kv(k, H).float().transpose(1, 2)
     vt = _repeat_kv(v, H).transpose(1, 2)
@@ -300,7 +328,7 @@ def _kernel_rule(seq_len: int, q: torch.Tensor, k: torch.Tensor) -> bool:
     """The shape half of ``kernel_eligible``, for a sequence of seq_len
     tokens (all of them, where the sp route holds a rank's rows): long
     enough, D <= 256 and whole query groups per kv head."""
-    return (seq_len >= _MIN_SEQ_FOR_KERNEL and q.shape[3] <= 256
+    return (seq_len >= _MIN_SEQ_FOR_KERNEL and q.shape[3] <= MAX_KERNEL_HEAD_DIM
             and q.shape[2] % k.shape[2] == 0)
 
 
@@ -361,9 +389,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     rotary: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     kv_len: Optional[int] = None) -> torch.Tensor:
     """(B, Q, H, D) attention, with an optional partial rotary (cos, sin),
-    each (Q, rot), applied to q and k. Eligible calls launch a kernel on a
-    CUDA tensor or raise (a head dim outside ``KERNEL_HEAD_DIMS``
-    included), and take its plain version on a CPU tensor; the rest take
+    each (Q, rot), applied to q and k. Eligible calls (every head dim up
+    to 256) launch a kernel on a CUDA tensor or raise, and take its plain
+    version on a CPU tensor; the rest take
     the plain matmul path. The rotary goes inside the kernel (B2) with
     ``AEC_ROTARY_IN_KERNEL=1`` and an even width, and is applied on the
     host before B1 otherwise (the JAX default). ``kv_len`` marks

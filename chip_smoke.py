@@ -21,9 +21,12 @@ prints no result):
    (flash_attention_rotary_tc, flash_attention_rotary; beside SDPA it is
    also timed against the default dispatcher's host rotary + B1), B3 in
    bfloat16 on the tensor cores (swiglu_tc) and in float32 as three TF32
-   products on the tensor cores (swiglu). Since PR 14 also B1 at SD v1.4's
-   1024 px shapes: (2, 16384, 8, 40), (2, 4096, 8, 80) and (2, 1024, 8,
-   160), head dim 160 in both dtypes.
+   products on the tensor cores (swiglu). Also B1 at SD v1.4's 1024 px
+   shapes: (2, 16384, 8, 40), (2, 4096, 8, 80) and (2, 1024, 8, 160), head
+   dim 160 in both dtypes; B1 at (2, 1024, 8, D) for D in 20, 100, 136, 152,
+   168, 200 and 256, a ragged GQA call at D = 200 with kv_len and an sp
+   query block at D = 256, and B2 at (2, 1025, 8, 256) with rot 64, in
+   both dtypes.
 2. one full-width AudioLDM-s UNet forward (random seeded weights, batch 2
    on the (8, 256, 16) latent of a 10 s clip) on the card, through the
    kernel, against the same forward on the CPU, through the plain version;
@@ -140,6 +143,17 @@ prints no result):
    within 1 dB of phase 4's. (NCCL takes one rank per card: groups of
    several ranks run on the CPU tests' gloo ranks and on machines with as
    many cards.)
+13. the eval tower: a seeded CLAP checkpoint at transformers' default
+   audio and text geometry (HTSAT-base, RoBERTa-base, projection 512) in
+   the layout ClapModel.from_pretrained reads, written by the port's
+   safetensors writer and loaded back on the card bit-equal; the towers'
+   stages, pooled output and embeddings card vs CPU (<= 1e-3 max relative
+   error); ``cli/evals_run.py`` on phase 9's sweep tree and phase 7's SDEdit
+   trees (one row per wav, every score finite, the keys those of the wavs)
+   and FAD between phase 3's clip with its windows and the sweep's edits
+   (FAD of a set with itself <= 1e-6 of it); LPAPS of a clip with itself
+   0; a short float32 ``cli/run.py --profile_dir`` edit, whose trace must
+   be written and whose wav must be bit-equal to the same edit without it.
 From phase 3 on, each CLI run's seeded weights and checkpoint reads are
 reused from an earlier run that built the same ones (``reuse_setup``).
 Every kernel launch count is set to 0 just before each main-path run and
@@ -167,6 +181,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -275,7 +290,21 @@ ATTN_CASES = [
     ((2, 4096, 8, 8, 80), torch.bfloat16),
     ((2, 1024, 8, 8, 160), torch.float32),
     ((2, 1024, 8, 8, 160), torch.bfloat16),
+    # every kind of head dim the JAX kernel takes, which no model sends yet
+    # off a multiple of 8 (20, 100: f32 zero-fills in the kernel,
+    # bf16 pads a copy), 136-160 (f32 160, bf16 DP 192), 168 (f32 192 in
+    # two 96-column blocks, bf16 DP 192) and 200-256 (f32 256 and bf16 DP
+    # 256, each in two 128-column blocks)
+    *[((2, 1024, 8, 8, D), dtype) for D in (20, 100, 136, 152, 168, 200, 256)
+      for dtype in (torch.float32, torch.bfloat16)],
 ]
+# ((B, Sq, H, H_kv, D), dtype, keys, kv_len): a ragged GQA call at D = 200
+# with its last keys masked, and an sp query block at D = 256 (264 rows of
+# the 1056 padded keys of sp 4, kv_len 1025)
+ATTN_KV_LEN_CASES = [((1, 777, 4, 2, 200), dtype, 777, 700) for dtype in
+                     (torch.float32, torch.bfloat16)] + [
+                    ((2, 264, 8, 8, 256), dtype, 1056, 1025) for dtype in
+                     (torch.float32, torch.bfloat16)]
 # float32 attention (B1, B2) is held to flash_attention.F32_TOL, 1e-5 +
 # 1e-5 |ref|, which a single TF32 product fails; bf16 to
 # flash_attention.BF16_TOL: two bf16 ulps, 4e-3 near zero, which a kernel
@@ -288,7 +317,10 @@ ROTARY_CASES = [((2, 1025, 24, 12, 64), 32, torch.float32, False),
                 ((2, 1025, 24, 12, 64), 32, torch.bfloat16, False),
                 ((1, 777, 4, 2, 128), 64, torch.float32, False),
                 ((1, 777, 4, 2, 128), 64, torch.bfloat16, False),
-                ((2, 1025, 24, 12, 64), 32, torch.bfloat16, True)]
+                ((2, 1025, 24, 12, 64), 32, torch.bfloat16, True),
+                # B2 at the widest head dim
+                ((2, 1025, 8, 8, 256), 64, torch.float32, False),
+                ((2, 1025, 8, 8, 256), 64, torch.bfloat16, False)]
 # (M, E, N) of the DiT feed-forward (B3): the CFG batch of 2 x 1025 tokens,
 # and 1025 rows (an empty source prompt runs the unconditional stream
 # alone); in each dtype also a ragged case (M and E not multiples of the
@@ -477,17 +509,18 @@ def _bound(t_bytes, t_products, t_exps):
     return terms[term] * 1e3, "bytes" if term == "bytes" else "operations", term
 
 
-def attention_bound_ms(B, S, H, Hkv, D, dtype, rot=0):
-    """Least time for the function: the largest of its bytes (q, k, v read
-    once, o written once, and with a rotary of width ``rot`` its two (S, rot)
-    float32 tables) over HBM bandwidth, its two matmuls at the type's
-    tensor-core peak (float32: three TF32 products each) and its
-    exponentials at the SFU rate."""
+def attention_bound_ms(B, S, H, Hkv, D, dtype, rot=0, Sq=None):
+    """Least time for the function of Sq (default S) query rows over S
+    keys: the largest of its bytes (q, k, v read once, o written once, and
+    with a rotary of width ``rot`` its two (S, rot) float32 tables) over HBM
+    bandwidth, its two matmuls at the type's tensor-core peak (float32:
+    three TF32 products each) and its exponentials at the SFU rate."""
+    Sq = S if Sq is None else Sq
     itemsize = torch.finfo(dtype).bits // 8
-    nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * itemsize + 2 * S * rot * 4
+    nbytes = (2 * B * Sq * H * D + 2 * B * S * Hkv * D) * itemsize + 2 * S * rot * 4
     rate = TF32X3_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
-    return _bound(nbytes / HBM_BYTES_PER_S, 4.0 * B * H * S * S * D / rate,
-                  1.0 * B * H * S * S / EXP_PER_S)
+    return _bound(nbytes / HBM_BYTES_PER_S, 4.0 * B * H * Sq * S * D / rate,
+                  1.0 * B * H * Sq * S / EXP_PER_S)
 
 
 def swiglu_bound_ms(M, E, N, dtype):
@@ -644,30 +677,44 @@ def phase1_swiglu(sw):
 
 
 def phase1_attention(fa):
+    """B1 at ATTN_CASES (square self-attention), then at ATTN_KV_LEN_CASES
+    (Sq query rows over more keys, those at or past kv_len masked; the
+    library yardstick runs on the kv_len real keys)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     cases = []
     g = torch.Generator(device="cuda").manual_seed(0)
-    for (B, S, H, Hkv, D), dtype in ATTN_CASES:
+    all_cases = ([(shape, dtype, shape[1], None) for shape, dtype in ATTN_CASES]
+                 + ATTN_KV_LEN_CASES)
+    for (B, S, H, Hkv, D), dtype, keys, kv_len in all_cases:
         q = torch.randn(B, S, H, D, device="cuda", generator=g).to(dtype)
-        k = torch.randn(B, S, Hkv, D, device="cuda", generator=g).to(dtype)
-        v = torch.randn(B, S, Hkv, D, device="cuda", generator=g).to(dtype)
+        k = torch.randn(B, keys, Hkv, D, device="cuda", generator=g).to(dtype)
+        v = torch.randn(B, keys, Hkv, D, device="cuda", generator=g).to(dtype)
+        pads = fa.flash_attention_cuda.pad_copies
         out, route = _launch_on_route(fa.flash_attention_cuda,
-                                      lambda: fa.flash_attention_cuda(q, k, v))
+                                      lambda: fa.flash_attention_cuda(q, k, v, kv_len))
         if route != fa.attention_route(dtype):
             raise AssertionError(f"flash_attention {dtype} took the {route} route")
-        ref = fa.attention_reference(q, k, v)
+        ref = fa.attention_reference(q, k, v, kv_len)
         tol = fa.BF16_TOL if dtype == torch.bfloat16 else fa.F32_TOL
         errors = _check(out, ref, tol)
         # the library yardstick, one call; GQA's kv heads repeated beforehand
-        kr, vr = (x.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) for x in (k, v))
+        n = keys if kv_len is None else kv_len
+        kr, vr = (x[:, :n].repeat_interleave(H // Hkv, dim=2).transpose(1, 2) for x in (k, v))
         qt = q.transpose(1, 2)
-        cases.append(_record_case(
+        case = _record_case(
             "flash_attention", (B, S, H, D), dtype, errors, tol,
-            _times(lambda: fa.flash_attention_cuda(q, k, v),
-                   lambda: fa.attention_reference(q, k, v), lambda: sdpa(qt, kr, vr), reps=20),
+            _times(lambda: fa.flash_attention_cuda(q, k, v, kv_len),
+                   lambda: fa.attention_reference(q, k, v, kv_len), lambda: sdpa(qt, kr, vr),
+                   reps=20),
             "scaled_dot_product_attention (one PyTorch call)",
-            attention_bound_ms(B, S, H, Hkv, D, dtype)) | {"kv_heads": Hkv, "route": route})
+            attention_bound_ms(B, n, H, Hkv, D, dtype, Sq=S))
+        case |= {"kv_heads": Hkv, "route": route,
+                 # a bf16 head dim off a multiple of 8 runs on a zero-padded copy
+                 "padded_copy": fa.flash_attention_cuda.pad_copies != pads}
+        if kv_len is not None:
+            case |= {"keys": keys, "kv_len": kv_len}
+        cases.append(case)
         del q, k, v, out, ref, kr, vr, qt
         torch.cuda.empty_cache()
     return cases
@@ -2661,6 +2708,224 @@ def phase12_sp1(fa, sw, tmp: str, phase4_snr: float) -> dict:
     return runs
 
 
+# phase 13: the eval tower. A seeded CLAP checkpoint at transformers'
+# default ClapAudioConfig and ClapTextConfig (HTSAT-base: depths 2, 2, 6,
+# 2, 64 mel bins; RoBERTa-base) with projection 512, the geometry of the
+# laion checkpoints the protocol names
+CLAP_AUDIO = {"model_type": "clap_audio_model", "window_size": 8, "num_mel_bins": 64,
+              "spec_size": 256, "patch_size": 4, "patch_stride": [4, 4], "hidden_size": 768,
+              "depths": [2, 2, 6, 2], "num_attention_heads": [4, 8, 16, 32],
+              "enable_fusion": False, "hidden_act": "gelu", "projection_dim": 512,
+              "flatten_patch_embeds": True, "patch_embeds_hidden_size": 96,
+              "enable_patch_layer_norm": True, "qkv_bias": True, "mlp_ratio": 4.0,
+              "patch_embed_input_channels": 1, "layer_norm_eps": 1e-5,
+              "projection_hidden_act": "relu"}
+CLAP_TEXT_FULL = {"model_type": "clap_text_model", "vocab_size": 50265, "hidden_size": 768,
+                  "num_hidden_layers": 12, "num_attention_heads": 12,
+                  "intermediate_size": 3072, "hidden_act": "gelu",
+                  "max_position_embeddings": 514, "type_vocab_size": 1,
+                  "layer_norm_eps": 1e-12, "pad_token_id": 1, "bos_token_id": 0,
+                  "eos_token_id": 2, "projection_dim": 512, "projection_hidden_act": "relu",
+                  "position_embedding_type": "absolute"}
+# transformers' ClapFeatureExtractor() as save_pretrained writes it
+CLAP_PREPROCESSOR = {"feature_extractor_type": "ClapFeatureExtractor", "feature_size": 64,
+                     "sampling_rate": 48000, "hop_length": 480, "max_length_s": 10,
+                     "fft_window_size": 1024, "padding_value": 0.0,
+                     "return_attention_mask": False, "frequency_min": 0,
+                     "frequency_max": 14000, "top_db": None, "truncation": "fusion",
+                     "padding": "repeatpad", "nb_frequency_bins": 513,
+                     "nb_max_samples": 480000, "processor_class": "ClapProcessor"}
+# the towers on the card against the same towers on the CPU in float32 (TF32
+# off), max relative error of each stage, the pooled output and the
+# embeddings; bound fixed before the first run: the towers' float32 sums in
+# other orders, lifted by the depth (the JAX full-geometry tests hold the
+# JAX tower to transformers' at 5e-4), with room to spare
+CLAP_CARD_CPU_MAX_REL = 1e-3
+# FAD of a set with itself, as a share of FAD between two sets that differ
+FAD_SELF_MAX_SHARE = 1e-6
+PROFILE_EDIT = (20, 10)  # the --profile_dir edit's steps and tstart
+
+
+def write_clap_checkpoint(d: str) -> dict:
+    """A seeded CLAP checkpoint in the layout ClapModel.from_pretrained
+    reads: config.json, model.safetensors (the port's writer),
+    preprocessor_config.json and tokenizer.json. Returns the written
+    tensors."""
+    from audioeditingcode_tpu_torch.models.clap_audio import ClapModel
+    from audioeditingcode_tpu_torch.models.hf_checkpoint import write_checkpoint as write_hf
+
+    config = {"model_type": "clap", "projection_dim": 512, "logit_scale_init_value": 1 / 0.07,
+              "text_config": CLAP_TEXT_FULL, "audio_config": CLAP_AUDIO}
+    torch.manual_seed(CHECKPOINT_SEED)
+    model = ClapModel(config)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("relative_position_bias_table") or "embeddings" in name:
+                p.normal_(0.0, 0.02)
+        bn = model.audio_model.audio_encoder.batch_norm
+        bn.running_mean.normal_(0.0, 0.5)
+        bn.running_var.uniform_(0.5, 2.0)
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    write_hf(d, config, sd)
+    with open(os.path.join(d, "preprocessor_config.json"), "w") as f:
+        json.dump(CLAP_PREPROCESSOR, f, indent=2)
+    with open(os.path.join(d, "tokenizer.json"), "w") as f:
+        json.dump(roberta_tokenizer_json(), f)
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"model_max_length": 512, "pad_token": "<pad>"}, f)
+    return sd
+
+
+def _wavs_under(*roots) -> list:
+    return sorted(os.path.join(d, f) for root in roots for d, _, fs in os.walk(root)
+                  for f in fs if f.endswith(".wav") and not f.startswith("orig"))
+
+
+def phase13_evals(tmp: str, device: str = "cuda") -> dict:
+    """The eval tower on the card: the seeded CLAP checkpoint loaded back
+    bit-equal; the towers card vs CPU; cli/evals_run.py on phase 9's sweep
+    tree (ours) and phase 7's SDEdit trees, and FAD between two wav
+    directories; a --profile_dir edit against the same edit without it.
+    (``device="cpu"`` rehearses the phase where there is no card.)"""
+    from audioeditingcode_tpu_torch.cli.evals_run import main as evals_main
+    from audioeditingcode_tpu_torch.cli.run import main as run_edit
+    from audioeditingcode_tpu_torch.evals.features import ClapExtractor
+    from audioeditingcode_tpu_torch.evals.lpaps import LPAPS
+    from audioeditingcode_tpu_torch.evals.scores import read_csv
+    from audioeditingcode_tpu_torch.models.clap_audio import load_clap
+    from audioeditingcode_tpu_torch.models.clap_processor import ClapProcessor
+    from audioeditingcode_tpu_torch.utils.audio_io import read_wav, write_wav
+
+    rec = {}
+    d = os.path.join(tmp, "clap_ckpt")
+    t0 = time.perf_counter()
+    written = write_clap_checkpoint(d)
+    rec["checkpoint_bytes"] = os.path.getsize(os.path.join(d, "model.safetensors"))
+    rec["checkpoint_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = load_clap(d)
+    card = copy.deepcopy(cpu).to(device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    rec["checkpoint_load_s"] = time.perf_counter() - t0
+    got = card.state_dict()
+    if sorted(got) != sorted(written) or not all(
+            torch.equal(got[k].cpu(), v) for k, v in written.items()):
+        raise AssertionError("phase13: the CLAP checkpoint did not load back bit-equal")
+    log(f"[phase13] CLAP checkpoint: {rec['checkpoint_bytes'] / 1e6:.0f} MB written in "
+        f"{rec['checkpoint_write_s']:.1f} s, loaded on the card bit-equal in "
+        f"{rec['checkpoint_load_s']:.1f} s")
+
+    # the towers, card vs CPU, on phase 3's clip and two prompts
+    processor = ClapProcessor.from_dir(d)
+    on_card = ClapExtractor.from_components(card, processor, device)
+    on_cpu = ClapExtractor.from_components(cpu, processor, "cpu")
+    aud, sr = read_wav(os.path.join(tmp, "clip.wav"))
+    feats = on_card.features(aud, sr)
+    with torch.no_grad():
+        stages_g, pooled_g = card.audio_forward(feats)
+        stages_c, pooled_c = cpu.audio_forward(feats.cpu())
+    errs = {f"stage{i}": _max_rel(g.cpu(), c) for i, (g, c) in enumerate(zip(stages_g, stages_c))}
+    errs["pooled"] = _max_rel(pooled_g.cpu(), pooled_c)
+    errs["audio_embedding"] = _max_rel(torch.from_numpy(on_card.embed_audio(aud, sr)),
+                                       torch.from_numpy(on_cpu.embed_audio(aud, sr)))
+    prompts = ["a dog barking", "a sine tone and a cello"]
+    errs["text_embedding"] = _max_rel(torch.from_numpy(on_card.embed_text(prompts)),
+                                      torch.from_numpy(on_cpu.embed_text(prompts)))
+    rec["card_vs_cpu_max_rel"] = errs
+    log(f"[phase13] CLAP towers card vs CPU, max relative error: {errs} "
+        f"(limit {CLAP_CARD_CPU_MAX_REL})")
+    if not all(e <= CLAP_CARD_CPU_MAX_REL for e in errs.values()):
+        raise AssertionError(f"phase13: CLAP card vs CPU {errs}")
+    rec["lpaps_self"] = LPAPS(on_card).windowed(aud, aud, sr, sr)
+    if rec["lpaps_self"] != 0.0:
+        raise AssertionError(f"phase13: LPAPS of a clip with itself {rec['lpaps_self']}")
+    del cpu, on_cpu, stages_c, pooled_c
+
+    # FAD sets: phase 3's clip with its 5 s windows, and phase 9's sweep edits
+    sweep_root = os.path.join(tmp, "sweep", MODEL_ID.split("/")[1])
+    sdedit_roots = [os.path.join(tmp, "sdedit", MODEL_ID.split("/")[1]),
+                    os.path.join(tmp, "sdedit_stable_audio", SA_MODEL_ID.split("/")[1])]
+    fad_a, fad_b = os.path.join(tmp, "fad_clip"), os.path.join(tmp, "fad_edits")
+    os.makedirs(fad_a)
+    os.makedirs(fad_b)
+    write_wav(os.path.join(fad_a, "clip.wav"), aud, sr)
+    for i, start in enumerate(range(0, aud.shape[-1] - 5 * sr + 1, sr)):
+        write_wav(os.path.join(fad_a, f"clip_{i}.wav"), aud[..., start: start + 5 * sr], sr)
+    for i, path in enumerate(_wavs_under(sweep_root)):
+        wav, wsr = read_wav(path)
+        write_wav(os.path.join(fad_b, f"edit_{i}.wav"), wav, wsr)
+    out = os.path.join(tmp, "eval_scores")
+    t0 = time.perf_counter()
+    outputs = evals_main(["--ours_dirs", sweep_root, "--sdedit_dirs", *sdedit_roots,
+                          "--clap_model", d, "--fad_gen_dir", fad_b,
+                          "--fad_ref_dirs", fad_a, fad_b, "--out_dir", out,
+                          "--device", device])
+    rec["evals_cli_s"] = time.perf_counter() - t0
+    rec["outputs"] = sorted(os.path.basename(o) for o in outputs)
+    checks = {}
+    for method, roots in (("ours", [sweep_root]), ("sdedit", sdedit_roots)):
+        table = read_csv(os.path.join(out, f"scores_{method}.csv"))
+        wavs = _wavs_under(*roots)
+        scores = [float(x) for col in ("clap", "lpaps") for x in table.column(col)]
+        checks[method] = {"rows": len(table), "wavs": len(wavs),
+                          "finite": bool(np.all(np.isfinite(scores)))}
+        if sorted(table.column("path")) != wavs or not checks[method]["finite"]:
+            raise AssertionError(f"phase13: scores_{method}.csv {checks[method]}: paths "
+                                 f"{table.column('path')} against {wavs}")
+        if method == "ours":
+            want = sorted((str(P9_STEPS - t), repr(float(c)), "3.0")
+                          for t in SWEEP_TSTARTS for c in SWEEP_CFGS)
+            keys = sorted(zip(table.column("skip"), table.column("tarcfg"),
+                              table.column("srccfg")))
+            prompts_ok = (set(table.column("source_prompt")) == {"a sine tone"}
+                          and set(table.column("target_prompt")) == {"a dog barking"}
+                          and set(table.column("audio_input")) == {"clip"})
+            if keys != want or not prompts_ok:
+                raise AssertionError(f"phase13: sweep keys {keys}, expected {want}")
+    cmp_rows = read_csv(os.path.join(out, "method_comparison.csv"))
+    checks["method_comparison_rows"] = len(cmp_rows)
+    with open(os.path.join(out, "fad.json")) as f:
+        fads = json.load(f)
+    rec["fad"] = fads
+    share = fads[fad_b] / fads[fad_a]
+    checks["fad_self_share"] = share
+    log(f"[phase13] evals CLI in {rec['evals_cli_s']:.1f} s: {rec['outputs']}; {checks}; "
+        f"FAD {fads} (self share limit {FAD_SELF_MAX_SHARE})")
+    if not (np.isfinite(fads[fad_a]) and fads[fad_a] > 0 and abs(share) <= FAD_SELF_MAX_SHARE):
+        raise AssertionError(f"phase13: FAD {fads}")
+    rec["checks"] = checks
+
+    # --profile_dir: a short float32 edit with and without the flag, with
+    # cuDNN's deterministic algorithms (its default ones let two runs of one
+    # edit lie 1 LSB apart on the card: the VAE's and vocoder's convolutions)
+    steps, tstart = PROFILE_EDIT
+    argv = ["--model_id", MODEL_ID, "--init_aud", os.path.join(tmp, "clip.wav"),
+            "--target_prompt", "a dog barking", "--num_diffusion_steps", str(steps),
+            "--tstart", str(tstart), "--seed", "0", "--device", device]
+    prof = os.path.join(tmp, "profile")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = run_edit(argv + ["--results_path", os.path.join(tmp, "prof_plain")])
+        t0 = time.perf_counter()
+        traced = run_edit(argv + ["--results_path", os.path.join(tmp, "prof_traced"),
+                                  "--profile_dir", prof])
+        rec["profiled_edit_wall_s"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    traces = os.listdir(prof)
+    rec["trace_bytes"] = sum(os.path.getsize(os.path.join(prof, t)) for t in traces)
+    with open(plain, "rb") as a, open(traced, "rb") as b:
+        rec["profiled_wav_bit_equal"] = a.read() == b.read()
+    log(f"[phase13] --profile_dir edit: {traces} ({rec['trace_bytes']} bytes), wav bit-equal "
+        f"to the edit without it: {rec['profiled_wav_bit_equal']}")
+    if not traces or not rec["trace_bytes"] or not rec["profiled_wav_bit_equal"]:
+        raise AssertionError(f"phase13: --profile_dir {rec}")
+    shutil.rmtree(d)
+    return rec
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     for key, b1, b2 in (("attn_fwd_kernel", "attention kernel B1 (3xTF32)",
@@ -2804,6 +3069,7 @@ def main() -> int:
         shards = timed("phase12a", phase12_shards, fa, sw)
         runs["parallel"] = timed("phase12", phase12_sp1, fa, sw, tmp,
                                  runs["stable_audio"]["selfcheck"]["selfcheck_snr_db"])
+        evals = timed("phase13", phase13_evals, tmp)
     log(f"[setup] seeded weights and checkpoint reads reused: {setup_cache}")
     if "--profile" in sys.argv[1:]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -2907,6 +3173,7 @@ def main() -> int:
                                                "request_wall_s")}
                   for name, r in runs["phase11"].items()}},
               "phase12": runs["parallel"],
+              "phase13": evals,
               "setup_cache": setup_cache,
               # wall minus loop (set-up, text towers, decode, writes) of each
               # run whose set-up reuse_setup did not serve: a CLI's own

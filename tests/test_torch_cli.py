@@ -57,7 +57,9 @@ def test_cli_cuda_missing_raises(wav, tmp_path, monkeypatch):
     # mel family raises the JAX CLI's ValueError
     (["--dp", "2", "--device", "cuda"], ValueError, "CUDA device"),
     (["--sp", "2"], ValueError, "requires a stable-audio model"),
-    (["--profile_dir", "p"], NotImplementedError, "item 14"),
+    # --profile_dir is ported (tests/test_torch_evals_cli.py); --tp 2 asks
+    # for two cards as --dp 2 does
+    (["--tp", "2", "--device", "cuda"], ValueError, "CUDA device"),
 ])
 def test_cli_unported_flags_raise(wav, tmp_path, monkeypatch, extra, error, match):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)

@@ -68,9 +68,15 @@ def test_dispatcher_launches_kernel_or_raises(cuda):
     assert fa.flash_attention_cuda.launches == before + 1
     fa.fused_attention(q[:, :512], q[:, :512], q[:, :512])  # below the threshold
     assert fa.flash_attention_cuda.launches == before + 1
-    wide = torch.randn(1, 1024, 1, 136, device=cuda)  # eligible, but D > 128
-    with pytest.raises(ValueError, match="head dim"):
-        fa.fused_attention(wide, wide, wide)
+    wide = torch.randn(1, 1024, 1, 136, device=cuda)  # D > 128 launches too
+    fa.fused_attention(wide, wide, wide)
+    assert fa.flash_attention_cuda.launches == before + 2
+    wider = torch.randn(1, 1024, 1, 264, device=cuda)  # D > 256: the plain path
+    fa.fused_attention(wider, wider, wider)
+    assert fa.flash_attention_cuda.launches == before + 2
+    half = q.half()  # eligible, but a dtype no kernel takes: raises, no fallback
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.fused_attention(half, half, half)
 
 
 @pytest.mark.parametrize("B,S,H,Hkv,D,rot", [(2, 1025, 24, 12, 64, 32), (1, 1024, 2, 2, 32, 32),
@@ -98,9 +104,9 @@ def test_rotary_kernel_rejects_what_it_does_not_take(cuda):
         fa.flash_attention_rotary_cuda(q, q, q, cos[:, :3], sin[:, :3])
     with pytest.raises(ValueError, match="positions"):
         fa.flash_attention_rotary_cuda(q, q, q, cos[:100], sin[:100])
-    q160 = torch.randn(1, 1024, 2, 160, device=cuda)
-    with pytest.raises(ValueError, match="head dim 160: the rotary kernel"):
-        fa.flash_attention_rotary_cuda(q160, q160, q160, cos, sin)
+    q264 = torch.randn(1, 1024, 2, 264, device=cuda)
+    with pytest.raises(ValueError, match="head dim 264: the kernels take head dims up to 256"):
+        fa.flash_attention_rotary_cuda(q264, q264, q264, cos, sin)
 
 
 def test_dispatcher_routes_rotary(cuda, monkeypatch):
@@ -169,7 +175,8 @@ def test_tensor_core_attention_every_head_dim(cuda, D, S):
 def test_head_dim_160_masks_kv_len_and_takes_sp_query_blocks(cuda, dtype):
     """D = 160 (f32: 32-key tiles; bf16: DP 192, one consumer warpgroup):
     the sp route's query blocks against the padded K/V with kv_len give the
-    unsharded kernel's rows bit for bit, and a D without an instance raises."""
+    unsharded kernel's rows bit for bit; D = 152 takes the same instances
+    with its features zero-filled, and D = 264 raises."""
     g = torch.Generator(device=cuda).manual_seed(16)
     q, k, v = (torch.randn(1, 1040, h, 160, device=cuda, generator=g).to(dtype)
                for h in (4, 2, 2))
@@ -182,8 +189,79 @@ def test_head_dim_160_masks_kv_len_and_takes_sp_query_blocks(cuda, dtype):
         part = fa.flash_attention_cuda(q[:, 520 * r: 520 * (r + 1)], k, v, kv_len=1025)
         n = min(520, 1025 - 520 * r)
         assert torch.equal(part[:, :n], whole[:, 520 * r: 520 * r + n])
-    with pytest.raises(ValueError, match="head dim 152"):
-        fa.flash_attention_cuda(q[..., :152], k[..., :152], v[..., :152])
+    q152, k152, v152 = (x[:, :1025, :, :152] for x in (q, k, v))
+    torch.testing.assert_close(fa.flash_attention_cuda(q152, k152, v152).float(),
+                               fa.attention_reference(q152, k152, v152).float(), **tol)
+    wide = torch.randn(1, 1024, 1, 264, device=cuda).to(dtype)
+    with pytest.raises(ValueError, match="head dim 264"):
+        fa.flash_attention_cuda(wide, wide, wide)
+
+
+# head dims beside the instances' widths: not multiples of 8 (f32: zero
+# fill in the kernel; bf16: a zero-padded copy), 136-160 (f32 160, bf16 DP
+# 192), 168-192 (f32 192 in two 96-column blocks, bf16 DP 192) and 200-256
+# (f32 256 and bf16 DP 256, each in two 128-column blocks)
+WIDE_HEAD_DIMS = [1, 7, 20, 36, 100, 136, 144, 152, 168, 176, 184, 192, 200, 232, 248, 256]
+
+
+@pytest.mark.parametrize("D", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_head_dim_up_to_256(cuda, D, dtype):
+    """B1 at every kind of head dim the JAX kernel takes, ragged S and GQA,
+    on its dtype's route; only a bf16 D off a multiple of 8 pads a copy."""
+    g = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v = (torch.randn(1, 1025, h, D, device=cuda, generator=g).to(dtype)
+               for h in (4, 2, 2))
+    before = dict(fa.flash_attention_cuda.launches_by_route)
+    pads = fa.flash_attention_cuda.pad_copies
+    got = fa.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    route = fa.attention_route(dtype)
+    assert fa.flash_attention_cuda.launches_by_route[route] == before[route] + 1
+    assert fa.flash_attention_cuda.pad_copies == pads + (dtype == torch.bfloat16 and D % 8 != 0)
+    assert got.shape == q.shape and got.is_contiguous()
+    tol = fa.BF16_TOL if dtype == torch.bfloat16 else fa.F32_TOL
+    torch.testing.assert_close(got.float(), fa.attention_reference(q, k, v).float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_256_takes_sp_query_blocks_and_ragged_gqa(cuda, dtype):
+    """The sp route's query block at D = 256 (264 rows of 1056 padded keys,
+    kv_len 1025) gives the whole kernel's rows bit for bit; a ragged GQA
+    call at D = 200 with kv_len matches the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(256)
+    q, k, v = (torch.randn(2, 1056, h, 256, device=cuda, generator=g).to(dtype)
+               for h in (8, 8, 8))
+    tol = fa.BF16_TOL if dtype == torch.bfloat16 else fa.F32_TOL
+    whole = fa.flash_attention_cuda(q[:, :1025], k[:, :1025], v[:, :1025])
+    part = fa.flash_attention_cuda(q[:, 264:528], k, v, kv_len=1025)
+    assert torch.equal(part, whole[:, 264:528])
+    torch.testing.assert_close(
+        part.float(), fa.attention_reference(q[:, 264:528], k, v, kv_len=1025).float(), **tol)
+    q, k, v = (torch.randn(1, 777, h, 200, device=cuda, generator=g).to(dtype)
+               for h in (4, 2, 2))
+    torch.testing.assert_close(fa.flash_attention_cuda(q, k, v, kv_len=700).float(),
+                               fa.attention_reference(q, k, v, kv_len=700).float(), **tol)
+
+
+@pytest.mark.parametrize("D,rot", [(20, 10), (100, 64), (136, 136), (160, 64), (200, 64),
+                                   (200, 200), (256, 64), (256, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rotary_every_head_dim_up_to_256(cuda, D, rot, dtype):
+    """B2 above head dim 128 and off multiples of 8, with rot = 64 (the
+    DiT's) and rot = D, against its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(D + rot)
+    q, k, v = (torch.randn(2, 1025, h, D, device=cuda, generator=g).to(dtype)
+               for h in (4, 2, 2))
+    cos, sin = rotary_tables(rot, 1025, device=cuda)
+    before = dict(fa.flash_attention_rotary_cuda.launches_by_route)
+    got = fa.flash_attention_rotary_cuda(q, k, v, cos, sin)
+    torch.cuda.synchronize()
+    route = fa.attention_route(dtype, rotary=True)
+    assert fa.flash_attention_rotary_cuda.launches_by_route[route] == before[route] + 1
+    tol = fa.BF16_TOL if dtype == torch.bfloat16 else fa.F32_TOL
+    torch.testing.assert_close(got.float(),
+                               fa.rotary_attention_reference(q, k, v, cos, sin).float(), **tol)
 
 
 def test_tensor_core_attention_masks_kv_len_and_reads_strided_heads(cuda):

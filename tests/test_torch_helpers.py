@@ -416,3 +416,67 @@ def converted_pipelines(converted_dirs):
                                load_model(model_id, CKPT_STEPS, device="cpu", weights_dir=wd))
         return cache[model_id]
     return get
+
+
+def _tone_wav(path, freq: float, seconds: float, sr: int = 16000, amp: float = 0.4) -> None:
+    from scipy.io import wavfile
+
+    t = np.arange(int(seconds * sr), dtype=np.float64) / sr
+    wave = amp * np.sin(2 * np.pi * freq * t) + 0.05 * np.sin(2 * np.pi * 3.1 * freq * t)
+    os.makedirs(os.path.dirname(str(path)), exist_ok=True)
+    wavfile.write(str(path), sr, (wave * 32767).astype(np.int16))
+
+
+def make_results_tree(root) -> dict:
+    """A tiny results tree of the four eval lanes in the CLIs' layouts, with
+    the originals: {lane: root dir} plus "inputs" (original input wavs,
+    for the MusicGen lane) and "wavs" (every generation scored). One ours
+    clip runs past 10 s, so it is scored in two windows."""
+    root = str(root)
+    ours = os.path.join(root, "ours", "model")
+    a = os.path.join(ours, "clip", "src_a_piano", "dec_a_trumpet__neg__")
+    b = os.path.join(ours, "clip2", "src_", "dec_a_violin__neg__")
+    ddim = os.path.join(root, "ddim", "model", "clip", "src_a_piano",
+                        "dec_a_trumpet__neg__")
+    sd = os.path.join(root, "sdedit", "model", "clip", "pmt_a_trumpet__neg__")
+    mg = os.path.join(root, "musicgen", "clip")
+    wavs = {
+        os.path.join(a, "cfg_e_3.0_cfg_d_12.0_skip_100_123.wav"): (440, 11.0),
+        os.path.join(a, "cfg_e_3.0_cfg_d_8.0_skip_120_124.wav"): (452, 11.0),
+        os.path.join(a, "cfg_e_1.0_cfg_d_12.0_skip_100_125.wav"): (470, 11.0),
+        os.path.join(b, "cfg_e_3.0_cfg_d_12.0_skip_100_126.wav"): (300, 1.5),
+        os.path.join(ddim, "cfg_e_3.0_cfg_d_12.0_200timesteps_127.wav"): (460, 2.0),
+        os.path.join(sd, "s0_skip100_cfg12.0.wav"): (430, 2.0),
+        os.path.join(sd, "s0_skip120_cfg8.0.wav"): (425, 2.0),
+        os.path.join(mg, "prompt_a trumpet.wav"): (445, 2.0),
+    }
+    for path, (freq, seconds) in wavs.items():
+        _tone_wav(path, freq, seconds)
+    for d, seconds in ((a, 11.0), (b, 1.5), (ddim, 2.0), (sd, 2.0)):
+        _tone_wav(os.path.join(d, "orig.wav"), 441, seconds)
+    inputs = os.path.join(root, "inputs")
+    _tone_wav(os.path.join(inputs, "clip.wav"), 441, 2.0)
+    return {"ours": ours, "ddim": os.path.dirname(os.path.dirname(os.path.dirname(ddim))),
+            "sdedit": os.path.dirname(os.path.dirname(sd)),
+            "musicgen": os.path.dirname(mg), "inputs": inputs, "wavs": sorted(wavs)}
+
+
+def assert_tables_close(got_path: str, want_path: str, tol: float = 1e-5) -> None:
+    """Two CSVs with the same header and rows, numbers within ``tol``
+    (relative and absolute) and every other cell equal."""
+    import csv
+
+    with open(got_path, newline="") as f:
+        got = list(csv.reader(f))
+    with open(want_path, newline="") as f:
+        want = list(csv.reader(f))
+    assert got[0] == want[0], (got[0], want[0])
+    assert len(got) == len(want), (len(got), len(want))
+    for rg, rw in zip(got[1:], want[1:]):
+        for cg, cw, col in zip(rg, rw, got[0]):
+            try:
+                fg, fw = float(cg), float(cw)
+            except ValueError:
+                assert cg == cw, (col, cg, cw)
+                continue
+            assert abs(fg - fw) <= tol * (1 + abs(fw)), (col, cg, cw)

@@ -1,12 +1,15 @@
 """Checkpoints in the Hugging Face layout that ``from_pretrained`` reads.
 
-A directory with ``config.json`` and its weights as ``model.safetensors``
-or ``pytorch_model.bin``. The card's machine has no ``safetensors``
-package, so the format is read and written here in plain Python: an 8-byte
-little-endian header length, a JSON header that gives each tensor's dtype,
-shape and byte range, then the raw little-endian buffers. A bfloat16 tensor
-is a view of its bytes. ``pytorch_model.bin`` goes through
-``torch.load(weights_only=True)``.
+A directory with ``config.json`` and its weights: transformers'
+``model.safetensors`` or ``pytorch_model.bin``, diffusers'
+``diffusion_pytorch_model.safetensors``, or shards of either
+(``model-00001-of-00002.safetensors``). The card's machine has no
+``safetensors`` package, so the format is read and written here in plain
+Python: an 8-byte little-endian header length, a JSON header that gives
+each tensor's dtype, shape and byte range, then the raw little-endian
+buffers. A bfloat16 tensor is a view of its bytes. ``.bin``, ``.pt``,
+``.pth`` and ``.ckpt`` files go through ``torch.load(weights_only=True)``.
+Every tensor keeps the dtype it has in the file.
 """
 
 from __future__ import annotations
@@ -92,24 +95,52 @@ def read_config(d: str) -> dict:
         return json.load(f)
 
 
-def read_state_dict(d: str) -> Dict[str, torch.Tensor]:
-    """The weights of checkpoint directory ``d``: ``model.safetensors``, else
-    ``pytorch_model.bin``."""
-    st = os.path.join(d, "model.safetensors")
-    if os.path.exists(st):
-        return read_safetensors(st)
-    bin_path = os.path.join(d, "pytorch_model.bin")
-    if os.path.exists(bin_path):
-        return torch.load(bin_path, map_location="cpu", weights_only=True)
-    if os.path.exists(st + ".index.json") or os.path.exists(bin_path + ".index.json"):
-        raise NotImplementedError(f"{d}: sharded checkpoints are not read")
-    raise FileNotFoundError(f"{d}: no model.safetensors or pytorch_model.bin")
+TORCH_SUFFIXES = (".bin", ".pt", ".pth", ".ckpt")
 
 
-def write_checkpoint(d: str, config: dict, state_dict: Dict[str, torch.Tensor]) -> None:
-    """``config.json`` and ``model.safetensors`` of a checkpoint directory."""
+def read_torch_file(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a torch checkpoint file, a ``"state_dict"`` entry
+    unwrapped (as Lightning and LDM checkpoints nest it)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def read_state_dict(d: str, files: Optional[Dict[str, str]] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Every weight file of checkpoint directory ``d``, in sorted name order
+    (``*.safetensors`` and the torch suffixes; a later file's tensor
+    replaces an earlier one of the same name), as the JAX package's
+    converter reads a subfolder. ``files``, where given, gets each key's
+    file."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in sorted(os.listdir(d)) if os.path.isdir(d) else ():
+        path = os.path.join(d, name)
+        if name.endswith(".safetensors"):
+            part = read_safetensors(path)
+        elif name.endswith(TORCH_SUFFIXES):
+            part = read_torch_file(path)
+        else:
+            continue
+        sd.update(part)
+        if files is not None:
+            files.update(dict.fromkeys(part, path))
+    if not sd:
+        raise FileNotFoundError(f"{d}: no weight files (model.safetensors, "
+                                f"diffusion_pytorch_model.safetensors, pytorch_model.bin, "
+                                f"or any *.safetensors, *.bin, *.pt, *.pth, *.ckpt)")
+    return sd
+
+
+def write_checkpoint(d: str, config: dict, state_dict: Dict[str, torch.Tensor],
+                     weights_name: str = "model.safetensors") -> int:
+    """``config.json`` and the weights file ``weights_name`` (diffusers':
+    ``diffusion_pytorch_model.safetensors``) of a checkpoint directory;
+    returns the bytes of the weights file."""
     os.makedirs(d, exist_ok=True)
     with open(os.path.join(d, "config.json"), "w") as f:
         json.dump(config, f, indent=2)
-    write_safetensors(state_dict, os.path.join(d, "model.safetensors"),
-                      metadata={"format": "pt"})
+    path = os.path.join(d, weights_name)
+    write_safetensors(state_dict, path, metadata={"format": "pt"})
+    return os.path.getsize(path)

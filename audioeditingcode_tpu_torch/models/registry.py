@@ -3,8 +3,9 @@ AudioLDM, AudioLDM2, TANGO; and the image models: Stable Diffusion,
 CelebA-HQ) or StableAudioPipeline (Stable Audio family).
 
 Counterpart of ``audioeditingcode_tpu/models/registry.py``. Weights come
-from a converted-checkpoint directory (``weights_dir``, the layout that
-``tools/convert_checkpoint.py`` writes):
+from a converted-checkpoint directory (``weights_dir``, the layout that the
+port's ``cli/convert_checkpoint.py`` and the JAX package's
+``tools/convert_checkpoint.py`` write):
 
   <dir>/unet.msgpack  vae.msgpack  vocoder.msgpack          (mel families;
                                                             images: no vocoder)

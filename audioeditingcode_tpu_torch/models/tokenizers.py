@@ -630,3 +630,141 @@ class Tokenizer:
             ids[i, :len(r)] = r
             mask[i, :len(r)] = 1
         return ids, mask
+
+
+# ------------------------------------------------------ slow -> fast export
+# special tokens of transformers' slow tokenizers, by kind, where the
+# tokenizer_config.json (or special_tokens_map.json) names none
+_SPECIAL_DEFAULTS = {
+    "roberta": {"bos_token": "<s>", "eos_token": "</s>", "sep_token": "</s>",
+                "cls_token": "<s>", "unk_token": "<unk>", "pad_token": "<pad>",
+                "mask_token": "<mask>"},
+    "clip": {"bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
+             "unk_token": "<|endoftext|>", "pad_token": "<|endoftext|>"},
+    "t5": {"eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<pad>"},
+}
+_TOKENIZER_CLASSES = {"roberta": "RobertaTokenizer", "clip": "CLIPTokenizer",
+                      "t5": "T5Tokenizer"}
+# keys of a tokenizer_config.json carried over as they are
+_CONFIG_KEYS = ("model_max_length", "add_prefix_space", "trim_offsets", "errors",
+                "do_lower_case", "extra_ids", "additional_special_tokens",
+                "clean_up_tokenization_spaces")
+CLIP_MAX_MERGES = 49152 - 256 - 2  # CLIPTokenizer reads at most this many merges
+
+
+def _read_json(path: str, default=None):
+    if not os.path.exists(path):
+        return default
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def _content(token) -> Optional[str]:
+    return token.get("content") if isinstance(token, dict) else token
+
+
+def tokenizer_settings(d: str, kind: str) -> dict:
+    """The settings of a tokenizer directory as transformers' slow
+    tokenizer of ``kind`` resolves them: its class defaults, then
+    special_tokens_map.json, then tokenizer_config.json."""
+    config = _read_json(os.path.join(d, "tokenizer_config.json"), {})
+    special = _read_json(os.path.join(d, "special_tokens_map.json"), {})
+    out = dict(_SPECIAL_DEFAULTS[kind])
+    for source in (special, config):
+        out.update({k: v for k, v in source.items()
+                    if k in _SPECIAL_DEFAULTS[kind] and v is not None})
+    out.update({k: config[k] for k in _CONFIG_KEYS if k in config})
+    out["tokenizer_class"] = config.get("tokenizer_class") or _TOKENIZER_CLASSES[kind]
+    return out
+
+
+def _read_merges(path: str, kind: str) -> List[List[str]]:
+    """The merges of a ``merges.txt`` as the slow tokenizer reads them:
+    RoBERTa drops the first and the last line (the version header and the
+    empty string after the final newline), CLIP strips the text, drops the
+    header and keeps at most ``CLIP_MAX_MERGES``; a repeated merge keeps
+    its first place."""
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    lines = (text.split("\n")[1:-1] if kind == "roberta"
+             else text.strip().split("\n")[1:CLIP_MAX_MERGES + 1])
+    return [list(m) for m in dict.fromkeys(tuple(line.split()) for line in lines)]
+
+
+def fast_tokenizer_json(d: str, kind: str) -> dict:
+    """The ``tokenizer.json`` that transformers' slow -> fast converter
+    builds from ``vocab.json`` and ``merges.txt`` (``RobertaConverter`` or
+    ``CLIPConverter``), with the special tokens the fast tokenizer adds."""
+    settings = tokenizer_settings(d, kind)
+    vocab = _read_json(os.path.join(d, "vocab.json"))
+    merges = _read_merges(os.path.join(d, "merges.txt"), kind)
+    specials = {k: _content(settings[k]) for k in _SPECIAL_DEFAULTS[kind]}
+    vocab = dict(vocab)
+    for tok in specials.values():  # a special token outside the vocabulary is appended
+        vocab.setdefault(tok, len(vocab))
+    added = []
+    for name, tok in sorted(specials.items(), key=lambda kv: vocab[kv[1]]):
+        if any(t["content"] == tok for t in added):
+            continue
+        lstrip = kind == "roberta" and name == "mask_token"
+        added.append({"id": vocab[tok], "content": tok, "single_word": False,
+                      "lstrip": lstrip, "rstrip": False, "normalized": not lstrip,
+                      "special": True})
+    prefix = bool(settings.get("add_prefix_space", False))
+    byte_level = {"type": "ByteLevel", "add_prefix_space": prefix, "trim_offsets": True,
+                  "use_regex": True}
+    model = {"type": "BPE", "dropout": None, "unk_token": None,
+             "continuing_subword_prefix": "", "end_of_word_suffix": "", "fuse_unk": False,
+             "byte_fallback": False, "ignore_merges": False, "vocab": vocab,
+             "merges": merges}
+    spec = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+            "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                        "use_regex": True}}
+    if kind == "roberta":
+        return {**spec, "normalizer": None, "pre_tokenizer": byte_level,
+                "post_processor": {"type": "RobertaProcessing",
+                                   "sep": [specials["sep_token"], vocab[specials["sep_token"]]],
+                                   "cls": [specials["cls_token"], vocab[specials["cls_token"]]],
+                                   "trim_offsets": True, "add_prefix_space": prefix},
+                "model": model}
+    return {**spec,
+            "normalizer": {"type": "Sequence", "normalizers": [
+                {"type": "NFC"}, {"type": "Replace", "pattern": {"Regex": "\\s+"},
+                                  "content": " "}, {"type": "Lowercase"}]},
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": CLIP_SPLIT}, "behavior": "Removed",
+                 "invert": True}, dict(byte_level, add_prefix_space=False)]},
+            "post_processor": {"type": "RobertaProcessing",
+                               "sep": [specials["eos_token"], vocab[specials["eos_token"]]],
+                               "cls": [specials["bos_token"], vocab[specials["bos_token"]]],
+                               "trim_offsets": False, "add_prefix_space": False},
+            "model": dict(model, unk_token=specials["unk_token"], end_of_word_suffix="</w>")}
+
+
+def export_tokenizer(src: str, out: str, kind: str) -> None:
+    """Write the tokenizer of directory ``src`` into ``out`` as
+    ``Tokenizer.from_dir`` and ``AutoTokenizer.from_pretrained`` read it:
+    its ``tokenizer.json`` copied, or built from ``vocab.json`` and
+    ``merges.txt`` (``kind`` ``roberta`` or ``clip``), and a
+    ``tokenizer_config.json`` with the class, ``model_max_length`` and the
+    special tokens of the source. A T5 directory without ``tokenizer.json``
+    (a sentencepiece ``spiece.model`` only) raises: no sentencepiece reader
+    is ported."""
+    if not os.path.isdir(src):
+        raise FileNotFoundError(f"missing tokenizer directory: {src}")
+    os.makedirs(out, exist_ok=True)
+    spec_path = os.path.join(src, "tokenizer.json")
+    if os.path.exists(spec_path):
+        with open(spec_path, "rb") as f:
+            blob = f.read()
+    elif kind in ("roberta", "clip") and all(
+            os.path.exists(os.path.join(src, f)) for f in ("vocab.json", "merges.txt")):
+        blob = json.dumps(fast_tokenizer_json(src, kind), ensure_ascii=False).encode("utf-8")
+    else:
+        raise ValueError(f"{src}: no tokenizer.json (and no vocab.json + merges.txt to "
+                         f"build a {kind} one from); a sentencepiece-only tokenizer is "
+                         f"not read by the port")
+    with open(os.path.join(out, "tokenizer.json"), "wb") as f:
+        f.write(blob)
+    with open(os.path.join(out, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump(tokenizer_settings(src, kind), f, indent=2, ensure_ascii=False)

@@ -2,15 +2,43 @@
 
 Counterpart of ``audioeditingcode_tpu/utils/image_io.py``, which reads,
 resizes and writes with PIL. This module does the same with numpy, ``zlib``
-and ``struct``:
+and ``struct``. Every decoder gives the pixels of PIL 12.1's
+``np.array(Image.open(path).convert("RGB"))`` bit for bit:
 
-- ``read_png_rgb``: a PNG decoder for 8-bit greyscale, greyscale + alpha,
-  RGB and RGBA images and for palette images (1, 2, 4 or 8 bits),
-  non-interlaced, with the five scanline filters, converted to RGB as
-  PIL's ``convert("RGB")`` does (alpha dropped, palette looked up, grey
-  repeated). Any other file (JPEG, GIF, 16-bit or sub-byte greyscale
-  samples, Adam7 interlacing) raises a ``ValueError`` that names what it
-  is.
+- ``read_image``: a PNG or a JPEG file, told apart by its signature. GIF,
+  BMP, WebP and TIFF files raise a ``ValueError`` that names the format.
+- ``read_png_rgb``: PNG in every colour type and bit depth, non-interlaced
+  or Adam7 (each of the seven passes its own filtered image; a pass of an
+  image smaller than 8 px may be empty), with the five scanline filters.
+  ``tRNS`` is ignored, as ``convert("RGB")`` ignores it. The samples are
+  brought to 8 bits as PIL opens and converts them:
+
+  - 16-bit RGB, RGBA and greyscale + alpha keep the high byte of each
+    sample (PIL's ``RGB;16B``, ``RGBA;16B`` and ``LA;16B`` unpackers:
+    256 -> 1, 4095 -> 15, 65535 -> 255); alpha is dropped;
+  - 16-bit greyscale opens as ``I;16``, whose conversion clamps:
+    min(v, 255) (256, 300 and 4095 all -> 255);
+  - 1-bit greyscale opens as mode ``1``: 0 or 255; 2- and 4-bit greyscale
+    are scaled by 85 and 17 (PIL's ``L;2`` and ``L;4``);
+  - palette indices of 1, 2, 4 or 8 bits are looked up (an index past the
+    palette gives black); greyscale is repeated into R, G and B.
+- ``read_jpeg_rgb``: baseline and extended-sequential Huffman JPEG with
+  8-bit samples (SOF0, SOF1), greyscale or three components at any integral
+  sampling (1x1, 2x1, 2x2, ...), restart intervals, tables anywhere before
+  their scan, one or several scans. It follows libjpeg-turbo's defaults,
+  which PIL's decoder keeps: the integer "islow" IDCT of ``jidctint.c``
+  (its constants, its pass-1 and pass-2 rounding and descale, and the
+  range-limit table), fancy (triangle) upsampling of 2x1, 1x2 and 2x2
+  chroma with the edge samples repeated (box replication where a
+  downsampled width is 2 or less, and for other ratios), and the
+  fixed-point YCbCr -> RGB tables of ``jdcolor.c``. The colour space is
+  libjpeg's guess: YCbCr under a JFIF marker; else the Adobe APP14
+  transform flag (0: RGB, no conversion); else component ids 'R', 'G', 'B'
+  mean RGB. The IDCT, upsampling and colour conversion run over all blocks
+  at once in numpy; only the Huffman decoder is a Python loop (over a
+  16-bit lookup table). Progressive JPEG (SOF2), lossless and
+  hierarchical frames, arithmetic coding, 12-bit samples and CMYK/YCCK
+  (four components) raise a ``ValueError`` that names them.
 - ``write_png``: 8-bit greyscale, RGB or RGBA, filter 0, zlib level 6.
 - ``resize_rgb``: PIL's default ``Image.resize`` filter for RGB (bicubic,
   a = -0.5, the support widened by the downscaling factor, coefficients
@@ -23,19 +51,49 @@ and ``struct``:
 from __future__ import annotations
 
 import math
+import re
 import struct
 import zlib
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# the leading bytes of formats this reader does not take, for the error
-_OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
-                  (b"RIFF", "RIFF (WebP?)"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
-# PNG colour types: (name, samples per pixel)
-_COLOR_TYPES = {0: ("greyscale", 1), 2: ("RGB", 3), 3: ("palette", 1),
-                4: ("greyscale + alpha", 2), 6: ("RGBA", 4)}
+_JPEG_SIGNATURE = b"\xff\xd8\xff"
+# the leading bytes of formats no reader here takes, for the error
+_OTHER_FORMATS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
+                  (b"MM\x00*", "TIFF"))
+# PNG colour types: (name, samples per pixel, allowed bit depths)
+_COLOR_TYPES = {0: ("greyscale", 1, (1, 2, 4, 8, 16)), 2: ("RGB", 3, (8, 16)),
+                3: ("palette", 1, (1, 2, 4, 8)), 4: ("greyscale + alpha", 2, (8, 16)),
+                6: ("RGBA", 4, (8, 16))}
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _format_name(data: bytes) -> str:
+    if data.startswith(_SIGNATURE):
+        return "PNG"
+    if data.startswith(_JPEG_SIGNATURE):
+        return "JPEG"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    return next((n for sig, n in _OTHER_FORMATS if data.startswith(sig)), "unknown")
+
+
+def read_image(path: str) -> np.ndarray:
+    """A PNG or JPEG file as (H, W, 3) uint8 RGB, as PIL's
+    ``Image.open(path).convert("RGB")`` (see the module docstring)."""
+    with open(path, "rb") as f:
+        head = f.read(16)
+    kind = _format_name(head)
+    if kind == "PNG":
+        return read_png_rgb(path)
+    if kind == "JPEG":
+        return read_jpeg_rgb(path)
+    raise ValueError(f"{path}: {kind} image file; the port reads PNG and baseline JPEG "
+                     f"only (GIF, BMP, WebP and TIFF are not ported)")
 
 
 # -------------------------------------------------------------------- PNG
@@ -58,12 +116,15 @@ def _paeth(a: int, b: int, c: int) -> int:
     return b if pb <= pc else c
 
 
-def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
-    """The scanlines with their filters undone, (height, stride) uint8."""
+def _unfilter(raw: bytes, offset: int, height: int, stride: int, bpp: int) -> np.ndarray:
+    """The scanlines at ``raw[offset:]`` with their filters undone,
+    (height, stride) uint8."""
     out = np.zeros((height, stride), np.uint8)
     prior = np.zeros(stride, np.int64)
+    if offset + height * (stride + 1) > len(raw):
+        raise ValueError("PNG image data is shorter than its header says")
     for y in range(height):
-        start = y * (stride + 1)
+        start = offset + y * (stride + 1)
         ftype = raw[start]
         line = np.frombuffer(raw, np.uint8, stride, start + 1).astype(np.int64)
         if ftype == 0:
@@ -90,14 +151,42 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def _unpack(rows: np.ndarray, width: int, bits: int) -> np.ndarray:
-    """Palette indices of 1, 2 or 4 bits packed high bit first -> (H,
-    width) uint8."""
+def _samples(rows: np.ndarray, width: int, channels: int, bits: int) -> np.ndarray:
+    """Unfiltered scanlines -> (H, width, channels) samples as uint16,
+    16-bit ones big-endian, sub-byte ones packed high bit first."""
+    h = rows.shape[0]
+    if bits == 16:
+        return (rows[:, :width * channels * 2].reshape(h, -1, 2).astype(np.uint16)
+                @ np.array([256, 1], np.uint16)).reshape(h, width, channels)
     if bits == 8:
-        return rows[:, :width]
-    shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)  # high bits first
+        return rows[:, :width * channels].reshape(h, width, channels).astype(np.uint16)
+    shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
     vals = (rows[:, :, None] >> shifts) & ((1 << bits) - 1)
-    return vals.reshape(rows.shape[0], -1)[:, :width].astype(np.uint8)
+    return vals.reshape(h, -1)[:, :width * channels].reshape(h, width, channels).astype(
+        np.uint16)
+
+
+def _png_samples(raw: bytes, width: int, height: int, channels: int, bits: int,
+                 interlace: int) -> np.ndarray:
+    """Every pixel's samples, (H, W, channels) uint16, from the
+    decompressed image data, Adam7 passes scattered into place."""
+    bpp = max(1, channels * bits // 8)
+
+    def image(offset, w, h):
+        stride = (w * channels * bits + 7) // 8
+        rows = _unfilter(raw, offset, h, stride, bpp)
+        return _samples(rows, w, channels, bits), offset + h * (stride + 1)
+
+    if not interlace:
+        return image(0, width, height)[0]
+    out = np.zeros((height, width, channels), np.uint16)
+    offset = 0
+    for x0, y0, dx, dy in _ADAM7:
+        w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if w <= 0 or h <= 0:  # an empty pass has no scanlines at all
+            continue
+        out[y0::dy, x0::dx], offset = image(offset, w, h)
+    return out
 
 
 def read_png_rgb(path: str) -> np.ndarray:
@@ -105,9 +194,7 @@ def read_png_rgb(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
-        name = next((n for sig, n in _OTHER_FORMATS if data.startswith(sig)), None)
-        raise ValueError(f"{path}: {name or 'not a PNG'} file; this reader takes PNG "
-                         f"only (the port has no image library)")
+        raise ValueError(f"{path}: {_format_name(data)} file, not a PNG")
     idat, palette, header = [], None, None
     for tag, body in _chunks(data):
         if tag == b"IHDR":
@@ -121,27 +208,387 @@ def read_png_rgb(path: str) -> np.ndarray:
     width, height, bits, ctype, _, _, interlace = header
     if ctype not in _COLOR_TYPES:
         raise ValueError(f"{path}: PNG colour type {ctype} is not a valid one")
-    kind, samples = _COLOR_TYPES[ctype]
-    if interlace:
-        raise ValueError(f"{path}: interlaced (Adam7) PNG is not supported")
-    if bits == 16:
-        raise ValueError(f"{path}: 16-bit {kind} PNG is not supported (8-bit only)")
-    if bits != 8 and ctype != 3:
-        raise ValueError(f"{path}: {bits}-bit {kind} PNG is not supported (8-bit only)")
-    stride = (width * samples * bits + 7) // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), height, stride,
-                     max(1, samples * bits // 8))
+    kind, channels, depths = _COLOR_TYPES[ctype]
+    if bits not in depths:
+        raise ValueError(f"{path}: {bits}-bit {kind} is not a valid PNG bit depth")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: PNG interlace method {interlace} is not a valid one")
+    px = _png_samples(zlib.decompress(b"".join(idat)), width, height, channels, bits,
+                      interlace)
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{path}: palette PNG without a PLTE chunk")
-        idx = _unpack(rows, width, bits)
         pal = np.zeros((256, 3), np.uint8)
-        pal[:len(palette)] = palette
-        return pal[idx]
-    px = rows.reshape(height, width, samples)
+        pal[:len(palette)] = palette[:256]
+        return pal[px[:, :, 0]]
+    if bits == 16:
+        if ctype == 0:  # I;16 -> RGB clamps
+            px = np.minimum(px, 255)
+        else:  # the high byte
+            px = px >> 8
+    elif ctype == 0 and bits < 8:  # "1" -> 0/255; L;2 x 85; L;4 x 17
+        px = px * (255 // ((1 << bits) - 1))
+    px = px.astype(np.uint8)
     if ctype in (0, 4):  # greyscale (+ alpha, dropped)
         return np.repeat(px[:, :, :1], 3, axis=2)
     return np.ascontiguousarray(px[:, :, :3])
+
+
+# ------------------------------------------------------------------- JPEG
+def _natural_order() -> np.ndarray:
+    """libjpeg's ``jpeg_natural_order``: the zigzag position k -> the
+    row-major index of the coefficient."""
+    order = []
+    for s in range(15):
+        rows = range(min(s, 7), max(0, s - 7) - 1, -1) if s % 2 == 0 else \
+            range(max(0, s - 7), min(s, 7) + 1)
+        order += [r * 8 + (s - r) for r in rows]
+    return np.asarray(order)
+
+
+_ZIGZAG = _natural_order()
+# jidctint.c's fixed-point constants (CONST_BITS 13) and its descale shifts
+_CONST_BITS, _PASS1_BITS = 13, 2
+# the post-IDCT range-limit table of jdmaster.c, indexed by the descaled
+# value & 1023: x + 128 clamped to [0, 255] for x in [-512, 511]
+_IDCT_LIMIT = np.concatenate([np.arange(128, 256), np.full(384, 255), np.zeros(384),
+                              np.arange(0, 128)]).astype(np.uint8)
+_SOF_NAMES = {0xC2: "progressive JPEG (SOF2)", 0xC3: "lossless JPEG (SOF3)",
+              0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical progressive JPEG (SOF6)",
+              0xC7: "hierarchical lossless JPEG (SOF7)",
+              0xC9: "arithmetic-coded JPEG (SOF9)", 0xCA: "arithmetic-coded progressive JPEG "
+              "(SOF10)", 0xCB: "arithmetic-coded lossless JPEG (SOF11)",
+              0xCD: "arithmetic-coded hierarchical JPEG (SOF13)",
+              0xCE: "arithmetic-coded hierarchical JPEG (SOF14)",
+              0xCF: "arithmetic-coded hierarchical JPEG (SOF15)"}
+_SCAN_END = re.compile(rb"\xff[^\x00\xd0-\xd7\xff]")
+_RESTART = re.compile(rb"\xff+[\xd0-\xd7]")
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _huffman_lut(counts: bytes, symbols: bytes) -> List[int]:
+    """A 65536-entry table of a DHT table: the 16 bits that start with a
+    code -> (code length << 8) | symbol; 0 where no code starts."""
+    lut = np.zeros(1 << 16, np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            if code >= 1 << length:
+                raise ValueError("JPEG Huffman table with more codes than fit")
+            lo = code << (16 - length)
+            lut[lo:lo + (1 << (16 - length))] = (length << 8) | symbols[k]
+            code, k = code + 1, k + 1
+        code <<= 1
+    return lut.tolist()
+
+
+def _peek16(segment: bytes) -> List[int]:
+    """The 16 bits that start at every bit of ``segment`` (stuffed zero
+    bytes removed), zero bits past its end, as libjpeg reads them."""
+    b = np.frombuffer(segment + b"\x00" * 4, np.uint8).astype(np.uint32)
+    v24 = (b[:-2] << 16) | (b[1:-1] << 8) | b[2:]
+    return ((v24[:, None] >> np.arange(8, 0, -1, dtype=np.uint32)) & 0xFFFF).reshape(
+        -1).tolist()
+
+
+def _decode_blocks(w16: List[int], slots, coefs: List[List[int]], preds: List[int]) -> None:
+    """Huffman-decode the blocks ``slots`` ((component, first index in its
+    zigzag coefficient list, DC table, AC table) each) from one
+    entropy-coded segment, DC predictions in ``preds``."""
+    p = 0
+    for ci, base, dc, ac in slots:
+        out = coefs[ci]
+        e = dc[w16[p]]
+        if not e:
+            raise ValueError("corrupt JPEG data: no Huffman code for a DC value")
+        p += e >> 8
+        s = e & 15
+        if s:
+            v = w16[p] >> (16 - s)
+            p += s
+            if v < 1 << (s - 1):
+                v += 1 - (1 << s)
+            preds[ci] += v
+        out[base] = preds[ci]
+        k = 1
+        while k < 64:
+            e = ac[w16[p]]
+            if not e:
+                raise ValueError("corrupt JPEG data: no Huffman code for an AC value")
+            p += e >> 8
+            r, s = (e >> 4) & 15, e & 15
+            if s:
+                k += r
+                if k > 63:
+                    raise ValueError("corrupt JPEG data: AC run past the block")
+                v = w16[p] >> (16 - s)
+                p += s
+                if v < 1 << (s - 1):
+                    v += 1 - (1 << s)
+                out[base + k] = v
+                k += 1
+            elif r == 15:
+                k += 16
+            else:
+                break
+
+
+def _idct_1d(x: List[np.ndarray], shift: int) -> List[np.ndarray]:
+    """jidctint.c's 1-D pass on the 8 inputs, each descaled by ``shift``."""
+    z1 = (x[2] + x[6]) * 4433
+    tmp2 = z1 - x[6] * 15137
+    tmp3 = z1 + x[2] * 6270
+    tmp0 = (x[0] + x[4]) << _CONST_BITS
+    tmp1 = (x[0] - x[4]) << _CONST_BITS
+    t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    a0, a1, a2, a3 = x[7], x[5], x[3], x[1]
+    z1, z2, z3, z4 = a0 + a3, a1 + a2, a0 + a2, a1 + a3
+    z5 = (z3 + z4) * 9633
+    a0, a1, a2, a3 = a0 * 2446, a1 * 16819, a2 * 25172, a3 * 12299
+    z1, z2 = z1 * -7373, z2 * -20995
+    z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+    a0, a1, a2, a3 = a0 + z1 + z3, a1 + z2 + z4, a2 + z2 + z3, a3 + z1 + z4
+    half = 1 << (shift - 1)
+    return [(v + half) >> shift for v in (t10 + a3, t11 + a2, t12 + a1, t13 + a0,
+                                          t13 - a0, t12 - a1, t11 - a2, t10 - a3)]
+
+
+def _idct_islow(coefs: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """libjpeg's ``jpeg_idct_islow`` of (N, 64) natural-order coefficients
+    with their quantization table: (N, 8, 8) uint8 samples."""
+    c = (coefs.astype(np.int64) * quant.astype(np.int64)).reshape(-1, 8, 8)
+    ws = _idct_1d([c[:, r, :] for r in range(8)], _CONST_BITS - _PASS1_BITS)  # columns
+    ws = np.stack(ws, axis=1)  # (N, row, col)
+    out = _idct_1d([ws[:, :, k] for k in range(8)], _CONST_BITS + _PASS1_BITS + 3)
+    return _IDCT_LIMIT[np.stack(out, axis=2) & 1023]
+
+
+def _fancy_h2(p: np.ndarray, near: int, far: int, scale: int) -> np.ndarray:
+    """Double the columns of ``p`` (int64 sums) by the triangle filter of
+    jdsample.c: out[2j] = (3p[j] + p[j-1] + near) >> scale, out[2j+1] =
+    (3p[j] + p[j+1] + far) >> scale, the edge columns repeated."""
+    left = np.concatenate([p[:, :1], p[:, :-1]], axis=1)
+    right = np.concatenate([p[:, 1:], p[:, -1:]], axis=1)
+    out = np.empty((p.shape[0], 2 * p.shape[1]), np.int64)
+    out[:, 0::2] = (3 * p + left + near) >> scale
+    out[:, 1::2] = (3 * p + right + far) >> scale
+    return out
+
+
+def _v2_sums(p: np.ndarray) -> np.ndarray:
+    """The rows of ``p`` doubled as 3 x nearer + farther (the vertical
+    half of h2v2 and h1v2 fancy upsampling), the edge rows repeated."""
+    above = np.concatenate([p[:1], p[:-1]], axis=0)
+    below = np.concatenate([p[1:], p[-1:]], axis=0)
+    out = np.empty((2 * p.shape[0], p.shape[1]), np.int64)
+    out[0::2] = 3 * p + above
+    out[1::2] = 3 * p + below
+    return out
+
+
+def _upsample(plane: np.ndarray, h: int, v: int, hmax: int, vmax: int) -> np.ndarray:
+    """A component's plane (its downsampled height and width) to full
+    size, as libjpeg-turbo's jdsample.c with fancy upsampling on."""
+    if (h, v) == (hmax, vmax):
+        return plane
+    p = plane.astype(np.int64)
+    dw = p.shape[1]
+    if hmax == 2 * h and vmax == v and dw > 2:
+        return _fancy_h2(p, 1, 2, 2)
+    if hmax == h and vmax == 2 * v:
+        sums = _v2_sums(p)
+        sums[0::2] += 1
+        sums[1::2] += 2
+        return sums >> 2
+    if hmax == 2 * h and vmax == 2 * v and dw > 2:
+        return _fancy_h2(_v2_sums(p), 8, 7, 4)
+    if hmax % h or vmax % v:
+        raise ValueError(f"JPEG sampling {h}x{v} of {hmax}x{vmax} is fractional")
+    return np.repeat(np.repeat(p, vmax // v, axis=0), hmax // h, axis=1)
+
+
+def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """jdcolor.c's ycc_rgb_convert: its fixed-point tables (SCALEBITS 16),
+    each channel clamped to [0, 255]."""
+    x = np.arange(256, dtype=np.int64) - 128
+    one_half = 1 << 15
+    cr_r = (int(1.40200 * 65536 + 0.5) * x + one_half) >> 16
+    cb_b = (int(1.77200 * 65536 + 0.5) * x + one_half) >> 16
+    cr_g = -int(0.71414 * 65536 + 0.5) * x
+    cb_g = -int(0.34414 * 65536 + 0.5) * x + one_half
+    y = y.astype(np.int64)
+    rgb = np.stack([y + cr_r[cr], y + ((cb_g[cb] + cr_g[cr]) >> 16), y + cb_b[cb]], axis=-1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def read_jpeg_rgb(path: str) -> np.ndarray:
+    """A baseline (or extended sequential, Huffman, 8-bit) JPEG file as
+    (H, W, 3) uint8 RGB (see the module docstring)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(_JPEG_SIGNATURE):
+        raise ValueError(f"{path}: {_format_name(data)} file, not a JPEG")
+    qt: Dict[int, np.ndarray] = {}
+    huff: Dict[Tuple[int, int], List[int]] = {}
+    frame = None
+    restart, jfif, adobe = 0, False, None
+    coefs: List[List[int]] = []
+    pos = 2
+    while pos < len(data):
+        if data[pos] != 0xFF:
+            raise ValueError(f"{path}: corrupt JPEG: no marker at byte {pos}")
+        while pos < len(data) and data[pos] == 0xFF:
+            pos += 1
+        if pos >= len(data):
+            break
+        marker = data[pos]
+        pos += 1
+        if marker == 0xD9:  # EOI
+            break
+        if marker == 0x01 or 0xD0 <= marker <= 0xD8:  # TEM, RSTn, SOI: no length
+            continue
+        (length,) = struct.unpack(">H", data[pos:pos + 2])
+        seg = data[pos + 2:pos + length]
+        pos += length
+        if marker in _SOF_NAMES:
+            raise ValueError(f"{path}: {_SOF_NAMES[marker]} is not read by the port "
+                             f"(baseline and extended sequential Huffman JPEG only)")
+        if marker == 0xCC:
+            raise ValueError(f"{path}: arithmetic-coded JPEG (DAC) is not read by the port")
+        if marker in (0xC0, 0xC1):
+            precision, height, width, n = struct.unpack(">BHHB", seg[:6])
+            if precision != 8:
+                raise ValueError(f"{path}: {precision}-bit JPEG is not read by the port "
+                                 f"(8-bit samples only)")
+            if n == 4:
+                raise ValueError(f"{path}: CMYK/YCCK (four-component) JPEG is not read by "
+                                 f"the port")
+            if n not in (1, 3):
+                raise ValueError(f"{path}: JPEG with {n} components is not read by the port")
+            if height == 0 or width == 0:
+                raise ValueError(f"{path}: JPEG with its height in a DNL marker is not read")
+            comps = [(seg[6 + 3 * i], seg[7 + 3 * i] >> 4, seg[7 + 3 * i] & 15, seg[8 + 3 * i])
+                     for i in range(n)]
+            hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+            mcux, mcuy = _ceil_div(width, 8 * hmax), _ceil_div(height, 8 * vmax)
+            frame = {"width": width, "height": height, "comps": comps, "hmax": hmax,
+                     "vmax": vmax, "mcux": mcux, "mcuy": mcuy, "quant": [None] * n}
+            coefs = [[0] * (mcuy * v * mcux * h * 64) for _, h, v, _ in comps]
+        elif marker == 0xC4:  # DHT: one or more tables
+            i = 0
+            while i < len(seg):
+                tc, th = seg[i] >> 4, seg[i] & 15
+                counts = seg[i + 1:i + 17]
+                total = sum(counts)
+                huff[(tc, th)] = _huffman_lut(counts, seg[i + 17:i + 17 + total])
+                i += 17 + total
+        elif marker == 0xDB:  # DQT: 8- or 16-bit tables, zigzag order
+            i = 0
+            while i < len(seg):
+                pq, tq = seg[i] >> 4, seg[i] & 15
+                size = 128 if pq else 64
+                vals = np.frombuffer(seg[i + 1:i + 1 + size], ">u2" if pq else np.uint8)
+                table = np.zeros(64, np.int64)
+                table[_ZIGZAG] = vals
+                qt[tq] = table
+                i += 1 + size
+        elif marker == 0xDD:
+            (restart,) = struct.unpack(">H", seg[:2])
+        elif marker == 0xE0 and seg.startswith(b"JFIF\x00") and length >= 16:
+            jfif = True
+        elif marker == 0xEE and seg.startswith(b"Adobe") and length >= 14:
+            adobe = seg[11]
+        elif marker == 0xDA:
+            if frame is None:
+                raise ValueError(f"{path}: JPEG scan before its frame header")
+            end = _SCAN_END.search(data, pos)
+            end = len(data) if end is None else end.start()
+            _decode_scan(frame, seg, data[pos:end], qt, huff, restart, coefs)
+            pos = end
+    if frame is None:
+        raise ValueError(f"{path}: JPEG without a frame header")
+    return _jpeg_pixels(frame, coefs, jfif, adobe)
+
+
+def _decode_scan(frame: dict, header: bytes, scan: bytes, qt, huff, restart: int,
+                 coefs: List[List[int]]) -> None:
+    """Huffman-decode one scan into ``coefs`` (each component's blocks,
+    zigzag order, in the padded MCU grid)."""
+    comps = frame["comps"]
+    ids = [c[0] for c in comps]
+    n = header[0]
+    members = []
+    for i in range(n):
+        cid, tables = header[1 + 2 * i], header[2 + 2 * i]
+        ci = ids.index(cid)
+        dc, ac = huff.get((0, tables >> 4)), huff.get((1, tables & 15))
+        if dc is None or ac is None:
+            raise ValueError("JPEG scan uses a Huffman table it does not define")
+        members.append((ci, dc, ac))
+        frame["quant"][ci] = qt.get(comps[ci][3])
+    mcux, mcuy = frame["mcux"], frame["mcuy"]
+    slots = []
+    if n == 1:  # non-interleaved: the component's own blocks, row by row
+        ci, dc, ac = members[0]
+        _, h, v, _ = comps[ci]
+        bw = _ceil_div(_ceil_div(frame["width"] * h, frame["hmax"]), 8)
+        bh = _ceil_div(_ceil_div(frame["height"] * v, frame["vmax"]), 8)
+        stride = mcux * h
+        slots = [(ci, (by * stride + bx) * 64, dc, ac) for by in range(bh) for bx in range(bw)]
+        per_mcu = 1
+    else:
+        per_mcu = sum(comps[ci][1] * comps[ci][2] for ci, _, _ in members)
+        for my in range(mcuy):
+            for mx in range(mcux):
+                for ci, dc, ac in members:
+                    _, h, v, _ = comps[ci]
+                    stride = mcux * h
+                    for yy in range(v):
+                        for xx in range(h):
+                            slots.append((ci, ((my * v + yy) * stride + mx * h + xx) * 64,
+                                          dc, ac))
+    segments = _RESTART.split(scan) if restart else [scan]
+    chunk = restart * per_mcu if restart else len(slots)
+    for i in range(0, len(slots), chunk):
+        seg = segments[i // chunk] if i // chunk < len(segments) else b""
+        try:  # DC predictions start from 0 after each restart marker
+            _decode_blocks(_peek16(seg.replace(b"\xff\x00", b"\xff")), slots[i:i + chunk],
+                           coefs, [0] * len(comps))
+        except IndexError:
+            raise ValueError("truncated JPEG data: the scan ends early") from None
+
+
+def _jpeg_pixels(frame: dict, coefs: List[List[int]], jfif: bool, adobe) -> np.ndarray:
+    """IDCT, upsampling and colour conversion of the decoded coefficients."""
+    width, height, comps = frame["width"], frame["height"], frame["comps"]
+    hmax, vmax, mcux, mcuy = frame["hmax"], frame["vmax"], frame["mcux"], frame["mcuy"]
+    planes = []
+    for ci, (_, h, v, tq) in enumerate(comps):
+        quant = frame["quant"][ci]
+        if quant is None:
+            raise ValueError("JPEG component with no scan or no quantization table")
+        zz = np.asarray(coefs[ci], np.int64).reshape(-1, 64)
+        nat = np.empty_like(zz)
+        nat[:, _ZIGZAG] = zz
+        blocks = _idct_islow(nat, quant).reshape(mcuy * v, mcux * h, 8, 8)
+        plane = blocks.transpose(0, 2, 1, 3).reshape(mcuy * v * 8, mcux * h * 8)
+        dh, dw = _ceil_div(height * v, vmax), _ceil_div(width * h, hmax)
+        planes.append(_upsample(plane[:dh, :dw], h, v, hmax, vmax)[:height, :width])
+    if len(planes) == 1:
+        return np.repeat(planes[0].astype(np.uint8)[:, :, None], 3, axis=2)
+    ids = [c[0] for c in comps]
+    if jfif:
+        rgb_space = False
+    elif adobe is not None:
+        rgb_space = adobe == 0
+    else:
+        rgb_space = ids == [82, 71, 66]  # 'R', 'G', 'B'
+    if rgb_space:
+        return np.stack([p.astype(np.uint8) for p in planes], axis=-1)
+    return _ycc_to_rgb(*planes)
 
 
 def write_png(path: str, img: np.ndarray) -> None:
@@ -227,11 +674,11 @@ def resize_rgb(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
 # ---------------------------------------------------------- the CLIs' IO
 def load_image(image_path, left: int = 0, right: int = 0, top: int = 0, bottom: int = 0,
                resize: Tuple[int, int] = (512, 512)) -> np.ndarray:
-    """An RGB image (a PNG path, or an (H, W, 3+) uint8 array) -> (1, 3, H,
-    W) float32 in [-1, 1]: crop, centre square, resize to ``resize`` =
-    (width, height)."""
+    """An RGB image (a PNG or JPEG path, or an (H, W, 3+) uint8 array) ->
+    (1, 3, H, W) float32 in [-1, 1]: crop, centre square, resize to
+    ``resize`` = (width, height)."""
     if isinstance(image_path, str):
-        image = read_png_rgb(image_path)
+        image = read_image(image_path)
     else:
         image = np.asarray(image_path)[:, :, :3]
 

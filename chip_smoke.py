@@ -79,14 +79,21 @@ prints no result):
    (``cli/sdedit.py``) on AudioLDM-s (200 steps, tstart 100) and on Stable
    Audio (100 steps, tstart 50, Brownian noise) in float32 and bfloat16;
    each wav must differ from its orig.wav.
-8a. a full-width AudioLDM2-music checkpoint (``weights_dir``) from seeded
-   random modules, written by the port (UNet, VAE, vocoder, GPT-2, the
-   projection model, T5 at FLAN-T5-large's config and the CLAP text tower
-   at transformers' defaults, with small tokenizers written here), loaded
-   back on the card bit-equal (each file's bytes and load seconds); the
-   full-width text chain card vs CPU (<= 1e-3 max relative error).
+8a. a full-width AudioLDM2-music checkpoint from seeded random modules in
+   the diffusers/transformers layout a user downloads (unet/, vae/,
+   vocoder/, language_model/, projection_model/ with the key sets of the
+   vendored manifests data/key_manifests/cvssp__audioldm2-music;
+   text_encoder/ a full CLAP model at transformers' default geometry,
+   text_encoder_2/ T5 at FLAN-T5-large's config; tokenizer/ as vocab.json
+   + merges.txt, tokenizer_2/ as tokenizer.json), converted into a
+   ``weights_dir`` by the port's converter (``cli/convert_checkpoint.py``:
+   seconds, bytes read and written), loaded back on the card bit-equal
+   to the seeded modules (each file's bytes and load seconds); the
+   tokenizer built from vocab.json + merges.txt against the tokenizer.json
+   it was made from (ids and masks equal); the full-width text chain card
+   vs CPU (<= 1e-3 max relative error).
 8. ``--mode ours`` on the other families on phase 3's clip: AudioLDM2-music
-   from phase 8a's checkpoint at 200 + 100 steps as a float32 selfcheck
+   from phase 8a's converted checkpoint at 200 + 100 steps as a float32 selfcheck
    and a bfloat16 edit; AudioLDM-l and TANGO as
    selfchecks at 50 + 25 steps in float32 and bfloat16; every selfcheck
    >= 40 dB.
@@ -122,7 +129,11 @@ prints no result):
    1024 px (``-r 1024 1024``, 4 forwards) in float32 and bfloat16, with its
    launches at head dim 160 counted (5 per forward). Every output
    PNG decodes through the port's reader at the expected size and differs
-   from orig.png.
+   from orig.png. Then image input: the two committed inputs of
+   tests/data/images (a 512 x 384 4:2:0 baseline JPEG with restart
+   markers, a 16-bit Adam7 RGB PNG) decoded by the port's readers to the
+   sha256 of PIL's decode (tests/data/images/sha256.json), and a bfloat16
+   SD SDEdit at 512 px from the JPEG.
 11. the edit server (serve.py) on 127.0.0.1 over HTTP at 50 steps in
    bfloat16: AudioLDM-s (/healthz, three edits, two concurrent requests
    each bit-equal to the same request alone, a response bit-equal to
@@ -214,6 +225,7 @@ EDITS = {MODEL_ID: (STEPS, TSTART, "a dog barking", {"sr": 16000, "channels": 1}
 # per position (one per conditioning stream), each with its attn1; attn2 is
 # cross-attention and takes the plain path; D = 16 and 32 (-music). TANGO:
 # one transformer per position, attn1 only; D = 40 and 80.
+REPO = os.path.dirname(os.path.abspath(__file__))
 A2_MODEL_ID = "cvssp/audioldm2-music"
 AL_MODEL_ID = "cvssp/audioldm-l-full"
 TANGO_MODEL_ID = "declare-lab/tango-full-ft-audiocaps"
@@ -1583,18 +1595,13 @@ def phase7_baselines(fa, sw, tmp: str) -> dict:
     return runs
 
 
-# phase 8's checkpoint: FLAN-T5-large's public config, transformers'
-# ClapTextConfig defaults (the CLAP text tower) and CLAP's 768 -> 512 -> 512
-# text projection; GPT-2 and the projection model at the spec's defaults
+# phase 8's checkpoint: FLAN-T5-large's public config; the CLAP model of
+# phase 13 (CLAP_TEXT_FULL, CLAP_AUDIO) as its text encoder; GPT-2 and the
+# projection model at the spec's defaults
 T5_LARGE = {"model_type": "t5", "d_model": 1024, "d_kv": 64, "d_ff": 2816, "num_layers": 24,
             "num_heads": 16, "relative_attention_num_buckets": 32,
             "relative_attention_max_distance": 128, "feed_forward_proj": "gated-gelu",
             "vocab_size": 32128, "layer_norm_epsilon": 1e-6}
-CLAP_TEXT = {"model_type": "roberta", "vocab_size": 50265, "hidden_size": 768,
-             "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
-             "max_position_embeddings": 514, "layer_norm_eps": 1e-12, "pad_token_id": 1,
-             "type_vocab_size": 1, "hidden_act": "gelu"}
-CLAP_PROJECTION = (768, 512, 512)
 TEXT_CHAIN_TOL = 1e-3  # the text chain card vs CPU, max relative error in float32
 CHECKPOINT_SEED = 11
 _WORDS = ("a", "sine", "tone", "dog", "barking", "cello", "the", "of", "and", "music")
@@ -1655,11 +1662,25 @@ def roberta_tokenizer_json() -> dict:
                       "vocab": vocab, "merges": merges}}
 
 
-def write_checkpoint(ckpt: str) -> dict:
-    """A complete AudioLDM2-music weights_dir from seeded random full-width
-    modules, in the layout of tools/convert_checkpoint.py, written by the
-    port's save_params and save_text_tower; returns each module's state
-    dict on the CPU and each file's bytes and write seconds."""
+def _manifest_shapes(model_id: str, part: str) -> dict:
+    path = os.path.join(REPO, "data", "key_manifests", model_id.replace("/", "__"),
+                        part + ".txt")
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if line.strip() and not line.startswith("#"):
+                key, shape = line.rstrip("\n").split("\t")
+                out[key] = tuple(int(d) for d in shape.split(",")) if shape else ()
+    return out
+
+
+def write_source_checkpoint(src: str):
+    """A complete AudioLDM2-music checkpoint in the diffusers/transformers
+    layout, from seeded random full-width modules, written by the port's
+    safetensors writer (``hf_checkpoint.write_checkpoint``). Returns the
+    state dict each weights_dir part must load to (on the CPU), the CLAP
+    text projection, and each folder's bytes."""
+    from audioeditingcode_tpu_torch.models import hf_checkpoint
     from audioeditingcode_tpu_torch.models import registry as treg
     from audioeditingcode_tpu_torch.models.audioldm2_cond import (
         AudioLDM2ProjectionModel,
@@ -1670,47 +1691,66 @@ def write_checkpoint(ckpt: str) -> dict:
         AudioLDM2ProjectionConfig,
         GPT2Config,
     )
-    from audioeditingcode_tpu_torch.models.text_encoders import (
-        RobertaModel,
-        T5EncoderModel,
-        roberta_config,
-        save_text_tower,
-        t5_config,
-    )
+    from audioeditingcode_tpu_torch.models.text_encoders import T5EncoderModel, t5_config
 
     spec = MODEL_SPECS[A2_MODEL_ID]
     pipe = treg.load_model(A2_MODEL_ID, 4, device="cpu", seed=CHECKPOINT_SEED)
     g = torch.Generator().manual_seed(CHECKPOINT_SEED + 1)
     mods = {"unet": pipe.unet, "vae": pipe.vae, "vocoder": pipe.vocoder,
-            "gpt2": treg.random_init_(GPT2Model(spec.gpt2 or GPT2Config()), g),
-            "projection_lm": treg.random_init_(
-                AudioLDM2ProjectionModel(spec.projection_lm or AudioLDM2ProjectionConfig()), g),
-            "t5": treg.random_init_(T5EncoderModel(t5_config(T5_LARGE)), g),
-            "clap_text": treg.random_init_(RobertaModel(roberta_config(CLAP_TEXT)), g)}
+            "gpt2": treg.seeded(lambda: GPT2Model(spec.gpt2 or GPT2Config()), g),
+            "projection_lm": treg.seeded(lambda: AudioLDM2ProjectionModel(
+                spec.projection_lm or AudioLDM2ProjectionConfig()), g),
+            "t5": treg.seeded(lambda: T5EncoderModel(t5_config(T5_LARGE)), g)}
+    want = {name: {k: v.detach().clone() for k, v in m.state_dict().items()}
+            for name, m in mods.items()}
+    # the diffusers / transformers names of each part (models/convert.py)
+    folders = {"unet": ("unet", dict(want["unet"])), "vae": ("vae", dict(want["vae"])),
+               "vocoder": ("vocoder", {re.sub(r"^ups\.", "upsampler.", k): v
+                                       for k, v in want["vocoder"].items()}),
+               "gpt2": ("language_model", dict(want["gpt2"])),
+               "projection_lm": ("projection_model", dict(want["projection_lm"]))}
+    n_mel = spec.vocoder.model_in_dim
+    folders["vocoder"][1].update(mean=torch.zeros(n_mel), scale=torch.ones(n_mel))
+    vocab = _manifest_shapes(A2_MODEL_ID, "language_model")["wte.weight"]
+    folders["gpt2"][1]["wte.weight"] = torch.randn(vocab, generator=g) * 0.02
     written = {}
-    os.makedirs(ckpt, exist_ok=True)
-    for name, mod in mods.items():
-        t0 = time.perf_counter()
-        if name in ("t5", "clap_text"):
-            d = os.path.join(ckpt, name)
-            save_text_tower(mod, d, T5_LARGE if name == "t5" else CLAP_TEXT)
-            path = os.path.join(d, "flax_model.msgpack")
-            spec_json = t5_tokenizer_json() if name == "t5" else roberta_tokenizer_json()
-            with open(os.path.join(d, "tokenizer.json"), "w") as f:
-                json.dump(spec_json, f)
-            with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
-                json.dump({"model_max_length": 512, "pad_token": "<pad>"}, f)
-        else:
-            path = os.path.join(ckpt, f"{name}.msgpack")
-            treg.save_params(mod, path)
-        written[name] = {"bytes": os.path.getsize(path), "write_s": time.perf_counter() - t0}
-    d_in, d_mid, d_out = CLAP_PROJECTION
-    np.savez(os.path.join(ckpt, "clap_text", "text_projection.npz"),
-             **{k: (torch.randn(shape, generator=g) / shape[-1] ** 0.5).numpy()
-                for k, shape in (("w1", (d_mid, d_in)), ("b1", (d_mid,)),
-                                 ("w2", (d_out, d_mid)), ("b2", (d_out,)))})
-    return {name: {k: v.detach().clone() for k, v in m.state_dict().items()}
-            for name, m in mods.items()}, written
+    for name, (sub, sd) in folders.items():
+        shapes = {k: tuple(v.shape) for k, v in sd.items()}
+        if shapes != _manifest_shapes(A2_MODEL_ID, sub):
+            raise AssertionError(f"phase8a: the {sub}/ keys are not the manifest's")
+        diffusers = name in ("unet", "vae", "projection_lm")
+        written[sub] = hf_checkpoint.write_checkpoint(
+            os.path.join(src, sub), {"_class_name": type(mods[name]).__name__},
+            sd, "diffusion_pytorch_model.safetensors" if diffusers else "model.safetensors")
+    written["text_encoder_2"] = hf_checkpoint.write_checkpoint(
+        os.path.join(src, "text_encoder_2"), T5_LARGE, want["t5"])
+    t0 = time.perf_counter()
+    clap = write_clap_checkpoint(os.path.join(src, "text_encoder"))
+    written["text_encoder"] = os.path.getsize(os.path.join(src, "text_encoder",
+                                                           "model.safetensors"))
+    want["clap_text"] = {k[len("text_model."):]: v for k, v in clap.items()
+                         if k.startswith("text_model.")
+                         and not k.endswith(("position_ids", "token_type_ids"))}
+    projection = {name: clap[f"text_projection.{key}"] for name, key in (
+        ("w1", "linear1.weight"), ("b1", "linear1.bias"), ("w2", "linear2.weight"),
+        ("b2", "linear2.bias"))}
+    tok = roberta_tokenizer_json()
+    d = os.path.join(src, "tokenizer")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(tok["model"]["vocab"], f, ensure_ascii=False)
+    with open(os.path.join(d, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in tok["model"]["merges"]))
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "RobertaTokenizer", "model_max_length": 512}, f)
+    d = os.path.join(src, "tokenizer_2")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "tokenizer.json"), "w") as f:
+        json.dump(t5_tokenizer_json(), f)
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "T5Tokenizer", "model_max_length": 512,
+                   "pad_token": "<pad>"}, f)
+    return want, projection, written
 
 
 def _assert_bit_equal(name: str, got: dict, want: dict) -> None:
@@ -1722,19 +1762,46 @@ def _assert_bit_equal(name: str, got: dict, want: dict) -> None:
 
 
 def phase8a_checkpoint(tmp: str) -> dict:
-    """Write the full-width AudioLDM2-music checkpoint, load it back on the
-    card (state dicts bit-equal to the seeded modules; each file's bytes
-    and load seconds) and hold the full-width text chain (T5-large, RoBERTa
-    + CLAP projection, GPT-2 generating 8 tokens) card against CPU."""
+    """Write the full-width AudioLDM2-music source checkpoint, convert it
+    with the port's converter, load the weights_dir back on the card
+    (state dicts bit-equal to the seeded modules; each file's bytes and
+    load seconds), hold the tokenizer built from vocab.json + merges.txt
+    to the tokenizer.json it came from, and the full-width text chain
+    (T5-large, RoBERTa + CLAP projection, GPT-2 generating 8 tokens) card
+    against CPU."""
+    from audioeditingcode_tpu_torch.cli.convert_checkpoint import convert
     from audioeditingcode_tpu_torch.models import flax_msgpack
     from audioeditingcode_tpu_torch.models import registry as treg
     from audioeditingcode_tpu_torch.models.configs import MODEL_SPECS
-    from audioeditingcode_tpu_torch.models.text_encoders import load_text_tower
+    from audioeditingcode_tpu_torch.models.text_encoders import (
+        load_clap_projection,
+        load_text_tower,
+    )
+    from audioeditingcode_tpu_torch.models.tokenizers import Tokenizer
 
+    src = os.path.join(tmp, "audioldm2_music_src")
     ckpt = os.path.join(tmp, "audioldm2_music_ckpt")
     t0 = time.perf_counter()
-    want, written = write_checkpoint(ckpt)
+    want, projection, written = write_source_checkpoint(src)
     write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    conv = convert(A2_MODEL_ID, src, ckpt)
+    convert_s = time.perf_counter() - t0
+    read_bytes = sum(c["read_bytes"] for c in conv.values())
+    written_bytes = sum(c["written_bytes"] for c in conv.values())
+    log(f"[phase8a] wrote the source checkpoint in {write_s:.1f} s: {written}")
+    log(f"[phase8a] converted it with the port's converter in {convert_s:.1f} s: read "
+        f"{read_bytes} bytes, wrote {written_bytes} bytes; per part {conv}")
+    shutil.rmtree(src)
+    prompts = ["a sine tone", "a dog barking in the rain, then music"]
+    built = Tokenizer.from_dir(os.path.join(ckpt, "clap_text"))
+    ref = Tokenizer(roberta_tokenizer_json(), {"model_max_length": 512, "pad_token": "<pad>"})
+    for padding in ("max_length", True):
+        (ids, mask), (rids, rmask) = built(prompts, padding=padding), ref(prompts,
+                                                                          padding=padding)
+        if not (np.array_equal(ids, rids) and np.array_equal(mask, rmask)):
+            raise AssertionError("phase8a: the tokenizer built from vocab.json + merges.txt "
+                                 "differs from its tokenizer.json")
     flax_msgpack.LOAD_SECONDS.clear()
     t0 = time.perf_counter()
     pipe = treg.load_model(A2_MODEL_ID, 4, device="cuda", weights_dir=ckpt)
@@ -1748,13 +1815,13 @@ def phase8a_checkpoint(tmp: str) -> dict:
     for name in ("t5", "clap_text"):
         _assert_bit_equal(name, load_text_tower(os.path.join(ckpt, name)).state_dict(),
                           want[name])
+    _assert_bit_equal("text_projection", load_clap_projection(
+        os.path.join(ckpt, "clap_text"), "cpu"), projection)
     files = {os.path.relpath(path, ckpt): {"bytes": b, "load_s": s}
              for path, (b, s) in flax_msgpack.LOAD_SECONDS.items()}
-    log(f"[phase8a] wrote the checkpoint in {write_s:.1f} s: {written}")
     log(f"[phase8a] load_model on the card in {load_s:.1f} s, every module bit-equal; "
         f"per file: {files}")
     cpu_enc = treg._try_audioldm2_chain(MODEL_SPECS[A2_MODEL_ID], ckpt, "cpu")
-    prompts = ["a sine tone", "a dog barking in the rain, then music"]
     errs = {}
     t0 = time.perf_counter()
     card = enc(prompts)
@@ -1772,7 +1839,9 @@ def phase8a_checkpoint(tmp: str) -> dict:
     del pipe, enc, cpu_enc
     torch.cuda.empty_cache()
     return {"dir": ckpt, "checkpoint_files": files, "checkpoint_load_s": load_s,
-            "checkpoint_write_s": write_s, "text_chain_max_rel_err": errs,
+            "source_write_s": write_s, "source_bytes": written, "convert_s": convert_s,
+            "convert_read_bytes": read_bytes, "convert_written_bytes": written_bytes,
+            "convert_parts": conv, "text_chain_max_rel_err": errs,
             "text_chain_card_s": card_s}
 
 
@@ -2328,6 +2397,9 @@ def phase10_images(fa, sw, tmp: str, ckpt: str):
     if checks["sd_pc_bf16_amount2_max_from_amount0"] <= IMG_AMOUNT0_MAX:
         raise AssertionError(f"phase10: the drift did not move the image: {checks}")
 
+    jpeg_runs, checks["image_inputs"] = _image_inputs(fa, sw, tmp, ckpt)
+    runs.update(jpeg_runs)
+
     argv = ["--model_id", CELEBA_MODEL_ID, "--init_im", im, "--num_diffusion_steps",
             str(IMG_STEPS), "--tstart", str(IMG_TSTART), "--seed", "0", "--wandb_disable",
             "--results_path", os.path.join(tmp, "celebahq")]
@@ -2338,6 +2410,44 @@ def phase10_images(fa, sw, tmp: str, ckpt: str):
     runs["celebahq_sdedit"] = run
     log(f"[phase10] celebahq_sdedit: {run}")
     return runs, checks
+
+
+def _image_inputs(fa, sw, tmp: str, ckpt: str):
+    """The committed inputs of tests/data/images decoded by the port's
+    readers, each to the sha256 of PIL's decode; then a bfloat16 SD SDEdit
+    at 512 px from the JPEG. Returns (runs, checks)."""
+    import hashlib
+
+    from audioeditingcode_tpu_torch.cli.images import sdedit_main
+    from audioeditingcode_tpu_torch.utils.image_io import read_image, read_png_rgb
+
+    d = os.path.join(REPO, "tests", "data", "images")
+    with open(os.path.join(d, "sha256.json")) as f:
+        want = json.load(f)
+    checks = {}
+    for name, rec in want.items():
+        t0 = time.perf_counter()
+        px = read_image(os.path.join(d, name))
+        decode_s = time.perf_counter() - t0
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        checks[name] = {"shape": list(px.shape), "decode_s": decode_s,
+                        "sha256_equal": digest == rec["sha256"]}
+        log(f"[phase10] {name} ({rec['what']}): {checks[name]}")
+        if digest != rec["sha256"] or list(px.shape) != rec["shape"]:
+            raise AssertionError(f"phase10: {name} decodes to {digest} {px.shape}, PIL's "
+                                 f"decode is {rec['sha256']} {rec['shape']}")
+    name = "sd_sdedit_jpeg_bf16"
+    argv = ["--model_id", SD_MODEL_ID, "--init_im", os.path.join(d, "photo_420_restart.jpg"),
+            "--target_prompt", "a photo of a cat", "--num_diffusion_steps", str(IMG_STEPS),
+            "--tstart", str(IMG_TSTART), "--seed", "0", "--weights_dir", ckpt,
+            "--wandb_disable", "--dtype", "bfloat16", "--results_path",
+            os.path.join(tmp, name)]
+    out, _, run = _counted_run(fa, sw, f"phase10 {name}", lambda: sdedit_main(argv),
+                               {"flash_attention_tc": SD_CALLS_PER_FORWARD[512]},
+                               IMG_TSTART, "sdedit_seconds")
+    _check_png(name, out, 512, read_png_rgb(os.path.join(os.path.dirname(out), "orig.png")))
+    log(f"[phase10] {name}: {run}")
+    return {name: run}, checks
 
 
 @contextlib.contextmanager

@@ -298,16 +298,65 @@ def test_cpu_tensors_take_the_plain_version():
         fa.flash_attention_cuda(q, q, q)
 
 
-def build_converted_checkpoint(model_id: str, root: str) -> str:
-    """A complete fake checkpoint of a tiny model, built with the helpers of
-    tests/test_convert_integration.py and converted by the JAX converter
-    (tools/convert_checkpoint.py::convert); returns the weights_dir. The
-    text towers are real transformers models with offline tokenizers."""
+TINY_CLAP_AUDIO = dict(spec_size=64, num_mel_bins=16, patch_size=4, patch_stride=[4, 4],
+                       window_size=4, depths=[2, 2], num_attention_heads=[2, 4],
+                       patch_embeds_hidden_size=8, hidden_size=16)
+
+
+def make_clap_model_dir(d: str, projection_dim: int, hidden: int = 24, max_len: int = 16) -> None:
+    """A full transformers ClapModel (text and audio towers), as AudioLDM2's
+    text_encoder/ holds one, with the text tower of
+    test_convert_integration.make_clap_text_model_dir."""
+    from transformers import ClapAudioConfig, ClapConfig, ClapModel, ClapTextConfig
+
+    tc = ClapTextConfig(vocab_size=120, hidden_size=hidden, num_hidden_layers=2,
+                        num_attention_heads=2, intermediate_size=2 * hidden,
+                        max_position_embeddings=max_len + 4, projection_dim=projection_dim)
+    ac = ClapAudioConfig(**TINY_CLAP_AUDIO, projection_dim=projection_dim)
+    ClapModel(ClapConfig(text_config=tc.to_dict(), audio_config=ac.to_dict(),
+                         projection_dim=projection_dim)).save_pretrained(d)
+
+
+def checkpoint_state_dict(model_id: str, part: str, params, transform,
+                          weight_norm: bool = False) -> dict:
+    """The JAX ``params`` of a part (its ``params`` subtree), each leaf but
+    fixed ``weight`` buffers through ``transform``, as the state dict of
+    the diffusers / transformers checkpoint: the port module's names and
+    layouts (``bridge.flax_to_torch_state_dict``), transformers' vocoder
+    ``upsampler.N`` and diffusers' VQ ``quantize.embedding.weight``.
+    ``weight_norm`` stores each 3-D conv weight as a ``weight_g`` /
+    ``weight_v`` pair (the Oobleck VAE's layout at rest)."""
+    from audioeditingcode_tpu_torch.models import convert as cv
+    from audioeditingcode_tpu_torch.models.bridge import flax_to_torch_state_dict
+    from audioeditingcode_tpu_torch.models.configs import MODEL_SPECS as PORT_SPECS
+
+    flat = {k: np.asarray(v, np.float32) if k[-1] == "weight"
+            else transform(np.asarray(v, np.float32)) for k, v in flatten_dict(params).items()}
+    with torch.device("meta"):
+        module = cv.part_factory(PORT_SPECS[model_id], part)()
+    sd = {}
+    for k, v in flax_to_torch_state_dict(flat, module).items():
+        k = re.sub(r"^ups\.", "upsampler.", k)
+        k = "quantize.embedding.weight" if k == "codebook" else k
+        if weight_norm and k.endswith(".weight") and v.dim() == 3:
+            sd[k + "_g"] = torch.linalg.vector_norm(v, dim=(1, 2), keepdim=True).numpy()
+            k += "_v"
+        sd[k] = v.numpy()
+    return sd
+
+
+def build_source_checkpoint(model_id: str, src: str, clap_model: bool = False,
+                            weight_norm: bool = False) -> str:
+    """A complete fake checkpoint of a tiny model in the diffusers pipeline
+    layout, with the names of the real ones, built from the JAX tiny
+    model's params and the helpers of tests/test_convert_integration.py;
+    returns ``src``. The text towers are real transformers models with
+    offline tokenizers; ``clap_model`` makes text_encoder/ a full ClapModel
+    (AudioLDM2's layout) instead of a ClapTextModelWithProjection;
+    ``weight_norm`` stores the Oobleck VAE's convs weight-normed."""
     import test_convert_integration as tci
     from audioeditingcode_tpu.models.configs import MODEL_SPECS
-    from tools.convert_checkpoint import convert
 
-    src, out = os.path.join(root, "src"), os.path.join(root, "out")
     spec = MODEL_SPECS[model_id]
     torch.manual_seed(0)  # the transformers towers' init
     if model_id == "test/tiny-stable-audio":
@@ -325,9 +374,8 @@ def build_converted_checkpoint(model_id: str, root: str) -> str:
                 v = 0.01 * v
             dit[k] = v.astype(np.float32)
         tci.save_safetensors(dit, os.path.join(src, "transformer"))
-        tci.save_safetensors(tci.flax_to_torch_sd(
-            jpipe.vae_params["params"], tc_markers=("conv_t1",),
-            tc_rule="flax_transpose_kernel", snake=True, transform=lambda x: x * 0.5),
+        tci.save_safetensors(checkpoint_state_dict(
+            model_id, "oobleck", jpipe.vae_params["params"], lambda x: x * 0.5, weight_norm),
             os.path.join(src, "vae"))
         pc, r = spec.projection, np.random.RandomState(6)
         proj = {"text_projection.0.weight": r.randn(pc.conditioning_dim, pc.text_encoder_dim),
@@ -341,27 +389,37 @@ def build_converted_checkpoint(model_id: str, root: str) -> str:
                              os.path.join(src, "projection_model"))
         tci.make_t5_model_dir(os.path.join(src, "text_encoder"), d_model=pc.text_encoder_dim)
         tci.make_t5_tokenizer_dir(os.path.join(src, "tokenizer"))
-    else:
-        # mildly perturbed seed-0 params: the test's usual 1.5x + 0.01 makes
-        # the tiny vocoder amplify float32 roundoff ~100x into the wav
-        jpipe = jax_tiny_pipeline(4, model_id)
-        for part in ("unet", "vae", "vocoder"):
-            tci.save_safetensors(tci.flax_to_torch_sd(getattr(jpipe, part + "_params")["params"],
-                                                      transform=lambda x: x * 1.01 + 1e-3),
-                                 os.path.join(src, part))
+        return src
+    # mildly perturbed seed-0 params: the test's usual 1.5x + 0.01 makes
+    # the tiny vocoder amplify float32 roundoff ~100x into the wav
+    jpipe = jax_tiny_pipeline(4, model_id)
+    perturb = lambda x: x * 1.01 + 1e-3  # noqa: E731
+    for part in ("unet", "vqvae" if spec.family == "celebahq" else "vae", "vocoder"):
+        params = getattr(jpipe, ("vae" if part == "vqvae" else part) + "_params")
+        if params is not None:
+            tci.save_safetensors(checkpoint_state_dict(model_id, part, params["params"],
+                                                       perturb), os.path.join(src, part))
     if spec.family == "audioldm":
         tci.make_clap_text_model_dir(os.path.join(src, "text_encoder"), projection_dim=32)
         tci.make_roberta_tokenizer_dir(os.path.join(src, "tokenizer"))
     elif spec.family == "tango":
         tci.make_t5_model_dir(os.path.join(src, "text_encoder"), d_model=32)
         tci.make_t5_tokenizer_dir(os.path.join(src, "tokenizer"))
+    elif spec.family == "stable-diffusion":
+        from transformers import CLIPTextConfig, CLIPTextModel
+
+        CLIPTextModel(CLIPTextConfig(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                                     num_attention_heads=2, vocab_size=200,
+                                     max_position_embeddings=12)).save_pretrained(
+            os.path.join(src, "text_encoder"), safe_serialization=False)
+        tci.make_clip_tokenizer_dir(os.path.join(src, "tokenizer"))
     elif spec.family == "audioldm2":
         from transformers import GPT2Config as TorchGPT2Config
         from transformers import GPT2Model as TorchGPT2
 
         lm = spec.projection_lm
-        tci.make_clap_text_model_dir(os.path.join(src, "text_encoder"),
-                                     projection_dim=lm.text_encoder_dim)
+        (make_clap_model_dir if clap_model else tci.make_clap_text_model_dir)(
+            os.path.join(src, "text_encoder"), projection_dim=lm.text_encoder_dim)
         tci.make_roberta_tokenizer_dir(os.path.join(src, "tokenizer"))
         tci.make_t5_model_dir(os.path.join(src, "text_encoder_2"), d_model=lm.text_encoder_1_dim)
         tci.make_t5_tokenizer_dir(os.path.join(src, "tokenizer_2"))
@@ -379,7 +437,17 @@ def build_converted_checkpoint(model_id: str, root: str) -> str:
         proj |= {k: r.randn(D) for k in ("sos_embed", "eos_embed", "sos_embed_1", "eos_embed_1")}
         tci.save_safetensors({k: (0.2 * v).astype(np.float32) for k, v in proj.items()},
                              os.path.join(src, "projection_model"))
-    convert(model_id, src, out)
+    return src
+
+
+def build_converted_checkpoint(model_id: str, root: str) -> str:
+    """``build_source_checkpoint`` under ``<root>/src``, converted by the JAX
+    converter (tools/convert_checkpoint.py::convert) into ``<root>/out``;
+    returns the weights_dir."""
+    from tools.convert_checkpoint import convert
+
+    src, out = os.path.join(root, "src"), os.path.join(root, "out")
+    convert(model_id, build_source_checkpoint(model_id, src), out)
     return out
 
 

@@ -1,0 +1,344 @@
+"""The port's image decoders (utils/image_io.py, numpy only) against PIL
+12.1's ``np.array(Image.open(p).convert("RGB"))``, the JAX CLIs' reader,
+on the CPU. Every case must be bit-equal.
+
+- PNG in every colour type and bit depth (1, 2, 4, 8, 16), non-interlaced
+  and Adam7 (also at sizes under 8 px, where some passes are empty), with
+  all five scanline filters and with ``tRNS``, from the small zlib encoder
+  below (Pillow writes no Adam7 and no 16-bit colour PNG).
+- Baseline JPEG from PIL at quality 5, 75 and 100, subsampling 4:4:4,
+  4:2:2 and 4:2:0, greyscale, optimized Huffman tables, odd sizes (1 x 1,
+  17 x 9, 511 x 383), with and without restart markers; re-ordered tables,
+  APPn/COM segments, SOF1 and the Adobe APP14 RGB flag.
+- ``load_image`` on each equals the JAX ``load_image``.
+- The formats left out (progressive, arithmetic-coded, 12-bit and CMYK
+  JPEG; GIF, BMP, WebP, TIFF) raise a ValueError naming them.
+- The two inputs ``chip_smoke.py`` decodes on the card
+  (tests/data/images/) are what ``make_chip_inputs`` writes, and their
+  sha256 file holds the hash of PIL's decode.
+"""
+
+import hashlib
+import json
+import os
+import struct
+import zlib
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from audioeditingcode_tpu.utils import image_io as jio
+from audioeditingcode_tpu_torch.utils import image_io as tio
+from test_torch_helpers import REPO
+
+DATA = os.path.join(REPO, "tests", "data", "images")
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+# ------------------------------------------------------------ PNG encoder
+def _chunk(tag: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + tag + body
+            + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+
+def _pack(samples: np.ndarray, bits: int) -> np.ndarray:
+    """(h, w, c) samples -> (h, stride) scanline bytes."""
+    h, w, c = samples.shape
+    if bits == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, -1)
+    if bits == 8:
+        return samples.astype(np.uint8).reshape(h, -1)
+    per = 8 // bits
+    flat = samples.reshape(h, -1).astype(np.uint8)
+    pad = (-flat.shape[1]) % per
+    flat = np.pad(flat, ((0, 0), (0, pad))).reshape(h, -1, per)
+    return sum(flat[:, :, i] << (8 - bits * (i + 1)) for i in range(per)).astype(np.uint8)
+
+
+def _filter(rows: np.ndarray, bpp: int, first: int) -> bytes:
+    """Each scanline with a filter byte, the types 0-4 taken in turn from
+    ``first``."""
+    out = b""
+    prior = np.zeros(rows.shape[1], np.int64)
+    for y, row in enumerate(rows.astype(np.int64)):
+        ftype = (first + y) % 5
+        left = np.concatenate([np.zeros(bpp, np.int64), row[:-bpp]])
+        up_left = np.concatenate([np.zeros(bpp, np.int64), prior[:-bpp]])
+        if ftype == 0:
+            pred = np.zeros_like(row)
+        elif ftype == 1:
+            pred = left
+        elif ftype == 2:
+            pred = prior
+        elif ftype == 3:
+            pred = (left + prior) >> 1
+        else:
+            p = left + prior - up_left
+            pa, pb, pc = np.abs(p - left), np.abs(p - prior), np.abs(p - up_left)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prior, up_left))
+        out += bytes([ftype]) + ((row - pred) % 256).astype(np.uint8).tobytes()
+        prior = row
+    return out
+
+
+def write_test_png(path, samples, bits, ctype, interlace=False, palette=None, trns=None):
+    """A PNG of (h, w, c) samples at ``bits`` in colour type ``ctype``,
+    Adam7 when ``interlace``, filters 0-4 in turn, zlib level 9."""
+    h, w, c = samples.shape
+    bpp = max(1, c * bits // 8)
+    passes = ([samples[y0::dy, x0::dx] for x0, y0, dx, dy in _ADAM7] if interlace
+              else [samples])
+    raw = b"".join(_filter(_pack(p, bits), bpp, i) for i, p in enumerate(passes)
+                   if p.shape[0] and p.shape[1])
+    data = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bits, ctype,
+                                                             0, 0, int(interlace)))
+    if palette is not None:
+        data += _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        data += _chunk(b"tRNS", trns)
+    data += _chunk(b"IDAT", zlib.compress(raw, 9)) + _chunk(b"IEND", b"")
+    with open(path, "wb") as f:
+        f.write(data)
+    return path
+
+
+def _pil(path):
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def _samples(rng, h, w, c, bits):
+    """Random samples with the edge values of the depth present."""
+    s = rng.integers(0, 1 << bits, (h, w, c))
+    edges = [0, (1 << bits) - 1, min(255, (1 << bits) - 1), min(256, (1 << bits) - 1)]
+    flat = s.reshape(-1)
+    flat[:min(4, flat.size)] = edges[:min(4, flat.size)]
+    return s
+
+
+PNG_CASES = [(ctype, bits) for ctype, depths in ((0, (1, 2, 4, 8, 16)), (2, (8, 16)),
+                                                 (3, (1, 2, 4, 8)), (4, (8, 16)), (6, (8, 16)))
+             for bits in depths]
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+@pytest.mark.parametrize("interlace", [False, True], ids=["plain", "adam7"])
+@pytest.mark.parametrize("ctype,bits", PNG_CASES)
+def test_png_is_bit_equal_to_pil(tmp_path, ctype, bits, interlace):
+    rng = np.random.default_rng(ctype * 100 + bits)
+    for h, w in ((1, 1), (3, 5), (7, 9), (13, 29)):
+        s = _samples(rng, h, w, CHANNELS[ctype], bits)
+        palette = None
+        if ctype == 3:
+            n = max(1, (1 << bits) - 3)  # a palette shorter than the index range
+            palette = rng.integers(0, 256, (n, 3))
+        path = write_test_png(str(tmp_path / f"{h}x{w}.png"), s, bits, ctype, interlace,
+                              palette)
+        np.testing.assert_array_equal(tio.read_png_rgb(path), _pil(path), err_msg=f"{h}x{w}")
+        np.testing.assert_array_equal(tio.read_image(path), _pil(path))
+
+
+@pytest.mark.parametrize("ctype,bits,trns", [(0, 8, b"\x00\x07"), (0, 16, b"\x01\x00"),
+                                             (2, 8, b"\x00\x01\x00\x02\x00\x03"),
+                                             (2, 16, b"\x01\x00\x02\x00\x03\x00"),
+                                             (3, 4, b"\x00\x80\xff")])
+def test_png_transparency_chunk_is_ignored(tmp_path, ctype, bits, trns):
+    rng = np.random.default_rng(7)
+    s = _samples(rng, 6, 11, CHANNELS[ctype], bits)
+    palette = rng.integers(0, 256, (16, 3)) if ctype == 3 else None
+    path = write_test_png(str(tmp_path / "t.png"), s, bits, ctype, True, palette, trns)
+    assert "transparency" in Image.open(path).info
+    np.testing.assert_array_equal(tio.read_png_rgb(path), _pil(path))
+
+
+def test_png_sixteen_bit_rules():
+    """The narrowing rules of the module docstring, on PIL's own decode:
+    RGB keeps the high byte, greyscale clamps."""
+    import tempfile
+
+    vals = np.array([0, 1, 255, 256, 300, 4095, 65535])
+    with tempfile.TemporaryDirectory() as d:
+        rgb = write_test_png(os.path.join(d, "rgb.png"),
+                             np.repeat(vals[None, :, None], 3, axis=2), 16, 2)
+        grey = write_test_png(os.path.join(d, "grey.png"), vals[None, :, None], 16, 0)
+        assert tio.read_png_rgb(rgb)[0, :, 0].tolist() == [0, 0, 0, 1, 1, 15, 255] == \
+            _pil(rgb)[0, :, 0].tolist()
+        assert tio.read_png_rgb(grey)[0, :, 0].tolist() == [0, 1, 255, 255, 255, 255, 255] == \
+            _pil(grey)[0, :, 0].tolist()
+
+
+# ------------------------------------------------------------------- JPEG
+def _pattern(h, w, noise=0.1, seed=0):
+    """write_image's pattern (chip_smoke.py): colour waves over noise."""
+    y, x = np.mgrid[0:h, 0:w] / max(h, w)
+    img = np.stack([np.sin(2 * np.pi * (3 * x + k / 3)) * np.cos(2 * np.pi * (2 * y - k / 5))
+                    for k in range(3)], -1) * 0.7
+    img += noise * np.random.default_rng(seed).standard_normal(img.shape)
+    return (np.clip((img + 1) / 2, 0, 1) * 255).round().astype(np.uint8)
+
+
+JPEG_SIZES = [(1, 1), (9, 17), (383, 511)]
+
+
+@pytest.mark.parametrize("quality", [5, 75, 100])
+@pytest.mark.parametrize("subsampling", [0, 1, 2], ids=["444", "422", "420"])
+def test_jpeg_is_bit_equal_to_pil(tmp_path, quality, subsampling):
+    for h, w in JPEG_SIZES:
+        for extra in ({}, {"optimize": True}, {"restart_marker_blocks": 3},
+                      {"restart_marker_rows": 1}):
+            path = str(tmp_path / "a.jpg")
+            try:
+                Image.fromarray(_pattern(h, w)).save(path, quality=quality,
+                                                     subsampling=subsampling, **extra)
+            except OSError:  # Pillow's optimize=True buffer is too small for a 1 x 1
+                assert extra.get("optimize")  # image and for noise at quality 100
+                continue
+            np.testing.assert_array_equal(tio.read_jpeg_rgb(path), _pil(path),
+                                          err_msg=f"{h}x{w} {extra}")
+
+
+@pytest.mark.parametrize("quality", [5, 75, 100])
+def test_greyscale_jpeg_is_bit_equal_to_pil(tmp_path, quality):
+    for h, w in JPEG_SIZES:
+        for extra in ({}, {"optimize": True, "restart_marker_blocks": 2}):
+            path = str(tmp_path / "g.jpg")
+            try:
+                Image.fromarray(_pattern(h, w)).convert("L").save(path, quality=quality,
+                                                                  **extra)
+            except OSError:
+                continue
+            assert Image.open(path).mode == "L"
+            np.testing.assert_array_equal(tio.read_image(path), _pil(path))
+
+
+def _segments(data: bytes):
+    """(marker, segment with its length) of each segment before the first
+    scan, and the rest of the file from the SOS marker on."""
+    out, pos = [], 2
+    while data[pos + 1] != 0xDA:
+        (n,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        out.append((data[pos + 1], data[pos:pos + 2 + n]))
+        pos += 2 + n
+    return out, data[pos:]
+
+
+def test_jpeg_markers_tables_and_frame_types(tmp_path):
+    """Tables after the frame header and split into several segments,
+    APPn and COM segments in between, and SOF1: the same pixels as PIL."""
+    path = str(tmp_path / "a.jpg")
+    Image.fromarray(_pattern(40, 70)).save(path, quality=80, subsampling=2, optimize=True)
+    data = open(path, "rb").read()
+    segs, rest = _segments(data)
+    sof = [s for m, s in segs if m == 0xC0]
+    tables = [s for m, s in segs if m in (0xC4, 0xDB)]
+    com = b"\xff\xfe" + struct.pack(">H", 7) + b"hello"
+    app = b"\xff\xe5" + struct.pack(">H", 6) + b"\x01\x02\x03\x04"
+    for frame, name in ((sof[0], "sof0"), (b"\xff\xc1" + sof[0][2:], "sof1")):
+        out = str(tmp_path / f"{name}.jpg")
+        with open(out, "wb") as f:
+            f.write(b"\xff\xd8" + app + frame + com + b"".join(reversed(tables)) + app + rest)
+        np.testing.assert_array_equal(tio.read_jpeg_rgb(out), _pil(out), err_msg=name)
+
+
+def test_jpeg_adobe_rgb_flag(tmp_path):
+    """Pillow's keep_rgb writes RGB samples under an Adobe APP14 marker with
+    transform 0 and no JFIF marker: no colour conversion."""
+    path = str(tmp_path / "rgb.jpg")
+    Image.fromarray(_pattern(37, 53, noise=0.3)).save(path, keep_rgb=True, subsampling=0,
+                                                       quality=85)
+    data = open(path, "rb").read()
+    assert b"Adobe" in data and b"JFIF" not in data
+    np.testing.assert_array_equal(tio.read_jpeg_rgb(path), _pil(path))
+
+
+@pytest.mark.parametrize("fmt", ["png16", "adam7", "jpeg420", "jpeg444_grey"])
+def test_load_image_matches_jax(tmp_path, fmt):
+    path = str(tmp_path / ("a.png" if fmt.startswith(("png", "adam")) else "a.jpg"))
+    img = _pattern(90, 130)
+    if fmt == "png16":
+        write_test_png(path, img.astype(np.uint16) * 257 + 3, 16, 2)
+    elif fmt == "adam7":
+        write_test_png(path, img, 8, 2, interlace=True)
+    elif fmt == "jpeg420":
+        Image.fromarray(img).save(path, quality=90, subsampling=2)
+    else:
+        Image.fromarray(img).convert("L").save(path, quality=90)
+    want = jio.load_image(path, left=3, top=2, resize=(64, 64))
+    got = tio.load_image(path, left=3, top=2, resize=(64, 64))
+    assert got.shape == want.shape == (1, 3, 64, 64)
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------- left out formats
+def _patched(src, dst, marker_from, marker_to=None, at=None, value=None):
+    data = bytearray(open(src, "rb").read())
+    i = data.index(bytes([0xFF, marker_from]))
+    if marker_to is not None:
+        data[i + 1] = marker_to
+    if at is not None:
+        data[i + at] = value
+    open(dst, "wb").write(bytes(data))
+    return dst
+
+
+def test_formats_left_out_raise_and_name_themselves(tmp_path):
+    img = _pattern(24, 24)
+    base = str(tmp_path / "base.jpg")
+    Image.fromarray(img).save(base, quality=80)
+    cases = {"progressive JPEG": str(tmp_path / "p.jpg"),
+             "CMYK": str(tmp_path / "c.jpg"),
+             "arithmetic-coded": _patched(base, str(tmp_path / "ar.jpg"), 0xC0, 0xC9),
+             "12-bit": _patched(base, str(tmp_path / "12.jpg"), 0xC0, at=4, value=12),
+             "lossless": _patched(base, str(tmp_path / "ll.jpg"), 0xC0, 0xC3)}
+    Image.fromarray(img).save(cases["progressive JPEG"], progressive=True)
+    Image.fromarray(img).convert("CMYK").save(cases["CMYK"])
+    for fmt in ("GIF", "BMP", "WebP", "TIFF"):
+        cases[fmt] = str(tmp_path / f"x.{fmt.lower()}")
+        Image.fromarray(img).save(cases[fmt], format=fmt.upper())
+    for name, path in cases.items():
+        with pytest.raises(ValueError, match=name):
+            tio.read_image(path)
+        with pytest.raises(ValueError, match=name):
+            tio.load_image(path)
+
+
+# ------------------------------------------------------ the card's inputs
+CHIP_INPUTS = {"photo_420_restart.jpg": "JPEG, 512 x 384, 4:2:0, quality 90, restart "
+                                        "interval of one MCU row",
+               "adam7_rgb16.png": "PNG, 192 x 128, 16-bit RGB, Adam7, filters 0-4 in turn"}
+
+
+def make_chip_inputs(d: str) -> dict:
+    """Write the two images chip_smoke.py decodes on the card, and return
+    {file: {"shape", "sha256" of PIL's convert("RGB") bytes, "what"}}."""
+    os.makedirs(d, exist_ok=True)
+    jpeg = os.path.join(d, "photo_420_restart.jpg")
+    Image.fromarray(_pattern(384, 512)).save(jpeg, quality=90, subsampling=2,
+                                             restart_marker_rows=1)
+    y, x = np.mgrid[0:128, 0:192]
+    smooth = np.stack([(x * 341 + y * 97 * k) % 65536 for k in (1, 2, 3)], -1)
+    write_test_png(os.path.join(d, "adam7_rgb16.png"), smooth, 16, 2, interlace=True)
+    out = {}
+    for name, what in CHIP_INPUTS.items():
+        px = _pil(os.path.join(d, name))
+        out[name] = {"shape": list(px.shape), "sha256": hashlib.sha256(px.tobytes()).hexdigest(),
+                     "what": what}
+    return out
+
+
+def test_committed_chip_inputs_are_what_the_maker_writes(tmp_path):
+    want = make_chip_inputs(str(tmp_path))
+    with open(os.path.join(DATA, "sha256.json")) as f:
+        assert json.load(f) == want
+    for name in CHIP_INPUTS:
+        with open(os.path.join(DATA, name), "rb") as a, open(tmp_path / name, "rb") as b:
+            assert a.read() == b.read(), name
+        px = tio.read_image(os.path.join(DATA, name))
+        assert hashlib.sha256(px.tobytes()).hexdigest() == want[name]["sha256"]
+
+
+if __name__ == "__main__":  # write the card's inputs: python tests/test_torch_image_formats.py
+    with open(os.path.join(DATA, "sha256.json"), "w") as f:
+        json.dump(make_chip_inputs(DATA), f, indent=2)
+        f.write("\n")

@@ -110,25 +110,30 @@ def test_save_image_matches_jax(tmp_path):
 
 
 def test_png_reader_names_what_it_does_not_take(tmp_path):
+    """The PNG reader names the format of any other file; the 16-bit and
+    1-bit greyscale PNGs it once refused now decode as PIL decodes them
+    (tests/test_torch_image_formats.py holds every other case)."""
     from PIL import Image
 
     Image.fromarray(_smooth(8, 8, 3)).save(tmp_path / "a.jpg")
     with pytest.raises(ValueError, match="JPEG"):
         tio.read_png_rgb(str(tmp_path / "a.jpg"))
+    Image.fromarray(_smooth(8, 8, 3)).save(tmp_path / "a.gif")
+    with pytest.raises(ValueError, match="GIF"):
+        tio.read_png_rgb(str(tmp_path / "a.gif"))
     Image.fromarray(_smooth(8, 8, 1)[:, :, 0].astype(np.uint16) * 257).save(
         tmp_path / "deep.png")
-    with pytest.raises(ValueError, match="16-bit"):
-        tio.read_png_rgb(str(tmp_path / "deep.png"))
     Image.fromarray(_smooth(8, 8, 3)).convert("1").save(tmp_path / "bits.png")
-    with pytest.raises(ValueError, match="1-bit greyscale"):
-        tio.read_png_rgb(str(tmp_path / "bits.png"))
-    # an interlaced header (PIL writes none): IHDR's last byte set to 1
+    for name in ("deep.png", "bits.png"):
+        np.testing.assert_array_equal(tio.read_png_rgb(str(tmp_path / name)), np.asarray(
+            Image.open(tmp_path / name).convert("RGB")))
+    # an interlace method other than 0 (none) and 1 (Adam7)
     tio.write_png(str(tmp_path / "i.png"), _smooth(8, 8, 3))
     data = bytearray(open(tmp_path / "i.png", "rb").read())
-    data[28] = 1
+    data[28] = 2
     data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
     open(tmp_path / "i.png", "wb").write(bytes(data))
-    with pytest.raises(ValueError, match="interlaced"):
+    with pytest.raises(ValueError, match="interlace method 2"):
         tio.read_png_rgb(str(tmp_path / "i.png"))
 
 

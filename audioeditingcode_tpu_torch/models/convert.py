@@ -132,6 +132,24 @@ def _rename(key: str, rules: Iterable[Tuple[str, str]]) -> str:
     return key
 
 
+def flat_key(key: str) -> Tuple[str, str]:
+    """The JAX converter's normalized name of a state-dict key
+    (``models/convert.py::normalize_torch_key`` there): the module path with
+    each index joined to the name before it by ``_``, ``upsampler`` read as
+    ``ups``, and the leaf. ``down_blocks.0.resnets.1.conv1.weight`` and
+    ``down_blocks_0_resnets_1.conv1.weight`` are both
+    ``('down_blocks_0_resnets_1_conv1', 'weight')``."""
+    parts = key.split(".")
+    merged: list = []
+    for p in parts[:-1]:
+        p = "ups" if p == "upsampler" else p
+        if p.isdigit() and merged:
+            merged[-1] += "_" + p
+        else:
+            merged.append(p)
+    return "_".join(merged), parts[-1]
+
+
 def map_state_dict(module: nn.Module, sd: Dict[str, torch.Tensor], part: str,
                    files: Optional[Dict[str, str]] = None, where: str = "",
                    renames: Sequence[Tuple[str, str]] = (),
@@ -139,7 +157,11 @@ def map_state_dict(module: nn.Module, sd: Dict[str, torch.Tensor], part: str,
     """``sd`` renamed onto ``module``'s state-dict keys, with strict
     accounting: a key of the module that no source tensor fills, a source
     tensor that is neither used nor in ``drops``, and a shape that differs
-    each raise a ``ConversionError`` naming the key and its file."""
+    each raise a ``ConversionError`` naming the key and its file. A source
+    key that is not the module's after the renames takes the one module key
+    of its ``flat_key`` that no other tensor fills, as the JAX converter
+    matches names (so a checkpoint named after the JAX package's Flax
+    modules, ``down_blocks_0_attentions_0.norm.bias``, maps too)."""
     files = files or {}
     mapped: Dict[str, torch.Tensor] = {}
     origin: Dict[str, str] = {}
@@ -153,8 +175,16 @@ def map_state_dict(module: nn.Module, sd: Dict[str, torch.Tensor], part: str,
                                   f"({files.get(key, where)})")
         mapped[new], origin[new] = t, key
     want = module.state_dict()
-    for new in mapped:
-        if new not in want:
+    flat = {}  # the JAX converter's name rule: normalized path and leaf -> module keys
+    for k in want:
+        flat.setdefault(flat_key(k), []).append(k)
+    for new in list(mapped):
+        if new in want:
+            continue
+        same = [k for k in flat.get(flat_key(new), []) if k not in mapped]
+        if len(same) == 1:
+            mapped[same[0]], origin[same[0]] = mapped.pop(new), origin.pop(new)
+        else:
             left.append(origin[new])
     if left:
         raise ConversionError(

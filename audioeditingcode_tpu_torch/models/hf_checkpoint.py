@@ -27,12 +27,17 @@ _DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
 _NAMES = {v: k for k, v in _DTYPES.items()}
 
 
+def _header(f) -> dict:
+    """The JSON header of an open ``.safetensors`` file, which it reads."""
+    (n,) = struct.unpack("<Q", f.read(8))
+    return json.loads(f.read(n))
+
+
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     """Every tensor of a ``.safetensors`` file, on the CPU. The tensors are
     views of one buffer that holds the file's data."""
     with open(path, "rb") as f:
-        (n,) = struct.unpack("<Q", f.read(8))
-        header = json.loads(f.read(n))
+        header = _header(f)
         data = bytearray(f.read())
     out = {}
     for name, info in header.items():
@@ -131,6 +136,25 @@ def read_state_dict(d: str, files: Optional[Dict[str, str]] = None
                                 f"diffusion_pytorch_model.safetensors, pytorch_model.bin, "
                                 f"or any *.safetensors, *.bin, *.pt, *.pth, *.ckpt)")
     return sd
+
+
+def read_shapes(d: str) -> Dict[str, tuple]:
+    """Each tensor's shape in the weight files of checkpoint directory
+    ``d``, as ``read_state_dict`` would load them (same files, same order),
+    from the safetensors headers alone where the files are safetensors."""
+    shapes: Dict[str, tuple] = {}
+    for name in sorted(os.listdir(d)) if os.path.isdir(d) else ():
+        path = os.path.join(d, name)
+        if name.endswith(".safetensors"):
+            with open(path, "rb") as f:
+                header = _header(f)
+            shapes.update((k, tuple(v["shape"])) for k, v in header.items()
+                          if k != "__metadata__")
+        elif name.endswith(TORCH_SUFFIXES):
+            shapes.update((k, tuple(v.shape)) for k, v in read_torch_file(path).items())
+    if not shapes:
+        raise FileNotFoundError(f"no weight files found in {d}")
+    return shapes
 
 
 def write_checkpoint(d: str, config: dict, state_dict: Dict[str, torch.Tensor],

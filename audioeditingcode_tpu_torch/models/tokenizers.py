@@ -9,9 +9,12 @@ max_length=..., truncation=True, return_tensors="np")``. It implements the
 components of the two tokenizers the audio models use:
 
 - T5 (FLAN-T5): a ``Unigram`` model (Viterbi over the piece scores, as the
-  ``tokenizers`` crate's ``encode_optimized``), the ``Precompiled`` and
-  ``Replace`` normalizers, the ``Metaspace`` pre-tokenizer and the
-  ``TemplateProcessing`` post-processor (``$A </s>``);
+  ``tokenizers`` crate's ``encode_optimized``), the ``Precompiled``,
+  ``Strip`` and ``Replace`` normalizers, the ``Metaspace`` pre-tokenizer
+  and the ``TemplateProcessing`` post-processor (``$A </s>``); a folder
+  with only a sentencepiece ``spiece.model`` gets the spec transformers'
+  ``T5Converter`` builds from it (``t5_tokenizer_json``, the model file
+  read by hand: ``read_sentencepiece``);
 - RoBERTa (CLAP's text tower): a byte-level ``BPE`` model (merges by rank),
   the ``ByteLevel`` pre-tokenizer (GPT-2's split regex, written as a
   scanner over Unicode categories, and its byte-to-unicode table) and the
@@ -217,6 +220,14 @@ def _normalizer(spec: Optional[dict]) -> Callable[[str], str]:
     if kind == "Lowercase":
         # char by char, as the crate does (no final-sigma rule)
         return lambda s: "".join(c.lower() for c in s)
+    if kind == "Strip":  # White_Space, as Rust's char::is_whitespace
+        ws = "".join(_WHITE_SPACE)
+        left, right = spec.get("strip_left", True), spec.get("strip_right", True)
+
+        def strip(s: str) -> str:
+            s = s.lstrip(ws) if left else s
+            return s.rstrip(ws) if right else s
+        return strip
     raise _unsupported("normalizer", spec)
 
 
@@ -543,7 +554,13 @@ class Tokenizer:
 
     @classmethod
     def from_dir(cls, d: str) -> "Tokenizer":
-        with open(os.path.join(d, "tokenizer.json"), encoding="utf-8") as f:
+        """The tokenizer of directory ``d``: its ``tokenizer.json``, or, where
+        it has only a sentencepiece ``spiece.model`` (a T5 tokenizer), the
+        spec ``t5_tokenizer_json`` builds from that."""
+        path = os.path.join(d, "tokenizer.json")
+        if not os.path.exists(path) and os.path.exists(os.path.join(d, "spiece.model")):
+            return cls(t5_tokenizer_json(d), tokenizer_settings(d, "t5"))
+        with open(path, encoding="utf-8") as f:
             spec = json.load(f)
         config = {}
         path = os.path.join(d, "tokenizer_config.json")
@@ -741,30 +758,221 @@ def fast_tokenizer_json(d: str, kind: str) -> dict:
             "model": dict(model, unk_token=specials["unk_token"], end_of_word_suffix="</w>")}
 
 
+# ------------------------------------------------------ sentencepiece model
+# the piece types of sentencepiece_model.proto
+_NORMAL, _CONTROL, _USER_DEFINED = 1, 3, 4
+
+
+def _varint(buf: bytes, i: int) -> Tuple[int, int]:
+    value = shift = 0
+    while True:
+        if i >= len(buf):
+            raise ValueError("truncated protobuf varint")
+        b = buf[i]
+        i += 1
+        value |= (b & 0x7F) << shift
+        if b < 0x80:
+            return value, i
+        shift += 7
+        if shift > 63:
+            raise ValueError("protobuf varint longer than 10 bytes")
+
+
+def _fields(buf: bytes):
+    """(field number, value) of each field of one protobuf message, read
+    from the wire format: an int for a varint, bytes for a fixed-width or
+    length-delimited field."""
+    i = 0
+    while i < len(buf):
+        key, i = _varint(buf, i)
+        num, wire = key >> 3, key & 7
+        if num == 0:
+            raise ValueError("protobuf field number 0")
+        if wire == 0:
+            value, i = _varint(buf, i)
+        elif wire in (1, 5):
+            value, i = buf[i:i + (8 if wire == 1 else 4)], i + (8 if wire == 1 else 4)
+        elif wire == 2:
+            n, i = _varint(buf, i)
+            value, i = buf[i:i + n], i + n
+        else:
+            raise ValueError(f"protobuf wire type {wire}")
+        if i > len(buf):
+            raise ValueError("truncated protobuf field")
+        yield num, value
+
+
+def _int32(v: int) -> int:
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def read_sentencepiece(path: str) -> dict:
+    """The fields of a sentencepiece ``ModelProto`` (``spiece.model``) that
+    transformers' ``SpmConverter`` reads, with the proto's defaults:
+    ``pieces`` [(piece, score, type)]; of ``trainer_spec``, ``model_type``
+    (1 Unigram, 2 BPE), ``unk_id``, ``byte_fallback``; of
+    ``normalizer_spec``, ``name``, ``precompiled_charsmap``,
+    ``add_dummy_prefix``, ``remove_extra_whitespaces``,
+    ``escape_whitespaces``. Read by hand: the card's machine has neither
+    protobuf nor sentencepiece."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    try:
+        out = _model_proto(buf)
+    except (AttributeError, TypeError, struct.error, UnicodeDecodeError) as e:
+        raise ValueError(f"{path}: a field of the wrong wire type: {e}") from None
+    if not out["pieces"]:
+        raise ValueError(f"{path}: a sentencepiece model with no pieces")
+    return out
+
+
+def _model_proto(buf: bytes) -> dict:
+    out = {"pieces": [], "model_type": 1, "unk_id": 0, "byte_fallback": False,
+           "name": "", "precompiled_charsmap": b"", "add_dummy_prefix": True,
+           "remove_extra_whitespaces": True, "escape_whitespaces": True}
+    for num, value in _fields(buf):
+        if num == 1:  # SentencePiece {piece = 1; score = 2; type = 3}
+            piece, score, ptype = "", 0.0, _NORMAL
+            for n, v in _fields(value):
+                if n == 1:
+                    piece = v.decode("utf-8")
+                elif n == 2:
+                    (score,) = struct.unpack("<f", v)
+                elif n == 3:
+                    ptype = v
+            out["pieces"].append((piece, score, ptype))
+        elif num == 2:  # TrainerSpec
+            for n, v in _fields(value):
+                if n == 3:
+                    out["model_type"] = v
+                elif n == 35:
+                    out["byte_fallback"] = bool(v)
+                elif n == 40:
+                    out["unk_id"] = _int32(v)
+        elif num == 3:  # NormalizerSpec
+            keys = {1: "name", 2: "precompiled_charsmap", 3: "add_dummy_prefix",
+                    4: "remove_extra_whitespaces", 5: "escape_whitespaces"}
+            for n, v in _fields(value):
+                if n in keys:
+                    out[keys[n]] = (v.decode("utf-8") if n == 1 else v if n == 2
+                                    else bool(v))
+    return out
+
+
+def _token(content: str, tid: int, special: bool) -> dict:
+    return {"id": tid, "content": content, "single_word": False, "lstrip": False,
+            "rstrip": False, "normalized": False, "special": special}
+
+
+def t5_tokenizer_json(d: str) -> dict:
+    """The ``tokenizer.json`` that ``T5TokenizerFast.from_pretrained(d)``
+    builds from ``d/spiece.model`` and ``d/tokenizer_config.json``
+    (transformers' ``T5Converter``, then the fast tokenizer's special
+    tokens): a Unigram over the pieces and ``<extra_id_{n-1}>`` ...
+    ``<extra_id_0>`` at score 0 (``n`` = ``extra_ids``, 100 by default); the
+    normalizers ``Precompiled`` (where the model has a charsmap),
+    ``Strip`` on the right and ``Replace(" {2,}", "▁")``; ``Metaspace`` with
+    the prepend scheme of ``add_prefix_space`` (default true) and
+    ``legacy`` (default true): ``always``, ``first`` where legacy is false,
+    ``never`` without a prefix space; ``TemplateProcessing`` ``$A </s>``.
+    Control and user-defined pieces, the eos/unk/pad tokens and the extra
+    ids are added tokens (all special but the user-defined ones). A BPE
+    model and byte fallback raise."""
+    model = read_sentencepiece(os.path.join(d, "spiece.model"))
+    config = _read_json(os.path.join(d, "tokenizer_config.json"), {})
+    settings = tokenizer_settings(d, "t5")
+    if model["model_type"] != 1:
+        kind = {2: "BPE", 3: "word", 4: "char"}.get(model["model_type"], model["model_type"])
+        raise _unsupported("model", f"sentencepiece {kind}")
+    if model["byte_fallback"]:
+        raise _unsupported("model option", "Unigram byte_fallback")
+    n_extra = int(config.get("extra_ids", 100))
+    vocab = [[p, float(score)] for p, score, _ in model["pieces"]]
+    vocab += [[f"<extra_id_{i}>", 0.0] for i in range(n_extra - 1, -1, -1)]
+    ids = {}
+    for i, (p, _) in enumerate(vocab):
+        ids.setdefault(p, i)
+    added = [_token(p, i, t == _CONTROL) for i, (p, _, t) in enumerate(model["pieces"])
+             if t in (_CONTROL, _USER_DEFINED)]
+    extra = config.get("additional_special_tokens")
+    extra = ([_content(t) for t in extra] if extra else []) or \
+        [f"<extra_id_{i}>" for i in range(n_extra)]
+    if not any("<extra_id_" in t for t in extra):
+        extra += [f"<extra_id_{i}>" for i in range(n_extra)]
+    specials = [_content(settings[k]) for k in ("eos_token", "unk_token", "pad_token")] + extra
+    new = 0
+    for tok in specials:
+        if tok is None or any(t["content"] == tok for t in added):
+            continue
+        if tok not in ids:  # a special token outside the vocabulary gets the next id
+            ids[tok] = len(vocab) + new
+            new += 1
+        added.append(_token(tok, ids[tok], True))
+    added.sort(key=lambda t: t["id"])
+    add_prefix_space = config.get("add_prefix_space")
+    add_prefix_space = True if add_prefix_space is None else bool(add_prefix_space)
+    legacy = config.get("legacy")
+    scheme = ("never" if not add_prefix_space
+              else "first" if legacy is not None and not legacy else "always")
+    metaspace = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": scheme,
+                 "split": True}
+    normalizers = [{"type": "Strip", "strip_left": False, "strip_right": True},
+                   {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": "▁"}]
+    if model["precompiled_charsmap"]:
+        normalizers.insert(0, {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(
+            model["precompiled_charsmap"]).decode("ascii")})
+    eos = "</s>"
+    if eos not in ids:
+        raise ValueError(f"{d}/spiece.model has no {eos!r} piece for the post-processor")
+    seq, tok = {"Sequence": {"id": "A", "type_id": 0}}, {"SpecialToken": {"id": eos,
+                                                                          "type_id": 0}}
+    return {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+            "normalizer": {"type": "Sequence", "normalizers": normalizers},
+            "pre_tokenizer": metaspace,
+            "post_processor": {"type": "TemplateProcessing", "single": [seq, tok],
+                               "pair": [seq, tok, {"Sequence": {"id": "B", "type_id": 0}},
+                                        tok],
+                               "special_tokens": {eos: {"id": eos, "ids": [ids[eos]],
+                                                        "tokens": [eos]}}},
+            "decoder": dict(metaspace),
+            "model": {"type": "Unigram", "unk_id": model["unk_id"], "vocab": vocab,
+                      "byte_fallback": False}}
+
+
 def export_tokenizer(src: str, out: str, kind: str) -> None:
     """Write the tokenizer of directory ``src`` into ``out`` as
     ``Tokenizer.from_dir`` and ``AutoTokenizer.from_pretrained`` read it:
     its ``tokenizer.json`` copied, or built from ``vocab.json`` and
-    ``merges.txt`` (``kind`` ``roberta`` or ``clip``), and a
+    ``merges.txt`` (``kind`` ``roberta`` or ``clip``) or, for ``t5``, from
+    a sentencepiece ``spiece.model`` (``t5_tokenizer_json``), and a
     ``tokenizer_config.json`` with the class, ``model_max_length`` and the
-    special tokens of the source. A T5 directory without ``tokenizer.json``
-    (a sentencepiece ``spiece.model`` only) raises: no sentencepiece reader
-    is ported."""
+    special tokens of the source (for a T5 spec built here without
+    ``add_prefix_space``: the spec holds it, and ``T5TokenizerFast`` given
+    it would rebuild itself from the slow tokenizer's ``spiece.model``)."""
     if not os.path.isdir(src):
         raise FileNotFoundError(f"missing tokenizer directory: {src}")
     os.makedirs(out, exist_ok=True)
     spec_path = os.path.join(src, "tokenizer.json")
+    settings = tokenizer_settings(src, kind)
     if os.path.exists(spec_path):
         with open(spec_path, "rb") as f:
             blob = f.read()
-    elif kind in ("roberta", "clip") and all(
-            os.path.exists(os.path.join(src, f)) for f in ("vocab.json", "merges.txt")):
-        blob = json.dumps(fast_tokenizer_json(src, kind), ensure_ascii=False).encode("utf-8")
     else:
-        raise ValueError(f"{src}: no tokenizer.json (and no vocab.json + merges.txt to "
-                         f"build a {kind} one from); a sentencepiece-only tokenizer is "
-                         f"not read by the port")
+        if kind in ("roberta", "clip") and all(
+                os.path.exists(os.path.join(src, f)) for f in ("vocab.json", "merges.txt")):
+            spec = fast_tokenizer_json(src, kind)
+        elif kind == "t5" and os.path.exists(os.path.join(src, "spiece.model")):
+            try:
+                spec = t5_tokenizer_json(src)
+            except ValueError as e:
+                raise ValueError(f"{src}: no tokenizer.json, and its spiece.model does not "
+                                 f"read: {e}") from e
+            settings.pop("add_prefix_space", None)
+        else:
+            raise ValueError(f"{src}: no tokenizer.json (and no vocab.json + merges.txt or "
+                             f"spiece.model to build a {kind} one from)")
+        blob = json.dumps(spec, ensure_ascii=False).encode("utf-8")
     with open(os.path.join(out, "tokenizer.json"), "wb") as f:
         f.write(blob)
     with open(os.path.join(out, "tokenizer_config.json"), "w", encoding="utf-8") as f:
-        json.dump(tokenizer_settings(src, kind), f, indent=2, ensure_ascii=False)
+        json.dump(settings, f, indent=2, ensure_ascii=False)

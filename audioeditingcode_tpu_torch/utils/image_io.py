@@ -36,9 +36,19 @@ and ``struct``. Every decoder gives the pixels of PIL 12.1's
   transform flag (0: RGB, no conversion); else component ids 'R', 'G', 'B'
   mean RGB. The IDCT, upsampling and colour conversion run over all blocks
   at once in numpy; only the Huffman decoder is a Python loop (over a
-  16-bit lookup table). Progressive JPEG (SOF2), lossless and
-  hierarchical frames, arithmetic coding, 12-bit samples and CMYK/YCCK
-  (four components) raise a ``ValueError`` that names them.
+  16-bit lookup table). Progressive Huffman JPEG (SOF2) fills the same
+  coefficient arrays scan by scan, as libjpeg's ``jdphuff.c``: DC first
+  and refinement scans (interleaved or not), AC first scans over a band
+  with end-of-band runs carried from block to block, AC refinement scans
+  (correction bits, new coefficients of +-1 past the zero run), each
+  restart resetting the runs and the DC predictions; a non-interleaved
+  scan covers only the component's own blocks. A complete file then goes
+  through the same IDCT; libjpeg smooths blocks only where some of the
+  first ten coefficients' bits never arrive, which raises here, as does a
+  file that ends before its EOI marker (PIL raises "image file is
+  truncated"). Lossless and hierarchical frames, arithmetic coding, 12-bit
+  samples and CMYK/YCCK (four components) raise a ``ValueError`` that
+  names them.
 - ``write_png``: 8-bit greyscale, RGB or RGBA, filter 0, zlib level 6.
 - ``resize_rgb``: PIL's default ``Image.resize`` filter for RGB (bicubic,
   a = -0.5, the support widened by the downscaling factor, coefficients
@@ -253,7 +263,7 @@ _CONST_BITS, _PASS1_BITS = 13, 2
 # value & 1023: x + 128 clamped to [0, 255] for x in [-512, 511]
 _IDCT_LIMIT = np.concatenate([np.arange(128, 256), np.full(384, 255), np.zeros(384),
                               np.arange(0, 128)]).astype(np.uint8)
-_SOF_NAMES = {0xC2: "progressive JPEG (SOF2)", 0xC3: "lossless JPEG (SOF3)",
+_SOF_NAMES = {0xC3: "lossless JPEG (SOF3)",
               0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical progressive JPEG (SOF6)",
               0xC7: "hierarchical lossless JPEG (SOF7)",
               0xC9: "arithmetic-coded JPEG (SOF9)", 0xCA: "arithmetic-coded progressive JPEG "
@@ -334,6 +344,127 @@ def _decode_blocks(w16: List[int], slots, coefs: List[List[int]], preds: List[in
                 k += 16
             else:
                 break
+
+
+def _dc_first(w16: List[int], slots, coefs: List[List[int]], preds: List[int], al: int) -> None:
+    """A progressive DC first scan: each block's DC difference, the
+    prediction shifted left by ``al`` (``decode_mcu_DC_first``)."""
+    p = 0
+    for ci, base, dc, _ in slots:
+        e = dc[w16[p]]
+        if not e:
+            raise ValueError("corrupt JPEG data: no Huffman code for a DC value")
+        p += e >> 8
+        s = e & 15
+        if s:
+            v = w16[p] >> (16 - s)
+            p += s
+            if v < 1 << (s - 1):
+                v += 1 - (1 << s)
+            preds[ci] += v
+        coefs[ci][base] = preds[ci] << al
+
+
+def _dc_refine(w16: List[int], slots, coefs: List[List[int]], al: int) -> None:
+    """A progressive DC refinement scan: one bit per block, OR-ed in at
+    ``al`` (``decode_mcu_DC_refine``)."""
+    bit = 1 << al
+    for p, (ci, base, _, _) in enumerate(slots):
+        if w16[p] >> 15:
+            coefs[ci][base] |= bit
+
+
+def _ac_first(w16: List[int], slots, coefs: List[List[int]], ss: int, se: int,
+              al: int) -> None:
+    """A progressive AC first scan of band ``ss``..``se`` (one component):
+    run/size codes, values shifted left by ``al``, and end-of-band runs
+    that skip whole blocks (``decode_mcu_AC_first``)."""
+    p = eobrun = 0
+    for ci, base, _, ac in slots:
+        if eobrun:
+            eobrun -= 1
+            continue
+        out = coefs[ci]
+        k = ss
+        while k <= se:
+            e = ac[w16[p]]
+            if not e:
+                raise ValueError("corrupt JPEG data: no Huffman code for an AC value")
+            p += e >> 8
+            r, s = (e >> 4) & 15, e & 15
+            if s:
+                k += r
+                if k > se:
+                    raise ValueError("corrupt JPEG data: AC run past the band")
+                v = w16[p] >> (16 - s)
+                p += s
+                if v < 1 << (s - 1):
+                    v += 1 - (1 << s)
+                out[base + k] = v << al
+                k += 1
+            elif r == 15:
+                k += 16
+            else:
+                eobrun = 1 << r
+                if r:
+                    eobrun += w16[p] >> (16 - r)
+                    p += r
+                eobrun -= 1
+                break
+
+
+def _ac_refine(w16: List[int], slots, coefs: List[List[int]], ss: int, se: int,
+               al: int) -> None:
+    """A progressive AC refinement scan of band ``ss``..``se``: a
+    correction bit for each coefficient that is already non-zero, and each
+    new coefficient (+-1 at ``al``) placed past its run of zero ones
+    (``decode_mcu_AC_refine``)."""
+    p1, m1 = 1 << al, -1 << al
+    p = eobrun = 0
+    for ci, base, _, ac in slots:
+        out = coefs[ci]
+        k = ss
+        if not eobrun:
+            while k <= se:
+                e = ac[w16[p]]
+                if not e:
+                    raise ValueError("corrupt JPEG data: no Huffman code for an AC value")
+                p += e >> 8
+                r, s = (e >> 4) & 15, e & 15
+                if s:
+                    s = p1 if w16[p] >> 15 else m1
+                    p += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += w16[p] >> (16 - r)
+                        p += r
+                    break
+                while k <= se:  # correction bits up to the r-th zero coefficient
+                    c = out[base + k]
+                    if c:
+                        if w16[p] >> 15 and not c & p1:
+                            out[base + k] = c + (p1 if c >= 0 else m1)
+                        p += 1
+                    elif r == 0:
+                        break
+                    else:
+                        r -= 1
+                    k += 1
+                if s:
+                    if k > se:
+                        raise ValueError("corrupt JPEG data: AC run past the band")
+                    out[base + k] = s
+                k += 1
+        if eobrun:
+            while k <= se:  # the rest of an end-of-band block: corrections only
+                c = out[base + k]
+                if c:
+                    if w16[p] >> 15 and not c & p1:
+                        out[base + k] = c + (p1 if c >= 0 else m1)
+                    p += 1
+                k += 1
+            eobrun -= 1
 
 
 def _idct_1d(x: List[np.ndarray], shift: int) -> List[np.ndarray]:
@@ -425,8 +556,8 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 
 def read_jpeg_rgb(path: str) -> np.ndarray:
-    """A baseline (or extended sequential, Huffman, 8-bit) JPEG file as
-    (H, W, 3) uint8 RGB (see the module docstring)."""
+    """A baseline, extended sequential or progressive (Huffman, 8-bit)
+    JPEG file as (H, W, 3) uint8 RGB (see the module docstring)."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_JPEG_SIGNATURE):
@@ -434,7 +565,7 @@ def read_jpeg_rgb(path: str) -> np.ndarray:
     qt: Dict[int, np.ndarray] = {}
     huff: Dict[Tuple[int, int], List[int]] = {}
     frame = None
-    restart, jfif, adobe = 0, False, None
+    restart, jfif, adobe, eoi = 0, False, None, False
     coefs: List[List[int]] = []
     pos = 2
     while pos < len(data):
@@ -447,18 +578,23 @@ def read_jpeg_rgb(path: str) -> np.ndarray:
         marker = data[pos]
         pos += 1
         if marker == 0xD9:  # EOI
+            eoi = True
             break
         if marker == 0x01 or 0xD0 <= marker <= 0xD8:  # TEM, RSTn, SOI: no length
             continue
+        if pos + 2 > len(data) or pos + struct.unpack(">H", data[pos:pos + 2])[0] > len(data):
+            raise ValueError(f"{path}: truncated JPEG data: a marker segment ends past the "
+                             f"end of the file")
         (length,) = struct.unpack(">H", data[pos:pos + 2])
         seg = data[pos + 2:pos + length]
         pos += length
         if marker in _SOF_NAMES:
             raise ValueError(f"{path}: {_SOF_NAMES[marker]} is not read by the port "
-                             f"(baseline and extended sequential Huffman JPEG only)")
+                             f"(baseline, extended sequential and progressive Huffman "
+                             f"JPEG only)")
         if marker == 0xCC:
             raise ValueError(f"{path}: arithmetic-coded JPEG (DAC) is not read by the port")
-        if marker in (0xC0, 0xC1):
+        if marker in (0xC0, 0xC1, 0xC2):
             precision, height, width, n = struct.unpack(">BHHB", seg[:6])
             if precision != 8:
                 raise ValueError(f"{path}: {precision}-bit JPEG is not read by the port "
@@ -475,7 +611,10 @@ def read_jpeg_rgb(path: str) -> np.ndarray:
             hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
             mcux, mcuy = _ceil_div(width, 8 * hmax), _ceil_div(height, 8 * vmax)
             frame = {"width": width, "height": height, "comps": comps, "hmax": hmax,
-                     "vmax": vmax, "mcux": mcux, "mcuy": mcuy, "quant": [None] * n}
+                     "vmax": vmax, "mcux": mcux, "mcuy": mcuy, "quant": [None] * n,
+                     "progressive": marker == 0xC2,
+                     # the bits each zigzag coefficient has so far (-1: none)
+                     "coef_bits": [[-1] * 64 for _ in range(n)]}
             coefs = [[0] * (mcuy * v * mcux * h * 64) for _, h, v, _ in comps]
         elif marker == 0xC4:  # DHT: one or more tables
             i = 0
@@ -510,7 +649,34 @@ def read_jpeg_rgb(path: str) -> np.ndarray:
             pos = end
     if frame is None:
         raise ValueError(f"{path}: JPEG without a frame header")
+    if frame["progressive"]:
+        if not eoi:
+            raise ValueError(f"{path}: truncated JPEG data: the file ends before its EOI "
+                             f"marker")
+        _check_no_smoothing(path, frame)
     return _jpeg_pixels(frame, coefs, jfif, adobe)
+
+
+# zigzag positions of the coefficients libjpeg's block smoothing estimates
+# (jdcoefct.c SAVED_COEFS: DC and the first nine AC), and their natural
+# positions, whose quantizers must be non-zero for it
+_SMOOTHED = range(1, 10)
+_SMOOTHED_NATURAL = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24]
+
+
+def _check_no_smoothing(path: str, frame: dict) -> None:
+    """libjpeg smooths the blocks of a progressive image (``smoothing_ok``,
+    ``decompress_smooth_data``) where every component has its DC and
+    non-zero quantizers for the first ten coefficients and some of the
+    first nine AC coefficients still lack bits. That is not ported: such a
+    file raises rather than decode unsmoothed."""
+    for quant, bits in zip(frame["quant"], frame["coef_bits"]):
+        if quant is None or bits[0] < 0 or not all(quant[_SMOOTHED_NATURAL]):
+            return
+    if any(bits[k] != 0 for bits in frame["coef_bits"] for k in _SMOOTHED):
+        raise ValueError(f"{path}: progressive JPEG whose scans leave bits of its first AC "
+                         f"coefficients unsent; libjpeg's block smoothing of such an image "
+                         f"is not ported")
 
 
 def _decode_scan(frame: dict, header: bytes, scan: bytes, qt, huff, restart: int,
@@ -520,15 +686,31 @@ def _decode_scan(frame: dict, header: bytes, scan: bytes, qt, huff, restart: int
     comps = frame["comps"]
     ids = [c[0] for c in comps]
     n = header[0]
+    ss, se, ah, al = header[1 + 2 * n], header[2 + 2 * n], header[3 + 2 * n] >> 4, \
+        header[3 + 2 * n] & 15
+    progressive = frame["progressive"]
+    if progressive and (ss > se or se > 63 or al > 13 or (ah and al != ah - 1)
+                        or (ss == 0 and se != 0) or (ss and n != 1)):
+        raise ValueError(f"corrupt JPEG data: invalid progressive scan Ss={ss} Se={se} "
+                         f"Ah={ah} Al={al} over {n} components")
+    # the tables the scan needs: both in a sequential scan; DC in a DC first
+    # scan, none in a DC refinement, AC in an AC scan
+    need_dc = not progressive or (ss == 0 and ah == 0)
+    need_ac = not progressive or ss > 0
     members = []
     for i in range(n):
         cid, tables = header[1 + 2 * i], header[2 + 2 * i]
         ci = ids.index(cid)
         dc, ac = huff.get((0, tables >> 4)), huff.get((1, tables & 15))
-        if dc is None or ac is None:
+        if (need_dc and dc is None) or (need_ac and ac is None):
             raise ValueError("JPEG scan uses a Huffman table it does not define")
         members.append((ci, dc, ac))
-        frame["quant"][ci] = qt.get(comps[ci][3])
+        if frame["quant"][ci] is None:  # latched at the component's first scan
+            frame["quant"][ci] = qt.get(comps[ci][3])
+        if progressive:
+            bits = frame["coef_bits"][ci]
+            for k in range(ss, se + 1):
+                bits[k] = al
     mcux, mcuy = frame["mcux"], frame["mcuy"]
     slots = []
     if n == 1:  # non-interleaved: the component's own blocks, row by row
@@ -554,9 +736,18 @@ def _decode_scan(frame: dict, header: bytes, scan: bytes, qt, huff, restart: int
     chunk = restart * per_mcu if restart else len(slots)
     for i in range(0, len(slots), chunk):
         seg = segments[i // chunk] if i // chunk < len(segments) else b""
-        try:  # DC predictions start from 0 after each restart marker
-            _decode_blocks(_peek16(seg.replace(b"\xff\x00", b"\xff")), slots[i:i + chunk],
-                           coefs, [0] * len(comps))
+        w16, part = _peek16(seg.replace(b"\xff\x00", b"\xff")), slots[i:i + chunk]
+        try:  # DC predictions and end-of-band runs start from 0 after each restart
+            if not progressive:
+                _decode_blocks(w16, part, coefs, [0] * len(comps))
+            elif ss == 0 and ah == 0:
+                _dc_first(w16, part, coefs, [0] * len(comps), al)
+            elif ss == 0:
+                _dc_refine(w16, part, coefs, al)
+            elif ah == 0:
+                _ac_first(w16, part, coefs, ss, se, al)
+            else:
+                _ac_refine(w16, part, coefs, ss, se, al)
         except IndexError:
             raise ValueError("truncated JPEG data: the scan ends early") from None
 

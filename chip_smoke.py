@@ -111,6 +111,15 @@ prints no result):
    its single-window edit (<= 1e-3 max relative error), inpainting's kept
    region bit-exact (run_args.json), each sweep point within 1 LSB of
    ``cli/run.py --mode ours`` at its tstart and cfg_tar.
+8b. the real-weight runbook (``cli/validate_real_weights.py``,
+   ``aetorch-validate``) through its main(argv) on phase 8a's
+   AudioLDM2-music source tree (kept until here, then deleted): the steps
+   manifest, convert, selfcheck, edit and page, the ours, ddim and sdedit
+   lanes, 50 + 25 steps in float32 on phase 3's clip. Checks: every step
+   PASS, the manifest step counts the vendored manifests' tensors, the
+   selfcheck >= 40 dB, each CLI run at 20 B1 launches per UNet forward
+   (counted from 0 around each run), ``supp.html`` with the three lanes and
+   its copied audio; each step's seconds.
 10a. a full-width Stable Diffusion v1.4 checkpoint from seeded random
    modules, written by the port (UNet, VAE, the CLIP text tower at CLIP
    ViT-L/14's text config with a small CLIP-shaped tokenizer; phase 8a's
@@ -129,9 +138,10 @@ prints no result):
    1024 px (``-r 1024 1024``, 4 forwards) in float32 and bfloat16, with its
    launches at head dim 160 counted (5 per forward). Every output
    PNG decodes through the port's reader at the expected size and differs
-   from orig.png. Then image input: the two committed inputs of
+   from orig.png. Then image input: the three committed inputs of
    tests/data/images (a 512 x 384 4:2:0 baseline JPEG with restart
-   markers, a 16-bit Adam7 RGB PNG) decoded by the port's readers to the
+   markers, a 16-bit Adam7 RGB PNG, a 333 x 251 4:2:2 progressive JPEG
+   with restart markers) decoded by the port's readers to the
    sha256 of PIL's decode (tests/data/images/sha256.json), and a bfloat16
    SD SDEdit at 512 px from the JPEG.
 11. the edit server (serve.py) on 127.0.0.1 over HTTP at 50 steps in
@@ -1663,15 +1673,10 @@ def roberta_tokenizer_json() -> dict:
 
 
 def _manifest_shapes(model_id: str, part: str) -> dict:
-    path = os.path.join(REPO, "data", "key_manifests", model_id.replace("/", "__"),
-                        part + ".txt")
-    out = {}
-    with open(path) as f:
-        for line in f:
-            if line.strip() and not line.startswith("#"):
-                key, shape = line.rstrip("\n").split("\t")
-                out[key] = tuple(int(d) for d in shape.split(",")) if shape else ()
-    return out
+    from audioeditingcode_tpu_torch.cli.validate_real_weights import read_manifest
+
+    return read_manifest(os.path.join(REPO, "data", "key_manifests",
+                                      model_id.replace("/", "__"), part + ".txt"))
 
 
 def write_source_checkpoint(src: str):
@@ -1792,7 +1797,6 @@ def phase8a_checkpoint(tmp: str) -> dict:
     log(f"[phase8a] wrote the source checkpoint in {write_s:.1f} s: {written}")
     log(f"[phase8a] converted it with the port's converter in {convert_s:.1f} s: read "
         f"{read_bytes} bytes, wrote {written_bytes} bytes; per part {conv}")
-    shutil.rmtree(src)
     prompts = ["a sine tone", "a dog barking in the rain, then music"]
     built = Tokenizer.from_dir(os.path.join(ckpt, "clap_text"))
     ref = Tokenizer(roberta_tokenizer_json(), {"model_max_length": 512, "pad_token": "<pad>"})
@@ -1838,7 +1842,7 @@ def phase8a_checkpoint(tmp: str) -> dict:
         raise AssertionError(f"phase8a: text chain card vs CPU {errs} > {TEXT_CHAIN_TOL}")
     del pipe, enc, cpu_enc
     torch.cuda.empty_cache()
-    return {"dir": ckpt, "checkpoint_files": files, "checkpoint_load_s": load_s,
+    return {"dir": ckpt, "src": src, "checkpoint_files": files, "checkpoint_load_s": load_s,
             "source_write_s": write_s, "source_bytes": written, "convert_s": convert_s,
             "convert_read_bytes": read_bytes, "convert_written_bytes": written_bytes,
             "convert_parts": conv, "text_chain_max_rel_err": errs,
@@ -1874,6 +1878,101 @@ def phase8_families(fa, sw, tmp: str, ckpt: str) -> dict:
                 _per_forward(model_id, bf16), steps + tstart, "edit_seconds", 16000, 1,
                 snr_min=40.0 if selfcheck else None)
     return runs
+
+
+RUNBOOK_STEPS = "manifest,convert,selfcheck,edit,page"
+# the runbook's CLI runs at 50 + 25 steps: run name -> (denoiser forwards,
+# the run_args.json key of its loop seconds)
+RUNBOOK_RUNS = {"selfcheck": (SHORT_STEPS + SHORT_TSTART, "edit_seconds"),
+                "ours": (SHORT_STEPS + SHORT_TSTART, "edit_seconds"),
+                "ddim": (2 * SHORT_TSTART, "edit_seconds"),
+                "sdedit": (SHORT_TSTART, "sdedit_seconds")}
+
+
+def phase8b_runbook(fa, sw, tmp: str, src: str, model_id: str = A2_MODEL_ID,
+                    device: str = "cuda"):
+    """``aetorch-validate`` on phase 8a's AudioLDM2-music source tree, then
+    the tree deleted. Each CLI run it makes is counted from 0 (B1 at 20
+    launches per forward) and checked as phase 8's are (a wav differing
+    from orig.wav; the selfcheck >= 40 dB). Returns (runs, checks).
+    ``model_id`` and ``device`` let a tiny model rehearse it on the CPU."""
+    from audioeditingcode_tpu_torch.cli import run as trun
+    from audioeditingcode_tpu_torch.cli import sdedit as tsdedit
+    from audioeditingcode_tpu_torch.cli import validate_real_weights as tv
+
+    work = os.path.join(tmp, "runbook")
+    runs = {}
+    real = {"run": trun.main, "sdedit": tsdedit.main}
+
+    def counted(kind):
+        def call(argv):
+            name = ("sdedit" if kind == "sdedit" else "selfcheck" if "--selfcheck" in argv
+                    else argv[argv.index("--mode") + 1])
+            forwards, seconds_key = RUNBOOK_RUNS[name]
+            out = {}
+            runs[name] = _cli_run(
+                fa, sw, f"phase8b {name}", lambda: out.setdefault("wav", real[kind](argv)),
+                _per_forward(model_id, False), forwards, seconds_key, 16000, 1,
+                snr_min=40.0 if name == "selfcheck" else None)
+            return out["wav"]
+        return call
+
+    argv = ["--model_id", model_id, "--src", src, "--work_dir", work,
+            "--audio", os.path.join(tmp, "clip.wav"), "--steps", RUNBOOK_STEPS,
+            "--methods", "ours,ddim,sdedit", "--num_diffusion_steps", str(SHORT_STEPS),
+            "--tstart", str(SHORT_TSTART), "--banner", "SYNTHETIC WEIGHTS",
+            "--target_prompt", EDITS[A2_MODEL_ID][2], "--device", device]
+    step_s, said = {}, {}  # each step's seconds, and its message or error
+
+    def timed_step(name, fn):
+        def step(ctx):
+            t0 = time.perf_counter()
+            try:
+                said[name] = fn(ctx)
+            except (Exception, SystemExit) as e:
+                said[name] = f"FAIL: {e}"
+                raise
+            finally:
+                step_s[name] = time.perf_counter() - t0
+            return said[name]
+        return step
+
+    steps = RUNBOOK_STEPS.split(",")
+    real_steps = {name: getattr(tv, f"step_{name}") for name in steps}
+    trun.main, tsdedit.main = counted("run"), counted("sdedit")
+    for name, fn in real_steps.items():
+        setattr(tv, f"step_{name}", timed_step(name, fn))
+    try:
+        rc = tv.main(argv)
+    finally:
+        trun.main, tsdedit.main = real["run"], real["sdedit"]
+        for name, fn in real_steps.items():
+            setattr(tv, f"step_{name}", fn)
+    # a step passes where it returns a message that is not a SKIP (tv.main)
+    if rc != 0 or list(said) != steps or any(m.startswith(("SKIP", "FAIL"))
+                                             for m in said.values()):
+        raise AssertionError(f"phase8b: the runbook's steps did not all pass (rc {rc}): {said}")
+    manifests = os.path.join(REPO, "data", "key_manifests", model_id.replace("/", "__"))
+    tensors = sum(len(_manifest_shapes(model_id, f[:-4])) for f in os.listdir(manifests)
+                  if f.endswith(".txt"))
+    if said["manifest"] != f"{tensors} tensors match the vendored manifests":
+        raise AssertionError(f"phase8b: the manifest step did not count {tensors}: "
+                             f"{said['manifest']}")
+    with open(os.path.join(work, "supp.html")) as f:
+        page = f.read()
+    audio = re.findall(r'<audio controls preload="none" src="([^"]+)"', page)
+    lanes = [lane for lane in ("ours", "sdedit", "ddim") if f"<th>{lane}</th>" in page]
+    if (lanes != ["ours", "sdedit", "ddim"] or "SYNTHETIC WEIGHTS" not in page
+            or len(audio) < 4 or not all(os.path.isfile(os.path.join(work, a)) for a in audio)):
+        raise AssertionError(f"phase8b: supp.html has lanes {lanes} and audio {audio}")
+    checks = {"step_s": step_s, "manifest_tensors": tensors,
+              "page_audio": len(audio), "page_bytes": len(page),
+              "selfcheck_snr_db": runs["selfcheck"]["selfcheck_snr_db"]}
+    log(f"[phase8b] runbook steps {checks['step_s']}; {tensors} manifest tensors; "
+        f"selfcheck {checks['selfcheck_snr_db']} dB; supp.html {len(audio)} audio tags")
+    shutil.rmtree(src)
+    shutil.rmtree(work)
+    return runs, checks
 
 
 def _wav_samples(name: str, path: str, sr_want: int, shape=None, min_len=None):
@@ -3169,8 +3268,10 @@ def main() -> int:
                                         os.path.join(tmp, "clip44k.wav"), "phase6")
         runs["baselines"] = timed("phase7", phase7_baselines, fa, sw, tmp)
         ckpt = timed("phase8a", phase8a_checkpoint, tmp)
-        parity["checkpoint"] = {k: v for k, v in ckpt.items() if k != "dir"}
+        parity["checkpoint"] = {k: v for k, v in ckpt.items() if k not in ("dir", "src")}
         runs["families"] = timed("phase8", phase8_families, fa, sw, tmp, ckpt["dir"])
+        shutil.rmtree(ckpt["dir"])  # read by phase 8 alone; phase 8b converts its own
+        runs["runbook"], runbook = timed("phase8b", phase8b_runbook, fa, sw, tmp, ckpt["src"])
         runs["phase9"], p9_checks = timed("phase9", phase9_new_clis, fa, sw, tmp)
         sd = timed("phase10a", phase10a_checkpoint, fa, sw, tmp)
         parity["images"] = {k: v for k, v in sd.items() if k != "dir"}
@@ -3282,6 +3383,10 @@ def main() -> int:
                   name: {k: r.get(k) for k in ("forwards", "loop_s", "steps_per_s", "wall_s",
                                                "request_wall_s")}
                   for name, r in runs["phase11"].items()}},
+              "phase8b": {**runbook, "runs": {
+                  name: {k: r[k] for k in ("forwards", "loop_s", "steps_per_s", "wall_s",
+                                           "setup_cached", "selfcheck_snr_db")}
+                  for name, r in runs["runbook"].items()}},
               "phase12": runs["parallel"],
               "phase13": evals,
               "setup_cache": setup_cache,

@@ -208,17 +208,21 @@ def write_stereo_wav(path: str, seconds: float = 1.0, sr: int = 4000) -> str:
     return path
 
 
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|audioeditingcode_tpu)\b", re.M)
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|audioeditingcode_tpu|tools)\b", re.M)
 
 
 @pytest.mark.parametrize("root", ["audioeditingcode_tpu_torch", "chip_smoke.py"])
 def test_port_imports_no_jax(root):
-    """The port and its chip script import neither jax, flax nor the JAX
-    package (``\b`` keeps ``audioeditingcode_tpu_torch`` itself allowed)."""
+    """The port and its chip script import neither jax, flax, the JAX
+    package nor the JAX package's ``tools/`` (``\b`` keeps
+    ``audioeditingcode_tpu_torch`` itself allowed)."""
     path = os.path.join(REPO, root)
     files = [path] if path.endswith(".py") else [
         os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs if f.endswith(".py")]
     assert files
+    if root != "chip_smoke.py":  # the runbook and the page builder are covered
+        assert {os.path.join(path, "cli", n) for n in ("validate_real_weights.py",
+                                                       "demo_page.py")} <= set(files)
     for f in files:
         with open(f) as fh:
             src = fh.read()

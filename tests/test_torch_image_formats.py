@@ -10,10 +10,15 @@ on the CPU. Every case must be bit-equal.
   4:2:2 and 4:2:0, greyscale, optimized Huffman tables, odd sizes (1 x 1,
   17 x 9, 511 x 383), with and without restart markers; re-ordered tables,
   APPn/COM segments, SOF1 and the Adobe APP14 RGB flag.
+- Progressive JPEG from PIL (``progressive=True``) at the same qualities,
+  subsamplings, greyscale and odd sizes, with and without restart
+  markers; a truncated progressive file raises, as PIL does; a
+  progressive file whose last refinement scans are cut off (which libjpeg
+  would smooth) raises.
 - ``load_image`` on each equals the JAX ``load_image``.
-- The formats left out (progressive, arithmetic-coded, 12-bit and CMYK
-  JPEG; GIF, BMP, WebP, TIFF) raise a ValueError naming them.
-- The two inputs ``chip_smoke.py`` decodes on the card
+- The formats left out (hierarchical, lossless, arithmetic-coded, 12-bit
+  and CMYK JPEG; GIF, BMP, WebP, TIFF) raise a ValueError naming them.
+- The three inputs ``chip_smoke.py`` decodes on the card
   (tests/data/images/) are what ``make_chip_inputs`` writes, and their
   sha256 file holds the hash of PIL's decode.
 """
@@ -212,6 +217,67 @@ def test_greyscale_jpeg_is_bit_equal_to_pil(tmp_path, quality):
             np.testing.assert_array_equal(tio.read_image(path), _pil(path))
 
 
+PROGRESSIVE_SIZES = [(1, 1), (9, 17), (45, 31), (383, 511)]
+
+
+@pytest.mark.parametrize("quality", [5, 75, 100])
+@pytest.mark.parametrize("subsampling", [0, 1, 2, "grey"], ids=["444", "422", "420", "grey"])
+def test_progressive_jpeg_is_bit_equal_to_pil(tmp_path, quality, subsampling):
+    for h, w in PROGRESSIVE_SIZES:
+        for extra in ({}, {"restart_marker_blocks": 3}, {"restart_marker_rows": 1}):
+            path = str(tmp_path / "p.jpg")
+            img = Image.fromarray(_pattern(h, w))
+            kw = {"subsampling": subsampling}
+            if subsampling == "grey":
+                img, kw = img.convert("L"), {}
+            try:
+                img.save(path, quality=quality, progressive=True, **kw, **extra)
+            except OSError:  # Pillow's progressive buffer is too small for noise
+                assert quality == 100  # at quality 100
+                continue
+            data = open(path, "rb").read()
+            assert b"\xff\xc2" in data and data.count(b"\xff\xda") > 2
+            np.testing.assert_array_equal(tio.read_image(path), _pil(path),
+                                          err_msg=f"{h}x{w} {extra}")
+
+
+def _scans(data: bytes):
+    """The byte offsets of each SOS marker of a JPEG file."""
+    out, pos = [], data.index(b"\xff\xda")
+    while pos >= 0:
+        out.append(pos)
+        pos = data.find(b"\xff\xda", pos + 2)
+    return out
+
+
+def test_truncated_progressive_jpeg_raises_as_pil_does(tmp_path):
+    path = str(tmp_path / "p.jpg")
+    Image.fromarray(_pattern(64, 96)).save(path, quality=75, progressive=True, subsampling=2)
+    data = open(path, "rb").read()
+    cuts = [int(len(data) * f) for f in (0.05, 0.3, 0.5, 0.8, 0.95)] + [len(data) - 2]
+    cuts += _scans(data)[3:5]  # between two scans
+    for n in cuts:
+        cut = str(tmp_path / f"cut{n}.jpg")
+        open(cut, "wb").write(data[:n])
+        with pytest.raises(OSError, match="truncated"):
+            _pil(cut)
+        with pytest.raises(ValueError, match="truncated"):
+            tio.read_image(cut)
+
+
+def test_progressive_jpeg_without_its_last_refinements_raises(tmp_path):
+    """The final refinement scans cut off and the file closed with EOI:
+    libjpeg would smooth the blocks; the port raises instead."""
+    path = str(tmp_path / "p.jpg")
+    Image.fromarray(_pattern(64, 96)).save(path, quality=75, progressive=True, subsampling=0)
+    data = open(path, "rb").read()
+    short = str(tmp_path / "short.jpg")
+    open(short, "wb").write(data[:_scans(data)[-3]] + b"\xff\xd9")
+    assert _pil(short).shape == (64, 96, 3)
+    with pytest.raises(ValueError, match="block smoothing"):
+        tio.read_image(short)
+
+
 def _segments(data: bytes):
     """(marker, segment with its length) of each segment before the first
     scan, and the rest of the file from the SOS marker on."""
@@ -286,12 +352,14 @@ def test_formats_left_out_raise_and_name_themselves(tmp_path):
     img = _pattern(24, 24)
     base = str(tmp_path / "base.jpg")
     Image.fromarray(img).save(base, quality=80)
-    cases = {"progressive JPEG": str(tmp_path / "p.jpg"),
+    cases = {"hierarchical progressive JPEG": _patched(base, str(tmp_path / "hp.jpg"), 0xC0,
+                                                       0xC6),
+             "arithmetic-coded progressive": _patched(base, str(tmp_path / "ap.jpg"), 0xC0,
+                                                      0xCA),
              "CMYK": str(tmp_path / "c.jpg"),
              "arithmetic-coded": _patched(base, str(tmp_path / "ar.jpg"), 0xC0, 0xC9),
              "12-bit": _patched(base, str(tmp_path / "12.jpg"), 0xC0, at=4, value=12),
              "lossless": _patched(base, str(tmp_path / "ll.jpg"), 0xC0, 0xC3)}
-    Image.fromarray(img).save(cases["progressive JPEG"], progressive=True)
     Image.fromarray(img).convert("CMYK").save(cases["CMYK"])
     for fmt in ("GIF", "BMP", "WebP", "TIFF"):
         cases[fmt] = str(tmp_path / f"x.{fmt.lower()}")
@@ -306,16 +374,21 @@ def test_formats_left_out_raise_and_name_themselves(tmp_path):
 # ------------------------------------------------------ the card's inputs
 CHIP_INPUTS = {"photo_420_restart.jpg": "JPEG, 512 x 384, 4:2:0, quality 90, restart "
                                         "interval of one MCU row",
-               "adam7_rgb16.png": "PNG, 192 x 128, 16-bit RGB, Adam7, filters 0-4 in turn"}
+               "adam7_rgb16.png": "PNG, 192 x 128, 16-bit RGB, Adam7, filters 0-4 in turn",
+               "photo_progressive_422.jpg": "progressive JPEG, 333 x 251, 4:2:2, quality 85, "
+                                            "restart interval of 7 MCUs"}
 
 
 def make_chip_inputs(d: str) -> dict:
-    """Write the two images chip_smoke.py decodes on the card, and return
+    """Write the images chip_smoke.py decodes on the card, and return
     {file: {"shape", "sha256" of PIL's convert("RGB") bytes, "what"}}."""
     os.makedirs(d, exist_ok=True)
     jpeg = os.path.join(d, "photo_420_restart.jpg")
     Image.fromarray(_pattern(384, 512)).save(jpeg, quality=90, subsampling=2,
                                              restart_marker_rows=1)
+    Image.fromarray(_pattern(251, 333, seed=1)).save(
+        os.path.join(d, "photo_progressive_422.jpg"), quality=85, subsampling=1,
+        progressive=True, restart_marker_blocks=7)
     y, x = np.mgrid[0:128, 0:192]
     smooth = np.stack([(x * 341 + y * 97 * k) % 65536 for k in (1, 2, 3)], -1)
     write_test_png(os.path.join(d, "adam7_rgb16.png"), smooth, 16, 2, interlace=True)

@@ -8,7 +8,9 @@ loads, the conditioning and a denoiser forward.
 
 Tolerances: the CLI wavs within one int16 LSB beside 2e-4 relative, as
 tests/test_torch_baselines.py holds them; TANGO's edit latent and wav 2e-4
-relative. The two CLIs draw their noise differently (jax.random, torch), so
+relative; the SDEdit CLI's wav 1e-3 of the JAX wav's peak on
+test/tiny-audioldm and test/tiny-stable-audio (Brownian and i.i.d. noise),
+the eta-1 chain tolerance of tests/test_torch_sdedit.py. The two CLIs draw their noise differently (jax.random, torch), so
 the port CLI is handed the JAX CLI's draws, taken from the same keys."""
 
 import json
@@ -91,6 +93,81 @@ def test_cli_matches_jax_cli(ckpt, model_id, tmp_path, monkeypatch):
     assert np.abs(a - b).max() <= 1 + WAV_TOL * np.abs(b).max(), np.abs(a - b).max()
     with open(os.path.join(os.path.dirname(t), "run_args.json")) as f:
         assert json.load(f)["weights_dir"] == wd
+
+
+SDEDIT_TOL = 1e-3  # the eta-1 chain tolerance of tests/test_torch_sdedit.py
+
+
+@pytest.mark.parametrize("model_id,sampler", [("test/tiny-audioldm", None),
+                                              ("test/tiny-stable-audio", "brownian"),
+                                              ("test/tiny-stable-audio", "iid")])
+def test_sdedit_cli_matches_jax_cli(ckpt, model_id, sampler, tmp_path, monkeypatch):
+    """``cli/sdedit.py --weights_dir`` against the JAX SDEdit CLI on the
+    same directory and seed, the port handed the JAX CLI's draws: its start
+    noise and per-step noise (``jax.random.split`` of the seed's key, after
+    the Stable Audio latent sample's split), and the Brownian increments
+    the JAX CLI computed. The wavs within 1e-3 of the JAX wav's peak."""
+    from audioeditingcode_tpu.cli import sdedit as jsd_cli
+    from audioeditingcode_tpu.schedulers import brownian as jbr
+    from audioeditingcode_tpu_torch.schedulers import brownian as tbr
+
+    wd = ckpt(model_id)
+    sa = model_id == "test/tiny-stable-audio"
+    wav = (write_stereo_wav if sa else write_test_wav)(str(tmp_path / "clip.wav"),
+                                                     seconds=0.3)
+    seed = 5
+    argv = ["--model_id", model_id, "--init_aud", wav, "--weights_dir", wd,
+            "--num_diffusion_steps", str(STEPS), "--tstart", "4", "--seed", str(seed),
+            "--target_prompt", "a cello", "--wandb_disable"]
+    argv += ["--noise_sampler", sampler] if sampler else []
+    increments = []
+    real_brownian = jbr.brownian_noise_for_sigmas
+
+    def keep(*a, **kw):
+        increments.append(real_brownian(*a, **kw))
+        return increments[-1]
+
+    monkeypatch.setattr(jbr, "brownian_noise_for_sigmas", keep)
+    j = jsd_cli.main(argv + ["--results_path", str(tmp_path / "jax")])
+    assert len(increments) == (sampler == "brownian")
+
+    real_load, real_randn = tsd.load_model, torch.randn
+    draws = {}
+
+    def load(*a, **kw):
+        pipe = real_load(*a, **kw)
+        draws["rng"], enc = _jax_draws(pipe, model_id, seed)
+        draws["keys"] = list(jax.random.split(draws["rng"]))  # k_noise, k_lat
+        if sa:
+            real_enc = pipe.vae_encode
+            pipe.vae_encode = lambda x, noise=None: real_enc(x, torch.from_numpy(enc))
+        return pipe
+
+    def randn(*size, generator=None, **kw):
+        if generator is None:
+            return real_randn(*size, **kw)
+        shape = tuple(size[0]) if len(size) == 1 and not isinstance(size[0], int) else size
+        key = draws["keys"].pop(0)  # the start noise first, then the per-step noise
+        z = np.array(jax.random.normal(key, shape, dtype=jnp.float32))
+        return torch.from_numpy(z).to(kw.get("dtype") or torch.float32)
+
+    def brownian(seed_, sigmas, shape):
+        (z,) = increments
+        assert z.shape == (len(sigmas) - 1,) + tuple(shape)
+        return z
+
+    monkeypatch.setattr(tsd, "load_model", load)
+    monkeypatch.setattr(torch, "randn", randn)
+    monkeypatch.setattr(tbr, "brownian_noise_for_sigmas", brownian)
+    t = tsd.main(argv + ["--device", "cpu", "--results_path", str(tmp_path / "port")])
+    monkeypatch.undo()
+    assert len(draws["keys"]) == (sampler == "brownian")  # each JAX draw used once
+    assert (os.path.relpath(t, tmp_path / "port") == os.path.relpath(j, tmp_path / "jax"))
+    (sa_, a), (sb, b) = wavfile.read(t), wavfile.read(j)
+    assert sa_ == sb and a.shape == b.shape and np.any(b)
+    err = rel_err(a, b)
+    print(f"[sdedit cli vs jax] {model_id} {sampler}: {err:.3e}")
+    assert err <= SDEDIT_TOL, err
 
 
 def test_tango_edit_matches_jax(ckpt, tmp_path):

@@ -10,8 +10,9 @@ Run them as ``aetorch-images-sdedit``, ``aetorch-images-pc-extract`` and
 ``aetorch-images-pc-apply`` (or ``python -m
 audioeditingcode_tpu_torch.cli.images sdedit|pc_extract|pc_apply ...``).
 Each runs on the CUDA card ``--device_num`` unless ``--device cpu`` is
-given; a missing card is an error. Images are read from PNG or baseline
-JPEG and written as PNG (``utils/image_io.py``; other formats raise). The draws come from a
+given; a missing card is an error. Images are read from PNG, JPEG, GIF,
+BMP, TIFF or WebP as PIL reads them and written as PNG
+(``utils/image_io.py::read_image``; other formats raise). The draws come from a
 ``torch.Generator`` seeded with ``--seed``. ``run_args.json`` records the
 loop's seconds and denoiser forwards (``sdedit_seconds`` and
 ``unet_steps``; the PC CLIs' ``stage_seconds`` and ``stage_forwards``).

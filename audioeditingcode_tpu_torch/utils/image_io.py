@@ -5,8 +5,11 @@ resizes and writes with PIL. This module does the same with numpy, ``zlib``
 and ``struct``. Every decoder gives the pixels of PIL 12.1's
 ``np.array(Image.open(path).convert("RGB"))`` bit for bit:
 
-- ``read_image``: a PNG or a JPEG file, told apart by its signature. GIF,
-  BMP, WebP and TIFF files raise a ``ValueError`` that names the format.
+- ``read_image``: a PNG, JPEG, GIF, BMP, TIFF or WebP file, told apart by
+  its leading bytes; GIF, BMP, TIFF and WebP go to the decoders beside
+  this module (``image_gif``, ``image_bmp``, ``image_tiff``, ``image_webp``
+  with ``image_vp8``), each bit-equal to PIL's ``convert("RGB")`` on what
+  it reads; anything else raises a ``ValueError`` that names the format.
 - ``read_png_rgb``: PNG in every colour type and bit depth, non-interlaced
   or Adam7 (each of the seven passes its own filtered image; a pass of an
   image smaller than 8 px may be empty), with the five scanline filters.
@@ -46,9 +49,14 @@ and ``struct``. Every decoder gives the pixels of PIL 12.1's
   through the same IDCT; libjpeg smooths blocks only where some of the
   first ten coefficients' bits never arrive, which raises here, as does a
   file that ends before its EOI marker (PIL raises "image file is
-  truncated"). Lossless and hierarchical frames, arithmetic coding, 12-bit
-  samples and CMYK/YCCK (four components) raise a ``ValueError`` that
-  names them.
+  truncated"). Four components are CMYK or YCCK as libjpeg guesses
+  (the Adobe APP14 transform 2, or another non-zero one, means YCCK,
+  turned into CMYK by ``ycck_cmyk_convert``: 255 minus the YCbCr -> RGB
+  value, K kept; transform 0 or no Adobe marker means CMYK); PIL opens
+  every four-component JPEG inverted (``CMYK;I``), then its ``cmyk2rgb``
+  gives each channel clip(nk - nk * c / 255) with nk = 255 - K in its
+  rounded fixed point. Lossless and hierarchical frames, arithmetic coding
+  and 12-bit samples raise a ``ValueError`` that names them.
 - ``write_png``: 8-bit greyscale, RGB or RGBA, filter 0, zlib level 6.
 - ``resize_rgb``: PIL's default ``Image.resize`` filter for RGB (bicubic,
   a = -0.5, the support widened by the downscaling factor, coefficients
@@ -70,9 +78,9 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_SIGNATURE = b"\xff\xd8\xff"
-# the leading bytes of formats no reader here takes, for the error
-_OTHER_FORMATS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
-                  (b"MM\x00*", "TIFF"))
+# the leading bytes of the formats read beside this module
+_OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
+                  (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF"))
 # PNG colour types: (name, samples per pixel, allowed bit depths)
 _COLOR_TYPES = {0: ("greyscale", 1, (1, 2, 4, 8, 16)), 2: ("RGB", 3, (8, 16)),
                 3: ("palette", 1, (1, 2, 4, 8)), 4: ("greyscale + alpha", 2, (8, 16)),
@@ -93,17 +101,23 @@ def _format_name(data: bytes) -> str:
 
 
 def read_image(path: str) -> np.ndarray:
-    """A PNG or JPEG file as (H, W, 3) uint8 RGB, as PIL's
+    """An image file as (H, W, 3) uint8 RGB, as PIL's
     ``Image.open(path).convert("RGB")`` (see the module docstring)."""
+    from . import image_bmp, image_gif, image_tiff, image_webp
+
     with open(path, "rb") as f:
         head = f.read(16)
+    readers = {"PNG": read_png_rgb, "JPEG": read_jpeg_rgb, "GIF": image_gif.read_gif_rgb,
+               "BMP": image_bmp.read_bmp_rgb, "TIFF": image_tiff.read_tiff_rgb,
+               "WebP": image_webp.read_webp_rgb}
     kind = _format_name(head)
-    if kind == "PNG":
-        return read_png_rgb(path)
-    if kind == "JPEG":
-        return read_jpeg_rgb(path)
-    raise ValueError(f"{path}: {kind} image file; the port reads PNG and baseline JPEG "
-                     f"only (GIF, BMP, WebP and TIFF are not ported)")
+    if kind not in readers:
+        raise ValueError(f"{path}: unknown image format (the port reads PNG, JPEG, GIF, BMP, "
+                         f"TIFF and WebP)")
+    try:
+        return readers[kind](path)
+    except (struct.error, zlib.error) as e:  # data that ends inside a field
+        raise ValueError(f"{path}: truncated or corrupt {kind} data ({e})") from None
 
 
 # -------------------------------------------------------------------- PNG
@@ -282,6 +296,8 @@ def _ceil_div(a: int, b: int) -> int:
 def _huffman_lut(counts: bytes, symbols: bytes) -> List[int]:
     """A 65536-entry table of a DHT table: the 16 bits that start with a
     code -> (code length << 8) | symbol; 0 where no code starts."""
+    if sum(counts) > len(symbols):
+        raise ValueError("truncated JPEG data: a Huffman table ends before its symbols")
     lut = np.zeros(1 << 16, np.int64)
     code, k = 0, 0
     for length in range(1, 17):
@@ -541,6 +557,18 @@ def _upsample(plane: np.ndarray, h: int, v: int, hmax: int, vmax: int) -> np.nda
     return np.repeat(np.repeat(p, vmax // v, axis=0), hmax // h, axis=1)
 
 
+def _cmyk_pixels(planes: List[np.ndarray], adobe) -> np.ndarray:
+    """Four decoded planes -> RGB as PIL gives it: libjpeg's CMYK (or YCCK
+    -> CMYK), PIL's ``CMYK;I`` inversion, then PIL's ``cmyk2rgb``."""
+    if adobe is not None and adobe != 0:  # YCCK: inverted CMYK is the YCbCr -> RGB value
+        inv = _ycc_to_rgb(*planes[:3]).astype(np.int64)
+    else:
+        inv = 255 - np.stack(planes[:3], axis=-1).astype(np.int64)
+    nk = planes[3].astype(np.int64)[:, :, None]  # 255 - (255 - K)
+    t = inv * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
 def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     """jdcolor.c's ycc_rgb_convert: its fixed-point tables (SCALEBITS 16),
     each channel clamped to [0, 255]."""
@@ -599,10 +627,7 @@ def read_jpeg_rgb(path: str) -> np.ndarray:
             if precision != 8:
                 raise ValueError(f"{path}: {precision}-bit JPEG is not read by the port "
                                  f"(8-bit samples only)")
-            if n == 4:
-                raise ValueError(f"{path}: CMYK/YCCK (four-component) JPEG is not read by "
-                                 f"the port")
-            if n not in (1, 3):
+            if n not in (1, 3, 4):
                 raise ValueError(f"{path}: JPEG with {n} components is not read by the port")
             if height == 0 or width == 0:
                 raise ValueError(f"{path}: JPEG with its height in a DNL marker is not read")
@@ -686,6 +711,8 @@ def _decode_scan(frame: dict, header: bytes, scan: bytes, qt, huff, restart: int
     comps = frame["comps"]
     ids = [c[0] for c in comps]
     n = header[0]
+    if len(header) < 4 + 2 * n:
+        raise ValueError("corrupt JPEG data: a scan header shorter than its component count")
     ss, se, ah, al = header[1 + 2 * n], header[2 + 2 * n], header[3 + 2 * n] >> 4, \
         header[3 + 2 * n] & 15
     progressive = frame["progressive"]
@@ -770,6 +797,8 @@ def _jpeg_pixels(frame: dict, coefs: List[List[int]], jfif: bool, adobe) -> np.n
         planes.append(_upsample(plane[:dh, :dw], h, v, hmax, vmax)[:height, :width])
     if len(planes) == 1:
         return np.repeat(planes[0].astype(np.uint8)[:, :, None], 3, axis=2)
+    if len(planes) == 4:
+        return _cmyk_pixels(planes, adobe)
     ids = [c[0] for c in comps]
     if jfif:
         rgb_space = False
@@ -865,7 +894,7 @@ def resize_rgb(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
 # ---------------------------------------------------------- the CLIs' IO
 def load_image(image_path, left: int = 0, right: int = 0, top: int = 0, bottom: int = 0,
                resize: Tuple[int, int] = (512, 512)) -> np.ndarray:
-    """An RGB image (a PNG or JPEG path, or an (H, W, 3+) uint8 array) ->
+    """An RGB image (a path ``read_image`` reads, or an (H, W, 3+) uint8 array) ->
     (1, 3, H, W) float32 in [-1, 1]: crop, centre square, resize to
     ``resize`` = (width, height)."""
     if isinstance(image_path, str):

@@ -32,7 +32,7 @@ prints no result):
    kernel, against the same forward on the CPU, through the plain version;
    and the same UNet in bfloat16 on the card (B1-tc) against the float32
    CPU forward, within 1.25x the error of the bf16 forward through the
-   plain version on the CPU.
+   plain version on the card.
 2b. a full-width Stable Audio DiT forward cut to 2 of its 24 layers (batch
    2 on the (64, 1024) latent), card against CPU, through B1 + B3 and,
    with AEC_ROTARY_IN_KERNEL=1, through B2 + B3; the same DiT in bfloat16
@@ -44,7 +44,7 @@ prints no result):
    x0(xt) at c = 1e-3 for one PC (batch 2), on the full-width AudioLDM-s
    UNet and on phase 2b's 2-layer DiT, in float32 on the card (3xTF32
    kernels) against the card's plain versions, each against a float64
-   probe on the CPU; and the card against the CPU's float32 probe.
+   probe on the card; and the card against the CPU's float32 probe.
 3. the AudioLDM-s main path: the port CLI's ``--mode ours`` edit of a
    synthetic 10 s clip at 200 inversion + 100 edit steps, once as an edit
    and once with ``--selfcheck`` in float32, and once as a ``--dtype
@@ -138,12 +138,15 @@ prints no result):
    1024 px (``-r 1024 1024``, 4 forwards) in float32 and bfloat16, with its
    launches at head dim 160 counted (5 per forward). Every output
    PNG decodes through the port's reader at the expected size and differs
-   from orig.png. Then image input: the three committed inputs of
+   from orig.png. Then image input: the committed inputs of
    tests/data/images (a 512 x 384 4:2:0 baseline JPEG with restart
    markers, a 16-bit Adam7 RGB PNG, a 333 x 251 4:2:2 progressive JPEG
-   with restart markers) decoded by the port's readers to the
-   sha256 of PIL's decode (tests/data/images/sha256.json), and a bfloat16
-   SD SDEdit at 512 px from the JPEG.
+   with restart markers, a 512 x 384 lossy WebP with alpha, a lossless
+   WebP, a tiled LZW + predictor-2 TIFF, an interlaced GIF with a local
+   table, a progressive CMYK JPEG, an RLE8 BMP) decoded by the port's
+   readers to the sha256 of PIL's decode (tests/data/images/sha256.json),
+   each decode's seconds printed, and bfloat16 SD SDEdits at 512 px from
+   the JPEG and from the WebP.
 11. the edit server (serve.py) on 127.0.0.1 over HTTP at 50 steps in
    bfloat16: AudioLDM-s (/healthz, three edits, two concurrent requests
    each bit-equal to the same request alone, a response bit-equal to
@@ -360,8 +363,9 @@ SWIGLU_CASES = [((2050, 1536, 6144), torch.float32), ((1025, 1536, 6144), torch.
 
 # phase 2c: the PC extraction's finite-difference probe ab = x0(xt + c v) -
 # x0(xt) at the CLI's c and two PCs, each variant against the same probe in
-# float64 on the CPU (float64 weights and activations; attention and SwiGLU
-# in float64 too): on the card through the kernels; on the card with each
+# float64 on the card (float64 weights and activations; attention and SwiGLU
+# in float64 too; on the CPU it took 55 of the phase's 85 s): on the card
+# through the kernels; on the card with each
 # kernel call replaced by its plain version (the CPU's code path, run on
 # the card); on the CPU in float32. The difference divides float32 roundoff
 # of x0 by c, so float32 probes lie about a percent from the float64 one,
@@ -776,31 +780,32 @@ def phase2_unet_parity(fa):
     out = {"unet_rel_err": rel}
     # bfloat16 on the card through B1-tc, against the float32 CPU forward:
     # the card may lie at most BF16_FORWARD_RATIO times as far from it as the
-    # same bf16 forward through the plain version on the CPU
-    unet_bf16 = to_model_dtype_(copy.deepcopy(unet), "cpu", torch.bfloat16)
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        plain_bf16_err = _rel_fro(unet_bf16(x.to(torch.bfloat16), t, class_labels=labels),
-                                  cpu_out)
-    plain_bf16_s = time.perf_counter() - t0
-    unet_bf16 = to_model_dtype_(unet_bf16, "cuda", torch.bfloat16)
+    # same bf16 forward through the plain version on the card (as phase 2d)
+    unet_bf16 = to_model_dtype_(copy.deepcopy(unet), "cuda", torch.bfloat16)
+    args = (x.to(torch.bfloat16).cuda(), t.cuda())
     before = dict(fa.flash_attention_cuda.launches_by_route)
     with torch.no_grad():
-        gpu_bf16 = unet_bf16(x.to(torch.bfloat16).cuda(), t.cuda(),
-                             class_labels=labels.cuda()).cpu()
+        gpu_bf16 = unet_bf16(*args, class_labels=labels.cuda()).cpu()
     launched_tc = fa.flash_attention_cuda.launches_by_route[fa.TENSOR_CORE] - before[fa.TENSOR_CORE]
+    t0 = time.perf_counter()
+    with torch.no_grad(), _plain_ops():
+        plain_bf16_err = _rel_fro(unet_bf16(*args, class_labels=labels.cuda()).cpu(), cpu_out)
+    plain_bf16_s = time.perf_counter() - t0
+    plain_launched = (fa.flash_attention_cuda.launches_by_route[fa.TENSOR_CORE]
+                      - before[fa.TENSOR_CORE] - launched_tc)
     err = _rel_fro(gpu_bf16, cpu_out)
     limit = BF16_FORWARD_RATIO * plain_bf16_err
     log(f"[phase2] AudioLDM-s UNet bf16: card vs float32 CPU relative Frobenius error "
-        f"{err:.4g}, the bf16 plain version on the CPU {plain_bf16_err:.4g} (limit "
-        f"{BF16_FORWARD_RATIO} x that = {limit:.4g}; CPU {plain_bf16_s:.1f} s), "
+        f"{err:.4g}, the bf16 plain version on the card {plain_bf16_err:.4g} (limit "
+        f"{BF16_FORWARD_RATIO} x that = {limit:.4g}; {plain_bf16_s:.1f} s), "
         f"{launched_tc} tensor-core launches")
     if not np.isfinite(err) or err > limit:
         raise AssertionError(f"UNet bf16 card error {err} > {limit}")
-    if launched_tc != ATTN_CALLS_PER_FORWARD:
-        raise AssertionError(f"{launched_tc} tensor-core launches in one bf16 UNet forward")
+    if launched_tc != ATTN_CALLS_PER_FORWARD or plain_launched:
+        raise AssertionError(f"{launched_tc} tensor-core launches in one bf16 UNet forward, "
+                             f"{plain_launched} through the plain versions")
     out |= {"unet_bf16_rel_fro_err": err, "unet_bf16_plain_rel_fro_err": plain_bf16_err,
-            "unet_bf16_plain_cpu_s": plain_bf16_s}
+            "unet_bf16_plain_card_s": plain_bf16_s}
     return out, unet
 
 
@@ -923,7 +928,7 @@ def _probe_check(name, probes, launched, want_launches):
 def phase2c_probe(fa, sw, unet):
     """The finite-difference probe of PC extraction in float32, through the
     kernels on the card and in the other variants of PROBE_RATIO's comment,
-    against the CPU in float64: on the full-width AudioLDM-s UNet at step 100
+    against the card in float64: on the full-width AudioLDM-s UNet at step 100
     of 200 through the pipeline's CFG pair, and on phase 2b's 2-layer
     full-width DiT at step 50 of 100 with a warm solver history."""
     from audioeditingcode_tpu_torch.editing.solvers import CosineDPMSolver, DDIMSolver
@@ -938,10 +943,12 @@ def phase2c_probe(fa, sw, unet):
 
     g = torch.Generator().manual_seed(9)
     n = PROBE_N_EV
+    # the float64 reference runs on the card: float64 there is as far below
+    # the float32 probes' errors as on the CPU, in a second, not a minute
     variants = (("cpu", "cpu", torch.float32, contextlib.nullcontext),
                 ("card", "cuda", torch.float32, contextlib.nullcontext),
                 ("card_plain", "cuda", torch.float32, _plain_ops),
-                ("float64", "cpu", torch.float64,
+                ("float64", "cuda", torch.float64,
                  lambda: _swap_ops(_attention_f64, _swiglu_f64)))
 
     def run(name, dev, dtype, ops, model, probe):
@@ -2496,8 +2503,8 @@ def phase10_images(fa, sw, tmp: str, ckpt: str):
     if checks["sd_pc_bf16_amount2_max_from_amount0"] <= IMG_AMOUNT0_MAX:
         raise AssertionError(f"phase10: the drift did not move the image: {checks}")
 
-    jpeg_runs, checks["image_inputs"] = _image_inputs(fa, sw, tmp, ckpt)
-    runs.update(jpeg_runs)
+    input_runs, checks["image_inputs"] = _image_inputs(fa, sw, tmp, ckpt)
+    runs.update(input_runs)
 
     argv = ["--model_id", CELEBA_MODEL_ID, "--init_im", im, "--num_diffusion_steps",
             str(IMG_STEPS), "--tstart", str(IMG_TSTART), "--seed", "0", "--wandb_disable",
@@ -2514,7 +2521,8 @@ def phase10_images(fa, sw, tmp: str, ckpt: str):
 def _image_inputs(fa, sw, tmp: str, ckpt: str):
     """The committed inputs of tests/data/images decoded by the port's
     readers, each to the sha256 of PIL's decode; then a bfloat16 SD SDEdit
-    at 512 px from the JPEG. Returns (runs, checks)."""
+    at 512 px from the JPEG and one from the lossy WebP with alpha. Returns
+    (runs, checks)."""
     import hashlib
 
     from audioeditingcode_tpu_torch.cli.images import sdedit_main
@@ -2535,18 +2543,21 @@ def _image_inputs(fa, sw, tmp: str, ckpt: str):
         if digest != rec["sha256"] or list(px.shape) != rec["shape"]:
             raise AssertionError(f"phase10: {name} decodes to {digest} {px.shape}, PIL's "
                                  f"decode is {rec['sha256']} {rec['shape']}")
-    name = "sd_sdedit_jpeg_bf16"
-    argv = ["--model_id", SD_MODEL_ID, "--init_im", os.path.join(d, "photo_420_restart.jpg"),
-            "--target_prompt", "a photo of a cat", "--num_diffusion_steps", str(IMG_STEPS),
-            "--tstart", str(IMG_TSTART), "--seed", "0", "--weights_dir", ckpt,
-            "--wandb_disable", "--dtype", "bfloat16", "--results_path",
-            os.path.join(tmp, name)]
-    out, _, run = _counted_run(fa, sw, f"phase10 {name}", lambda: sdedit_main(argv),
-                               {"flash_attention_tc": SD_CALLS_PER_FORWARD[512]},
-                               IMG_TSTART, "sdedit_seconds")
-    _check_png(name, out, 512, read_png_rgb(os.path.join(os.path.dirname(out), "orig.png")))
-    log(f"[phase10] {name}: {run}")
-    return {name: run}, checks
+    runs = {}
+    for name, image in (("sd_sdedit_jpeg_bf16", "photo_420_restart.jpg"),
+                        ("sd_sdedit_webp_bf16", "photo_alpha.webp")):
+        argv = ["--model_id", SD_MODEL_ID, "--init_im", os.path.join(d, image),
+                "--target_prompt", "a photo of a cat", "--num_diffusion_steps", str(IMG_STEPS),
+                "--tstart", str(IMG_TSTART), "--seed", "0", "--weights_dir", ckpt,
+                "--wandb_disable", "--dtype", "bfloat16", "--results_path",
+                os.path.join(tmp, name)]
+        out, _, run = _counted_run(fa, sw, f"phase10 {name}", lambda: sdedit_main(argv),
+                                   {"flash_attention_tc": SD_CALLS_PER_FORWARD[512]},
+                                   IMG_TSTART, "sdedit_seconds")
+        _check_png(name, out, 512, read_png_rgb(os.path.join(os.path.dirname(out), "orig.png")))
+        log(f"[phase10] {name}: {run}")
+        runs[name] = run
+    return runs, checks
 
 
 @contextlib.contextmanager

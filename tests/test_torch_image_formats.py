@@ -16,11 +16,13 @@ on the CPU. Every case must be bit-equal.
   progressive file whose last refinement scans are cut off (which libjpeg
   would smooth) raises.
 - ``load_image`` on each equals the JAX ``load_image``.
-- The formats left out (hierarchical, lossless, arithmetic-coded, 12-bit
-  and CMYK JPEG; GIF, BMP, WebP, TIFF) raise a ValueError naming them.
-- The three inputs ``chip_smoke.py`` decodes on the card
-  (tests/data/images/) are what ``make_chip_inputs`` writes, and their
-  sha256 file holds the hash of PIL's decode.
+- The formats left out (hierarchical, lossless, arithmetic-coded and
+  12-bit JPEG; JPEG-in-TIFF, BigTIFF, animated WebP) raise a ValueError
+  naming them. GIF, BMP, TIFF, WebP and CMYK/YCCK JPEG are held against PIL
+  in test_torch_image_codecs.py.
+- The inputs ``chip_smoke.py`` decodes on the card (tests/data/images/)
+  are what ``make_chip_inputs`` writes, and their sha256 file holds the
+  hash of PIL's decode.
 """
 
 import hashlib
@@ -356,14 +358,15 @@ def test_formats_left_out_raise_and_name_themselves(tmp_path):
                                                        0xC6),
              "arithmetic-coded progressive": _patched(base, str(tmp_path / "ap.jpg"), 0xC0,
                                                       0xCA),
-             "CMYK": str(tmp_path / "c.jpg"),
              "arithmetic-coded": _patched(base, str(tmp_path / "ar.jpg"), 0xC0, 0xC9),
              "12-bit": _patched(base, str(tmp_path / "12.jpg"), 0xC0, at=4, value=12),
-             "lossless": _patched(base, str(tmp_path / "ll.jpg"), 0xC0, 0xC3)}
-    Image.fromarray(img).convert("CMYK").save(cases["CMYK"])
-    for fmt in ("GIF", "BMP", "WebP", "TIFF"):
-        cases[fmt] = str(tmp_path / f"x.{fmt.lower()}")
-        Image.fromarray(img).save(cases[fmt], format=fmt.upper())
+             "lossless": _patched(base, str(tmp_path / "ll.jpg"), 0xC0, 0xC3),
+             "JPEG-in-TIFF": str(tmp_path / "j.tif"), "BigTIFF": str(tmp_path / "b.tif"),
+             "animated WebP": str(tmp_path / "a.webp")}
+    Image.fromarray(img).save(cases["JPEG-in-TIFF"], compression="jpeg")
+    Image.fromarray(img).save(cases["BigTIFF"], big_tiff=True)
+    Image.fromarray(img).save(cases["animated WebP"], save_all=True,
+                              append_images=[Image.fromarray(img[::-1])], duration=100)
     for name, path in cases.items():
         with pytest.raises(ValueError, match=name):
             tio.read_image(path)
@@ -376,7 +379,17 @@ CHIP_INPUTS = {"photo_420_restart.jpg": "JPEG, 512 x 384, 4:2:0, quality 90, res
                                         "interval of one MCU row",
                "adam7_rgb16.png": "PNG, 192 x 128, 16-bit RGB, Adam7, filters 0-4 in turn",
                "photo_progressive_422.jpg": "progressive JPEG, 333 x 251, 4:2:2, quality 85, "
-                                            "restart interval of 7 MCUs"}
+                                            "restart interval of 7 MCUs",
+               "photo_alpha.webp": "lossy WebP, 512 x 384, quality 80, VP8X with a "
+                                   "compressed ALPH chunk",
+               "lossless.webp": "lossless WebP, 333 x 251",
+               "tiled_lzw.tif": "TIFF, 300 x 200 RGB, LZW, predictor 2, 64 x 48 tiles cut at "
+                                "the edges, big-endian",
+               "interlaced_local.gif": "GIF, 333 x 251 screen, a 320 x 240 interlaced image "
+                                       "at (5, 4) with a local table and transparency",
+               "cmyk_progressive.jpg": "progressive CMYK JPEG, 333 x 251, quality 85, Adobe "
+                                       "APP14",
+               "rle8.bmp": "BMP, 333 x 251, RLE8 with absolute runs, 200 colours"}
 
 
 def make_chip_inputs(d: str) -> dict:
@@ -392,12 +405,40 @@ def make_chip_inputs(d: str) -> dict:
     y, x = np.mgrid[0:128, 0:192]
     smooth = np.stack([(x * 341 + y * 97 * k) % 65536 for k in (1, 2, 3)], -1)
     write_test_png(os.path.join(d, "adam7_rgb16.png"), smooth, 16, 2, interlace=True)
+    _make_other_inputs(d)
     out = {}
     for name, what in CHIP_INPUTS.items():
         px = _pil(os.path.join(d, name))
         out[name] = {"shape": list(px.shape), "sha256": hashlib.sha256(px.tobytes()).hexdigest(),
                      "what": what}
     return out
+
+
+def _make_other_inputs(d: str) -> None:
+    """The WebP, TIFF, GIF, CMYK JPEG and BMP inputs of CHIP_INPUTS."""
+    from test_torch_image_codecs import rle8, write_bmp, write_gif, write_tiff
+
+    photo = _pattern(384, 512, seed=2)
+    y, x = np.mgrid[0:384, 0:512]
+    alpha = np.clip(x // 2 + (y - 192) ** 2 // 300, 0, 255).astype(np.uint8)
+    alpha[:64, :96] = 0  # colour kept under transparent pixels
+    Image.fromarray(np.concatenate([photo, alpha[:, :, None]], -1)).save(
+        os.path.join(d, "photo_alpha.webp"), quality=80)
+    Image.fromarray(_pattern(251, 333, noise=0.03, seed=3)).save(os.path.join(d, "lossless.webp"),
+                                                                 lossless=True)
+    write_tiff(os.path.join(d, "tiled_lzw.tif"), _pattern(200, 300, noise=0.03, seed=4), 8, 2,
+               ">", 5, predictor=2, tile=(64, 48))
+    quant = Image.fromarray(_pattern(240, 320, seed=5)).quantize(200)
+    pal = np.asarray(quant.getpalette()[:768]).reshape(-1, 3)
+    pal = np.concatenate([pal, np.zeros((256 - len(pal), 3), np.int64)])
+    write_gif(os.path.join(d, "interlaced_local.gif"), np.asarray(quant), screen=(333, 251),
+              offset=(5, 4), gtab=pal[:4], ltab=pal, interlace=True, transparency=201)
+    Image.fromarray(_pattern(251, 333, seed=6)).convert("CMYK").save(
+        os.path.join(d, "cmyk_progressive.jpg"), quality=85, progressive=True)
+    quant = Image.fromarray(_pattern(251, 333, noise=0.02, seed=7)).quantize(200)
+    pal = np.asarray(quant.getpalette()[:600]).reshape(-1, 3)
+    write_bmp(os.path.join(d, "rle8.bmp"), rle8(np.asarray(quant)), 333, 251, 8, compression=1,
+              palette=pal)
 
 
 def test_committed_chip_inputs_are_what_the_maker_writes(tmp_path):

@@ -33,7 +33,8 @@ What PIL's ``BmpImagePlugin`` opens, this reads, with PIL's rules:
   enough image data").
 
 A file whose rows end before its height raises, as PIL raises "image file
-is truncated".
+is truncated". A DIB (the same without the 14-byte file header, PIL's
+``DibImageFile``; also an ICO or CUR entry) goes through ``decode_dib``.
 """
 
 from __future__ import annotations
@@ -117,6 +118,47 @@ def read_bmp_rgb(path: str) -> np.ndarray:
     """A BMP file as (H, W, 3) uint8 RGB (see the module docstring)."""
     with open(path, "rb") as f:
         data = f.read()
+    return decode_bmp(data, path)
+
+
+def read_dib_rgb(path: str) -> np.ndarray:
+    """A DIB file (PIL's ``DibImageFile``: a BMP without its file header) as
+    (H, W, 3) uint8 RGB."""
+    with open(path, "rb") as f:
+        return decode_dib(f.read(), path)
+
+
+def decode_dib(dib: bytes, path: str, halve: bool = False) -> np.ndarray:
+    """A DIB's bytes as PIL's ``DibImageFile`` reads them, at half its height
+    where ``halve`` (an ICO or CUR entry's bitmap, its AND mask below): a
+    file header put in front, the pixels after the header, the masks and
+    the palette."""
+    if len(dib) < 16:
+        raise ValueError(f"{path}: truncated DIB data")
+    (hsize,) = struct.unpack("<I", dib[:4])
+    dib = bytearray(dib)
+    if hsize == 12:
+        (height,) = struct.unpack("<H", dib[6:8])
+        if halve:
+            dib[6:8] = struct.pack("<H", height // 2)
+        bits, compression, colors, entry = struct.unpack("<H", dib[10:12])[0], 0, 0, 3
+    else:
+        if len(dib) < 36:
+            raise ValueError(f"{path}: truncated DIB header")
+        (height,) = struct.unpack("<i", dib[8:12])
+        if halve:
+            dib[8:12] = struct.pack("<i", int(height / 2))
+        bits, compression = struct.unpack("<HI", dib[14:20])
+        (colors,) = struct.unpack("<I", dib[32:36])
+        entry = 4
+    masks = 12 if hsize == 40 and compression == _BITFIELDS else 0
+    pal = entry * (colors or 1 << bits) if bits <= 8 else 0
+    head = b"BM" + struct.pack("<IHHI", 14 + len(dib), 0, 0, 14 + hsize + masks + pal)
+    return decode_bmp(head + bytes(dib), path)
+
+
+def decode_bmp(data: bytes, path: str) -> np.ndarray:
+    """A BMP file's bytes as (H, W, 3) uint8 RGB."""
     if not data.startswith(b"BM") or len(data) < 18:
         raise ValueError(f"{path}: not a BMP file")
     (offset,) = struct.unpack("<I", data[10:14])

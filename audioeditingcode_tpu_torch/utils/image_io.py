@@ -5,11 +5,14 @@ resizes and writes with PIL. This module does the same with numpy, ``zlib``
 and ``struct``. Every decoder gives the pixels of PIL 12.1's
 ``np.array(Image.open(path).convert("RGB"))`` bit for bit:
 
-- ``read_image``: a PNG, JPEG, GIF, BMP, TIFF or WebP file, told apart by
-  its leading bytes; GIF, BMP, TIFF and WebP go to the decoders beside
-  this module (``image_gif``, ``image_bmp``, ``image_tiff``, ``image_webp``
-  with ``image_vp8``), each bit-equal to PIL's ``convert("RGB")`` on what
-  it reads; anything else raises a ``ValueError`` that names the format.
+- ``read_image``: a PNG, JPEG, GIF, BMP, DIB, TIFF, WebP, Netpbm, ICO, CUR
+  or TGA file, told apart by its leading bytes (TGA, which has none, last,
+  by PIL's header checks); GIF, BMP/DIB, TIFF, WebP, Netpbm, ICO/CUR and TGA go
+  to the decoders beside this module (``image_gif``, ``image_bmp``,
+  ``image_tiff`` with ``image_lab``, ``image_webp`` with ``image_vp8``,
+  ``image_pnm``, ``image_ico``, ``image_tga``), each bit-equal to PIL's
+  ``convert("RGB")`` on what it reads; anything else raises a
+  ``ValueError`` that names the format.
 - ``read_png_rgb``: PNG in every colour type and bit depth, non-interlaced
   or Adam7 (each of the seven passes its own filtered image; a pass of an
   image smaller than 8 px may be empty), with the five scanline filters.
@@ -46,17 +49,22 @@ and ``struct``. Every decoder gives the pixels of PIL 12.1's
   (correction bits, new coefficients of +-1 past the zero run), each
   restart resetting the runs and the DC predictions; a non-interleaved
   scan covers only the component's own blocks. A complete file then goes
-  through the same IDCT; libjpeg smooths blocks only where some of the
-  first ten coefficients' bits never arrive, which raises here, as does a
-  file that ends before its EOI marker (PIL raises "image file is
-  truncated"). Four components are CMYK or YCCK as libjpeg guesses
+  through the same IDCT; where some of the first ten coefficients' bits
+  never arrive, the blocks are first smoothed as libjpeg smooths them
+  (``image_jpeg_smooth``). A file that ends before its EOI marker raises
+  (PIL raises "image file is truncated"). Four components are CMYK or YCCK as libjpeg guesses
   (the Adobe APP14 transform 2, or another non-zero one, means YCCK,
   turned into CMYK by ``ycck_cmyk_convert``: 255 minus the YCbCr -> RGB
   value, K kept; transform 0 or no Adobe marker means CMYK); PIL opens
   every four-component JPEG inverted (``CMYK;I``), then its ``cmyk2rgb``
   gives each channel clip(nk - nk * c / 255) with nk = 255 - K in its
-  rounded fixed point. Lossless and hierarchical frames, arithmetic coding
-  and 12-bit samples raise a ``ValueError`` that names them.
+  rounded fixed point. Lossless frames (SOF3, ``image_jpeg_lossless``)
+  and arithmetic-coded ones (SOF9, SOF10, ``image_jpeg_arith``, with the
+  DAC segment's conditioning) fill the same planes or coefficients;
+  ``decode_jpeg`` takes a stream's bytes with a colour space from the
+  caller (JPEG-in-TIFF). Hierarchical frames, arithmetic-coded lossless
+  (SOF11) and 12-bit samples raise a ``ValueError`` that names them, as
+  PIL fails on them.
 - ``write_png``: 8-bit greyscale, RGB or RGBA, filter 0, zlib level 6.
 - ``resize_rgb``: PIL's default ``Image.resize`` filter for RGB (bicubic,
   a = -0.5, the support widened by the downscaling factor, coefficients
@@ -72,7 +80,7 @@ import math
 import re
 import struct
 import zlib
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -80,7 +88,8 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_SIGNATURE = b"\xff\xd8\xff"
 # the leading bytes of the formats read beside this module
 _OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
-                  (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF"))
+                  (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF"),
+                  (b"\x00\x00\x01\x00", "ICO"), (b"\x00\x00\x02\x00", "ICO"))
 # PNG colour types: (name, samples per pixel, allowed bit depths)
 _COLOR_TYPES = {0: ("greyscale", 1, (1, 2, 4, 8, 16)), 2: ("RGB", 3, (8, 16)),
                 3: ("palette", 1, (1, 2, 4, 8)), 4: ("greyscale + alpha", 2, (8, 16)),
@@ -97,23 +106,38 @@ def _format_name(data: bytes) -> str:
         return "JPEG"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
-    return next((n for sig, n in _OTHER_FORMATS if data.startswith(sig)), "unknown")
+    if data[:1] == b"P" and data[1:2] and data[1:2] in b"0123456fy":  # PIL's PPM test
+        return "Netpbm"
+    if data[:2] in (b"P7", b"PF"):  # PAM and colour PFM: refused by name, as PIL fails
+        return "Netpbm"
+    kind = next((n for sig, n in _OTHER_FORMATS if data.startswith(sig)), "unknown")
+    if kind == "unknown" and len(data) >= 4 and struct.unpack("<I", data[:4])[0] in (
+            12, 40, 52, 56, 64, 108, 124):  # PIL's DIB test: a BMP info header's size
+        kind = "DIB"
+    if kind == "unknown":
+        from .image_tga import is_tga
+
+        if is_tga(data[:18]):  # no magic: PIL's header checks, tried last
+            return "TGA"
+    return kind
 
 
 def read_image(path: str) -> np.ndarray:
     """An image file as (H, W, 3) uint8 RGB, as PIL's
     ``Image.open(path).convert("RGB")`` (see the module docstring)."""
-    from . import image_bmp, image_gif, image_tiff, image_webp
+    from . import image_bmp, image_gif, image_ico, image_pnm, image_tga, image_tiff, image_webp
 
     with open(path, "rb") as f:
-        head = f.read(16)
+        head = f.read(18)
     readers = {"PNG": read_png_rgb, "JPEG": read_jpeg_rgb, "GIF": image_gif.read_gif_rgb,
                "BMP": image_bmp.read_bmp_rgb, "TIFF": image_tiff.read_tiff_rgb,
-               "WebP": image_webp.read_webp_rgb}
+               "WebP": image_webp.read_webp_rgb, "Netpbm": image_pnm.read_pnm_rgb,
+               "ICO": image_ico.read_ico_rgb, "TGA": image_tga.read_tga_rgb,
+               "DIB": image_bmp.read_dib_rgb}
     kind = _format_name(head)
     if kind not in readers:
         raise ValueError(f"{path}: unknown image format (the port reads PNG, JPEG, GIF, BMP, "
-                         f"TIFF and WebP)")
+                         f"DIB, TIFF, WebP, Netpbm, ICO, CUR and TGA)")
     try:
         return readers[kind](path)
     except (struct.error, zlib.error) as e:  # data that ends inside a field
@@ -217,6 +241,11 @@ def read_png_rgb(path: str) -> np.ndarray:
     """A PNG file as (H, W, 3) uint8 RGB (see the module docstring)."""
     with open(path, "rb") as f:
         data = f.read()
+    return decode_png(data, path)
+
+
+def decode_png(data: bytes, path: str) -> np.ndarray:
+    """A PNG file's bytes as (H, W, 3) uint8 RGB."""
     if not data.startswith(_SIGNATURE):
         raise ValueError(f"{path}: {_format_name(data)} file, not a PNG")
     idat, palette, header = [], None, None
@@ -285,6 +314,8 @@ _SOF_NAMES = {0xC3: "lossless JPEG (SOF3)",
               0xCD: "arithmetic-coded hierarchical JPEG (SOF13)",
               0xCE: "arithmetic-coded hierarchical JPEG (SOF14)",
               0xCF: "arithmetic-coded hierarchical JPEG (SOF15)"}
+# the frames read besides SOF0-SOF2: lossless Huffman, arithmetic-coded
+_SOF_READ = (0xC3, 0xC9, 0xCA)
 _SCAN_END = re.compile(rb"\xff[^\x00\xd0-\xd7\xff]")
 _RESTART = re.compile(rb"\xff+[\xd0-\xd7]")
 
@@ -564,8 +595,14 @@ def _cmyk_pixels(planes: List[np.ndarray], adobe) -> np.ndarray:
         inv = _ycc_to_rgb(*planes[:3]).astype(np.int64)
     else:
         inv = 255 - np.stack(planes[:3], axis=-1).astype(np.int64)
-    nk = planes[3].astype(np.int64)[:, :, None]  # 255 - (255 - K)
-    t = inv * nk + 128
+    return cmyk_to_rgb(*np.moveaxis(inv, -1, 0), 255 - planes[3].astype(np.int64))
+
+
+def cmyk_to_rgb(c: np.ndarray, m: np.ndarray, y: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """PIL's ``cmyk2rgb`` of (H, W) int64 samples: each channel
+    clip(nk - nk * v / 255) with nk = 255 - K, in its rounded fixed point."""
+    nk = 255 - k[:, :, None]
+    t = np.stack([c, m, y], axis=-1) * nk + 128
     return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
@@ -590,8 +627,50 @@ def read_jpeg_rgb(path: str) -> np.ndarray:
         data = f.read()
     if not data.startswith(_JPEG_SIGNATURE):
         raise ValueError(f"{path}: {_format_name(data)} file, not a JPEG")
+    return decode_jpeg(data, path)
+
+
+def decode_jpeg(data: bytes, path: str, space: Optional[str] = None, tables: bytes = b"",
+                sampling=None) -> np.ndarray:
+    """A JPEG stream as (H, W, 3) uint8 RGB. ``space`` None takes the colour
+    space from libjpeg's guess, as for a JPEG file; a caller that knows it
+    (libtiff passes the TIFF photometric to libjpeg) gives "ycc" (YCbCr,
+    converted), "planes" ((H, W, components) samples, no conversion) or
+    "replicated" (the same, the subsampled components repeated rather than
+    filtered up). ``tables``, an abbreviated tables-only stream
+    (TIFF's JPEGTables), is read first, as ``jpeg_read_header(FALSE)``.
+    ``sampling`` (h, v), where given, is the first component's sampling the
+    caller requires ("any": any), the others' being 1x1, as libtiff
+    requires of a strip's stream."""
     qt: Dict[int, np.ndarray] = {}
     huff: Dict[Tuple[int, int], List[int]] = {}
+    if tables:
+        _jpeg_segments(tables, path, qt, huff, {})
+    frame, coefs, jfif, adobe, eoi = _jpeg_segments(data, path, qt, huff, {})
+    if frame is None:
+        raise ValueError(f"{path}: JPEG without a frame header")
+    if sampling is not None:
+        factors = [(h, v) for _, h, v, _ in frame["comps"]]
+        if (sampling != "any" and factors[0] != tuple(sampling)) or any(
+                f != (1, 1) for f in factors[1:]):
+            raise ValueError(f"{path}: JPEG sampling factors {factors} where libtiff requires "
+                             f"{sampling} for the first component and 1x1 for the others")
+    if frame["progressive"]:
+        if not eoi:
+            raise ValueError(f"{path}: truncated JPEG data: the file ends before its EOI "
+                             f"marker")
+        frame["smooth"] = _smoothing_ok(frame)
+    return _jpeg_pixels(frame, coefs, jfif, adobe, space)
+
+
+def _jpeg_segments(data: bytes, path: str, qt: Dict[int, np.ndarray],
+                   huff: Dict[Tuple[int, int], List[int]], cond: dict):
+    """Read a JPEG stream's markers and scans into ``qt``, ``huff``, ``cond``
+    (the DAC conditioning: (0, table) -> (L, U), (1, table) -> Kx) and the
+    coefficients (or, lossless, ``frame["samples"]``): (frame or None,
+    coefficients, JFIF marker seen, Adobe transform or None, EOI reached)."""
+    from . import image_jpeg_lossless
+
     frame = None
     restart, jfif, adobe, eoi = 0, False, None, False
     coefs: List[List[int]] = []
@@ -616,13 +695,18 @@ def read_jpeg_rgb(path: str) -> np.ndarray:
         (length,) = struct.unpack(">H", data[pos:pos + 2])
         seg = data[pos + 2:pos + length]
         pos += length
-        if marker in _SOF_NAMES:
+        if marker in _SOF_NAMES and marker not in _SOF_READ:
             raise ValueError(f"{path}: {_SOF_NAMES[marker]} is not read by the port "
-                             f"(baseline, extended sequential and progressive Huffman "
-                             f"JPEG only)")
-        if marker == 0xCC:
-            raise ValueError(f"{path}: arithmetic-coded JPEG (DAC) is not read by the port")
-        if marker in (0xC0, 0xC1, 0xC2):
+                             f"(baseline, extended sequential, progressive and lossless "
+                             f"Huffman and sequential and progressive arithmetic-coded JPEG "
+                             f"only)")
+        if marker == 0xCC:  # DAC: conditioning of arithmetic-coding tables
+            for i in range(0, len(seg) - 1, 2):
+                tc, tb, cs = seg[i] >> 4, seg[i] & 15, seg[i + 1]
+                if tc == 0 and (cs & 15) > cs >> 4:
+                    raise ValueError(f"{path}: corrupt JPEG DAC value {cs}")
+                cond[(tc, tb)] = (cs & 15, cs >> 4) if tc == 0 else cs
+        if marker in (0xC0, 0xC1, 0xC2) or marker in _SOF_READ:
             precision, height, width, n = struct.unpack(">BHHB", seg[:6])
             if precision != 8:
                 raise ValueError(f"{path}: {precision}-bit JPEG is not read by the port "
@@ -637,7 +721,8 @@ def read_jpeg_rgb(path: str) -> np.ndarray:
             mcux, mcuy = _ceil_div(width, 8 * hmax), _ceil_div(height, 8 * vmax)
             frame = {"width": width, "height": height, "comps": comps, "hmax": hmax,
                      "vmax": vmax, "mcux": mcux, "mcuy": mcuy, "quant": [None] * n,
-                     "progressive": marker == 0xC2,
+                     "progressive": marker in (0xC2, 0xCA), "arith": marker in (0xC9, 0xCA),
+                     "lossless": marker == 0xC3, "precision": precision, "samples": {},
                      # the bits each zigzag coefficient has so far (-1: none)
                      "coef_bits": [[-1] * 64 for _ in range(n)]}
             coefs = [[0] * (mcuy * v * mcux * h * 64) for _, h, v, _ in comps]
@@ -669,17 +754,20 @@ def read_jpeg_rgb(path: str) -> np.ndarray:
             if frame is None:
                 raise ValueError(f"{path}: JPEG scan before its frame header")
             end = _SCAN_END.search(data, pos)
+            if end is None and frame["arith"]:  # libjpeg reads on into the marker
+                raise ValueError(f"{path}: truncated JPEG data: an arithmetic-coded scan runs "
+                                 f"to the end of the file")
             end = len(data) if end is None else end.start()
-            _decode_scan(frame, seg, data[pos:end], qt, huff, restart, coefs)
+            if frame["lossless"]:
+                scan = data[pos:end]
+                parts = _RESTART.split(scan) if restart else [scan]
+                image_jpeg_lossless.decode_scan(
+                    frame, seg, [p.replace(b"\xff\x00", b"\xff") for p in parts], huff,
+                    restart, _peek16)
+            else:
+                _decode_scan(frame, seg, data[pos:end], qt, huff, restart, coefs, cond)
             pos = end
-    if frame is None:
-        raise ValueError(f"{path}: JPEG without a frame header")
-    if frame["progressive"]:
-        if not eoi:
-            raise ValueError(f"{path}: truncated JPEG data: the file ends before its EOI "
-                             f"marker")
-        _check_no_smoothing(path, frame)
-    return _jpeg_pixels(frame, coefs, jfif, adobe)
+    return frame, coefs, jfif, adobe, eoi
 
 
 # zigzag positions of the coefficients libjpeg's block smoothing estimates
@@ -689,25 +777,21 @@ _SMOOTHED = range(1, 10)
 _SMOOTHED_NATURAL = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24]
 
 
-def _check_no_smoothing(path: str, frame: dict) -> None:
-    """libjpeg smooths the blocks of a progressive image (``smoothing_ok``,
-    ``decompress_smooth_data``) where every component has its DC and
-    non-zero quantizers for the first ten coefficients and some of the
-    first nine AC coefficients still lack bits. That is not ported: such a
-    file raises rather than decode unsmoothed."""
+def _smoothing_ok(frame: dict) -> bool:
+    """libjpeg's ``smoothing_ok``: it smooths the blocks of a progressive
+    image (``image_jpeg_smooth``) where every component has its DC and
+    non-zero quantizers for the first ten coefficients, and some of the
+    first nine AC coefficients still lack bits."""
     for quant, bits in zip(frame["quant"], frame["coef_bits"]):
         if quant is None or bits[0] < 0 or not all(quant[_SMOOTHED_NATURAL]):
-            return
-    if any(bits[k] != 0 for bits in frame["coef_bits"] for k in _SMOOTHED):
-        raise ValueError(f"{path}: progressive JPEG whose scans leave bits of its first AC "
-                         f"coefficients unsent; libjpeg's block smoothing of such an image "
-                         f"is not ported")
+            return False
+    return any(bits[k] != 0 for bits in frame["coef_bits"] for k in _SMOOTHED)
 
 
 def _decode_scan(frame: dict, header: bytes, scan: bytes, qt, huff, restart: int,
-                 coefs: List[List[int]]) -> None:
-    """Huffman-decode one scan into ``coefs`` (each component's blocks,
-    zigzag order, in the padded MCU grid)."""
+                 coefs: List[List[int]], cond: Optional[dict] = None) -> None:
+    """Huffman- or arithmetic-decode one scan into ``coefs`` (each component's
+    blocks, zigzag order, in the padded MCU grid)."""
     comps = frame["comps"]
     ids = [c[0] for c in comps]
     n = header[0]
@@ -728,9 +812,12 @@ def _decode_scan(frame: dict, header: bytes, scan: bytes, qt, huff, restart: int
     for i in range(n):
         cid, tables = header[1 + 2 * i], header[2 + 2 * i]
         ci = ids.index(cid)
-        dc, ac = huff.get((0, tables >> 4)), huff.get((1, tables & 15))
-        if (need_dc and dc is None) or (need_ac and ac is None):
-            raise ValueError("JPEG scan uses a Huffman table it does not define")
+        if frame["arith"]:  # the tables' numbers: statistics bins and DAC conditioning
+            dc, ac = tables >> 4, tables & 15
+        else:
+            dc, ac = huff.get((0, tables >> 4)), huff.get((1, tables & 15))
+            if (need_dc and dc is None) or (need_ac and ac is None):
+                raise ValueError("JPEG scan uses a Huffman table it does not define")
         members.append((ci, dc, ac))
         if frame["quant"][ci] is None:  # latched at the component's first scan
             frame["quant"][ci] = qt.get(comps[ci][3])
@@ -760,6 +847,12 @@ def _decode_scan(frame: dict, header: bytes, scan: bytes, qt, huff, restart: int
                             slots.append((ci, ((my * v + yy) * stride + mx * h + xx) * 64,
                                           dc, ac))
     segments = _RESTART.split(scan) if restart else [scan]
+    if frame["arith"]:
+        from . import image_jpeg_arith
+
+        image_jpeg_arith.decode_scan(frame, members, segments, restart, per_mcu, slots, coefs,
+                                     ss, se, ah, al, cond or {})
+        return
     chunk = restart * per_mcu if restart else len(slots)
     for i in range(0, len(slots), chunk):
         seg = segments[i // chunk] if i // chunk < len(segments) else b""
@@ -779,28 +872,57 @@ def _decode_scan(frame: dict, header: bytes, scan: bytes, qt, huff, restart: int
             raise ValueError("truncated JPEG data: the scan ends early") from None
 
 
-def _jpeg_pixels(frame: dict, coefs: List[List[int]], jfif: bool, adobe) -> np.ndarray:
-    """IDCT, upsampling and colour conversion of the decoded coefficients."""
+def _jpeg_pixels(frame: dict, coefs: List[List[int]], jfif: bool, adobe,
+                 space: Optional[str] = None) -> np.ndarray:
+    """IDCT, upsampling and colour conversion of the decoded coefficients
+    (``space``: see ``decode_jpeg``)."""
+    from . import image_jpeg_lossless, image_jpeg_smooth
+
     width, height, comps = frame["width"], frame["height"], frame["comps"]
     hmax, vmax, mcux, mcuy = frame["hmax"], frame["vmax"], frame["mcux"], frame["mcuy"]
-    planes = []
-    for ci, (_, h, v, tq) in enumerate(comps):
+    planes = image_jpeg_lossless.planes(frame) if frame["lossless"] else []
+    for ci, (_, h, v, tq) in enumerate([] if frame["lossless"] else comps):
         quant = frame["quant"][ci]
         if quant is None:
             raise ValueError("JPEG component with no scan or no quantization table")
         zz = np.asarray(coefs[ci], np.int64).reshape(-1, 64)
         nat = np.empty_like(zz)
         nat[:, _ZIGZAG] = zz
+        dh, dw = _ceil_div(height * v, vmax), _ceil_div(width * h, hmax)
+        if frame.get("smooth"):  # the component's own blocks, not the MCU padding
+            grid = nat.reshape(mcuy * v, mcux * h, 64)
+            bh, bw = _ceil_div(dh, 8), _ceil_div(dw, 8)
+            grid[:bh, :bw] = image_jpeg_smooth.smooth(grid.copy(), bh, bw, v, quant,
+                                                      frame["coef_bits"][ci][:10])
         blocks = _idct_islow(nat, quant).reshape(mcuy * v, mcux * h, 8, 8)
         plane = blocks.transpose(0, 2, 1, 3).reshape(mcuy * v * 8, mcux * h * 8)
-        dh, dw = _ceil_div(height * v, vmax), _ceil_div(width * h, hmax)
-        planes.append(_upsample(plane[:dh, :dw], h, v, hmax, vmax)[:height, :width])
+        if space == "replicated":  # libtiff's data units: chroma repeated, not filtered
+            if hmax % h or vmax % v:
+                raise ValueError(f"JPEG sampling {h}x{v} of {hmax}x{vmax} is fractional")
+            planes.append(np.repeat(np.repeat(plane[:dh, :dw], vmax // v, axis=0), hmax // h,
+                                    axis=1)[:height, :width])
+        else:
+            planes.append(_upsample(plane[:dh, :dw], h, v, hmax, vmax)[:height, :width])
+    if space in ("planes", "replicated"):
+        return np.stack([p.astype(np.uint8) for p in planes], axis=-1)
+    if space is not None:  # "ycc"
+        if len(planes) != 3:
+            raise ValueError(f"YCbCr JPEG data with {len(planes)} components")
+        return _ycc_to_rgb(*planes)
     if len(planes) == 1:
         return np.repeat(planes[0].astype(np.uint8)[:, :, None], 3, axis=2)
     if len(planes) == 4:
+        if frame["lossless"] and adobe not in (None, 0):
+            raise ValueError("lossless YCCK JPEG: libjpeg-turbo does not convert its colour, and "
+                             "PIL fails on it")
         return _cmyk_pixels(planes, adobe)
     ids = [c[0] for c in comps]
-    if jfif:
+    if frame["lossless"]:  # libjpeg-turbo takes RGB but under JFIF or an Adobe transform
+        if jfif or adobe not in (None, 0):
+            raise ValueError("lossless JPEG in YCbCr (a JFIF marker or an Adobe transform): "
+                             "libjpeg-turbo does not convert its colour, and PIL fails on it")
+        rgb_space = True
+    elif jfif:
         rgb_space = False
     elif adobe is not None:
         rgb_space = adobe == 0

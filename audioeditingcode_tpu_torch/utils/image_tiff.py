@@ -3,50 +3,109 @@ library only, bit-equal to PIL 12.1's ``np.array(Image.open(path).convert(
 "RGB"))``.
 
 The first IFD of a classic TIFF, little-endian (``II*\\0``) or big-endian
-(``MM\\0*``):
+(``MM\\0*``), or of a little-endian BigTIFF (``II+\\0``: 8-byte offsets,
+20-byte IFD entries with 8-byte counts, the types LONG8, SLONG8 and IFD8;
+PIL fails on a big-endian one, ``MM\\0+``, and so the port raises):
 
 - compression none (1; PIL's own raw decoder), PackBits (32773), LZW (5:
   most significant bit first with libtiff's "early change", or the old
   least-significant-bit-first codes libtiff still reads, told apart by
-  their first two bytes as libtiff does) and Deflate (8, 32946); LZW and
-  Deflate with predictor 1 or 2 (horizontal differencing per sample,
-  16-bit samples in the file's byte order), which libtiff does not apply
-  to PackBits, nor PIL to uncompressed data;
+  their first two bytes as libtiff does), Deflate (8, 32946) and JPEG (7,
+  below); LZW and Deflate with predictor 1, 2 (horizontal differencing per
+  sample, 16- and 32-bit samples in the file's byte order) or 3 (libtiff's
+  floating-point byte planes), which libtiff does not apply to PackBits,
+  nor PIL to uncompressed data;
 - strips, or tiles cut at the image's edge; planar configuration 1
-  (chunky) or 2 (one plane per sample) where PIL reads it right: 8-bit RGB
-  and RGBA, and compressed 16-bit RGB and RGBA, greyscale + alpha and
-  premultiplied RGBA. The other planar files raise: PIL fails on some
-  (an extra sample not alpha; uncompressed premultiplied alpha or
-  greyscale + alpha) and mis-reads others (uncompressed 16-bit samples; a
-  compressed fourth sample without an ExtraSamples tag);
-- the modes of PIL's ``OPEN_INFO`` that turn into RGB:
+  (chunky) or 2 (one plane per sample) where PIL reads it right: 8-bit
+  RGB, RGBA, CMYK and CIELab, compressed 16-bit RGB, RGBA and CMYK,
+  greyscale + alpha, palette + alpha and premultiplied RGBA, and, in
+  compressed tiles (not strips, where PIL fails), unspecified extra
+  samples. The other planar files raise: PIL fails on some (an extra
+  sample not alpha in strips or uncompressed; uncompressed premultiplied
+  alpha or greyscale + alpha) and misreads others (uncompressed 16-bit
+  samples; a fourth sample without an ExtraSamples tag, compressed, or
+  uncompressed in a tile cut at the edge; palette + unspecified sample in
+  tiles; one uncompressed sample in a mode whose raw mode PIL cuts to its
+  first letter; any uncompressed plane with FillOrder 2);
+- FillOrder 2 (bits reversed in each byte) in the modes PIL has a
+  FillOrder 2 entry for (1, 2, 4 and 8-bit greyscale, 16-bit
+  little-endian BlackIsZero, 8-bit RGB, palette); PIL fails on the rest;
+- the modes of PIL's ``OPEN_INFO`` and their conversion to RGB:
 
   - WhiteIsZero and BlackIsZero at 1, 2, 4 and 8 bits (mode ``1`` gives 0
     or 255; 2 and 4 bits are scaled by 85 and 17; WhiteIsZero is inverted),
-    at 8 bits with an alpha sample (``LA``), and at 16 bits, where PIL opens
-    ``I;16`` (``I;16B`` big-endian) and ``convert("RGB")`` clamps at 255; a
-    16-bit WhiteIsZero little-endian file opens uninverted, as in PIL, and
-    a big-endian one raises, as PIL does;
+    at 8 bits with an alpha sample (``LA``), and at 12 and 16 bits, where
+    PIL opens ``I;16`` (``I;16B`` big-endian; 12-bit little-endian
+    BlackIsZero unscaled) and ``convert("RGB")`` clamps at 255; a 16-bit
+    WhiteIsZero little-endian file opens uninverted, as in PIL, and a
+    big-endian one raises, as PIL does;
+  - signed 16- and 32-bit and unsigned 32-bit (little-endian only)
+    BlackIsZero as mode ``I``, clamped to [0, 255]; 32-bit floating point
+    (WhiteIsZero or BlackIsZero, not inverted) as mode ``F``, whose
+    conversion goes through ``L``: 0 at or below 0 and for NaN, 255 at or
+    above 255, else truncated. Compressed big-endian files of these raise:
+    libtiff hands PIL native-order samples, which PIL reads as big-endian;
   - RGB at 8 and 16 bits (16-bit samples keep their high byte), with extra
     samples: unassociated alpha or unspecified ones are dropped; an
     associated (premultiplied) alpha is divided out first, as PIL's
     ``RGBa`` unpacker does;
   - palette at 1, 2, 4 and 8 bits, the 16-bit colormap narrowed to its
     high byte, an index past it black; a palette index with an extra
-    sample.
+    sample;
+  - CMYK (photometric 5) at 8 bits, with one or two unspecified extra
+    samples, and at 16 bits (the high byte), whatever its InkSet: PIL opens
+    it as ``CMYK``, not inverted, and its ``cmyk2rgb`` gives RGB;
+  - YCbCr (photometric 6), compressed: PIL has libtiff's RGBA interface
+    read it: the data units of YCbCrSubsampling (1, 2 or 4 across, 1, 2 or
+    4 down, vertical at most horizontal but 1x2; 2x2 where the tag is
+    absent) with their chroma replicated, libtiff's ``TIFFYCbCrToRGB``
+    tables from YCbCrCoefficients and ReferenceBlackWhite (float32 as
+    libtiff computes them), and two libtiff quirks kept: a strip is read as
+    whole scanlines of ``TIFFScanlineSize``, which rounds down, so with 4x4
+    units and an odd number of them across the strip's last bytes read as
+    zero; a 4x4 tile cut at the image's edge skips its hidden units by the
+    size of 4x2 ones; predictor 2 runs at a stride of three bytes over
+    libtiff's rows (a strip's scanline size, three bytes a pixel of a
+    tile's width), or not at all where they do not divide the block
+    (libtiff fails on it, and the RGBA read, not stopping on errors, draws
+    the bytes as decoded). Uncompressed YCbCr raises: PIL reads its samples as
+    RGBX, four bytes a pixel, and fails or reads past them. One-sample YCbCr opens as ``L`` uncompressed, and fails
+    in PIL otherwise;
+  - CIELab (photometric 8) at 8 bits, as PIL's ``LAB`` (the bytes as
+    stored; in planes PIL's A and B band unpackers flip a* and b*'s sign
+    bit, and so does the port) and its LittleCMS transform to sRGB
+    (``image_lab``).
+
+JPEG-in-TIFF (compression 7): the JPEGTables stream (tag 347) is read
+before each strip's or tile's abbreviated stream, which goes through
+``image_io.decode_jpeg`` with the colour space libtiff gives libjpeg: the
+photometric, not libjpeg's guess (2: RGB samples as they are; 6: YCbCr,
+converted with fancy upsampling, as libtiff's JPEGCOLORMODE_RGB that PIL
+sets; 1: greyscale; 5: CMYK samples, then ``cmyk2rgb``; 8: CIELab). As in
+libtiff, the first component's sampling must be YCbCrSubsampling (2x2
+where the tag is absent and the stream says otherwise: libtiff reads the
+tag from the stream) for YCbCr and 1x1 for the rest, the others' 1x1; a
+stream larger than its strip or tile raises, but a last strip's stream
+that runs past the image, which libtiff cuts to the image; tiles are cut
+at the image's edge.
 
 The Orientation tag (274) is applied as PIL 12.1 applies it on load
 (``ImageOps.exif_transpose``: 2 mirrors, 3 turns 180 degrees, 4 flips,
 5 transposes, 6 turns 90 degrees clockwise, 7 transverses, 8 turns 90
 degrees anticlockwise). Orientation 5-8 on an uncompressed file whose one
 strip or tile covers the image, in a mode PIL maps straight into memory
-(L, P, RGBA, I;16, I;16B read as stored), raises: PIL misreads it, taking
-the pixels in file order as an image of the swapped size. JPEG-in-TIFF
-(compression 6 and 7), BigTIFF, FillOrder 2, signed and floating-point
-samples, 12- and 32-bit samples and the other photometric interpretations
-(transparency mask, CMYK, YCbCr, CIELab and beyond) raise a ``ValueError``
-that names them; so do a file that ends before a strip or tile, and
-compressed data that decodes to less than its strip or tile.
+(L, P, RGBA, CMYK, I;16, I;16B read as stored), raises: PIL
+misreads it, taking the pixels in file order as an image of the swapped
+size. Old-style JPEG (compression 6) whose JPEGInterchangeFormat stream
+covers the image, or with baseline tables in tags and one strip, reads as
+libtiff's OJPEG codec decodes it (``_old_jpeg``). Other old-style JPEG
+(several strips of tables-in-tags data, lossless processes), the other
+compressions (CCITT, LZMA,
+Zstandard, WebP, ...), 64-bit and other sample formats, and the other
+photometric interpretations (transparency mask, ICCLab, ITULab, LogLuv)
+raise a ``ValueError`` that names them; so do a file that ends before a
+strip or tile, and compressed data that decodes to less than its strip or
+tile.
 """
 
 from __future__ import annotations
@@ -57,43 +116,77 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from . import image_lab
 from .image_io import _samples as _unpack
+from .image_io import cmyk_to_rgb, decode_jpeg
 
-_PHOTOMETRIC = {4: "transparency-mask", 5: "CMYK", 6: "YCbCr", 8: "CIELab", 9: "ICCLab",
-                10: "ITULab", 32844: "LogL", 32845: "LogLuv"}
+_PHOTOMETRIC = {4: "transparency-mask", 9: "ICCLab", 10: "ITULab", 32844: "LogL",
+                32845: "LogLuv"}
 _COMPRESSION = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 32771: "RLE 16-bit",
                 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24", 34925: "LZMA",
                 50000: "Zstandard", 50001: "WebP"}
-# bytes of each TIFF field type, and its struct code (integer types only)
-_TYPES = {1: (1, "B"), 2: (1, "B"), 3: (2, "H"), 4: (4, "I"), 6: (1, "b"), 7: (1, "B"),
-          8: (2, "h"), 9: (4, "i"), 16: (8, "Q")}
+# bytes of each TIFF field type, and its struct code (RATIONAL and SRATIONAL
+# give pairs, read as float32 quotients as libtiff does)
+_TYPES = {1: (1, "B"), 2: (1, "B"), 3: (2, "H"), 4: (4, "I"), 5: (8, "I"), 6: (1, "b"),
+          7: (1, "B"), 8: (2, "h"), 9: (4, "i"), 10: (8, "i"), 11: (4, "f"), 12: (8, "d"),
+          13: (4, "I"), 16: (8, "Q"), 17: (8, "q"), 18: (8, "Q")}
 _CLEAR, _EOI = 256, 257
 # ImageOps.exif_transpose on (H, W, C) arrays
 _ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
            5: lambda a: a.transpose(1, 0, 2), 6: lambda a: np.rot90(a, -1),
            7: lambda a: np.rot90(a, 2).transpose(1, 0, 2), 8: lambda a: np.rot90(a, 1)}
+# bit-reversed bytes, for FillOrder 2
+_REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 
 
-def _ifd(data: bytes, order: str, path: str) -> Dict[int, Tuple[int, ...]]:
-    """The integer tags of the first IFD: tag -> values."""
-    (off,) = struct.unpack(order + "I", data[4:8])
-    if off + 2 > len(data):
-        raise ValueError(f"{path}: truncated TIFF data: the first IFD lies past the file")
-    (n,) = struct.unpack(order + "H", data[off:off + 2])
-    if off + 2 + 12 * n > len(data):
-        raise ValueError(f"{path}: truncated TIFF data: the first IFD ends past the file")
+def _header(data: bytes, path: str) -> Tuple[str, bool]:
+    """(byte order, BigTIFF) of the file's header."""
+    if data[:4] in (b"II*\x00", b"MM\x00*") and len(data) >= 8:
+        return ("<" if data[:2] == b"II" else ">"), False
+    if data[:4] == b"MM\x00+":
+        raise ValueError(f"{path}: big-endian BigTIFF: PIL fails on it (it takes the version "
+                         f"from the third byte), so the port does not read it")
+    if data[:4] == b"II+\x00" and len(data) >= 16:
+        order = "<"
+        if struct.unpack(order + "HH", data[4:8]) != (8, 0):
+            raise ValueError(f"{path}: BigTIFF with an offset size other than 8")
+        return order, True
+    raise ValueError(f"{path}: not a TIFF file, or one cut short in its header")
+
+
+def _ifd(data: bytes, order: str, path: str, big: bool = False) -> Dict[int, tuple]:
+    """The tags of the first IFD: tag -> values (integers; floats for
+    RATIONAL, SRATIONAL, FLOAT and DOUBLE). As PIL's reader, the tags up to
+    the first whose entry or values the file cuts short."""
+    if big:
+        (off,) = struct.unpack(order + "Q", data[8:16])
+        nsize, head, esize, inline = 8, "HHQ", 20, 8
+    else:
+        (off,) = struct.unpack(order + "I", data[4:8])
+        nsize, head, esize, inline = 2, "HHI", 12, 4
     tags = {}
+    if off + nsize > len(data):
+        return tags
+    (n,) = struct.unpack(order + ("Q" if big else "H"), data[off:off + nsize])
     for i in range(n):
-        tag, kind, count = struct.unpack(order + "HHI", data[off + 2 + 12 * i:off + 10 + 12 * i])
+        e = off + nsize + esize * i
+        if e + esize > len(data):  # as PIL: stop at the first entry the file cuts
+            break
+        tag, kind, count = struct.unpack(order + head, data[e:e + esize - inline])
         if kind not in _TYPES:
             continue
         size, code = _TYPES[kind]
-        where = off + 10 + 12 * i
-        if size * count > 4:
-            (where,) = struct.unpack(order + "I", data[where:where + 4])
-        if where + size * count > len(data):
-            raise ValueError(f"{path}: truncated TIFF data: tag {tag} lies past the file")
-        tags[tag] = struct.unpack(f"{order}{count}{code}", data[where:where + size * count])
+        where = e + esize - inline
+        if size * count > inline:
+            (where,) = struct.unpack(order + ("Q" if big else "I"), data[where:where + inline])
+        if where + size * count > len(data):  # PIL warns and keeps the tags before it
+            break
+        if kind in (5, 10):
+            pairs = struct.unpack(f"{order}{2 * count}{code}", data[where:where + size * count])
+            tags[tag] = tuple(float(np.float32(a / b)) if b else 0.0
+                              for a, b in zip(pairs[0::2], pairs[1::2]))
+        else:
+            tags[tag] = struct.unpack(f"{order}{count}{code}", data[where:where + size * count])
     return tags
 
 
@@ -180,31 +273,44 @@ def _inflate(src: bytes, size: int) -> bytes:
 
 
 def _samples(raw: bytes, rows: int, cols: int, spp: int, bits: int, order: str,
-             predictor: int) -> np.ndarray:
-    """A strip's or tile's bytes -> (rows, cols, spp) samples (uint16), each
-    row starting on a byte, horizontal differencing undone."""
+             predictor: int, fmt: int) -> np.ndarray:
+    """A strip's or tile's bytes -> (rows, cols, spp) samples (int64, or
+    float32 for sample format 3), each row starting on a byte, the
+    predictor undone."""
     stride = (cols * spp * bits + 7) // 8
     buf = np.frombuffer(raw, np.uint8, rows * stride).reshape(rows, stride)
-    if bits == 16:
-        px = buf.view(order + "u2").astype(np.int64).reshape(rows, cols, spp)
+    nb = bits // 8
+    if predictor == 3:  # libtiff's fpAcc: bytes summed at a stride of spp, then byte planes
+        acc = np.cumsum(buf.reshape(rows, cols * nb, spp).astype(np.int64), axis=1) & 255
+        planes = acc.reshape(rows, nb, cols * spp).transpose(0, 2, 1).astype(np.uint8)
+        return np.ascontiguousarray(planes).view(">f4").reshape(rows, cols, spp)
+    if bits in (16, 32):
+        px = buf.view(f"{order}u{nb}").astype(np.int64).reshape(rows, cols, spp)
+    elif bits == 12:  # I;12: 12-bit samples packed most significant bit first
+        b = np.unpackbits(buf, axis=1)[:, :cols * spp * 12].reshape(rows, cols, spp, 12)
+        px = b.astype(np.int64) @ (1 << np.arange(11, -1, -1))
     else:
         px = _unpack(buf, cols, spp, bits).astype(np.int64)
     if predictor == 2:
         px = np.cumsum(px, axis=1) & ((1 << bits) - 1)
-    return px.astype(np.uint16)
+    if fmt == 3:
+        return px.astype(np.uint32).view(np.float32)
+    if fmt == 2:
+        return np.where(px >= 1 << (bits - 1), px - (1 << bits), px)
+    return px
 
 
-def _mode(tags, order: str, path: str) -> Tuple[str, int, Tuple[int, ...], int]:
-    """PIL's ``_setup`` checks: (mode, photometric, bits per sample, samples
-    per pixel), or a ValueError where PIL has no mode or the port lacks one."""
+def _mode(tags, order: str, comp: int, path: str) -> Tuple[str, int, int, int, int]:
+    """PIL's ``_setup`` checks: (kind, photometric, bits per sample,
+    samples per pixel, sample format), or a ValueError where PIL has no mode
+    or the port lacks one."""
     photo = tags.get(262, (0,))[0]
     if photo in _PHOTOMETRIC:
         raise ValueError(f"{path}: {_PHOTOMETRIC[photo]} TIFF (photometric {photo}) is not read "
                          f"by the port")
-    if photo not in (0, 1, 2, 3):
+    if photo not in (0, 1, 2, 3, 5, 6, 8):
         raise ValueError(f"{path}: TIFF photometric interpretation {photo} is not read")
-    if tags.get(266, (1,))[0] != 1:
-        raise ValueError(f"{path}: TIFF with FillOrder 2 (bits reversed) is not read by the port")
+    fill = tags.get(266, (1,))[0]
     fmt = tags.get(339, (1,))
     if len(fmt) > 1 and max(fmt) == min(fmt) == 1:
         fmt = (1,)
@@ -220,36 +326,77 @@ def _mode(tags, order: str, path: str) -> Tuple[str, int, Tuple[int, ...], int]:
     grey = photo in (0, 1)
     if fmt == (2,) and grey and bps == (8,) and photo == 1:
         fmt = (1,)  # PIL reads signed 8-bit BlackIsZero as L
-    if fmt != (1,):
-        raise ValueError(f"{path}: TIFF sample format {fmt} (signed or floating point) is not "
-                         f"read by the port")
+    if fmt not in ((1,), (2,), (3,)):
+        raise ValueError(f"{path}: TIFF sample format {fmt} is not read by the port")
     bits = bps[0]
-    ok = False
-    if grey and not extra:
-        ok = bps in ((1,), (2,), (4,), (8,), (16,))
-        if bps == (16,) and photo == 0 and order == ">":
-            raise ValueError(f"{path}: 16-bit big-endian WhiteIsZero TIFF: PIL has no mode for "
-                             f"it")
+    kind = None
+    if fmt == (3,):
+        if grey and bps == (32,) and not extra:
+            kind = "F"
+    elif fmt == (2,):
+        if photo == 1 and bps in ((16,), (32,)) and not extra:
+            kind = "I"
+    elif grey and not extra:
+        if bps in ((1,), (2,), (4,), (8,), (16,)):
+            kind = "grey"
+            if bps == (16,) and photo == 0 and order == ">":
+                raise ValueError(f"{path}: 16-bit big-endian WhiteIsZero TIFF: PIL has no mode "
+                                 f"for it")
+        elif bps in ((12,), (32,)) and photo == 1 and order == "<":
+            kind = "grey" if bits == 12 else "I"  # I;12 and I;32N
     elif photo == 1:
-        ok = bps == (8, 8) and extra == (2,)
+        if bps == (8, 8) and extra == (2,):
+            kind = "grey"
     elif photo == 2:
         if bps == (8,) * spp:
             ok = ((spp == 3 and not extra)
                   or (spp == 4 and extra in ((), (0,), (1,), (2,), (999,)))
                   or (spp in (5, 6) and len(extra) == spp - 3 and extra[0] in (0, 1, 2)
                       and not any(extra[1:])))
-        elif bps == (16,) * spp:
-            ok = (spp == 3 and not extra) or (spp == 4 and extra in ((), (0,), (1,), (2,)))
+        else:
+            ok = bps == (16,) * spp and ((spp == 3 and not extra)
+                                         or (spp == 4 and extra in ((), (0,), (1,), (2,))))
+        if ok:
+            kind = "RGBa" if extra[:1] == (1,) else "RGB"
     elif photo == 3:
-        ok = (bps in ((1,), (2,), (4,), (8,)) and not extra) or (bps == (8, 8)
-                                                                   and extra in ((0,), (2,)))
-    if not ok:
-        raise ValueError(f"{path}: TIFF photometric {photo} with {bps} bits and extra samples "
-                         f"{extra}: PIL has no mode for it")
-    mode = {0: "grey", 1: "grey", 2: "RGB", 3: "P"}[photo]
-    if photo == 2 and extra[:1] == (1,):
-        mode = "RGBa"
-    return mode, photo, bits, spp
+        if (bps in ((1,), (2,), (4,), (8,)) and not extra) or (bps == (8, 8)
+                                                               and extra in ((0,), (2,))):
+            kind = "P"
+    elif photo == 5:
+        if (bps == (8,) * spp and extra == (0,) * (spp - 4) and spp in (4, 5, 6)) or (
+                bps == (16,) * 4 and not extra):
+            kind = "CMYK"
+    elif photo == 6:
+        if bps == (8, 8, 8) and not extra:
+            kind = "YCbCr"
+        elif bps == (8,) and not extra:
+            if comp != 1:
+                raise ValueError(f"{path}: compressed one-sample YCbCr TIFF: PIL fails on it "
+                                 f"(libtiff's RGBA interface takes three samples)")
+            kind = "grey"  # PIL opens it as L
+    elif photo == 8:
+        if bps == (8, 8, 8) and not extra:
+            kind = "LAB"
+    if kind is None:
+        raise ValueError(f"{path}: TIFF photometric {photo} with {bps} bits, sample format "
+                         f"{fmt[0]} and extra samples {extra}: PIL has no mode for it")
+    if fill == 2 and not ((grey and not extra and fmt == (1,) and (
+            bits in (1, 2, 4, 8) or (bits == 16 and photo == 1 and order == "<")))
+            or (kind == "RGB" and bps == (8, 8, 8) and not extra)
+            or (kind == "P" and not extra)):
+        raise ValueError(f"{path}: TIFF with FillOrder 2 in photometric {photo} at {bps} bits: "
+                         f"PIL has no mode for it")
+    if fill == 2 and comp == 1 and ((kind == "grey" and photo == 0 and bits == 8)
+                                    or (kind == "P" and bits < 8)):
+        raise ValueError(f"{path}: uncompressed TIFF with FillOrder 2 in photometric {photo} at "
+                         f"{bits} bits: PIL has no unpacker for it")
+    if fill not in (1, 2):
+        raise ValueError(f"{path}: TIFF FillOrder {fill} is not a valid one")
+    if kind in ("F", "I") and comp != 1 and order == ">" and bits > 8:
+        raise ValueError(f"{path}: compressed big-endian {bits}-bit signed or floating-point "
+                         f"TIFF: PIL misreads it (libtiff gives native-order samples, PIL takes "
+                         f"them as big-endian), so the port does not read it")
+    return kind, photo, bits, spp, fmt[0]
 
 
 def read_tiff_rgb(path: str) -> np.ndarray:
@@ -257,36 +404,68 @@ def read_tiff_rgb(path: str) -> np.ndarray:
     docstring)."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:4] in (b"II+\x00", b"MM\x00+"):
-        raise ValueError(f"{path}: BigTIFF is not read by the port (classic TIFF only)")
-    if data[:4] not in (b"II*\x00", b"MM\x00*") or len(data) < 8:
-        raise ValueError(f"{path}: not a TIFF file, or one cut short in its header")
-    order = "<" if data[:2] == b"II" else ">"
-    tags = _ifd(data, order, path)
+    order, big = _header(data, path)
+    tags = _ifd(data, order, path, big)
     if 256 not in tags or 257 not in tags:
         raise ValueError(f"{path}: TIFF without its image width or length")
     width, height = tags[256][0], tags[257][0]
     comp = tags.get(259, (1,))[0]
-    if comp in (6, 7):
-        raise ValueError(f"{path}: JPEG-in-TIFF (compression {comp}) is not read by the port")
+    if comp == 6:
+        rgb = _old_jpeg(data, tags, width, height, path)
+        orient = tags.get(274, (1,))[0]
+        return np.ascontiguousarray(_ORIENT[orient](rgb)) if orient in _ORIENT else rgb
     if comp in _COMPRESSION:
         raise ValueError(f"{path}: {_COMPRESSION[comp]} TIFF (compression {comp}) is not read "
                          f"by the port")
-    if comp not in (1, 5, 8, 32773, 32946):
+    if comp not in (1, 5, 7, 8, 32773, 32946):
         raise ValueError(f"{path}: TIFF compression {comp} is not read by the port")
-    mode, photo, bits, spp = _mode(tags, order, path)
+    kind, photo, bits, spp, fmt = _mode(tags, order, comp, path)
     predictor = tags.get(317, (1,))[0] if comp in (5, 8, 32946) else 1
-    if predictor not in (1, 2) or (predictor == 2 and bits not in (8, 16)):
+    if predictor not in (1, 2, 3) or (predictor == 2 and bits not in (8, 16, 32)) or (
+            predictor == 3 and (fmt != 3 or order == ">")):
         raise ValueError(f"{path}: TIFF predictor {predictor} at {bits} bits is not read")
     planar = tags.get(284, (1,))[0]
-    if planar == 2 and spp > 1:
-        extra = tags.get(338, ())
-        if (comp == 1 and (bits != 8 or mode != "RGB" or extra not in ((), (2,)))) or (
-                comp != 1 and (spp > 4 or extra == (0,) or (spp == 4 and not extra))):
+    sub = tags.get(530, (2, 2))[:2] if kind == "YCbCr" else (1, 1)
+    if kind == "YCbCr" and comp == 1:
+        raise ValueError(f"{path}: uncompressed YCbCr TIFF: PIL reads its samples as RGBX, "
+                         f"four bytes a pixel, and fails on it or misreads it")
+    if kind == "YCbCr" and (comp != 7 or planar == 2) and (
+            sub not in ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+            or (planar == 2 and sub != (1, 1))):
+        raise ValueError(f"{path}: YCbCr TIFF with subsampling {sub} and planar "
+                         f"configuration {planar}: libtiff's RGBA interface, which PIL reads "
+                         f"it with, fails on it")
+    if comp == 7 and (bits != 8 or planar == 2):
+        raise ValueError(f"{path}: JPEG-in-TIFF at {bits} bits or in planes is not read by the "
+                         f"port")
+    if planar == 2 and spp == 1 and comp == 1 and not (
+            (bits == 8 and photo != 0 and kind in ("grey", "P")) or (bits == 1 and photo == 1)
+            or (kind in ("F", "I") and bits == 32 and order == "<")):
+        raise ValueError(f"{path}: uncompressed one-sample TIFF in planes: PIL reads it by the "
+                         f"first letter of its raw mode and fails on it or misreads it")
+    tiled = 324 in tags
+    extra = tags.get(338, ())
+    if planar == 2 and spp > 1 and kind not in ("YCbCr", "CMYK", "LAB"):
+        # compressed: PIL fails on extra samples in strips, reads them in tiles
+        if (comp == 1 and (bits != 8 or kind != "RGB" or extra not in ((), (2,)))) or (
+                comp != 1 and not tiled and (spp > 4 or extra == (0,) or (spp == 4 and not extra))
+        ) or (comp != 1 and tiled and ((spp == 4 and not extra) or (kind, extra) == ("P", (0,)))):
             raise ValueError(f"{path}: planar TIFF with {spp} samples of {bits} bits, extra "
                              f"samples {extra} and compression {comp}: PIL fails on it or "
                              f"mis-reads it, and the port does not read it")
-    if 324 in tags:
+    if planar == 2 and comp == 1 and tiled and tags.get(256, (0,))[0] % tags[322][0] and spp != (
+            {2: 3, 6: 3, 8: 3, 5: 4}.get(photo, 1) + len(extra)):
+        raise ValueError(f"{path}: uncompressed planar TIFF with {spp} samples but "
+                         f"{len(extra)} extra samples and a tile cut at the image's edge: PIL "
+                         f"misreads that tile's stride")
+    if planar == 2 and comp == 1 and tags.get(266, (1,))[0] == 2:
+        raise ValueError(f"{path}: uncompressed planar TIFF with FillOrder 2: PIL reads each "
+                         f"plane by its raw mode's first letter, without the bit reversal")
+    if planar == 2 and kind == "CMYK" and (
+            (spp != 4 and (comp == 1 or not tiled)) or (bits == 16 and comp == 1)):
+        raise ValueError(f"{path}: planar CMYK TIFF at {bits} bits with {spp} samples: PIL "
+                         f"fails on it or mis-reads it, and the port does not read it")
+    if tiled:
         offsets, counts = tags[324], tags.get(325)
         bw, bh = tags[322][0], tags[323][0]
     elif 273 in tags:
@@ -298,13 +477,15 @@ def read_tiff_rgb(path: str) -> np.ndarray:
     cols, rows = -(-width // bw), -(-height // bh)
     orient = tags.get(274, (1,))[0]
     if orient in (5, 6, 7, 8) and comp == 1 and cols * rows == 1 and (
-            planar == 1 or spp == 1) and _mapped(mode, photo, bits, spp, order, tags):
+            planar == 1 or spp == 1) and _mapped(kind, photo, bits, spp, order, tags):
         raise ValueError(f"{path}: Orientation {orient} on an uncompressed single-strip or "
                          f"single-tile TIFF (PIL misreads it) is not read by the port")
     if len(offsets) < cols * rows * (spp if planar == 2 else 1):
         raise ValueError(f"{path}: TIFF with {len(offsets)} strips or tiles for "
                          f"{cols * rows} blocks")
-    px = np.zeros((height, width, spp), np.uint16)
+    tables = bytes(tags.get(347, ()))
+    reverse = tags.get(266, (1,))[0] == 2 and comp != 7
+    px = np.zeros((height, width, spp), np.float32 if fmt == 3 else np.int64)
     k = 0
     for plane in range(spp if planar == 2 else 1):
         for by in range(rows):
@@ -312,9 +493,26 @@ def read_tiff_rgb(path: str) -> np.ndarray:
                 off = offsets[k]
                 n = counts[k] if counts else len(data) - off
                 k += 1
-                block_rows = bh if 324 in tags else min(bh, height - by * bh)
-                need = block_rows * ((bw * (spp // per_plane) * bits + 7) // 8)
+                y0, x0 = by * bh, bx * bw
+                h, w = min(bh, height - y0), min(bw, width - x0)
+                block_rows = bh if tiled else h
                 src = data[off:off + n]
+                if reverse:
+                    src = src.translate(_REVERSED)
+                if comp == 7:
+                    block = _jpeg_block(src, tables, kind, block_rows, bw,
+                                        not tiled and by == rows - 1, tags, path)
+                    px[y0:y0 + h, x0:x0 + w] = block[:h, :w]
+                    continue
+                if kind == "YCbCr" and planar == 1:  # data units: hs x vs Y, then Cb, Cr
+                    hs, vs = sub
+                    urows = -(-block_rows // vs)
+                    row_bytes = -(-bw // hs) * (hs * vs + 2)
+                    # a strip is read as whole scanlines of TIFFScanlineSize, which
+                    # rounds row_bytes / vs down (4x4 units, an odd number across)
+                    need = urows * (row_bytes if tiled else vs * (row_bytes // vs))
+                else:
+                    need = block_rows * ((bw * (spp // per_plane) * bits + 7) // 8)
                 if comp == 1:
                     raw = src
                 elif comp == 5:
@@ -326,30 +524,201 @@ def read_tiff_rgb(path: str) -> np.ndarray:
                 if len(raw) < need:
                     raise ValueError(f"{path}: truncated TIFF data: a strip or tile gives "
                                      f"{len(raw)} of {need} bytes")
-                block = _samples(raw, block_rows, bw, spp // per_plane, bits, order, predictor)
-                y0, x0 = by * bh, bx * bw
-                h, w = min(bh, height - y0), min(bw, width - x0)
+                if kind == "YCbCr" and planar == 1:
+                    raw = raw[:need]
+                    if predictor == 2:  # libtiff's rows: scanlines, or 3 x a tile's width
+                        raw = _hor_acc8(raw, 3 * bw if tiled else row_bytes // vs)
+                    block = _ycbcr_units(raw, urows, bw, w if tiled else bw, sub)
+                else:
+                    block = _samples(raw, block_rows, bw, spp // per_plane, bits, order,
+                                     predictor, fmt)
                 sl = slice(plane, plane + 1) if planar == 2 else slice(None)
                 px[y0:y0 + h, x0:x0 + w, sl] = block[:h, :w]
-    rgb = _to_rgb(px, mode, photo, bits, tags, path)
-    return np.ascontiguousarray(_ORIENT[orient](rgb)) if orient in _ORIENT else rgb
+    if kind == "LAB" and planar == 2:  # PIL's A and B band unpackers flip the sign bit
+        px[:, :, 1:] ^= 128
+    if comp == 7 and kind == "YCbCr":
+        rgb = px.astype(np.uint8)
+    else:
+        rgb = _to_rgb(px, kind, photo, bits, tags, path)
+    return np.ascontiguousarray(_ORIENT[orient](rgb)) if orient in _ORIENT else \
+        np.ascontiguousarray(rgb)
 
 
-def _mapped(mode: str, photo: int, bits: int, spp: int, order: str, tags) -> bool:
+def _old_jpeg(data: bytes, tags, width: int, height: int, path: str) -> np.ndarray:
+    """Old-style JPEG-in-TIFF (compression 6) with a JPEGInterchangeFormat
+    stream (tag 513) of the whole image, or baseline tables in tags and one
+    strip, as libtiff's OJPEG codec and PIL read it: PIL takes the
+    photometric as YCbCr for its mode (three samples RGB, one L); libtiff
+    decodes the stream's components at their own size and, for three,
+    repeats the chroma over its data units and converts with
+    ``TIFFYCbCrToRGB``."""
+    spp = tags.get(277, (3,))[0]
+    if tags.get(258, (8,))[:1] != (8,) or spp not in (1, 3):
+        raise ValueError(f"{path}: old-style JPEG-in-TIFF with {spp} samples of "
+                         f"{tags.get(258)} bits: PIL has no mode for it")
+    if 513 in tags:
+        off = tags[513][0]
+        stream = data[off:off + tags[514][0]] if 514 in tags else data[off:]
+    else:
+        stream = _old_jpeg_stream(data, tags, width, height, spp, path)
+    # libtiff's OJPEG codec fails on one component sampled other than 1x1
+    planes = decode_jpeg(stream, path, "replicated", sampling=(1, 1) if spp == 1 else None)
+    if planes.shape[:2] != (height, width) or planes.shape[2] != spp:
+        raise ValueError(f"{path}: old-style JPEG stream of {planes.shape} for a "
+                         f"{width} x {height} TIFF of {spp} samples")
+    if spp == 1:
+        return np.repeat(planes, 3, axis=2)
+    return _ycbcr_to_rgb(planes.astype(np.int64), tags, path)
+
+
+def _old_jpeg_stream(data: bytes, tags, width: int, height: int, spp: int, path: str) -> bytes:
+    """The baseline JPEG stream of an old-style JPEG-in-TIFF whose tables
+    are in tags (JPEGQTables 519, JPEGDCTables 520, JPEGACTables 521; the
+    i-th of each for component i) and whose one strip or tile holds the
+    entropy-coded data: the first component sampled by YCbCrSubsampling
+    (2x2 where the tag is absent), the others 1x1."""
+    if tags.get(512, (1,))[0] != 1 or not all(t in tags for t in (519, 520, 521)):
+        raise ValueError(f"{path}: old-style JPEG-in-TIFF without a JPEGInterchangeFormat "
+                         f"stream or baseline tables in tags is not read by the port")
+    offsets = tags.get(273) or tags.get(324)
+    counts = tags.get(279) or tags.get(325)
+    if not offsets or len(offsets) != 1:
+        raise ValueError(f"{path}: old-style JPEG-in-TIFF with its tables in tags and "
+                         f"{len(offsets or ())} strips or tiles is not read by the port")
+
+    def segment(marker: int, body: bytes) -> bytes:
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    out = b"\xff\xd8"
+    hs, vs = tags.get(530, (2, 2))[:2] if spp == 3 else (1, 1)
+    for i in range(spp):
+        q = data[tags[519][i]:tags[519][i] + 64]
+        dc, ac = (data[tags[t][i]:tags[t][i] + 16] for t in (520, 521))
+        dc += data[tags[520][i] + 16:tags[520][i] + 16 + sum(dc)]
+        ac += data[tags[521][i] + 16:tags[521][i] + 16 + sum(ac)]
+        out += segment(0xDB, bytes([i]) + q) + segment(0xC4, bytes([i]) + dc)
+        out += segment(0xC4, bytes([0x10 | i]) + ac)
+    comps = b"".join(bytes([i + 1, (hs << 4 | vs) if i == 0 else 0x11, i]) for i in range(spp))
+    out += segment(0xC0, struct.pack(">BHHB", 8, height, width, spp) + comps)
+    if tags.get(515, (0,))[0]:
+        out += segment(0xDD, struct.pack(">H", tags[515][0]))
+    out += segment(0xDA, bytes([spp]) + b"".join(bytes([i + 1, i << 4 | i])
+                                                 for i in range(spp)) + b"\x00\x3f\x00")
+    n = counts[0] if counts else len(data) - offsets[0]
+    return out + data[offsets[0]:offsets[0] + n] + b"\xff\xd9"
+
+
+def _jpeg_block(src: bytes, tables: bytes, kind: str, rows: int, cols: int, last_strip: bool,
+                tags, path: str) -> np.ndarray:
+    """One strip's or tile's JPEG stream, as libtiff's JPEG codec hands it to
+    PIL: (rows, cols, C) samples, YCbCr already RGB."""
+    if kind == "YCbCr":
+        sampling = tuple(tags[530][:2]) if 530 in tags else None
+        block = decode_jpeg(src, path, "ycc", tables, sampling=sampling or "any")
+    else:
+        block = decode_jpeg(src, path, "planes", tables, sampling=(1, 1))
+    h, w = block.shape[:2]
+    if last_strip and w == cols and h > rows:
+        block = block[:rows]  # libtiff cuts a last strip's stream to the image
+    elif h > rows or w > cols:
+        raise ValueError(f"{path}: JPEG-in-TIFF stream of {w} x {h} exceeds its strip or tile "
+                         f"of {cols} x {rows}")
+    elif h < rows or w < cols:
+        raise ValueError(f"{path}: JPEG-in-TIFF stream of {w} x {h} is smaller than its strip "
+                         f"or tile of {cols} x {rows}")
+    return block
+
+
+def _hor_acc8(raw: bytes, rowsize: int) -> bytes:
+    """libtiff's ``horAcc8`` with a stride of three samples over each row of
+    ``rowsize`` bytes (its ``TIFFScanlineSize`` for a YCbCr strip, which
+    cuts through data units). Where the rows do not divide the block, or
+    three a row, libtiff fails on the block before it accumulates a byte;
+    PIL's RGBA read does not stop on errors and draws the bytes as they
+    were decoded."""
+    if not rowsize or len(raw) % rowsize or rowsize % 3:
+        return raw
+    rows = np.frombuffer(raw, np.uint8).reshape(-1, rowsize // 3, 3).astype(np.int64)
+    return (np.cumsum(rows, axis=1) & 255).astype(np.uint8).tobytes()
+
+
+def _ycbcr_units(raw: bytes, urows: int, cols: int, shown: int,
+                 sub: Tuple[int, int]) -> np.ndarray:
+    """YCbCr data units (hs x vs luma samples, then Cb and Cr) of a strip or
+    tile ``cols`` wide -> (urows * vs, shown units * hs, 3) samples, the
+    chroma replicated, as libtiff's ``putcontig8bitYCbCr*tile`` walk them:
+    the bytes past ``raw`` are zero, and in a tile cut at the image's edge
+    each row of units skips the units past ``shown`` columns, by 4x2 units
+    in a 4x4 tile, as libtiff does."""
+    hs, vs = sub
+    n = hs * vs + 2
+    ucols, vis = -(-cols // hs), -(-shown // hs)
+    skip = ((cols - shown) // hs) * (10 if sub == (4, 4) else n)
+    starts = (np.arange(urows)[:, None] * (vis * n + skip) + np.arange(vis)[None, :] * n)
+    buf = np.zeros(max(len(raw), urows * ucols * n), np.int64)
+    buf[:len(raw)] = np.frombuffer(raw, np.uint8)
+    u = buf[np.minimum(starts[:, :, None] + np.arange(n), buf.size - 1)]
+    y = u[:, :, :hs * vs].reshape(urows, vis, vs, hs).transpose(0, 2, 1, 3).reshape(
+        urows * vs, vis * hs)
+    cb, cr = (np.repeat(np.repeat(u[:, :, i], vs, axis=0), hs, axis=1) for i in (-2, -1))
+    return np.stack([y, cb, cr], axis=-1)
+
+
+def _ycbcr_to_rgb(ycc: np.ndarray, tags, path: str) -> np.ndarray:
+    """libtiff's ``TIFFYCbCrToRGBInit`` tables (float32 arithmetic, as in
+    tif_color.c) and ``TIFFYCbCrtoRGB``."""
+    f32 = np.float32
+    luma = [f32(v) for v in tags.get(529, (0.299, 0.587, 0.114))[:3]]
+    rbw = [f32(v) for v in tags.get(532, (0, 255, 128, 255, 128, 255))[:6]]
+    if len(luma) < 3 or len(rbw) < 6 or any(np.isnan(luma)) or luma[1] == 0 or any(
+            not (-0x7FFFFFFF + 128 < v < 0x7FFFFFFF) for v in rbw):
+        raise ValueError(f"{path}: YCbCr TIFF with invalid YCbCrCoefficients or "
+                         f"ReferenceBlackWhite (libtiff fails on it)")
+
+    def fix(v):
+        return int(np.float64(np.clip(v, f32(0), f32(2))) * 65536 + 0.5)
+
+    f1 = f32(2) - f32(2) * luma[0]
+    d1 = fix(f1)
+    d2 = -fix(luma[0] * f1 / luma[1])
+    f3 = f32(2) - f32(2) * luma[2]
+    d3 = fix(f3)
+    d4 = -fix(luma[2] * f3 / luma[1])
+
+    def code2v(c, rb, rw, cr):
+        den = f32(rw - rb) if rw - rb != 0 else f32(1)
+        v = (c - np.int64(np.trunc(rb))).astype(f32) * f32(cr) / den
+        return np.trunc(np.clip(v, f32(-128 * 32), f32(128 * 32))).astype(np.int64)
+
+    x = np.arange(-128, 128)
+    cr = code2v(x, rbw[4] - f32(128), rbw[5] - f32(128), 127)
+    cb = code2v(x, rbw[2] - f32(128), rbw[3] - f32(128), 127)
+    cr_r, cb_b = (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16
+    cr_g, cb_g = d2 * cr, d4 * cb + 32768
+    y_tab = code2v(x + 128, rbw[0], rbw[1], 255)
+    yv = y_tab[ycc[:, :, 0]]
+    c_b, c_r = ycc[:, :, 1], ycc[:, :, 2]
+    rgb = np.stack([yv + cr_r[c_r], yv + ((cb_g[c_b] + cr_g[c_r]) >> 16), yv + cb_b[c_b]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _mapped(kind: str, photo: int, bits: int, spp: int, order: str, tags) -> bool:
     """Whether PIL's mode equals its raw mode and is one it memory-maps:
-    L, P, RGBA, I;16 and I;16B."""
+    L, P, RGBA, CMYK, I;16 and I;16B."""
     extra = tags.get(338, ())
-    if mode == "grey":
-        return spp == 1 and ((bits == 8 and photo == 1) or (bits == 16 and (order == "<"
-                                                                              or photo == 1)))
-    if mode == "P":
+    if kind == "grey":
+        return spp == 1 and ((bits == 8 and photo in (1, 6))
+                             or (bits == 16 and (order == "<" or photo == 1)))
+    if kind == "P":
         return bits == 8 and spp == 1
-    return mode == "RGB" and bits == 8 and spp == 4 and extra in ((), (2,), (999,))
+    if kind == "CMYK":
+        return bits == 8 and spp == 4
+    return kind == "RGB" and bits == 8 and spp == 4 and extra in ((), (2,), (999,))
 
 
-def _to_rgb(px: np.ndarray, mode: str, photo: int, bits: int, tags, path: str) -> np.ndarray:
+def _to_rgb(px: np.ndarray, kind: str, photo: int, bits: int, tags, path: str) -> np.ndarray:
     """Samples -> RGB as PIL opens the mode and converts it."""
-    if mode == "P":
+    if kind == "P":
         cmap = tags.get(320)
         if cmap is None or len(cmap) < 3:
             raise ValueError(f"{path}: palette TIFF without a colormap")
@@ -358,9 +727,17 @@ def _to_rgb(px: np.ndarray, mode: str, photo: int, bits: int, tags, path: str) -
         m = min(n, 256)
         pal[:m] = (np.asarray(cmap[:3 * n], np.int64).reshape(3, n).T[:m] >> 8)
         return pal[px[:, :, 0]]
-    if mode == "grey":
+    if kind in ("F", "I"):
+        v = px[:, :, 0]
+        if kind == "F":  # F -> L: 0 at or below 0 and for NaN, 255 at or above 255, truncated
+            v = np.where(v >= 255, 255, np.where(v > 0, np.trunc(np.nan_to_num(v)), 0))
+        else:  # I;32N: unsigned samples taken as int32
+            v = np.where(v >= 1 << 31, v - (1 << 32), v)
+        v = np.clip(v, 0, 255).astype(np.uint8)
+        return np.repeat(v[:, :, None], 3, axis=2)
+    if kind == "grey":
         v = px[:, :, 0].astype(np.int64)
-        if bits == 16:
+        if bits >= 12:
             v = np.minimum(v, 255)
         else:
             if photo == 0:
@@ -370,7 +747,13 @@ def _to_rgb(px: np.ndarray, mode: str, photo: int, bits: int, tags, path: str) -
     v = px[:, :, :4].astype(np.int64)
     if bits == 16:
         v = v >> 8
-    if mode == "RGBa":
+    if kind == "CMYK":
+        return cmyk_to_rgb(*np.moveaxis(v, -1, 0))
+    if kind == "YCbCr":
+        return _ycbcr_to_rgb(v, tags, path)
+    if kind == "LAB":
+        return image_lab.lab_to_rgb(v[:, :, :3].astype(np.uint8))
+    if kind == "RGBa":
         a = v[:, :, 3:4]
         v = np.where(a == 0, 0, np.where(a == 255, v, np.minimum(v * 255 // np.maximum(a, 1),
                                                                   255)))

@@ -22,8 +22,14 @@ blended, so the colour under a transparent pixel is kept and
 - the lossy key frame through ``image_vp8.decode_vp8``, with libwebp's
   fancy upsampling and fixed-point YUV -> RGB.
 
-Animated WebP (``ANIM``/``ANMF``) raises a ValueError naming itself: PIL
-reads its first frame, the port does not.
+- animated WebP (``ANIM``/``ANMF``): its first frame, as libwebp's
+  ``WebPAnimDecoder`` that PIL reads every WebP with draws it: onto a
+  zero-filled canvas of the VP8X size (the ANIM background colour is a
+  hint the decoder ignores), at (2 x, 2 y) and its own size, neither
+  blended nor disposed (the first frame is a key frame); the frame's
+  ``VP8 `` (with or without ``ALPH``) or ``VP8L`` stream goes through the
+  decoders above. A frame that does not fit the canvas raises, as libwebp
+  fails on it.
 """
 
 from __future__ import annotations
@@ -433,9 +439,10 @@ def _alpha(chunk: bytes, width: int, height: int, path: str) -> np.ndarray:
     return out.astype(np.uint8)
 
 
-def _riff_chunks(data: bytes, path: str):
-    pos = 12
-    end = min(len(data), 8 + struct.unpack("<I", data[4:8])[0])
+def _riff_chunks(data: bytes, path: str, pos: int = 12, end=None):
+    """The (tag, body) chunks from ``pos`` to ``end`` (the RIFF size's end)."""
+    if end is None:
+        end = min(len(data), 8 + struct.unpack("<I", data[4:8])[0])
     while pos + 8 <= end:
         tag = data[pos:pos + 4]
         (n,) = struct.unpack("<I", data[pos + 4:pos + 8])
@@ -447,8 +454,9 @@ def _riff_chunks(data: bytes, path: str):
 
 
 def read_webp_rgba(path: str) -> np.ndarray:
-    """A still WebP file as (H, W, 4) uint8 RGBA, the canvas libwebp's
-    animation decoder gives PIL (alpha 255 where the file has none)."""
+    """A WebP file as (H, W, 4) uint8 RGBA, the canvas libwebp's animation
+    decoder gives PIL (alpha 255 where the file has none; an animation's
+    first frame)."""
     with open(path, "rb") as f:
         data = f.read()
     if len(data) < 20 or data[:4] != b"RIFF" or data[8:12] != b"WEBP":
@@ -463,9 +471,42 @@ def read_webp_rgba(path: str) -> np.ndarray:
         head = chunks[0][1]
         if len(head) < 10:
             raise ValueError(f"{path}: corrupt WebP VP8X chunk")
-        if head[0] & 0x02 or any(t in (b"ANIM", b"ANMF") for t, _ in chunks):
-            raise ValueError(f"{path}: animated WebP (ANIM/ANMF) is not read by the port")
         canvas = (int.from_bytes(head[4:7], "little") + 1, int.from_bytes(head[7:10], "little") + 1)
+        if head[0] & 0x02 or any(t in (b"ANIM", b"ANMF") for t, _ in chunks):
+            return _first_frame(chunks, canvas, path)
+    rgba = _frame(chunks, canvas is not None, path)
+    if canvas is not None and canvas != (rgba.shape[1], rgba.shape[0]):
+        raise ValueError(f"{path}: WebP canvas {canvas} differs from its image "
+                         f"{(rgba.shape[1], rgba.shape[0])}")
+    return rgba
+
+
+def _first_frame(chunks, canvas: Tuple[int, int], path: str) -> np.ndarray:
+    """The canvas after an animated WebP's first ANMF frame (see the module
+    docstring)."""
+    if not any(t == b"ANIM" for t, _ in chunks):
+        raise ValueError(f"{path}: animated WebP without an ANIM chunk")
+    anmf = next((body for t, body in chunks if t == b"ANMF"), None)
+    if anmf is None or len(anmf) < 16:
+        raise ValueError(f"{path}: animated WebP without a frame")
+    x, y = 2 * int.from_bytes(anmf[0:3], "little"), 2 * int.from_bytes(anmf[3:6], "little")
+    fw, fh = int.from_bytes(anmf[6:9], "little") + 1, int.from_bytes(anmf[9:12], "little") + 1
+    if x + fw > canvas[0] or y + fh > canvas[1]:
+        raise ValueError(f"{path}: WebP frame of {fw} x {fh} at ({x}, {y}) runs past its canvas "
+                         f"{canvas}")
+    sub = list(_riff_chunks(anmf, path, 16, len(anmf)))
+    frame = _frame(sub, True, path)
+    if frame.shape[:2] != (fh, fw):
+        raise ValueError(f"{path}: WebP frame of {frame.shape[1]} x {frame.shape[0]} where its "
+                         f"ANMF header says {fw} x {fh}")
+    out = np.zeros((canvas[1], canvas[0], 4), np.uint8)
+    out[y:y + fh, x:x + fw] = frame
+    return out
+
+
+def _frame(chunks, extended: bool, path: str) -> np.ndarray:
+    """The RGBA pixels of the first VP8 or VP8L stream among ``chunks``
+    (the ALPH chunk's alpha where the file is extended)."""
     alph = next((body for t, body in chunks if t == b"ALPH"), None)
     image = next(((t, body) for t, body in chunks if t in (b"VP8 ", b"VP8L")), None)
     if image is None:
@@ -477,15 +518,12 @@ def read_webp_rgba(path: str) -> np.ndarray:
     else:
         rgb = image_vp8.decode_vp8(image[1], path)
         height, width = rgb.shape[:2]
-        a = (_alpha(alph, width, height, path) if alph is not None and canvas is not None
+        a = (_alpha(alph, width, height, path) if alph is not None and extended
              else np.full((height, width), 255, np.uint8))
         rgba = np.concatenate([rgb, a[:, :, None]], axis=-1)
-    if canvas is not None and canvas != (width, height):
-        raise ValueError(f"{path}: WebP canvas {canvas} differs from its image "
-                         f"{(width, height)}")
     return rgba
 
 
 def read_webp_rgb(path: str) -> np.ndarray:
-    """A still WebP file as (H, W, 3) uint8 RGB (see the module docstring)."""
+    """A WebP file as (H, W, 3) uint8 RGB (see the module docstring)."""
     return np.ascontiguousarray(read_webp_rgba(path)[:, :, :3])

@@ -44,7 +44,11 @@ prints no result):
    x0(xt) at c = 1e-3 for one PC (batch 2), on the full-width AudioLDM-s
    UNet and on phase 2b's 2-layer DiT, in float32 on the card (3xTF32
    kernels) against the card's plain versions, each against a float64
-   probe on the card; and the card against the CPU's float32 probe.
+   probe on the card; and the card against the CPU's float32 probe. It runs
+   after phase 8a, as does 2d: their float32 CPU forwards (the UNet probe,
+   the three family forwards) run in a background thread beside phase 8a,
+   on all cores but two, so that no main-path loop shares the host with
+   them.
 3. the AudioLDM-s main path: the port CLI's ``--mode ours`` edit of a
    synthetic 10 s clip at 200 inversion + 100 edit steps, once as an edit
    and once with ``--selfcheck`` in float32, and once as a ``--dtype
@@ -143,10 +147,13 @@ prints no result):
    markers, a 16-bit Adam7 RGB PNG, a 333 x 251 4:2:2 progressive JPEG
    with restart markers, a 512 x 384 lossy WebP with alpha, a lossless
    WebP, a tiled LZW + predictor-2 TIFF, an interlaced GIF with a local
-   table, a progressive CMYK JPEG, an RLE8 BMP) decoded by the port's
-   readers to the sha256 of PIL's decode (tests/data/images/sha256.json),
-   each decode's seconds printed, and bfloat16 SD SDEdits at 512 px from
-   the JPEG and from the WebP.
+   table, a progressive CMYK JPEG, an RLE8 BMP, a 512 x 384
+   JPEG-in-TIFF, CMYK, YCbCr, CIELab, float32 and signed 16-bit TIFFs, a
+   BigTIFF, an animated WebP, a 10-bit PPM, an RLE TGA, an ICO, a lossless
+   and an arithmetic-coded progressive JPEG) decoded by the port's readers
+   to the sha256 of PIL's decode (tests/data/images/sha256.json), each
+   decode's seconds printed, and bfloat16 SD SDEdits at 512 px from the
+   JPEG, from the WebP and from the JPEG-in-TIFF.
 11. the edit server (serve.py) on 127.0.0.1 over HTTP at 50 steps in
    bfloat16: AudioLDM-s (/healthz, three edits, two concurrent requests
    each bit-equal to the same request alone, a response bit-equal to
@@ -183,7 +190,7 @@ reused from an earlier run that built the same ones (``reuse_setup``).
 Every kernel launch count is set to 0 just before each main-path run and
 read just after it; each run is held to its launches per denoiser forward
 (its run_args.json counts the forwards of each stage). Each phase's
-seconds are printed.
+seconds are printed, and the script's in all (``script_s``).
 
 The line before the last holds ``nvidia-smi``'s name and power limit, the
 one before it the kernels' JSON record, and the last line
@@ -209,6 +216,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -925,23 +933,117 @@ def _probe_check(name, probes, launched, want_launches):
             f"{name}_probe_cos": cos}
 
 
-def phase2c_probe(fa, sw, unet):
+def _unet_probe_inputs():
+    """Phase 2c's UNet probe inputs (xt, z, v) and the generator, which then
+    draws the DiT's."""
+    g = torch.Generator().manual_seed(9)
+    xt, z = torch.randn((1,) + LATENT, generator=g), torch.randn((1,) + LATENT, generator=g)
+    return xt, z, torch.randn((PROBE_N_EV,) + LATENT, generator=g), g
+
+
+def _unet_probe(dev, dtype, model, xt, z, v):
+    """The probe on the AudioLDM-s UNet at step 100 of 200 (CFG pair)."""
+    from audioeditingcode_tpu_torch.editing.solvers import DDIMSolver
+    from audioeditingcode_tpu_torch.models.configs import MODEL_SPECS
+    from audioeditingcode_tpu_torch.models.pipeline import LatentAudioPipeline
+    from audioeditingcode_tpu_torch.models.text_encoders import NullTextEncoder
+    from audioeditingcode_tpu_torch.schedulers.ddim import make_schedule
+
+    spec = MODEL_SPECS[MODEL_ID]
+    pipe = LatentAudioPipeline(MODEL_ID, make_schedule(spec.scheduler, STEPS, device=dev),
+                               model, None, None, NullTextEncoder(class_dim=512, device=dev),
+                               spec.mel)
+    return _probe(DDIMSolver(pipe.sched), pipe, *(t.to(dev, dtype) for t in (xt, z, v)),
+                  k=STEPS // 2, prompt="a dog barking")
+
+
+def _family_case(model_id: str, g: torch.Generator):
+    """Phase 2d's seeded full-width UNet of ``model_id`` (float32, CPU) and
+    its inputs: the next latent of ``g``, t = 501, the target prompt's
+    weight-free conditioning. Built once, in ``CpuReferences``' thread."""
+    from audioeditingcode_tpu_torch.models.configs import MODEL_SPECS
+    from audioeditingcode_tpu_torch.models.registry import (
+        _make_text_encoder,
+        random_init_,
+        to_model_dtype_,
+    )
+    from audioeditingcode_tpu_torch.models.unet2d import UNet2DConditionModel
+
+    spec = MODEL_SPECS[model_id]
+    unet = to_model_dtype_(random_init_(UNet2DConditionModel(spec.unet),
+                                        torch.Generator().manual_seed(1)), "cpu", torch.float32)
+    x = torch.randn((1,) + LATENT, generator=g)
+    return unet, x, torch.tensor([501]), _make_text_encoder(spec, "cpu")(["a dog barking"])
+
+
+def _family_forward(model, dev, dtype, x, t, cond):
+    args = [None if a is None else a.to(dev) for a in
+            (cond.hidden_states, cond.class_labels, cond.attention_mask,
+             cond.hidden_states_1, cond.attention_mask_1)]
+    with torch.no_grad():
+        return model(x.to(dev, dtype), t.to(dev), *args).cpu()
+
+
+FAMILY_IDS = (A2_MODEL_ID, AL_MODEL_ID, TANGO_MODEL_ID)
+
+
+class CpuReferences:
+    """Phase 2c's float32 CPU UNet probe and phase 2d's float32 CPU family
+    forwards (the ones that took most of those phases' time), computed in a
+    background thread beside phase 8a, whose checkpoint writing and
+    conversion time no main-path loop; the thread takes all cores but two.
+    A family's result also holds the seeded UNet and the inputs it ran on,
+    for phase 2d to move to the card. ``result`` waits for the thread and
+    hands each result over once."""
+
+    def __init__(self, unet):
+        self.results, self.error, self.waited_s = {}, None, 0.0
+        self.thread = threading.Thread(target=self._work, args=(copy.deepcopy(unet),),
+                                       daemon=True)
+        self.thread.start()
+
+    def _work(self, unet):
+        try:
+            torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+            xt, z, v, _ = _unet_probe_inputs()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                probe = _unet_probe("cpu", torch.float32, unet, xt, z, v)
+            self.results["unet_probe"] = (probe, time.perf_counter() - t0)
+            del unet
+            g = torch.Generator().manual_seed(10)
+            for model_id in FAMILY_IDS:
+                model, x, t, cond = _family_case(model_id, g)
+                t0 = time.perf_counter()
+                cpu_out = _family_forward(model, "cpu", torch.float32, x, t, cond)
+                self.results[model_id] = (model, x, t, cond, cpu_out, time.perf_counter() - t0)
+        except Exception as e:  # re-raised by result() in the main thread
+            self.error = e
+
+    def result(self, key):
+        t0 = time.perf_counter()
+        self.thread.join()
+        self.waited_s += time.perf_counter() - t0
+        if self.error is not None:
+            raise self.error
+        return self.results.pop(key)
+
+
+def phase2c_probe(fa, sw, unet, cpu_refs):
     """The finite-difference probe of PC extraction in float32, through the
     kernels on the card and in the other variants of PROBE_RATIO's comment,
     against the card in float64: on the full-width AudioLDM-s UNet at step 100
     of 200 through the pipeline's CFG pair, and on phase 2b's 2-layer
-    full-width DiT at step 50 of 100 with a warm solver history."""
-    from audioeditingcode_tpu_torch.editing.solvers import CosineDPMSolver, DDIMSolver
+    full-width DiT at step 50 of 100 with a warm solver history. The UNet's
+    CPU probe comes from ``cpu_refs``."""
+    from audioeditingcode_tpu_torch.editing.solvers import CosineDPMSolver
     from audioeditingcode_tpu_torch.models.configs import MODEL_SPECS
     from audioeditingcode_tpu_torch.models.dit1d import StableAudioDiT, rotary_tables
-    from audioeditingcode_tpu_torch.models.pipeline import LatentAudioPipeline
     from audioeditingcode_tpu_torch.models.pipeline1d import StableAudioPipeline
     from audioeditingcode_tpu_torch.models.registry import random_init_, to_model_dtype_
     from audioeditingcode_tpu_torch.models.text_encoders import NullTextEncoder
     from audioeditingcode_tpu_torch.schedulers.cosine_dpm import make_cosine_dpm_schedule
-    from audioeditingcode_tpu_torch.schedulers.ddim import make_schedule
 
-    g = torch.Generator().manual_seed(9)
     n = PROBE_N_EV
     # the float64 reference runs on the card: float64 there is as far below
     # the float32 probes' errors as on the CPU, in a second, not a minute
@@ -952,26 +1054,23 @@ def phase2c_probe(fa, sw, unet):
                  lambda: _swap_ops(_attention_f64, _swiglu_f64)))
 
     def run(name, dev, dtype, ops, model, probe):
+        if (tag, name) == ("unet", "cpu"):  # computed in cpu_refs' thread
+            probes[name], out[f"{tag}_probe_{name}_s"] = cpu_refs.result("unet_probe")
+            return expected_launches({}, 0)
         reset_launches(fa, sw)
         t0 = time.perf_counter()
         with torch.no_grad(), ops():
-            probes[name] = probe(dev, dtype, model.to(device=dev, dtype=dtype))
+            probes[name] = probe(dev, dtype, copy.deepcopy(model).to(device=dev, dtype=dtype))
         out[f"{tag}_probe_{name}_s"] = time.perf_counter() - t0
         return read_launches(fa, sw)
 
-    spec = MODEL_SPECS[MODEL_ID]
-    xt, z = torch.randn((1,) + LATENT, generator=g), torch.randn((1,) + LATENT, generator=g)
-    v = torch.randn((n,) + LATENT, generator=g)
+    xt, z, v, g = _unet_probe_inputs()
 
     def unet_probe(dev, dtype, model):
-        pipe = LatentAudioPipeline(MODEL_ID, make_schedule(spec.scheduler, STEPS, device=dev),
-                                   model, None, None, NullTextEncoder(class_dim=512, device=dev),
-                                   spec.mel)
-        return _probe(DDIMSolver(pipe.sched), pipe, *(t.to(dev, dtype) for t in (xt, z, v)),
-                      k=STEPS // 2, prompt="a dog barking")
+        return _unet_probe(dev, dtype, model, xt, z, v)
 
     out, probes, tag = {}, {}, "unet"
-    launched = {name: run(name, dev, dtype, ops, copy.deepcopy(unet), unet_probe)
+    launched = {name: run(name, dev, dtype, ops, unet, unet_probe)
                 for name, dev, dtype, ops in variants}
     out |= _probe_check("unet", probes, launched,
                         expected_launches({"flash_attention": ATTN_CALLS_PER_FORWARD}, 2))
@@ -1003,7 +1102,7 @@ def phase2c_probe(fa, sw, unet):
                       state=pipe.sched.init_state(x, h))
 
     probes, tag = {}, "dit"
-    launched = {name: run(name, dev, dtype, ops, copy.deepcopy(dit), dit_probe)
+    launched = {name: run(name, dev, dtype, ops, dit, dit_probe)
                 for name, dev, dtype, ops in variants}
     out |= _probe_check("dit", probes, launched,
                         expected_launches({"flash_attention": 1, "swiglu": 1},
@@ -1158,7 +1257,7 @@ def phase2b_stable_audio_parity(fa, sw):
     return out
 
 
-def phase2d_unet_families(fa, sw):
+def phase2d_unet_families(fa, sw, cpu_refs):
     """One full-width UNet forward of each other mel family (AudioLDM2-music,
     AudioLDM-l, TANGO; seeded random weights, batch 1 on the (8, 256, 16)
     latent, the target prompt's weight-free conditioning): float32 on the
@@ -1166,38 +1265,19 @@ def phase2d_unet_families(fa, sw):
     the card through B1-tc against the float32 CPU forward, within
     BF16_FORWARD_RATIO times the error of the same bf16 forward on the card
     through the plain versions (every other op the same, so the ratio is
-    the kernel's alone)."""
-    from audioeditingcode_tpu_torch.models.configs import MODEL_SPECS
-    from audioeditingcode_tpu_torch.models.registry import (
-        _make_text_encoder,
-        random_init_,
-        to_model_dtype_,
-    )
-    from audioeditingcode_tpu_torch.models.unet2d import UNet2DConditionModel
+    the kernel's alone). The seeded UNets, their inputs and their CPU
+    forwards come from ``cpu_refs``."""
+    from audioeditingcode_tpu_torch.models.registry import to_model_dtype_
 
     out = {}
-    g = torch.Generator().manual_seed(10)
-    for model_id in (A2_MODEL_ID, AL_MODEL_ID, TANGO_MODEL_ID):
+    for model_id in FAMILY_IDS:
         tag = model_id.split("/")[1]
-        spec = MODEL_SPECS[model_id]
         calls = FAMILY_CALLS_PER_FORWARD[model_id]
-        unet = to_model_dtype_(random_init_(UNet2DConditionModel(spec.unet),
-                                            torch.Generator().manual_seed(1)),
-                               "cpu", torch.float32)
-        x = torch.randn((1,) + LATENT, generator=g)
-        t = torch.tensor([501])
-        cond = _make_text_encoder(spec, "cpu")(["a dog barking"])
+        unet, x, t, cond, cpu_out, cpu_s = cpu_refs.result(model_id)
 
         def forward(model, dev, dtype, x=x, t=t, cond=cond):
-            args = [None if a is None else a.to(dev) for a in
-                    (cond.hidden_states, cond.class_labels, cond.attention_mask,
-                     cond.hidden_states_1, cond.attention_mask_1)]
-            with torch.no_grad():
-                return model(x.to(dev, dtype), t.to(dev), *args).cpu()
+            return _family_forward(model, dev, dtype, x, t, cond)
 
-        t0 = time.perf_counter()
-        cpu_out = forward(unet, "cpu", torch.float32)
-        cpu_s = time.perf_counter() - t0
         unet = unet.cuda()
         reset_launches(fa, sw)
         gpu_out = forward(unet, "cuda", torch.float32)
@@ -1230,7 +1310,7 @@ def phase2d_unet_families(fa, sw):
                     "cpu_s": cpu_s}
         del unet
         torch.cuda.empty_cache()
-    return {"unet_families": out}
+    return {"unet_families": out, "cpu_refs_waited_s": cpu_refs.waited_s}
 
 
 def write_clip(path: str, seconds: float = 10.0, sr: int = 16000, channels: int = 1) -> None:
@@ -2520,9 +2600,9 @@ def phase10_images(fa, sw, tmp: str, ckpt: str):
 
 def _image_inputs(fa, sw, tmp: str, ckpt: str):
     """The committed inputs of tests/data/images decoded by the port's
-    readers, each to the sha256 of PIL's decode; then a bfloat16 SD SDEdit
-    at 512 px from the JPEG and one from the lossy WebP with alpha. Returns
-    (runs, checks)."""
+    readers, each to the sha256 of PIL's decode, with its seconds; then a
+    bfloat16 SD SDEdit at 512 px from the JPEG, one from the lossy WebP with
+    alpha and one from the JPEG-in-TIFF. Returns (runs, checks)."""
     import hashlib
 
     from audioeditingcode_tpu_torch.cli.images import sdedit_main
@@ -2544,8 +2624,10 @@ def _image_inputs(fa, sw, tmp: str, ckpt: str):
             raise AssertionError(f"phase10: {name} decodes to {digest} {px.shape}, PIL's "
                                  f"decode is {rec['sha256']} {rec['shape']}")
     runs = {}
+    checks["decode_s_all"] = sum(c["decode_s"] for c in checks.values())
     for name, image in (("sd_sdedit_jpeg_bf16", "photo_420_restart.jpg"),
-                        ("sd_sdedit_webp_bf16", "photo_alpha.webp")):
+                        ("sd_sdedit_webp_bf16", "photo_alpha.webp"),
+                        ("sd_sdedit_jpeg_tiff_bf16", "photo_jpeg_ycbcr.tif")):
         argv = ["--model_id", SD_MODEL_ID, "--init_im", os.path.join(d, image),
                 "--target_prompt", "a photo of a cat", "--num_diffusion_steps", str(IMG_STEPS),
                 "--tstart", str(IMG_TSTART), "--seed", "0", "--weights_dir", ckpt,
@@ -3214,6 +3296,7 @@ def profile_main_path_step(model_id: str, steps: int, latent, dtype: torch.dtype
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one card", file=sys.stderr)
         return 2
@@ -3267,9 +3350,6 @@ def main() -> int:
 
     parity, unet = timed("phase2", phase2_unet_parity, fa)
     parity.update(timed("phase2b", phase2b_stable_audio_parity, fa, sw))
-    parity.update(timed("phase2c", phase2c_probe, fa, sw, unet))
-    del unet
-    parity.update(timed("phase2d", phase2d_unet_families, fa, sw))
     with tempfile.TemporaryDirectory() as tmp, reuse_setup() as setup_cache:
         runs = {"audioldm": timed("phase3", phase3_main_path, fa, sw, tmp),
                 "stable_audio": timed("phase4", phase4_stable_audio, fa, sw, tmp)}
@@ -3278,7 +3358,11 @@ def main() -> int:
         runs["stable_audio_pc"] = timed("phase6", phase_pcs, fa, sw, tmp, SA_MODEL_ID,
                                         os.path.join(tmp, "clip44k.wav"), "phase6")
         runs["baselines"] = timed("phase7", phase7_baselines, fa, sw, tmp)
+        cpu_refs = CpuReferences(unet)  # 2c's and 2d's CPU forwards, beside phase 8a
         ckpt = timed("phase8a", phase8a_checkpoint, tmp)
+        parity.update(timed("phase2c", phase2c_probe, fa, sw, unet, cpu_refs))
+        del unet
+        parity.update(timed("phase2d", phase2d_unet_families, fa, sw, cpu_refs))
         parity["checkpoint"] = {k: v for k, v in ckpt.items() if k not in ("dir", "src")}
         runs["families"] = timed("phase8", phase8_families, fa, sw, tmp, ckpt["dir"])
         shutil.rmtree(ckpt["dir"])  # read by phase 8 alone; phase 8b converts its own
@@ -3408,6 +3492,9 @@ def main() -> int:
                                                     sum(r["stage_seconds"].values()))
                   for group, group_runs in runs.items() for name, r in group_runs.items()
                   if r.get("setup_cached") is False and r.get("wall_s") is not None}}
+    record["script_s"] = time.perf_counter() - t_start
+    log(f"[total] {record['script_s']:.1f} s; by phase "
+        f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
     print(json.dumps(record), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -15,7 +15,8 @@ CPU. Every case must be bit-equal.
   palettes, 16-bit 555/565, 32-bit BI_RGB and bitfields, top-down rows and
   RLE8/RLE4 with every escape; TIFF big-endian, tiled, planar, with
   predictor 2, 16-bit, palette, WhiteIsZero, old-style LZW, each
-  Orientation; WebP ``VP8X``
+  Orientation (``write``: the TIFF and BigTIFF writer the other TIFF tests
+  share); WebP ``VP8X``
   with a raw ALPH chunk under each filter; YCCK JPEG (the Adobe transform
   byte set to 2) and CMYK without an Adobe marker.
 - libwebp's fancy upsampler and its YUV -> RGB each pinned by a test.
@@ -437,75 +438,139 @@ def packbits(data: bytes) -> bytes:
     return bytes(out)
 
 
-def write_tiff(path, px, bits, photo, order="<", comp=1, predictor=1, planar=1, tile=None,
-               rows=None, extra=(), cmap=None, old_lzw=False, orientation=1):
-    """A TIFF of (h, w, spp) samples: strips of ``rows`` rows or ``tile``
-    (width, length) tiles, chunky or planar, compressed, with a predictor
-    and an Orientation tag."""
-    h, w, spp = px.shape
+_REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+_CODES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 7: "B", 8: "h", 9: "i", 10: "i", 11: "f",
+          12: "d", 16: "Q", 17: "q", 18: "Q"}
 
-    def encode(b):
-        r = b.shape[0]
-        v = b.astype(np.int64)
-        if predictor == 2:
-            v = np.concatenate([v[:, :1], np.diff(v, axis=1)], axis=1) & ((1 << bits) - 1)
-        if bits == 16:
-            raw = v.astype(order + "u2").tobytes()
-        elif bits == 8:
-            raw = v.astype(np.uint8).tobytes()
-        else:
-            raw = b"".join(_bmp_rows(v.reshape(r, -1), bits)[i][:(v.shape[1] * v.shape[2] * bits
-                                                                   + 7) // 8] for i in range(r))
-        return {1: lambda x: x, 5: lambda x: tiff_lzw(x, old_lzw), 8: lambda x: zlib.compress(x),
-                32946: lambda x: zlib.compress(x, 9), 32773: packbits}[comp](raw)
 
-    blocks = []
-    for plane in ([px] if planar == 1 else [px[:, :, i:i + 1] for i in range(spp)]):
-        if tile:
-            tw, th = tile
-            for y in range(0, h, th):
-                for x in range(0, w, tw):
-                    b = np.zeros((th, tw, plane.shape[2]), np.int64)
-                    part = plane[y:y + th, x:x + tw]
-                    b[:part.shape[0], :part.shape[1]] = part
-                    blocks.append(encode(b))
-        else:
-            step = rows or h
-            blocks += [encode(plane[y:y + step]) for y in range(0, h, step)]
-    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [comp]),
-            262: (3, [photo]), 277: (3, [spp]), 284: (3, [planar]), 274: (3, [orientation])}
-    if predictor != 1:
-        tags[317] = (3, [predictor])
-    if extra:
-        tags[338] = (3, list(extra))
-    if cmap is not None:
-        tags[320] = (3, list(cmap))
+def layout(blocks, tags, order="<", big=False, tiled=False) -> bytes:
+    """A TIFF (or BigTIFF) of already encoded strips or tiles and the tags
+    {tag: (type, values or bytes)}; the offsets and byte counts are added."""
+    hsize = 16 if big else 8
     body, offsets = b"", []
     for b in blocks:
-        offsets.append(8 + len(body))
+        offsets.append(hsize + len(body))
         body += b + bytes(len(b) % 2)
-    counts = [len(b) for b in blocks]
-    if tile:
-        tags.update({322: (4, [tile[0]]), 323: (4, [tile[1]]), 324: (4, offsets),
-                     325: (4, counts)})
-    else:
-        tags.update({273: (4, offsets), 278: (4, [rows or h]), 279: (4, counts)})
-    ifd = 8 + len(body)
-    spill_at = ifd + 2 + 12 * len(tags) + 4
+    kind = 16 if big else 4
+    tags = dict(tags)
+    tags.update({324: (kind, offsets), 325: (kind, [len(b) for b in blocks])} if tiled else
+                {273: (kind, offsets), 279: (kind, [len(b) for b in blocks])})
+    nsize, esize, inline = (8, 20, 8) if big else (2, 12, 4)
+    ifd = hsize + len(body)
+    spill_at = ifd + nsize + esize * len(tags) + inline
     entries, spill = b"", b""
     for tag in sorted(tags):
-        kind, vals = tags[tag]
-        packed = struct.pack(order + ("H" if kind == 3 else "I") * len(vals), *vals)
-        if len(packed) <= 4:
-            entries += struct.pack(order + "HHI", tag, kind, len(vals)) + packed.ljust(4, b"\0")
+        t, vals = tags[tag]
+        if isinstance(vals, (bytes, bytearray)):
+            packed, n = bytes(vals), len(vals)
         else:
-            entries += struct.pack(order + "HHII", tag, kind, len(vals), spill_at + len(spill))
+            flat = [x for v in vals for x in v] if t in (5, 10) else list(vals)
+            packed, n = struct.pack(order + _CODES[t] * len(flat), *flat), len(vals)
+        entries += struct.pack(order + ("HHQ" if big else "HHI"), tag, t, n)
+        if len(packed) <= inline:
+            entries += packed.ljust(inline, b"\0")
+        else:
+            entries += struct.pack(order + ("Q" if big else "I"), spill_at + len(spill))
             spill += packed + bytes(len(packed) % 2)
-    head = (b"II*\x00" if order == "<" else b"MM\x00*") + struct.pack(order + "I", ifd)
+    magic = {(False, "<"): b"II*\x00", (False, ">"): b"MM\x00*", (True, "<"): b"II+\x00",
+             (True, ">"): b"MM\x00+"}[big, order]
+    head = magic + (struct.pack(order + "HHQ", 8, 0, ifd) if big else struct.pack(order + "I",
+                                                                                   ifd))
+    count = struct.pack(order + ("Q" if big else "H"), len(tags))
+    return head + body + count + entries + bytes(inline) + spill
+
+
+def compress(raw: bytes, comp: int, old_lzw: bool = False) -> bytes:
+    return {1: lambda x: x, 5: lambda x: tiff_lzw(x, old_lzw), 8: zlib.compress,
+            32946: lambda x: zlib.compress(x, 9), 32773: packbits}[comp](raw)
+
+
+def sample_bytes(px, bits, order, fmt=1, predictor=1) -> bytes:
+    """(rows, cols, spp) samples -> the rows' bytes, with the predictor's
+    differences (2: per sample, modulo 2^bits; 3: libtiff's byte planes)."""
+    r, c, s = px.shape
+    if bits == 12:
+        v = px.astype(np.int64).reshape(r, -1)
+        bitsarr = ((v[:, :, None] >> np.arange(11, -1, -1)) & 1).reshape(r, -1)
+        pad = (-bitsarr.shape[1]) % 8
+        return np.packbits(np.pad(bitsarr, ((0, 0), (0, pad))).astype(np.uint8), axis=1).tobytes()
+    if bits < 8:
+        v = px.astype(np.int64).reshape(r, -1)
+        bitsarr = ((v[:, :, None] >> np.arange(bits - 1, -1, -1)) & 1).reshape(r, -1)
+        pad = (-bitsarr.shape[1]) % 8
+        return np.packbits(np.pad(bitsarr, ((0, 0), (0, pad))).astype(np.uint8), axis=1).tobytes()
+    dt = {1: "u", 2: "i", 3: "f"}[fmt] + str(bits // 8)
+    a = np.asarray(px).astype(order + dt)
+    if predictor == 3:
+        be = a.astype(">" + dt).view(np.uint8).reshape(r, c * s, bits // 8)
+        planes = be.transpose(0, 2, 1).reshape(r, -1).astype(np.int64)
+        d = planes.reshape(r, -1, s)
+        d = np.concatenate([d[:, :1], np.diff(d, axis=1)], axis=1) & 255
+        return d.astype(np.uint8).tobytes()
+    if predictor == 2:
+        u = a.view(order + "u" + str(bits // 8)).astype(np.int64)
+        u = np.concatenate([u[:, :1], np.diff(u, axis=1)], axis=1) & ((1 << bits) - 1)
+        a = u.astype(order + "u" + str(bits // 8))
+    return a.tobytes()
+
+
+def write(path, px, bits, photo, order="<", comp=1, fmt=1, predictor=1, planar=1, tile=None,
+          rows=None, more=None, big=False, raw_blocks=None, fill=1, old_lzw=False):
+    """A TIFF of (h, w, spp) samples: strips of ``rows`` rows or ``tile``
+    (width, length) tiles, chunky or planar, compressed, with a predictor,
+    sample format ``fmt``, FillOrder ``fill`` (2: the stored bytes' bits
+    reversed) and the extra tags ``more``; ``raw_blocks``, where given, are
+    the strips' or tiles' bytes before compression; ``old_lzw``, LZW's old
+    least-significant-bit-first codes."""
+    h, w, spp = px.shape
+    blocks = []
+    if raw_blocks is not None:
+        blocks = [compress(b, comp, old_lzw) for b in raw_blocks]
+    else:
+        for plane in ([px] if planar == 1 else [px[:, :, i:i + 1] for i in range(spp)]):
+            if tile:
+                tw, th = tile
+                for y in range(0, h, th):
+                    for x in range(0, w, tw):
+                        b = np.zeros((th, tw, plane.shape[2]), plane.dtype)
+                        part = plane[y:y + th, x:x + tw]
+                        b[:part.shape[0], :part.shape[1]] = part
+                        blocks.append(compress(sample_bytes(b, bits, order, fmt, predictor),
+                                               comp, old_lzw))
+            else:
+                step = rows or h
+                blocks += [compress(sample_bytes(plane[y:y + step], bits, order, fmt, predictor),
+                                    comp, old_lzw) for y in range(0, h, step)]
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [comp]),
+            262: (3, [photo]), 277: (3, [spp]), 284: (3, [planar])}
+    if fmt != 1:
+        tags[339] = (3, [fmt] * spp)
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if tile:
+        tags.update({322: (4, [tile[0]]), 323: (4, [tile[1]])})
+    else:
+        tags[278] = (4, [rows or h])
+    if fill == 2:
+        tags[266] = (3, [2])
+        blocks = [b.translate(_REVERSED) for b in blocks]
+    tags.update(more or {})
     with open(path, "wb") as f:
-        f.write(head + body + struct.pack(order + "H", len(tags)) + entries
-                + struct.pack(order + "I", 0) + spill)
-    return path
+        f.write(layout(blocks, tags, order, big, tiled=bool(tile)))
+    return str(path)
+
+
+def write_tiff(path, px, bits, photo, order="<", comp=1, predictor=1, planar=1, tile=None,
+               rows=None, extra=(), cmap=None, old_lzw=False, orientation=1):
+    """A TIFF of (h, w, spp) samples through ``write``, with extra samples,
+    a colormap and an Orientation tag."""
+    more = {274: (3, [orientation])}
+    if extra:
+        more[338] = (3, list(extra))
+    if cmap is not None:
+        more[320] = (3, list(cmap))
+    return write(path, px, bits, photo, order, comp, predictor=predictor, planar=planar, tile=tile,
+                 rows=rows, more=more, old_lzw=old_lzw)
 
 
 @pytest.mark.parametrize("compression", ["raw", "packbits", "tiff_lzw", "tiff_adobe_deflate",

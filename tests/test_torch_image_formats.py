@@ -13,13 +13,17 @@ on the CPU. Every case must be bit-equal.
 - Progressive JPEG from PIL (``progressive=True``) at the same qualities,
   subsamplings, greyscale and odd sizes, with and without restart
   markers; a truncated progressive file raises, as PIL does; a
-  progressive file whose last refinement scans are cut off (which libjpeg
-  would smooth) raises.
-- ``load_image`` on each equals the JAX ``load_image``.
-- The formats left out (hierarchical, lossless, arithmetic-coded and
-  12-bit JPEG; JPEG-in-TIFF, BigTIFF, animated WebP) raise a ValueError
-  naming them. GIF, BMP, TIFF, WebP and CMYK/YCCK JPEG are held against PIL
-  in test_torch_image_codecs.py.
+  progressive file whose last refinement scans are cut off is smoothed as
+  libjpeg smooths it (``image_jpeg_smooth``; more cases in
+  test_torch_image_jpeg_processes.py).
+- ``load_image`` on each, and on one committed input of each kind added
+  since (TIFF kinds, animated WebP, Netpbm, TGA, ICO, lossless and
+  arithmetic-coded JPEG), equals the JAX ``load_image``.
+- The JPEG processes left out (hierarchical, arithmetic-coded lossless and
+  12-bit JPEG) raise a ValueError naming them. GIF, BMP, TIFF, WebP and
+  CMYK/YCCK JPEG are held against PIL in test_torch_image_codecs.py; the
+  kinds added since in test_torch_image_tiff.py, _webp_anim.py,
+  _pnm_tga_ico.py and _jpeg_processes.py.
 - The inputs ``chip_smoke.py`` decodes on the card (tests/data/images/)
   are what ``make_chip_inputs`` writes, and their sha256 file holds the
   hash of PIL's decode.
@@ -269,15 +273,14 @@ def test_truncated_progressive_jpeg_raises_as_pil_does(tmp_path):
 
 def test_progressive_jpeg_without_its_last_refinements_raises(tmp_path):
     """The final refinement scans cut off and the file closed with EOI:
-    libjpeg would smooth the blocks; the port raises instead."""
+    libjpeg smooths the blocks, and so does the port: bit-equal to PIL."""
     path = str(tmp_path / "p.jpg")
     Image.fromarray(_pattern(64, 96)).save(path, quality=75, progressive=True, subsampling=0)
     data = open(path, "rb").read()
     short = str(tmp_path / "short.jpg")
     open(short, "wb").write(data[:_scans(data)[-3]] + b"\xff\xd9")
     assert _pil(short).shape == (64, 96, 3)
-    with pytest.raises(ValueError, match="block smoothing"):
-        tio.read_image(short)
+    np.testing.assert_array_equal(tio.read_image(short), _pil(short))
 
 
 def _segments(data: bytes):
@@ -320,11 +323,23 @@ def test_jpeg_adobe_rgb_flag(tmp_path):
     np.testing.assert_array_equal(tio.read_jpeg_rgb(path), _pil(path))
 
 
-@pytest.mark.parametrize("fmt", ["png16", "adam7", "jpeg420", "jpeg444_grey"])
+# one committed input of each kind read by the TIFF, WebP, Netpbm, TGA, ICO and JPEG
+# process decoders (tests/data/images)
+LOAD_INPUTS = {"cmyk_tiff": "cmyk_lzw.tif", "ycbcr_tiff": "ycbcr_422_deflate.tif",
+               "cielab_tiff": "lab_lzw.tif", "float_tiff": "float32_predictor3.tif",
+               "signed_tiff": "int16_signed.tif", "jpeg_in_tiff": "photo_jpeg_ycbcr.tif",
+               "bigtiff": "bigtiff_deflate.tif", "animated_webp": "animated.webp",
+               "netpbm": "photo_16bit.ppm", "tga": "rle_bottom_up.tga", "ico": "icon.ico",
+               "lossless_jpeg": "lossless_pred6.jpg", "arithmetic_jpeg": "arith_progressive.jpg"}
+
+
+@pytest.mark.parametrize("fmt", ["png16", "adam7", "jpeg420", "jpeg444_grey"] + list(LOAD_INPUTS))
 def test_load_image_matches_jax(tmp_path, fmt):
     path = str(tmp_path / ("a.png" if fmt.startswith(("png", "adam")) else "a.jpg"))
     img = _pattern(90, 130)
-    if fmt == "png16":
+    if fmt in LOAD_INPUTS:
+        path = os.path.join(DATA, LOAD_INPUTS[fmt])
+    elif fmt == "png16":
         write_test_png(path, img.astype(np.uint16) * 257 + 3, 16, 2)
     elif fmt == "adam7":
         write_test_png(path, img, 8, 2, interlace=True)
@@ -356,17 +371,11 @@ def test_formats_left_out_raise_and_name_themselves(tmp_path):
     Image.fromarray(img).save(base, quality=80)
     cases = {"hierarchical progressive JPEG": _patched(base, str(tmp_path / "hp.jpg"), 0xC0,
                                                        0xC6),
-             "arithmetic-coded progressive": _patched(base, str(tmp_path / "ap.jpg"), 0xC0,
-                                                      0xCA),
-             "arithmetic-coded": _patched(base, str(tmp_path / "ar.jpg"), 0xC0, 0xC9),
+             "arithmetic-coded lossless": _patched(base, str(tmp_path / "al.jpg"), 0xC0, 0xCB),
+             "arithmetic-coded hierarchical": _patched(base, str(tmp_path / "ah.jpg"), 0xC0,
+                                                       0xCD),
              "12-bit": _patched(base, str(tmp_path / "12.jpg"), 0xC0, at=4, value=12),
-             "lossless": _patched(base, str(tmp_path / "ll.jpg"), 0xC0, 0xC3),
-             "JPEG-in-TIFF": str(tmp_path / "j.tif"), "BigTIFF": str(tmp_path / "b.tif"),
-             "animated WebP": str(tmp_path / "a.webp")}
-    Image.fromarray(img).save(cases["JPEG-in-TIFF"], compression="jpeg")
-    Image.fromarray(img).save(cases["BigTIFF"], big_tiff=True)
-    Image.fromarray(img).save(cases["animated WebP"], save_all=True,
-                              append_images=[Image.fromarray(img[::-1])], duration=100)
+             "hierarchical lossless": _patched(base, str(tmp_path / "hl.jpg"), 0xC0, 0xC7)}
     for name, path in cases.items():
         with pytest.raises(ValueError, match=name):
             tio.read_image(path)
@@ -389,7 +398,27 @@ CHIP_INPUTS = {"photo_420_restart.jpg": "JPEG, 512 x 384, 4:2:0, quality 90, res
                                        "at (5, 4) with a local table and transparency",
                "cmyk_progressive.jpg": "progressive CMYK JPEG, 333 x 251, quality 85, Adobe "
                                        "APP14",
-               "rle8.bmp": "BMP, 333 x 251, RLE8 with absolute runs, 200 colours"}
+               "rle8.bmp": "BMP, 333 x 251, RLE8 with absolute runs, 200 colours",
+               "photo_jpeg_ycbcr.tif": "JPEG-in-TIFF, 512 x 384, YCbCr 4:2:0 in 128 x 64 tiles, "
+                                       "quality 85, restart markers, JPEGTables",
+               "cmyk_lzw.tif": "TIFF, 160 x 120 CMYK, LZW, written by PIL",
+               "ycbcr_422_deflate.tif": "TIFF, 161 x 119 YCbCr, 2 x 1 data units, Deflate, "
+                                        "strips of 16 rows",
+               "lab_lzw.tif": "TIFF, 160 x 120 CIELab (PIL's LAB of an RGB pattern), LZW, "
+                              "strips of 32 rows",
+               "float32_predictor3.tif": "TIFF, 128 x 96 float32 BlackIsZero, Deflate, "
+                                         "predictor 3, NaN and infinities",
+               "int16_signed.tif": "TIFF, 128 x 96 signed 16-bit, LZW, predictor 2",
+               "bigtiff_deflate.tif": "BigTIFF, 160 x 120 RGB, Deflate, 64 x 64 tiles",
+               "animated.webp": "animated lossy WebP with alpha, 200 x 150 canvas, a 120 x 90 "
+                                "first frame at (20, 16), a second frame",
+               "photo_16bit.ppm": "Netpbm P6, 160 x 120, maxval 1023",
+               "rle_bottom_up.tga": "TGA, 200 x 150, 24-bit RLE, bottom-up, image ID",
+               "icon.ico": "ICO, 64 x 64 8-bit DIB with AND mask, 48 x 48 24-bit, 32 x 32 PNG",
+               "lossless_pred6.jpg": "lossless JPEG (SOF3), 160 x 120 RGB, predictor 6, "
+                                     "restart every 2 MCU rows",
+               "arith_progressive.jpg": "arithmetic-coded progressive JPEG (SOF10), 200 x 150, "
+                                        "4:2:0, quality 85, restart interval of 4 MCUs"}
 
 
 def make_chip_inputs(d: str) -> dict:
@@ -406,6 +435,7 @@ def make_chip_inputs(d: str) -> dict:
     smooth = np.stack([(x * 341 + y * 97 * k) % 65536 for k in (1, 2, 3)], -1)
     write_test_png(os.path.join(d, "adam7_rgb16.png"), smooth, 16, 2, interlace=True)
     _make_other_inputs(d)
+    _make_new_inputs(d)
     out = {}
     for name, what in CHIP_INPUTS.items():
         px = _pil(os.path.join(d, name))
@@ -439,6 +469,64 @@ def _make_other_inputs(d: str) -> None:
     pal = np.asarray(quant.getpalette()[:600]).reshape(-1, 3)
     write_bmp(os.path.join(d, "rle8.bmp"), rle8(np.asarray(quant)), 333, 251, 8, compression=1,
               palette=pal)
+
+
+def _make_new_inputs(d: str) -> None:
+    """The TIFF kinds, animated WebP, Netpbm, TGA, ICO, lossless and
+    arithmetic-coded JPEG inputs of CHIP_INPUTS."""
+    import io
+
+    from test_torch_image_jpeg_processes import arith_jpeg, lossless_jpeg
+    from test_torch_image_pnm_tga_ico import _dib, ico, tga, tga_rle
+    from test_torch_image_codecs import write
+    from test_torch_image_tiff import _jpeg_tiff, ycbcr_units
+    from test_torch_image_webp_anim import _still_chunks, animated
+
+    _jpeg_tiff(os.path.join(d, "photo_jpeg_ycbcr.tif"), _pattern(384, 512, seed=8), 6,
+               tile=(128, 64), sub=(2, 2), jpeg_kw={"subsampling": 2, "restart_marker_rows": 1})
+    Image.fromarray(_pattern(120, 160, noise=0.03, seed=9)).convert("CMYK").save(
+        os.path.join(d, "cmyk_lzw.tif"), compression="tiff_lzw")
+    ycc = np.asarray(Image.fromarray(_pattern(119, 161, noise=0.03, seed=10)).convert("YCbCr"))
+    write(os.path.join(d, "ycbcr_422_deflate.tif"), ycc, 8, 6, "<", 8, rows=16,
+          raw_blocks=[ycbcr_units(ycc[y:y + 16], 2, 1) for y in range(0, 119, 16)],
+          more={530: (3, [2, 1])})
+    lab = np.asarray(Image.fromarray(_pattern(120, 160, noise=0.03, seed=11)).convert("LAB"))
+    write(os.path.join(d, "lab_lzw.tif"), lab, 8, 8, "<", 5, rows=32)
+    y, x = np.mgrid[0:96, 0:128]
+    f = ((x * 2.1 + y * 1.3) % 300 - 20).astype(np.float32)
+    f[0, :3] = [np.nan, np.inf, -np.inf]
+    write(os.path.join(d, "float32_predictor3.tif"), f[:, :, None], 32, 1, "<", 8, 3, 3)
+    write(os.path.join(d, "int16_signed.tif"), ((x * 5 - y * 3) % 700 - 200).astype(
+        np.int16)[:, :, None], 16, 1, "<", 5, 2, 2)
+    write(os.path.join(d, "bigtiff_deflate.tif"), _pattern(120, 160, noise=0.03, seed=12), 8, 2,
+          "<", 8, tile=(64, 64), big=True)
+    frame = np.concatenate([_pattern(90, 120, seed=13), np.full((90, 120, 1), 200, np.uint8)], -1)
+    with open(os.path.join(d, "animated.webp"), "wb") as fh:
+        fh.write(animated((200, 150), [(20, 16, (120, 90), _still_chunks(frame, quality=80)),
+                                       (0, 0, (200, 150), _still_chunks(
+                                           _pattern(150, 200, seed=14), quality=60))]))
+    v = (_pattern(120, 160, noise=0.03, seed=15).astype(np.int64) * 1023 // 255)
+    with open(os.path.join(d, "photo_16bit.ppm"), "wb") as fh:
+        fh.write(b"P6\n# 10-bit samples\n160 120\n1023\n" + v.astype(">u2").tobytes())
+    rows = _pattern(150, 200, noise=0.02, seed=16)[::-1, :, ::-1].tobytes()
+    with open(os.path.join(d, "rle_bottom_up.tga"), "wb") as fh:
+        fh.write(tga(10, 24, tga_rle(rows, 3, 200), 200, 150, flags=0x00, ident=b"port test"))
+    quant = Image.fromarray(_pattern(64, 64, seed=17)).quantize(200)
+    pal = np.asarray(quant.getpalette()[:768]).reshape(-1, 3)
+    png = io.BytesIO()
+    Image.fromarray(_pattern(32, 32, seed=18)).save(png, "PNG")
+    with open(os.path.join(d, "icon.ico"), "wb") as fh:
+        fh.write(ico([(48, 48, 0, 24, _dib(_pattern(48, 48, seed=19)[:, :, ::-1], 24)),
+                      (64, 64, 0, 8, _dib(np.asarray(quant), 8, pal)),
+                      (32, 32, 0, 32, png.getvalue())]))
+    img = _pattern(120, 160, noise=0.02, seed=20)
+    with open(os.path.join(d, "lossless_pred6.jpg"), "wb") as fh:
+        fh.write(lossless_jpeg([img[:, :, i] for i in range(3)], [(1, 1)] * 3, 6,
+                               restart_rows=2))
+    with open(os.path.join(d, "arith_progressive.jpg"), "wb") as fh:
+        fh.write(arith_jpeg(_pattern(150, 200, noise=0.05, seed=21),
+                            sampling=((2, 2), (1, 1), (1, 1)), quality=85, progressive=True,
+                            restart=4))
 
 
 def test_committed_chip_inputs_are_what_the_maker_writes(tmp_path):

@@ -25,16 +25,41 @@ import struct
 import numpy as np
 
 from .image_bmp import decode_dib
+from .image_identify import PassOn
 from .image_io import _SIGNATURE, decode_png
 
 
-def _entries(data: bytes, path: str):
-    if len(data) < 6:
-        raise ValueError(f"{path}: truncated ICO/CUR header")
-    (n,) = struct.unpack("<H", data[4:6])
-    if len(data) < 6 + 16 * n:
-        raise ValueError(f"{path}: truncated ICO/CUR directory")
-    return [data[6 + 16 * i:22 + 16 * i] for i in range(n)]
+def choose_cursor(data: bytes) -> bytes:
+    """The directory entry PIL's ``CurImageFile`` picks; ``PassOn`` (or an
+    ``IndexError`` or ``struct.error``) where PIL passes the file on."""
+    (n,) = struct.unpack_from("<H", data, 4)
+    best = b""
+    for i in range(n):
+        e = data[6 + 16 * i:22 + 16 * i]
+        if not best:
+            best = e
+        elif e[0] > best[0] and e[1] > best[1]:
+            best = e
+    if not best:
+        raise PassOn("no cursors were found")
+    return best
+
+
+def choose(data: bytes, path: str) -> tuple:
+    """The entry PIL's ``IcoFile`` picks: (area, depth, bit count, size,
+    offset). A directory that ends early raises ``IndexError`` or
+    ``struct.error``, and an empty one ``IndexError``, as in PIL."""
+    (n,) = struct.unpack_from("<H", data, 4)
+    heads = []
+    for i in range(n):
+        e = data[6 + 16 * i:22 + 16 * i]
+        width, height, ncolor = e[0] or 256, e[1] or 256, e[2]
+        bpp, size, offset = struct.unpack("<HII", e[6:16])
+        depth = bpp or (ncolor != 0 and math.ceil(math.log(ncolor, 2))) or 256
+        heads.append((width * height, depth, bpp, size, offset))
+    heads.sort(key=lambda h: h[1])
+    heads.sort(key=lambda h: h[0], reverse=True)
+    return heads[0]
 
 
 def read_ico_rgb(path: str) -> np.ndarray:
@@ -42,30 +67,19 @@ def read_ico_rgb(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
     if data[:4] == b"\x00\x00\x02\x00":
-        entries = _entries(data, path)
-        if not entries:
-            raise ValueError(f"{path}: CUR file without a cursor")
-        best = entries[0]
-        for e in entries[1:]:
-            if e[0] > best[0] and e[1] > best[1]:
-                best = e
-        (offset,) = struct.unpack("<I", best[12:16])
+        try:
+            (offset,) = struct.unpack_from("<I", choose_cursor(data), 12)
+        except (PassOn, IndexError, struct.error):
+            raise ValueError(f"{path}: CUR directory without a cursor PIL reads") from None
         if data[offset:offset + 8] == _SIGNATURE:
             raise ValueError(f"{path}: PNG cursor (PIL's CUR reader fails on it)")
         return decode_dib(data[offset:], path, halve=True)
     if data[:4] != b"\x00\x00\x01\x00":
         raise ValueError(f"{path}: not an ICO or CUR file")
-    heads = []
-    for e in _entries(data, path):
-        width, height, ncolor = e[0] or 256, e[1] or 256, e[2]
-        bpp, size, offset = struct.unpack("<HII", e[6:16])
-        depth = bpp or (ncolor != 0 and math.ceil(math.log(ncolor, 2))) or 256
-        heads.append((width * height, depth, bpp, size, offset))
-    if not heads:
-        raise ValueError(f"{path}: ICO file without an image")
-    heads.sort(key=lambda h: h[1])
-    heads.sort(key=lambda h: h[0], reverse=True)
-    _, _, bpp, size, offset = heads[0]
+    try:
+        _, _, bpp, size, offset = choose(data, path)
+    except (IndexError, struct.error):
+        raise ValueError(f"{path}: truncated ICO/CUR directory") from None
     if data[offset:offset + 8] == _SIGNATURE:
         return decode_png(data[offset:], path)
     rgb = decode_dib(data[offset:], path, halve=True)

@@ -5,14 +5,19 @@ resizes and writes with PIL. This module does the same with numpy, ``zlib``
 and ``struct``. Every decoder gives the pixels of PIL 12.1's
 ``np.array(Image.open(path).convert("RGB"))`` bit for bit:
 
-- ``read_image``: a PNG, JPEG, GIF, BMP, DIB, TIFF, WebP, Netpbm, ICO, CUR
-  or TGA file, told apart by its leading bytes (TGA, which has none, last,
-  by PIL's header checks); GIF, BMP/DIB, TIFF, WebP, Netpbm, ICO/CUR and TGA go
-  to the decoders beside this module (``image_gif``, ``image_bmp``,
-  ``image_tiff`` with ``image_lab``, ``image_webp`` with ``image_vp8``,
-  ``image_pnm``, ``image_ico``, ``image_tga``), each bit-equal to PIL's
-  ``convert("RGB")`` on what it reads; anything else raises a
-  ``ValueError`` that names the format.
+- ``read_image``: the format PIL's ``Image.open`` would take the file for
+  (``format_name``: ``image_identify`` tries PIL's openers in their
+  fresh-interpreter order, with their accept tests and header checks),
+  then its reader: PNG and JPEG here, the others in the decoders beside
+  this module (``image_gif``, ``image_bmp`` (BMP, DIB), ``image_tiff``
+  with ``image_lab``, ``image_webp`` with ``image_vp8``, ``image_pnm``,
+  ``image_ico`` (ICO, CUR), ``image_tga``, ``image_qoi``, ``image_pcx``
+  (PCX, DCX), ``image_sgi``, ``image_psd``, ``image_sun``, ``image_msp``,
+  ``image_xbm``, ``image_xpm``, ``image_im``, ``image_spider``,
+  ``image_pixar``, ``image_mcidas``, ``image_gbr``, ``image_xvthumb``,
+  ``image_imt``, ``image_fits``), each bit-equal to PIL's
+  ``convert("RGB")`` on what it reads; a format the port does not read, or
+  a file PIL cannot identify, raises a ``ValueError`` that names it.
 - ``read_png_rgb``: PNG in every colour type and bit depth, non-interlaced
   or Adam7 (each of the seven passes its own filtered image; a pass of an
   image smaller than 8 px may be empty), with the five scanline filters.
@@ -86,10 +91,6 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_SIGNATURE = b"\xff\xd8\xff"
-# the leading bytes of the formats read beside this module
-_OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
-                  (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF"),
-                  (b"\x00\x00\x01\x00", "ICO"), (b"\x00\x00\x02\x00", "ICO"))
 # PNG colour types: (name, samples per pixel, allowed bit depths)
 _COLOR_TYPES = {0: ("greyscale", 1, (1, 2, 4, 8, 16)), 2: ("RGB", 3, (8, 16)),
                 3: ("palette", 1, (1, 2, 4, 8)), 4: ("greyscale + alpha", 2, (8, 16)),
@@ -99,47 +100,59 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
           (1, 0, 2, 2), (0, 1, 1, 2))
 
 
-def _format_name(data: bytes) -> str:
-    if data.startswith(_SIGNATURE):
-        return "PNG"
-    if data.startswith(_JPEG_SIGNATURE):
-        return "JPEG"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
-    if data[:1] == b"P" and data[1:2] and data[1:2] in b"0123456fy":  # PIL's PPM test
-        return "Netpbm"
-    if data[:2] in (b"P7", b"PF"):  # PAM and colour PFM: refused by name, as PIL fails
-        return "Netpbm"
-    kind = next((n for sig, n in _OTHER_FORMATS if data.startswith(sig)), "unknown")
-    if kind == "unknown" and len(data) >= 4 and struct.unpack("<I", data[:4])[0] in (
-            12, 40, 52, 56, 64, 108, 124):  # PIL's DIB test: a BMP info header's size
-        kind = "DIB"
-    if kind == "unknown":
-        from .image_tga import is_tga
+# PIL's format name -> (module beside this one, reader); PNG and JPEG are here
+_READERS = {"PNG": ("image_io", "read_png_rgb"), "JPEG": ("image_io", "read_jpeg_rgb"),
+            "DIB": ("image_bmp", "read_dib_rgb"), "WEBP": ("image_webp", "read_webp_rgb"),
+            "PPM": ("image_pnm", "read_pnm_rgb"), "CUR": ("image_ico", "read_ico_rgb"),
+            "DCX": ("image_pcx", "read_pcx_rgb")}
+_READERS.update({name: (f"image_{name.lower()}", f"read_{name.lower()}_rgb") for name in (
+    "GIF", "BMP", "TIFF", "ICO", "TGA", "QOI", "PCX", "SGI", "PSD", "SUN", "MSP", "XBM", "XPM",
+    "IM", "SPIDER", "PIXAR", "MCIDAS", "GBR", "XVThumb", "IMT", "FITS")})
+READ_FORMATS = ("PNG, JPEG, GIF, BMP, DIB, TIFF, WebP, Netpbm, ICO, CUR, TGA, QOI, PCX, DCX, "
+                "SGI, PSD, SUN, MSP, XBM, XPM, IM, SPIDER, PIXAR, McIdas, GBR, XV thumbnails, "
+                "IMT and FITS")
 
-        if is_tga(data[:18]):  # no magic: PIL's header checks, tried last
-            return "TGA"
-    return kind
+
+def format_name(path: str) -> str:
+    """The format PIL's ``Image.open`` takes the file for (its ``format``;
+    ``image_identify``)."""
+    from .image_identify import Unidentified, identify
+
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        return identify(data, path)
+    except Unidentified:
+        if data[:1] == b"P" and data[1:2] in (b"7", b"F"):  # PAM and colour PFM
+            from .image_pnm import read_magic
+
+            raise ValueError(f"{path}: Netpbm magic {read_magic(data)[0]!r} is not one PIL opens "
+                             f"(cannot identify image file)") from None
+        raise
+
+
+def _kind(data: bytes) -> str:
+    from .image_identify import identify
+
+    try:
+        return identify(data, "")
+    except ValueError:
+        return "unknown"
 
 
 def read_image(path: str) -> np.ndarray:
     """An image file as (H, W, 3) uint8 RGB, as PIL's
     ``Image.open(path).convert("RGB")`` (see the module docstring)."""
-    from . import image_bmp, image_gif, image_ico, image_pnm, image_tga, image_tiff, image_webp
+    import importlib
 
-    with open(path, "rb") as f:
-        head = f.read(18)
-    readers = {"PNG": read_png_rgb, "JPEG": read_jpeg_rgb, "GIF": image_gif.read_gif_rgb,
-               "BMP": image_bmp.read_bmp_rgb, "TIFF": image_tiff.read_tiff_rgb,
-               "WebP": image_webp.read_webp_rgb, "Netpbm": image_pnm.read_pnm_rgb,
-               "ICO": image_ico.read_ico_rgb, "TGA": image_tga.read_tga_rgb,
-               "DIB": image_bmp.read_dib_rgb}
-    kind = _format_name(head)
-    if kind not in readers:
-        raise ValueError(f"{path}: unknown image format (the port reads PNG, JPEG, GIF, BMP, "
-                         f"DIB, TIFF, WebP, Netpbm, ICO, CUR and TGA)")
+    kind = format_name(path)
+    if kind not in _READERS:
+        raise ValueError(f"{path}: {kind} image, a format the port does not read yet (it reads "
+                         f"{READ_FORMATS})")
+    module, name = _READERS[kind]
+    reader = getattr(importlib.import_module(f".{module}", __package__), name)
     try:
-        return readers[kind](path)
+        return reader(path)
     except (struct.error, zlib.error) as e:  # data that ends inside a field
         raise ValueError(f"{path}: truncated or corrupt {kind} data ({e})") from None
 
@@ -247,7 +260,7 @@ def read_png_rgb(path: str) -> np.ndarray:
 def decode_png(data: bytes, path: str) -> np.ndarray:
     """A PNG file's bytes as (H, W, 3) uint8 RGB."""
     if not data.startswith(_SIGNATURE):
-        raise ValueError(f"{path}: {_format_name(data)} file, not a PNG")
+        raise ValueError(f"{path}: {_kind(data)} file, not a PNG")
     idat, palette, header = [], None, None
     for tag, body in _chunks(data):
         if tag == b"IHDR":
@@ -606,6 +619,16 @@ def cmyk_to_rgb(c: np.ndarray, m: np.ndarray, y: np.ndarray, k: np.ndarray) -> n
     return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
+def band_to_rgb(v: np.ndarray) -> np.ndarray:
+    """One band of PIL's ``L``, ``I``, ``I;16`` or ``F`` modes, (H, W), to
+    (H, W, 3) uint8 as ``convert("RGB")`` gives it: integers clamped to
+    0..255; floats truncated, 0 at or below 0 and for NaN, 255 at or above
+    255."""
+    if v.dtype.kind == "f":
+        v = np.where(v >= 255, 255, np.where(v > 0, np.trunc(np.nan_to_num(v)), 0))
+    return np.repeat(np.clip(v, 0, 255).astype(np.uint8)[:, :, None], 3, axis=2)
+
+
 def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     """jdcolor.c's ycc_rgb_convert: its fixed-point tables (SCALEBITS 16),
     each channel clamped to [0, 255]."""
@@ -626,7 +649,7 @@ def read_jpeg_rgb(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_JPEG_SIGNATURE):
-        raise ValueError(f"{path}: {_format_name(data)} file, not a JPEG")
+        raise ValueError(f"{path}: {_kind(data)} file, not a JPEG")
     return decode_jpeg(data, path)
 
 

@@ -118,10 +118,9 @@ def _plain(data: bytes, pos: int, count: int, mode: str, maxval: int, path: str)
     return np.asarray(vals, np.int64)
 
 
-def read_pnm_rgb(path: str) -> np.ndarray:
-    """A Netpbm file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def read_magic(data: bytes) -> Tuple[bytes, int]:
+    """PIL's ``_read_magic``: up to six bytes before the first whitespace,
+    and the position after them."""
     magic, pos = b"", 0
     while pos < min(6, len(data)):
         c = data[pos:pos + 1]
@@ -129,6 +128,14 @@ def read_pnm_rgb(path: str) -> np.ndarray:
         if c in _WHITESPACE:
             break
         magic += c
+    return magic, pos
+
+
+def read_pnm_rgb(path: str) -> np.ndarray:
+    """A Netpbm file as (H, W, 3) uint8 RGB (see the module docstring)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    magic, pos = read_magic(data)
     if magic not in _MODES:
         raise ValueError(f"{path}: Netpbm magic {magic!r} is not one PIL opens (P1-P6, Pf, "
                          f"P0CMYK, PyP, PyRGBA, PyCMYK)")

@@ -1,10 +1,12 @@
 """TGA decoding for ``image_io.read_image``, numpy and the standard library
 only, bit-equal to PIL 12.1's ``np.array(Image.open(path).convert("RGB"))``.
 
-TGA has no magic: ``read_image`` tries it last, and ``is_tga`` makes the
-header checks of PIL's ``TgaImagePlugin``: colour map type 0 or 1, a
-positive width and height, depth 1, 8, 16, 24 or 32, and image type 1, 2,
-3, 9, 10 or 11. This module reads, with PIL's rules:
+TGA has no magic: PIL tries its ``TgaImagePlugin`` on every file that
+reaches it, and ``is_tga`` makes that opener's header checks: colour map
+type 0 or 1, a positive width and height, depth 1, 8, 16, 24 or 32, image
+type 1, 2, 3, 9, 10 or 11, and a colour map (if any) of 16-, 24- or
+32-bit entries; a file that fails them passes on to PIL's next opener.
+This module reads, with PIL's rules:
 
 - image types 1 and 9 (colour-mapped, mode ``P``; without a colour map
   PIL fails), 2 and 10 (true colour: 16 bits as BGR 5-5-5, each field
@@ -47,7 +49,7 @@ def is_tga(head: bytes) -> bool:
         return False
     width, height = struct.unpack("<HH", head[12:16])
     return (head[1] in (0, 1) and width > 0 and height > 0 and head[16] in (1, 8, 16, 24, 32)
-            and head[2] in (1, 2, 3, 9, 10, 11))
+            and head[2] in (1, 2, 3, 9, 10, 11) and (head[1] == 0 or head[7] in (16, 24, 32)))
 
 
 def _rle(data: bytes, pos: int, size: int, stride: int, depth: int, path: str) -> bytes:

@@ -21,7 +21,8 @@ prints no result):
    (flash_attention_rotary_tc, flash_attention_rotary; beside SDPA it is
    also timed against the default dispatcher's host rotary + B1), B3 in
    bfloat16 on the tensor cores (swiglu_tc) and in float32 as three TF32
-   products on the tensor cores (swiglu). Also B1 at SD v1.4's 1024 px
+   products on the tensor cores (swiglu; also within F32_TOL's allowance of
+   the function in float64). Also B1 at SD v1.4's 1024 px
    shapes: (2, 16384, 8, 40), (2, 4096, 8, 80) and (2, 1024, 8, 160), head
    dim 160 in both dtypes; B1 at (2, 1024, 8, D) for D in 20, 100, 136, 152,
    168, 200 and 256, a ragged GQA call at D = 200 with kv_len and an sp
@@ -97,29 +98,29 @@ prints no result):
    it was made from (ids and masks equal); the full-width text chain card
    vs CPU (<= 1e-3 max relative error).
 8. ``--mode ours`` on the other families on phase 3's clip: AudioLDM2-music
-   from phase 8a's converted checkpoint at 200 + 100 steps as a float32 selfcheck
-   and a bfloat16 edit; AudioLDM-l and TANGO as
-   selfchecks at 50 + 25 steps in float32 and bfloat16; every selfcheck
-   >= 40 dB.
+   from phase 8a's converted checkpoint at 50 + 25 steps as a float32
+   selfcheck and a bfloat16 edit; AudioLDM-l and TANGO as selfchecks at
+   20 + 10 steps in float32 and bfloat16; every selfcheck >= 40 dB.
 9. the generation, long-form, batch and sweep CLIs through their main(argv)
-   at full width: AudioLDM-s generation (50 steps), style transfer at
+   at full width: AudioLDM-s generation (25 steps), style transfer at
    strength 0.5 and at 0 (which must give back the VAE round trip of the
    input), inpainting of seconds 3-6 and super-resolution in float32, and
    generation and inpainting in bfloat16; Stable Audio generation and
-   inpainting in bfloat16 (100 steps, Brownian noise); long-form edits
-   (100 + 50 steps) of a 25 s clip in three AudioLDM-s windows (float32
+   inpainting in bfloat16 (50 steps, Brownian noise); long-form edits
+   (50 + 25 steps) of a 25 s clip in three AudioLDM-s windows (float32
    and bfloat16: B1 at batch 6) and of a 15 s stereo clip in two Stable
    Audio windows (bfloat16: B1 at batch 4, B3 at M = 4100); a float32 batch
    of three AudioLDM-s clips of 10, 7.5 and 5 s; a float32 2 x 2 tstart x
    cfg_tar sweep. Checks: window 0 of the float32 long-form edit against
    its single-window edit (<= 1e-3 max relative error), inpainting's kept
-   region bit-exact (run_args.json), each sweep point within 1 LSB of
-   ``cli/run.py --mode ours`` at its tstart and cfg_tar.
+   region bit-exact (run_args.json), each sweep point bit-equal to
+   ``cli/run.py --mode ours`` at its tstart and cfg_tar, both with cuDNN's
+   deterministic algorithms.
 8b. the real-weight runbook (``cli/validate_real_weights.py``,
    ``aetorch-validate``) through its main(argv) on phase 8a's
    AudioLDM2-music source tree (kept until here, then deleted): the steps
    manifest, convert, selfcheck, edit and page, the ours, ddim and sdedit
-   lanes, 50 + 25 steps in float32 on phase 3's clip. Checks: every step
+   lanes, 20 + 10 steps in float32 on phase 3's clip. Checks: every step
    PASS, the manifest step counts the vendored manifests' tensors, the
    selfcheck >= 40 dB, each CLI run at 20 B1 launches per UNet forward
    (counted from 0 around each run), ``supp.html`` with the three lanes and
@@ -150,10 +151,13 @@ prints no result):
    table, a progressive CMYK JPEG, an RLE8 BMP, a 512 x 384
    JPEG-in-TIFF, CMYK, YCbCr, CIELab, float32 and signed 16-bit TIFFs, a
    BigTIFF, an animated WebP, a 10-bit PPM, an RLE TGA, an ICO, a lossless
-   and an arithmetic-coded progressive JPEG) decoded by the port's readers
-   to the sha256 of PIL's decode (tests/data/images/sha256.json), each
-   decode's seconds printed, and bfloat16 SD SDEdits at 512 px from the
-   JPEG, from the WebP and from the JPEG-in-TIFF.
+   and an arithmetic-coded progressive JPEG, a 512 x 384 PackBits PSD, a
+   16-bit RLE SGI, an 8-bit RLE PCX with its palette, a two-page DCX, a
+   QOI, an RLE Sun raster with a colour map, an MSP version 2, an XBM, an
+   XPM and a palette IM) decoded by the port's readers to the sha256 of
+   PIL's decode (tests/data/images/sha256.json), each decode's seconds
+   printed, and bfloat16 SD SDEdits at 512 px from the JPEG, from the
+   WebP, from the JPEG-in-TIFF and from the PSD.
 11. the edit server (serve.py) on 127.0.0.1 over HTTP at 50 steps in
    bfloat16: AudioLDM-s (/healthz, three edits, two concurrent requests
    each bit-equal to the same request alone, a response bit-equal to
@@ -251,10 +255,12 @@ A2_MODEL_ID = "cvssp/audioldm2-music"
 AL_MODEL_ID = "cvssp/audioldm-l-full"
 TANGO_MODEL_ID = "declare-lab/tango-full-ft-audiocaps"
 FAMILY_CALLS_PER_FORWARD = {A2_MODEL_ID: 20, AL_MODEL_ID: 20, TANGO_MODEL_ID: 10}
-# phase 8's edits of phase 3's clip: AudioLDM2-music at the bench.py config,
-# AudioLDM-l and TANGO at 50 inversion + 25 edit steps
-SHORT_STEPS, SHORT_TSTART = 50, 25
-EDITS.update({A2_MODEL_ID: (STEPS, TSTART) + EDITS[MODEL_ID][2:],
+# phase 8's edits of phase 3's clip: AudioLDM2-music at 50 inversion + 25
+# edit steps, AudioLDM-l and TANGO at 20 + 10 (cut from the bench.py config
+# and 50 + 25 to keep the script's time)
+A2_STEPS, A2_TSTART = 50, 25
+SHORT_STEPS, SHORT_TSTART = 20, 10
+EDITS.update({A2_MODEL_ID: (A2_STEPS, A2_TSTART) + EDITS[MODEL_ID][2:],
               AL_MODEL_ID: (SHORT_STEPS, SHORT_TSTART) + EDITS[MODEL_ID][2:],
               TANGO_MODEL_ID: (SHORT_STEPS, SHORT_TSTART) + EDITS[MODEL_ID][2:]})
 
@@ -418,12 +424,13 @@ PC_APPLICATIONS = [
 # drift that moves nothing gives the same wav), and from the other PC's.
 AMOUNT0_MAX_LSB = 33
 # phase 9: the generation, long-form, batch and sweep CLIs at full width.
-# Depths: AudioLDM-s generation at 50 steps (the CLI's default is 200; 100
-# until PR 12, cut to make room for phases 10 and 11), Stable Audio's at
-# 100, the edits at 100 inversion + 50 edit steps on AudioLDM-s (the edit
-# config's 200 + 100 halved) and at Stable Audio's 100 + 50.
-GEN_STEPS = 50
-P9_STEPS, P9_TSTART = 100, 50
+# Depths (cut to keep the script's time): AudioLDM-s generation at 25 steps
+# (the CLI's default is 200), Stable Audio's at 50, the edits at 50
+# inversion + 25 edit steps on both models (a quarter and a half of their
+# edit configs).
+GEN_STEPS = 25
+P9_STEPS, P9_TSTART = 50, 25
+P9_SA_STEPS = 50
 # a 25 s clip in 10 s windows overlapping by 1 s: 3 mel windows of 1024
 # frames (starts 0, 920, 1536), a UNet forward of 6 rows; a 15 s stereo clip
 # in 10 s windows: 2 Stable Audio windows, a DiT forward of 4 rows (B3 at
@@ -433,14 +440,15 @@ LONG_WINDOWS = {"mel": 3, "stable_audio": 2}
 GEN_SECONDS = 10.0  # the generation CLI's --duration
 INPAINT_WINDOW = ["3", "6"]  # seconds of the clip that inpainting regenerates
 BATCH_SECONDS = (10.0, 7.5, 5.0)  # run_batch's three clips of different lengths
-SWEEP_TSTARTS, SWEEP_CFGS = (50, 25), (12.0, 6.0)  # a 2 x 2 grid off 100 steps
+SWEEP_TSTARTS, SWEEP_CFGS = (25, 12), (12.0, 6.0)  # a 2 x 2 grid off 50 steps
 # the fold check: window 0 of the folded float32 long-form edit against its
 # single-window edit with window 0's noise (max relative error); the same
 # ops on 6 rows or on 2, which cuDNN and cuBLAS may sum in other orders
 FOLD_MAX_REL = 1e-3
 # a sweep grid point against cli/run.py at its tstart and cfg_tar (the same
-# weights, draws and kernels): int16 LSB
-SWEEP_MAX_LSB = 1
+# weights, draws and kernels), both with cuDNN's deterministic algorithms:
+# int16 LSB (with cuDNN's default algorithms they lie 1 LSB apart)
+SWEEP_MAX_LSB = 0
 # phase 10: the image CLIs. Stable Diffusion v1.4 from a seeded full-width
 # checkpoint (UNet, VAE and the CLIP text tower at CLIP ViT-L/14's text
 # config, SD v1.4's text_encoder/config.json, with a small CLIP-shaped
@@ -668,7 +676,8 @@ def phase1_rotary(fa):
 def phase1_swiglu(sw):
     """B3 against its plain version; in float32 both are also measured
     against the function in float64, which shows how much of the error
-    against the plain version is the plain version's own."""
+    against the plain version is the plain version's own, and the kernel
+    must lie within F32_TOL's allowance of float64 too."""
     from torch.nn import functional as F
 
     cases = []
@@ -703,6 +712,10 @@ def phase1_swiglu(sw):
             log(f"[phase1] swiglu {case['shape']} float32 against float64: kernel "
                 f"{case['kernel_over_allowed_vs_f64']:.3g}, plain version "
                 f"{case['plain_over_allowed_vs_f64']:.3g} of the allowed")
+            if not case["kernel_over_allowed_vs_f64"] <= 1:
+                raise AssertionError(f"swiglu {case['shape']} float32: the kernel lies "
+                                     f"{case['kernel_over_allowed_vs_f64']:.3g} of F32_TOL's "
+                                     f"allowance from float64")
             del h, exact
         cases.append(case)
         del x, w, b, bl, out, ref
@@ -1939,11 +1952,10 @@ def phase8a_checkpoint(tmp: str) -> dict:
 def phase8_families(fa, sw, tmp: str, ckpt: str) -> dict:
     """--mode ours on the other mel families through the port's CLI, on
     phase 3's clip: AudioLDM2-music from phase 8a's checkpoint
-    (``--weights_dir``, the full text chain) at the bench.py config (200 +
-    100 steps) as a float32 selfcheck and a bfloat16 edit (the selfcheck
-    runs the edit's 300 float32 forwards through the same kernels, so the
-    float32 edit run was cut to make room for phases 10 and 11);
-    AudioLDM-l and TANGO (v-prediction) as selfchecks at 50 + 25 steps in
+    (``--weights_dir``, the full text chain) at 50 + 25 steps as a float32
+    selfcheck and a bfloat16 edit (the selfcheck runs the edit's float32
+    forwards through the same kernels, so there is no float32 edit run);
+    AudioLDM-l and TANGO (v-prediction) as selfchecks at 20 + 10 steps in
     float32 and bfloat16. Every selfcheck must reach 40 dB."""
     from audioeditingcode_tpu_torch.cli.run import main as run_edit
 
@@ -1968,12 +1980,14 @@ def phase8_families(fa, sw, tmp: str, ckpt: str) -> dict:
 
 
 RUNBOOK_STEPS = "manifest,convert,selfcheck,edit,page"
-# the runbook's CLI runs at 50 + 25 steps: run name -> (denoiser forwards,
-# the run_args.json key of its loop seconds)
-RUNBOOK_RUNS = {"selfcheck": (SHORT_STEPS + SHORT_TSTART, "edit_seconds"),
-                "ours": (SHORT_STEPS + SHORT_TSTART, "edit_seconds"),
-                "ddim": (2 * SHORT_TSTART, "edit_seconds"),
-                "sdedit": (SHORT_TSTART, "sdedit_seconds")}
+# the runbook's CLI runs at 20 + 10 steps (cut from 50 + 25 to keep the
+# script's time): run name -> (denoiser forwards, the run_args.json key of
+# its loop seconds)
+RUNBOOK_N, RUNBOOK_TSTART = 20, 10
+RUNBOOK_RUNS = {"selfcheck": (RUNBOOK_N + RUNBOOK_TSTART, "edit_seconds"),
+                "ours": (RUNBOOK_N + RUNBOOK_TSTART, "edit_seconds"),
+                "ddim": (2 * RUNBOOK_TSTART, "edit_seconds"),
+                "sdedit": (RUNBOOK_TSTART, "sdedit_seconds")}
 
 
 def phase8b_runbook(fa, sw, tmp: str, src: str, model_id: str = A2_MODEL_ID,
@@ -2006,8 +2020,8 @@ def phase8b_runbook(fa, sw, tmp: str, src: str, model_id: str = A2_MODEL_ID,
 
     argv = ["--model_id", model_id, "--src", src, "--work_dir", work,
             "--audio", os.path.join(tmp, "clip.wav"), "--steps", RUNBOOK_STEPS,
-            "--methods", "ours,ddim,sdedit", "--num_diffusion_steps", str(SHORT_STEPS),
-            "--tstart", str(SHORT_TSTART), "--banner", "SYNTHETIC WEIGHTS",
+            "--methods", "ours,ddim,sdedit", "--num_diffusion_steps", str(RUNBOOK_N),
+            "--tstart", str(RUNBOOK_TSTART), "--banner", "SYNTHETIC WEIGHTS",
             "--target_prompt", EDITS[A2_MODEL_ID][2], "--device", device]
     step_s, said = {}, {}  # each step's seconds, and its message or error
 
@@ -2098,7 +2112,7 @@ def phase9_new_clis(fa, sw, tmp: str) -> dict:
     and bfloat16; the fold check) and of a 15 s stereo clip (2 Stable Audio
     windows, bfloat16); a batch of three AudioLDM-s clips (float32); a 2 x 2
     tstart x cfg_tar sweep on AudioLDM-s (float32), each grid point held to
-    cli/run.py's edit."""
+    cli/run.py's edit, both with cuDNN's deterministic algorithms."""
     from audioeditingcode_tpu_torch.cli import run_long
     from audioeditingcode_tpu_torch.cli.generate import main as generate
     from audioeditingcode_tpu_torch.cli.run import main as run_edit
@@ -2143,14 +2157,14 @@ def phase9_new_clis(fa, sw, tmp: str) -> dict:
                     run["max_lsb_from_vae_round_trip"] > 1:
                 raise AssertionError(f"{name}: not the VAE round trip of the input: {run}")
         record("generate_" + name if not name.startswith("generate") else name, run)
-    sa_gen = ["--model_id", SA_MODEL_ID, "-t", "a cello", "--ddim_steps", str(SA_STEPS),
+    sa_gen = ["--model_id", SA_MODEL_ID, "-t", "a cello", "--ddim_steps", str(P9_SA_STEPS),
               "-dur", str(GEN_SECONDS), "--seed", "0"] + bf16
     for name, extra in (("sa_generate_bf16", ["--mode", "generation"]),
                         ("sa_inpaint_bf16", ["-f", clip44, "--mode", "inpaint",
                                              "--inpaint_window", *INPAINT_WINDOW])):
         argv = sa_gen + extra + ["--save_path", os.path.join(tmp, name)]
         outs, rec, run = _counted_run(fa, sw, f"phase9 {name}", lambda: generate(argv), sa_per(True),
-                                 SA_STEPS, "generate_seconds")
+                                 P9_SA_STEPS, "generate_seconds")
         _wav_samples(name, outs[0], 44100, shape=(10 * 44100, 2))
         if "inpaint" in name:
             run["kept_region_bit_exact"] = rec["kept_region_bit_exact"]
@@ -2176,7 +2190,7 @@ def phase9_new_clis(fa, sw, tmp: str) -> dict:
             ("long", MODEL_ID, long_clip, []), ("long_bf16", MODEL_ID, long_clip, bf16),
             ("sa_long_bf16", SA_MODEL_ID, long44, bf16)):
         sa = model_id == SA_MODEL_ID
-        steps = SA_STEPS if sa else P9_STEPS
+        steps = P9_SA_STEPS if sa else P9_STEPS
         argv = (["--model_id", model_id, "--init_aud", clip_path, "--target_prompt",
                  EDITS[model_id][2], "--num_diffusion_steps", str(steps),
                  "--chunk_seconds", str(CHUNK_S), "--overlap_seconds", str(OVERLAP_S),
@@ -2223,7 +2237,28 @@ def phase9_new_clis(fa, sw, tmp: str) -> dict:
     run["clips"] = len(outs)
     record("batch", run)
 
-    # --- cli/sweep.py: a 2 x 2 grid, each point held to cli/run.py
+    # --- cli/sweep.py: a 2 x 2 grid, each point held to cli/run.py, both
+    # with cuDNN's deterministic algorithms (restored after)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        lsb = _sweep_against_run(fa, sw, tmp, clip, mel_per, record, run_edit, sweep)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    checks["sweep_max_lsb_from_run"] = lsb
+    checks["sweep_cudnn_deterministic"] = True
+    log(f"[phase9] sweep check (cuDNN deterministic): each grid point against cli/run.py: "
+        f"{lsb} LSB (limit {SWEEP_MAX_LSB})")
+    if any(x is None or x > SWEEP_MAX_LSB for x in lsb):
+        raise AssertionError(f"sweep check: {lsb} LSB from cli/run.py")
+    checks["kept_region_bit_exact"] = all(r.get("kept_region_bit_exact", True)
+                                          for r in runs.values())
+    return runs, checks
+
+
+def _sweep_against_run(fa, sw, tmp, clip, mel_per, record, run_edit, sweep) -> list:
+    """Phase 9's sweep (a 2 x 2 grid) and cli/run.py at each grid point:
+    the int16 LSB between each pair."""
     argv = (["--model_id", MODEL_ID, "--init_aud", clip, "--target_prompt", "a dog barking",
              "--source_prompt", "a sine tone", "--cfg_src", "3", "--num_diffusion_steps",
              str(P9_STEPS), "--tstarts", *map(str, SWEEP_TSTARTS), "--cfg_tars",
@@ -2246,14 +2281,7 @@ def phase9_new_clis(fa, sw, tmp: str) -> dict:
         erun["max_lsb_from_sweep"] = int(np.abs(a - b).max()) if a.shape == b.shape else None
         lsb.append(erun["max_lsb_from_sweep"])
         record(name, erun)
-    checks["sweep_max_lsb_from_run"] = lsb
-    log(f"[phase9] sweep check: each grid point against cli/run.py: {lsb} LSB "
-        f"(limit {SWEEP_MAX_LSB})")
-    if any(x is None or x > SWEEP_MAX_LSB for x in lsb):
-        raise AssertionError(f"sweep check: {lsb} LSB from cli/run.py")
-    checks["kept_region_bit_exact"] = all(r.get("kept_region_bit_exact", True)
-                                          for r in runs.values())
-    return runs, checks
+    return lsb
 
 
 def clip_tokenizer_json() -> dict:
@@ -2602,7 +2630,8 @@ def _image_inputs(fa, sw, tmp: str, ckpt: str):
     """The committed inputs of tests/data/images decoded by the port's
     readers, each to the sha256 of PIL's decode, with its seconds; then a
     bfloat16 SD SDEdit at 512 px from the JPEG, one from the lossy WebP with
-    alpha and one from the JPEG-in-TIFF. Returns (runs, checks)."""
+    alpha, one from the JPEG-in-TIFF and one from the PackBits PSD. Returns
+    (runs, checks)."""
     import hashlib
 
     from audioeditingcode_tpu_torch.cli.images import sdedit_main
@@ -2627,7 +2656,8 @@ def _image_inputs(fa, sw, tmp: str, ckpt: str):
     checks["decode_s_all"] = sum(c["decode_s"] for c in checks.values())
     for name, image in (("sd_sdedit_jpeg_bf16", "photo_420_restart.jpg"),
                         ("sd_sdedit_webp_bf16", "photo_alpha.webp"),
-                        ("sd_sdedit_jpeg_tiff_bf16", "photo_jpeg_ycbcr.tif")):
+                        ("sd_sdedit_jpeg_tiff_bf16", "photo_jpeg_ycbcr.tif"),
+                        ("sd_sdedit_psd_bf16", "photo_packbits.psd")):
         argv = ["--model_id", SD_MODEL_ID, "--init_im", os.path.join(d, image),
                 "--target_prompt", "a photo of a cat", "--num_diffusion_steps", str(IMG_STEPS),
                 "--tstart", str(IMG_TSTART), "--seed", "0", "--weights_dir", ckpt,

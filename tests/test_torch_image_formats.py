@@ -420,6 +420,22 @@ CHIP_INPUTS = {"photo_420_restart.jpg": "JPEG, 512 x 384, 4:2:0, quality 90, res
                "arith_progressive.jpg": "arithmetic-coded progressive JPEG (SOF10), 200 x 150, "
                                         "4:2:0, quality 85, restart interval of 4 MCUs"}
 
+# the QOI, PCX/DCX, SGI, PSD, SUN, MSP, XBM, XPM and IM inputs (test_torch_image_dispatch.py)
+RASTER_INPUTS = {
+    "photo_packbits.psd": "PSD, 512 x 384 RGB, PackBits, image resources and a layer section "
+                          "skipped",
+    "rle16_rgb.sgi": "SGI, 160 x 120 RGB at 16 bits, RLE",
+    "palette_rle.pcx": "PCX, 320 x 240 8-bit, RLE, 200 colours in the trailing palette",
+    "photo.qoi": "QOI, 256 x 192 RGB",
+    "rle_cmap.ras": "Sun raster, 200 x 150, type 2 (RLE), 8 bits with a colour map",
+    "rle_v2.msp": "MSP version 2, 320 x 200, run-length rows",
+    "icon.xbm": "XBM, 64 x 48, hot spot",
+    "icon.xpm": "XPM, 48 x 32, 2 characters a pixel, 40 colours and None",
+    "lut_palette.im": "IM, 160 x 120 palette image (Greyscale with a colour Lut), written by PIL",
+    "pages.dcx": "DCX, two 8-bit PCX pages of 96 x 64, the first read",
+}
+CHIP_INPUTS.update(RASTER_INPUTS)
+
 
 def make_chip_inputs(d: str) -> dict:
     """Write the images chip_smoke.py decodes on the card, and return
@@ -436,6 +452,9 @@ def make_chip_inputs(d: str) -> dict:
     write_test_png(os.path.join(d, "adam7_rgb16.png"), smooth, 16, 2, interlace=True)
     _make_other_inputs(d)
     _make_new_inputs(d)
+    from test_torch_image_dispatch import make_raster_inputs
+
+    make_raster_inputs(d)
     out = {}
     for name, what in CHIP_INPUTS.items():
         px = _pil(os.path.join(d, name))

@@ -114,25 +114,11 @@ def _rle(data: bytes, pos: int, width: int, height: int, rle4: bool, path: str) 
     return np.frombuffer(bytes(out[:total]), np.uint8).reshape(height, width)
 
 
-def read_bmp_rgb(path: str) -> np.ndarray:
-    """A BMP file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    return decode_bmp(data, path)
-
-
-def read_dib_rgb(path: str) -> np.ndarray:
-    """A DIB file (PIL's ``DibImageFile``: a BMP without its file header) as
-    (H, W, 3) uint8 RGB."""
-    with open(path, "rb") as f:
-        return decode_dib(f.read(), path)
-
-
 def decode_dib(dib: bytes, path: str, halve: bool = False) -> np.ndarray:
-    """A DIB's bytes as PIL's ``DibImageFile`` reads them, at half its height
-    where ``halve`` (an ICO or CUR entry's bitmap, its AND mask below): a
-    file header put in front, the pixels after the header, the masks and
-    the palette."""
+    """A DIB's bytes (PIL's ``DibImageFile``: a BMP without its file header)
+    as PIL reads them, at half its height where ``halve`` (an ICO or CUR
+    entry's bitmap, its AND mask below): a file header put in front, the
+    pixels after the header, the masks and the palette."""
     if len(dib) < 16:
         raise ValueError(f"{path}: truncated DIB data")
     (hsize,) = struct.unpack("<I", dib[:4])

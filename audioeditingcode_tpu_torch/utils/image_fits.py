@@ -91,10 +91,8 @@ def header(data: bytes, path: str) -> dict:
     return {"size": size, "dtype": dtype, "decoder": decoder, "offset": min(pos, len(data)) - 80}
 
 
-def read_fits_rgb(path: str) -> np.ndarray:
-    """A FITS file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_fits(data: bytes, path: str) -> np.ndarray:
+    """A FITS file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     try:
         head = header(data, path)
     except (PassOn, KeyError) as e:

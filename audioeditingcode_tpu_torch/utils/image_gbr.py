@@ -33,10 +33,8 @@ def header(data: bytes, path: str) -> dict:
     return {"size": (width, height), "depth": depth, "offset": size}
 
 
-def read_gbr_rgb(path: str) -> np.ndarray:
-    """A GIMP brush as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_gbr(data: bytes, path: str) -> np.ndarray:
+    """A GIMP brush file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     try:
         head = header(data, path)
     except (PassOn, struct.error) as e:

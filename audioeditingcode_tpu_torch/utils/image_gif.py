@@ -105,11 +105,9 @@ def _greyscale_table(table: Optional[np.ndarray]) -> bool:
     return bool(np.all(table == np.arange(len(table))[:, None]))
 
 
-def read_gif_rgb(path: str) -> np.ndarray:
-    """The first frame of a GIF file as (H, W, 3) uint8 RGB (see the module
+def decode_gif(data: bytes, path: str) -> np.ndarray:
+    """The first frame of a GIF file's bytes as (H, W, 3) uint8 RGB (see the module
     docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
     if data[:6] not in (b"GIF87a", b"GIF89a") or len(data) < 13:
         raise ValueError(f"{path}: not a GIF87a or GIF89a file")
     width, height, flags = struct.unpack("<HHB", data[6:11])

@@ -20,7 +20,8 @@ where it passes the file on, and raises a
 ``Image.open``. The formats ``read_image`` reads have their header opens in
 their own modules, copies of PIL's; the others have copies of PIL's checks
 up to where the opener takes the file, enough to tell where it passes the
-file on.
+file on. ICO's opener loads the entry it picks, so its header open,
+``image_ico.open_entry``, makes that entry's PNG or DIB checks too.
 """
 
 from __future__ import annotations
@@ -69,78 +70,9 @@ def _takes(data: bytes, path: str) -> None:
     """An opener that takes every file its accept test passes."""
 
 
-# ------------------------------------------------ openers without an accept
-_IPTC_RECORDS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 240)
-
-
-def _iptc(data: bytes, path: str) -> None:
-    def be(c: bytes) -> int:
-        return _be32((b"\0\0\0\0" + c)[-4:])
-
-    info, pos = {}, 0
-    while True:
-        s = data[pos:pos + 5]
-        pos += 5
-        if not s.strip(b"\0"):
-            break
-        tag = s[1], s[2]
-        if s[0] != 0x1C or tag[0] not in _IPTC_RECORDS:
-            raise PassOn("invalid IPTC/NAA file")
-        size = s[3]
-        if size > 132:
-            raise ValueError(f"{path}: illegal field length in an IPTC/NAA file (PIL fails on "
-                             f"it)")
-        if size == 128:
-            size = 0
-        elif size > 128:
-            size = be(data[pos:pos + s[3] - 128])
-            pos += s[3] - 128
-        else:
-            size = _be16(s, 3)
-        if tag == (8, 10):
-            break
-        tagdata = data[pos:pos + size] if size else None
-        pos += size
-        if tag in info:
-            info[tag] = (info[tag] if isinstance(info[tag], list) else [info[tag]]) + [tagdata]
-        else:
-            info[tag] = tagdata
-    layers, component = info[(3, 60)][0], info[(3, 60)][1]
-    mode = ""
-    if layers == 1 and not component:
-        mode = "L"
-    elif layers == 3 and component:
-        mode = "RGB"
-    elif layers == 4 and component:
-        mode = "CMYK"
-    if mode != "L" and (3, 65) in info:
-        info[(3, 65)][0] - 1  # PIL reads the band: a repeated field raises TypeError
-    width, height = be(info[(3, 20)]), be(info[(3, 30)])
-    if (3, 120) not in info or be(info[(3, 120)]) not in (1, 5):
-        raise ValueError(f"{path}: unknown IPTC image compression (PIL fails on it)")
-    if not mode or width <= 0 or height <= 0:
-        raise PassOn("no mode, or a size of 0")
-
-
-def _pcd(data: bytes, path: str) -> None:
-    if data[2048:2052] != b"PCD_" or len(data) < 2048 + 1539:  # PIL reads byte 1538 after it
-        raise PassOn("not a PCD file")
-
-
-# ------------------------------------- openers of formats not read yet
+# ------------------------------------------- the checks of other openers
 def _avif_accept(prefix: bytes) -> bool:
     return prefix[4:8] == b"ftyp" and prefix[8:12] in (b"avif", b"avis", b"mif1", b"msf1")
-
-
-def _ico(data: bytes, path: str) -> None:
-    """``IcoFile``'s directory, and the chosen entry's first field (PIL
-    loads the entry inside its opener, so a field it cannot read passes the
-    file on; other load-time failures are not modelled)."""
-    from .image_ico import choose
-
-    offset = choose(data, path)[4]
-    if data[offset:offset + 8] != b"\x89PNG\r\n\x1a\n":
-        struct.unpack_from("<I", data, offset)
 
 
 def _cur(data: bytes, path: str) -> None:
@@ -204,36 +136,36 @@ OPENERS: Tuple[Tuple[str, Accept, Callable[[bytes, str], None]], ...] = (
     ("GIF", _starts(b"GIF87a", b"GIF89a"), _takes),
     ("JPEG", _starts(b"\xff\xd8\xff"), _takes),
     ("PPM", lambda p: len(p) >= 2 and p[:1] == b"P" and p[1] in b"0123456fy", _ppm),
-    ("PNG", _starts(b"\x89PNG\r\n\x1a\n"), _takes),
+    ("PNG", _starts(b"\x89PNG\r\n\x1a\n"), _module_open("image_io", "png_header")),
     ("AVIF", _avif_accept, _takes),
-    ("BLP", _starts(b"BLP1", b"BLP2"), _takes),
+    ("BLP", _starts(b"BLP1", b"BLP2"), _module_open("image_blp")),
     ("BUFR", _starts(b"BUFR", b"ZCZC"), _takes),
     ("CUR", _starts(b"\0\0\2\0"), _cur),
     ("PCX", lambda p: len(p) >= 2 and p[0] == 10 and p[1] in (0, 2, 3, 5),
      _module_open("image_pcx")),
     ("DCX", lambda p: len(p) >= 4 and _le32(p) == 0x3ADE68B1, _module_open("image_pcx", "dcx")),
-    ("DDS", _starts(b"DDS "), _takes),
+    ("DDS", _starts(b"DDS "), _module_open("image_dds")),
     ("EPS", lambda p: p.startswith(b"%!PS") or (len(p) >= 4 and _le32(p) == 0xC6D3D0C5), _takes),
     ("FITS", _starts(b"SIMPLE"), _module_open("image_fits")),
     ("FLI", lambda p: len(p) >= 16 and struct.unpack_from("<H", p, 4)[0] in (0xAF11, 0xAF12)
-     and struct.unpack_from("<H", p, 14)[0] in (0, 3), _takes),
-    ("FTEX", _starts(b"FTEX"), _takes),
+     and struct.unpack_from("<H", p, 14)[0] in (0, 3), _module_open("image_fli")),
+    ("FTEX", _starts(b"FTEX"), _module_open("image_ftex")),
     ("GBR", lambda p: len(p) >= 8 and _be32(p) >= 20 and _be32(p, 4) in (1, 2),
      _module_open("image_gbr")),
     ("GRIB", lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1, _takes),
     ("HDF5", _starts(b"\x89HDF\r\n\x1a\n"), _takes),
     ("JPEG2000", _starts(b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), _takes),
-    ("ICNS", _starts(b"icns"), _takes),
-    ("ICO", _starts(b"\0\0\1\0"), _ico),
+    ("ICNS", _starts(b"icns"), _module_open("image_icns")),
+    ("ICO", _starts(b"\0\0\1\0"), _module_open("image_ico", "open_entry")),
     ("IM", None, _module_open("image_im")),
     ("IMT", None, _module_open("image_imt")),
-    ("IPTC", None, _iptc),
+    ("IPTC", None, _module_open("image_iptc")),
     ("MCIDAS", _starts(b"\0\0\0\0\0\0\0\4"), _module_open("image_mcidas")),
     ("MPEG", _starts(b"\0\0\1\xb3"), _mpeg),
     ("TIFF", _starts(b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b",
                      b"II\x2b\x00"), _takes),
     ("MSP", _starts(b"DanM", b"LinS"), _module_open("image_msp")),
-    ("PCD", None, _pcd),
+    ("PCD", None, _module_open("image_pcd")),
     ("PIXAR", _starts(b"\200\350\000\000"), _module_open("image_pixar")),
     ("PSD", _starts(b"8BPS"), _module_open("image_psd")),
     ("QOI", _starts(b"qoif"), _module_open("image_qoi")),

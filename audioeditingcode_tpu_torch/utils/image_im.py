@@ -227,10 +227,8 @@ def _bits(data: bytes, pos: int, w: int, h: int, bits: int, path: str) -> np.nda
                 x = count = 0
 
 
-def read_im_rgb(path: str) -> np.ndarray:
-    """An IM file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_im(data: bytes, path: str) -> np.ndarray:
+    """An IM file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     try:
         head = header(data, path)
     except PassOn as e:

@@ -72,10 +72,8 @@ def header(data: bytes, path: str) -> dict:
     return {"size": (width, height), "offset": offset}
 
 
-def read_imt_rgb(path: str) -> np.ndarray:
-    """An IM Tools file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_imt(data: bytes, path: str) -> np.ndarray:
+    """An IM Tools file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     try:
         head = header(data, path)
     except PassOn as e:

@@ -15,12 +15,20 @@ and ``struct``. Every decoder gives the pixels of PIL 12.1's
   (PCX, DCX), ``image_sgi``, ``image_psd``, ``image_sun``, ``image_msp``,
   ``image_xbm``, ``image_xpm``, ``image_im``, ``image_spider``,
   ``image_pixar``, ``image_mcidas``, ``image_gbr``, ``image_xvthumb``,
-  ``image_imt``, ``image_fits``), each bit-equal to PIL's
+  ``image_imt``, ``image_fits``, ``image_fli``, ``image_pcd``,
+  ``image_iptc``, ``image_dds``, ``image_ftex`` and ``image_blp`` with
+  ``image_bcn``, ``image_icns``), each bit-equal to PIL's
   ``convert("RGB")`` on what it reads; a format the port does not read, or
   a file PIL cannot identify, raises a ``ValueError`` that names it.
+  ``decode_image`` does the same on a file's bytes (each module's
+  ``decode_<format>`` takes the bytes).
 - ``read_png_rgb``: PNG in every colour type and bit depth, non-interlaced
   or Adam7 (each of the seven passes its own filtered image; a pass of an
   image smaller than 8 px may be empty), with the five scanline filters.
+  The data is inflated scanline by scanline as PIL's decoder does
+  (``inflate_idat``): a stream cut or corrupt after the last scanline
+  still reads, and one whose end comes with an earlier scanline leaves
+  the scanlines after it at 0.
   ``tRNS`` is ignored, as ``convert("RGB")`` ignores it. The samples are
   brought to 8 bits as PIL opens and converts them:
 
@@ -100,26 +108,30 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
           (1, 0, 2, 2), (0, 1, 1, 2))
 
 
-# PIL's format name -> (module beside this one, reader); PNG and JPEG are here
-_READERS = {"PNG": ("image_io", "read_png_rgb"), "JPEG": ("image_io", "read_jpeg_rgb"),
-            "DIB": ("image_bmp", "read_dib_rgb"), "WEBP": ("image_webp", "read_webp_rgb"),
-            "PPM": ("image_pnm", "read_pnm_rgb"), "CUR": ("image_ico", "read_ico_rgb"),
-            "DCX": ("image_pcx", "read_pcx_rgb")}
-_READERS.update({name: (f"image_{name.lower()}", f"read_{name.lower()}_rgb") for name in (
+# PIL's format name -> (module beside this one, decoder of the file's bytes)
+_READERS = {"PNG": ("image_io", "decode_png"), "JPEG": ("image_io", "decode_jpeg_file"),
+            "DIB": ("image_bmp", "decode_dib"), "WEBP": ("image_webp", "decode_webp"),
+            "PPM": ("image_pnm", "decode_pnm"), "CUR": ("image_ico", "decode_ico"),
+            "DCX": ("image_pcx", "decode_pcx")}
+_READERS.update({name: (f"image_{name.lower()}", f"decode_{name.lower()}") for name in (
     "GIF", "BMP", "TIFF", "ICO", "TGA", "QOI", "PCX", "SGI", "PSD", "SUN", "MSP", "XBM", "XPM",
-    "IM", "SPIDER", "PIXAR", "MCIDAS", "GBR", "XVThumb", "IMT", "FITS")})
+    "IM", "SPIDER", "PIXAR", "MCIDAS", "GBR", "XVThumb", "IMT", "FITS", "FLI", "PCD", "IPTC",
+    "DDS", "FTEX", "BLP", "ICNS")})
 READ_FORMATS = ("PNG, JPEG, GIF, BMP, DIB, TIFF, WebP, Netpbm, ICO, CUR, TGA, QOI, PCX, DCX, "
                 "SGI, PSD, SUN, MSP, XBM, XPM, IM, SPIDER, PIXAR, McIdas, GBR, XV thumbnails, "
-                "IMT and FITS")
+                "IMT, FITS, FLI, PCD, IPTC, DDS, FTEX, BLP and ICNS")
 
 
 def format_name(path: str) -> str:
     """The format PIL's ``Image.open`` takes the file for (its ``format``;
     ``image_identify``)."""
+    with open(path, "rb") as f:
+        return _format_name(f.read(), path)
+
+
+def _format_name(data: bytes, path: str) -> str:
     from .image_identify import Unidentified, identify
 
-    with open(path, "rb") as f:
-        data = f.read()
     try:
         return identify(data, path)
     except Unidentified:
@@ -143,16 +155,23 @@ def _kind(data: bytes) -> str:
 def read_image(path: str) -> np.ndarray:
     """An image file as (H, W, 3) uint8 RGB, as PIL's
     ``Image.open(path).convert("RGB")`` (see the module docstring)."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), path)
+
+
+def decode_image(data: bytes, path: str) -> np.ndarray:
+    """``read_image`` on a file's bytes, as PIL's ``Image.open`` of a file
+    object (``path`` names it in errors)."""
     import importlib
 
-    kind = format_name(path)
+    kind = _format_name(data, path)
     if kind not in _READERS:
         raise ValueError(f"{path}: {kind} image, a format the port does not read yet (it reads "
                          f"{READ_FORMATS})")
     module, name = _READERS[kind]
-    reader = getattr(importlib.import_module(f".{module}", __package__), name)
+    decoder = getattr(importlib.import_module(f".{module}", __package__), name)
     try:
-        return reader(path)
+        return decoder(data, path)
     except (struct.error, zlib.error) as e:  # data that ends inside a field
         raise ValueError(f"{path}: truncated or corrupt {kind} data ({e})") from None
 
@@ -250,25 +269,112 @@ def _png_samples(raw: bytes, width: int, height: int, channels: int, bits: int,
     return out
 
 
+def _png_rows(width: int, height: int, channels: int, bits: int, interlace: int) -> List[int]:
+    """The bytes of each filtered scanline, pass after pass."""
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    rows = []
+    for x0, y0, dx, dy in passes:
+        w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if w > 0 and h > 0:
+            rows += [(w * channels * bits + 7) // 8 + 1] * h
+    return rows
+
+
+def inflate_idat(chunks: List[bytes], width: int, height: int, channels: int, bits: int,
+                 interlace: int) -> Optional[bytes]:
+    """PIL's zip decoder over the data of consecutive IDAT chunks, fed as
+    its loader reads them (each chunk in pieces of up to 65536 bytes): it
+    inflates one scanline at a time and stops after the last one, or after
+    the one whose inflate call met the stream's end (the scanlines after it
+    stay 0). Returns every scanline's bytes, or None where the chunks end
+    first (PIL then reads the next chunk header, and fails unless that is
+    no chunk name; ``zlib.error`` where the data is corrupt)."""
+    rows = _png_rows(width, height, channels, bits, interlace)
+    inflate, out, r, left, tail = zlib.decompressobj(), bytearray(), 0, rows[0], b""
+    for chunk in chunks:
+        for start in range(0, len(chunk), 65536):
+            data = tail + chunk[start:start + 65536]
+            while data:
+                got = inflate.decompress(data, left)
+                data = inflate.unconsumed_tail
+                out += got
+                left -= len(got)
+                if left:
+                    break  # needs more input
+                r += 1
+                if r == len(rows) or inflate.eof:
+                    return bytes(out) + bytes(sum(rows) - len(out))
+                left = rows[r]
+            tail = data
+    return None
+
+
+# PIL's PNG modes: (bit depth, colour type)
+_PNG_MODES = {(1, 0), (2, 0), (4, 0), (8, 0), (16, 0), (8, 2), (16, 2), (1, 3), (2, 3), (4, 3),
+              (8, 3), (8, 4), (16, 4), (8, 6), (16, 6)}
+
+
+def png_header(png: bytes, path: str) -> dict:
+    """PIL's ``PngImageFile._open``: its chunk walk up to the first IDAT or
+    IEND chunk. A chunk name that is not four word characters, a bad or
+    missing CRC, an IHDR filter method other than 0, no mode or a size of
+    0 pass the file on (``PassOn``, or ``struct.error`` where a chunk
+    header is cut short); a chunk cut short or an IHDR under 13 bytes ends
+    ``Image.open``. The other chunks' handlers are not modelled. Returns
+    {"ihdr": (width, height, bits, colour type, interlace), "idat": the
+    first IDAT chunk's position, None where IEND comes first}."""
+    from .image_identify import PassOn, check_size
+
+    pos, ihdr, mode = 8, (0, 0, 0, 0, 0), False
+    while True:
+        (length,) = struct.unpack(">I", png[pos:pos + 4])
+        cid = png[pos + 4:pos + 8]
+        if not re.match(rb"\w\w\w\w", cid):
+            raise PassOn(f"broken PNG file (chunk {cid!r})")
+        if cid in (b"IDAT", b"IEND"):
+            break
+        pos += 8
+        if pos + length > len(png):
+            raise ValueError(f"{path}: PNG chunk {cid!r} cut short (PIL fails on it: "
+                             f"Truncated File Read)")
+        body = png[pos:pos + length]
+        if cid == b"IHDR":
+            if length < 13:
+                raise ValueError(f"{path}: PNG IHDR of {length} bytes (PIL fails on "
+                                 f"it: truncated IHDR chunk)")
+            ihdr = struct.unpack(">IIBBxxB", body[:13])
+            mode = (body[8], body[9]) in _PNG_MODES
+            if body[11]:
+                raise PassOn("unknown filter category")
+        crc = png[pos + length:pos + length + 4]
+        if len(crc) < 4 or struct.unpack(">I", crc)[0] != zlib.crc32(cid + body):
+            raise PassOn(f"broken PNG file (bad or incomplete checksum in {cid!r})")
+        pos += length + 4
+    if not mode or ihdr[0] <= 0 or ihdr[1] <= 0:
+        raise PassOn("no mode, or a size of 0")
+    check_size(ihdr[0], ihdr[1], path)
+    return {"ihdr": ihdr, "idat": pos if cid == b"IDAT" else None}
+
+
 def read_png_rgb(path: str) -> np.ndarray:
     """A PNG file as (H, W, 3) uint8 RGB (see the module docstring)."""
     with open(path, "rb") as f:
-        data = f.read()
-    return decode_png(data, path)
+        return decode_png(f.read(), path)
 
 
 def decode_png(data: bytes, path: str) -> np.ndarray:
     """A PNG file's bytes as (H, W, 3) uint8 RGB."""
     if not data.startswith(_SIGNATURE):
         raise ValueError(f"{path}: {_kind(data)} file, not a PNG")
-    idat, palette, header = [], None, None
+    idat, palette, header, last = [], None, None, None
     for tag, body in _chunks(data):
         if tag == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif tag == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif tag == b"IDAT":
+        elif tag == b"IDAT" and (not idat or last == b"IDAT"):  # PIL reads the first run
             idat.append(body)
+        last = tag
     if header is None:
         raise ValueError(f"{path}: PNG without an IHDR chunk")
     width, height, bits, ctype, _, _, interlace = header
@@ -279,8 +385,11 @@ def decode_png(data: bytes, path: str) -> np.ndarray:
         raise ValueError(f"{path}: {bits}-bit {kind} is not a valid PNG bit depth")
     if interlace not in (0, 1):
         raise ValueError(f"{path}: PNG interlace method {interlace} is not a valid one")
-    px = _png_samples(zlib.decompress(b"".join(idat)), width, height, channels, bits,
-                      interlace)
+    raw = inflate_idat(idat, width, height, channels, bits, interlace)
+    if raw is None:
+        raise ValueError(f"{path}: PNG image data is shorter than its header says (PIL fails on "
+                         f"it: image file is truncated)")
+    px = _png_samples(raw, width, height, channels, bits, interlace)
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{path}: palette PNG without a PLTE chunk")
@@ -647,14 +756,18 @@ def read_jpeg_rgb(path: str) -> np.ndarray:
     """A baseline, extended sequential or progressive (Huffman, 8-bit)
     JPEG file as (H, W, 3) uint8 RGB (see the module docstring)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_jpeg_file(f.read(), path)
+
+
+def decode_jpeg_file(data: bytes, path: str) -> np.ndarray:
+    """``read_jpeg_rgb`` on the file's bytes (``path`` names it in errors)."""
     if not data.startswith(_JPEG_SIGNATURE):
         raise ValueError(f"{path}: {_kind(data)} file, not a JPEG")
     return decode_jpeg(data, path)
 
 
 def decode_jpeg(data: bytes, path: str, space: Optional[str] = None, tables: bytes = b"",
-                sampling=None) -> np.ndarray:
+                sampling=None, cmyk: bool = False) -> np.ndarray:
     """A JPEG stream as (H, W, 3) uint8 RGB. ``space`` None takes the colour
     space from libjpeg's guess, as for a JPEG file; a caller that knows it
     (libtiff passes the TIFF photometric to libjpeg) gives "ycc" (YCbCr,
@@ -664,7 +777,9 @@ def decode_jpeg(data: bytes, path: str, space: Optional[str] = None, tables: byt
     (TIFF's JPEGTables), is read first, as ``jpeg_read_header(FALSE)``.
     ``sampling`` (h, v), where given, is the first component's sampling the
     caller requires ("any": any), the others' being 1x1, as libtiff
-    requires of a strip's stream."""
+    requires of a strip's stream. ``cmyk`` takes four components as CMYK
+    whatever the Adobe transform says (PIL's JPEG colour space ``CMYK``,
+    which BLP's reader sets: no YCCK conversion)."""
     qt: Dict[int, np.ndarray] = {}
     huff: Dict[Tuple[int, int], List[int]] = {}
     if tables:
@@ -683,7 +798,7 @@ def decode_jpeg(data: bytes, path: str, space: Optional[str] = None, tables: byt
             raise ValueError(f"{path}: truncated JPEG data: the file ends before its EOI "
                              f"marker")
         frame["smooth"] = _smoothing_ok(frame)
-    return _jpeg_pixels(frame, coefs, jfif, adobe, space)
+    return _jpeg_pixels(frame, coefs, jfif, adobe, space, cmyk)
 
 
 def _jpeg_segments(data: bytes, path: str, qt: Dict[int, np.ndarray],
@@ -896,7 +1011,7 @@ def _decode_scan(frame: dict, header: bytes, scan: bytes, qt, huff, restart: int
 
 
 def _jpeg_pixels(frame: dict, coefs: List[List[int]], jfif: bool, adobe,
-                 space: Optional[str] = None) -> np.ndarray:
+                 space: Optional[str] = None, cmyk: bool = False) -> np.ndarray:
     """IDCT, upsampling and colour conversion of the decoded coefficients
     (``space``: see ``decode_jpeg``)."""
     from . import image_jpeg_lossless, image_jpeg_smooth
@@ -938,7 +1053,7 @@ def _jpeg_pixels(frame: dict, coefs: List[List[int]], jfif: bool, adobe,
         if frame["lossless"] and adobe not in (None, 0):
             raise ValueError("lossless YCCK JPEG: libjpeg-turbo does not convert its colour, and "
                              "PIL fails on it")
-        return _cmyk_pixels(planes, adobe)
+        return _cmyk_pixels(planes, 0 if cmyk else adobe)
     ids = [c[0] for c in comps]
     if frame["lossless"]:  # libjpeg-turbo takes RGB but under JFIF or an Adobe transform
         if jfif or adobe not in (None, 0):

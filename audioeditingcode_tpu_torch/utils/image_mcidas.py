@@ -42,10 +42,8 @@ def header(data: bytes, path: str) -> dict:
             "stride": w[15] + w[10] * w[11] * w[14]}
 
 
-def read_mcidas_rgb(path: str) -> np.ndarray:
-    """A McIdas area file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_mcidas(data: bytes, path: str) -> np.ndarray:
+    """A McIdas area file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     try:
         head = header(data, path)
     except PassOn as e:

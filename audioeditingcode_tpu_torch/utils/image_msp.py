@@ -76,10 +76,8 @@ def _rows(data: bytes, width: int, height: int, path: str) -> bytes:
     return bytes(out)
 
 
-def read_msp_rgb(path: str) -> np.ndarray:
-    """An MSP file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_msp(data: bytes, path: str) -> np.ndarray:
+    """An MSP file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     try:
         head = header(data, path)
     except (PassOn, struct.error) as e:

@@ -141,11 +141,9 @@ def _lines(data: bytes, pos: int, line: int, width: int, height: int, planar: in
     return out
 
 
-def read_pcx_rgb(path: str) -> np.ndarray:
-    """A PCX or DCX file (its first page) as (H, W, 3) uint8 RGB (see the
+def decode_pcx(data: bytes, path: str) -> np.ndarray:
+    """A PCX or DCX file's bytes (its first page) as (H, W, 3) uint8 RGB (see the
     module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
     try:
         head = dcx(data, path) if data[:4] == b"\xb1\x68\xde\x3a" else header(data, path)
     except (PassOn, IndexError, struct.error) as e:

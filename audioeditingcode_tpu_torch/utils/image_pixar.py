@@ -29,10 +29,8 @@ def header(data: bytes, path: str) -> dict:
     return {"size": (width, height)}
 
 
-def read_pixar_rgb(path: str) -> np.ndarray:
-    """A PIXAR file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_pixar(data: bytes, path: str) -> np.ndarray:
+    """A PIXAR file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     try:
         w, h = header(data, path)["size"]
     except (PassOn, struct.error) as e:

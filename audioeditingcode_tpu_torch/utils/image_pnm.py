@@ -131,10 +131,8 @@ def read_magic(data: bytes) -> Tuple[bytes, int]:
     return magic, pos
 
 
-def read_pnm_rgb(path: str) -> np.ndarray:
-    """A Netpbm file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_pnm(data: bytes, path: str) -> np.ndarray:
+    """A Netpbm file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     magic, pos = read_magic(data)
     if magic not in _MODES:
         raise ValueError(f"{path}: Netpbm magic {magic!r} is not one PIL opens (P1-P6, Pf, "

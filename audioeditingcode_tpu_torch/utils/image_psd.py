@@ -148,11 +148,9 @@ def _packbits(data: bytes, pos: int, line: int, rows: int, path: str) -> bytes:
     return bytes(out)
 
 
-def read_psd_rgb(path: str) -> np.ndarray:
-    """A PSD file's composite image as (H, W, 3) uint8 RGB (see the module
+def decode_psd(data: bytes, path: str) -> np.ndarray:
+    """A PSD file's bytes's composite image as (H, W, 3) uint8 RGB (see the module
     docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
     try:
         head = header(data, path)
     except (PassOn, IndexError, struct.error) as e:

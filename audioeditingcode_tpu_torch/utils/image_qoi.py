@@ -40,10 +40,8 @@ def header(data: bytes, path: str) -> dict:
     return {"size": (width, height)}
 
 
-def read_qoi_rgb(path: str) -> np.ndarray:
-    """A QOI file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_qoi(data: bytes, path: str) -> np.ndarray:
+    """A QOI file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     try:
         head = header(data, path)
     except (PassOn, IndexError, struct.error) as e:

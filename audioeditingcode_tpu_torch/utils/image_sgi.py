@@ -109,10 +109,8 @@ def _rle(data: bytes, w: int, h: int, z: int, bpc: int, path: str) -> np.ndarray
     return out
 
 
-def read_sgi_rgb(path: str) -> np.ndarray:
-    """An SGI image file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_sgi(data: bytes, path: str) -> np.ndarray:
+    """An SGI image file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     try:
         head = header(data, path)
     except (PassOn, IndexError, struct.error) as e:

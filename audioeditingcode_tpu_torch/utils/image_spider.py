@@ -75,10 +75,8 @@ def header(data: bytes, path: str) -> dict:
             "offset": hdrlen if istack == 0 else 2 * hdrlen}
 
 
-def read_spider_rgb(path: str) -> np.ndarray:
-    """A SPIDER file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_spider(data: bytes, path: str) -> np.ndarray:
+    """A SPIDER file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     try:
         head = header(data, path)
     except PassOn as e:

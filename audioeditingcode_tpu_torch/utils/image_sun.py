@@ -94,10 +94,8 @@ def _rle(data: bytes, pos: int, line: int, height: int, path: str) -> bytes:
     return bytes(out[:size])
 
 
-def read_sun_rgb(path: str) -> np.ndarray:
-    """A Sun raster file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_sun(data: bytes, path: str) -> np.ndarray:
+    """A Sun raster file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     try:
         head = header(data, path)
     except (PassOn, IndexError, struct.error) as e:

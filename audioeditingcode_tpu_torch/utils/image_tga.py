@@ -43,7 +43,7 @@ _RAWMODES = {(1, 8): "P", (3, 1): "1", (3, 8): "L", (3, 16): "LA", (2, 16): "BGR
 
 def is_tga(head: bytes) -> bool:
     """Whether PIL's ``TgaImagePlugin`` opens a file with these first 18
-    bytes (its header checks; ``read_tga_rgb`` raises where PIL then fails
+    bytes (its header checks; ``decode_tga`` raises where PIL then fails
     to decode)."""
     if len(head) < 18:
         return False
@@ -78,10 +78,8 @@ def _rle(data: bytes, pos: int, size: int, stride: int, depth: int, path: str) -
     return bytes(out[:size])
 
 
-def read_tga_rgb(path: str) -> np.ndarray:
-    """A TGA file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_tga(data: bytes, path: str) -> np.ndarray:
+    """A TGA file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     if not is_tga(data[:18]):
         raise ValueError(f"{path}: not a TGA file PIL opens")
     id_len, cmap_type, itype = data[0], data[1], data[2]

@@ -399,11 +399,9 @@ def _mode(tags, order: str, comp: int, path: str) -> Tuple[str, int, int, int, i
     return kind, photo, bits, spp, fmt[0]
 
 
-def read_tiff_rgb(path: str) -> np.ndarray:
-    """The first image of a TIFF file as (H, W, 3) uint8 RGB (see the module
+def decode_tiff(data: bytes, path: str) -> np.ndarray:
+    """The first image of a TIFF file's bytes as (H, W, 3) uint8 RGB (see the module
     docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
     order, big = _header(data, path)
     tags = _ifd(data, order, path, big)
     if 256 not in tags or 257 not in tags:

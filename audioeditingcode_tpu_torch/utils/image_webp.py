@@ -18,7 +18,7 @@ blended, so the colour under a transparent pixel is kept and
 - the ``ALPH`` chunk of a lossy image: raw or lossless-compressed alpha
   (the green channel of a header-less lossless stream), unfiltered
   (none, horizontal, vertical or gradient) as libwebp's ``filters.c``;
-  ``read_webp_rgba`` returns it, ``read_webp_rgb`` drops it;
+  ``read_webp_rgba`` returns it, ``decode_webp`` drops it;
 - the lossy key frame through ``image_vp8.decode_vp8``, with libwebp's
   fancy upsampling and fixed-point YUV -> RGB.
 
@@ -458,7 +458,11 @@ def read_webp_rgba(path: str) -> np.ndarray:
     decoder gives PIL (alpha 255 where the file has none; an animation's
     first frame)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_webp_rgba(f.read(), path)
+
+
+def decode_webp_rgba(data: bytes, path: str) -> np.ndarray:
+    """``read_webp_rgba`` on the file's bytes (``path`` names it in errors)."""
     if len(data) < 20 or data[:4] != b"RIFF" or data[8:12] != b"WEBP":
         raise ValueError(f"{path}: not a WebP (RIFF WEBP) file")
     if 8 + struct.unpack("<I", data[4:8])[0] > len(data):
@@ -524,6 +528,6 @@ def _frame(chunks, extended: bool, path: str) -> np.ndarray:
     return rgba
 
 
-def read_webp_rgb(path: str) -> np.ndarray:
-    """A WebP file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    return np.ascontiguousarray(read_webp_rgba(path)[:, :, :3])
+def decode_webp(data: bytes, path: str) -> np.ndarray:
+    """A WebP file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
+    return np.ascontiguousarray(decode_webp_rgba(data, path)[:, :, :3])

@@ -48,10 +48,8 @@ def header(data: bytes, path: str) -> dict:
     return {"size": (width, height), "offset": m.end()}
 
 
-def read_xbm_rgb(path: str) -> np.ndarray:
-    """An XBM file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_xbm(data: bytes, path: str) -> np.ndarray:
+    """An XBM file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     try:
         head = header(data, path)
     except PassOn as e:

@@ -87,10 +87,8 @@ def header(data: bytes, path: str) -> dict:
             "first": pos}
 
 
-def read_xpm_rgb(path: str) -> np.ndarray:
-    """An XPM file as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_xpm(data: bytes, path: str) -> np.ndarray:
+    """An XPM file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     try:
         head = header(data, path)
     except (PassOn, IndexError) as e:

@@ -46,10 +46,8 @@ def header(data: bytes, path: str) -> dict:
     return {"size": (width, height), "offset": pos}
 
 
-def read_xvthumb_rgb(path: str) -> np.ndarray:
-    """An XV thumbnail as (H, W, 3) uint8 RGB (see the module docstring)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_xvthumb(data: bytes, path: str) -> np.ndarray:
+    """An XV thumbnail file's bytes as (H, W, 3) uint8 RGB (see the module docstring)."""
     try:
         head = header(data, path)
     except PassOn as e:

@@ -154,10 +154,13 @@ prints no result):
    and an arithmetic-coded progressive JPEG, a 512 x 384 PackBits PSD, a
    16-bit RLE SGI, an 8-bit RLE PCX with its palette, a two-page DCX, a
    QOI, an RLE Sun raster with a colour map, an MSP version 2, an XBM, an
-   XPM and a palette IM) decoded by the port's readers to the sha256 of
-   PIL's decode (tests/data/images/sha256.json), each decode's seconds
-   printed, and bfloat16 SD SDEdits at 512 px from the JPEG, from the
-   WebP, from the JPEG-in-TIFF and from the PSD.
+   XPM, a palette IM, an FLC with a BRUN first frame, a turned Photo CD
+   base image, an IPTC record holding a JPEG, an ICNS with an it32 entry,
+   a 512 x 384 DXT1 DDS, a BC7 DDS, a BLP1 JPEG and a DXT1 FTEX) decoded
+   by the port's readers to the sha256 of PIL's decode
+   (tests/data/images/sha256.json), each decode's seconds printed, and
+   bfloat16 SD SDEdits at 512 px from the JPEG, from the WebP, from the
+   JPEG-in-TIFF, from the PSD and from the DXT1 DDS.
 11. the edit server (serve.py) on 127.0.0.1 over HTTP at 50 steps in
    bfloat16: AudioLDM-s (/healthz, three edits, two concurrent requests
    each bit-equal to the same request alone, a response bit-equal to
@@ -2630,7 +2633,8 @@ def _image_inputs(fa, sw, tmp: str, ckpt: str):
     """The committed inputs of tests/data/images decoded by the port's
     readers, each to the sha256 of PIL's decode, with its seconds; then a
     bfloat16 SD SDEdit at 512 px from the JPEG, one from the lossy WebP with
-    alpha, one from the JPEG-in-TIFF and one from the PackBits PSD. Returns
+    alpha, one from the JPEG-in-TIFF, one from the PackBits PSD and one from
+    the DXT1 DDS (a 512 x 384 photo as a texture tool saves it). Returns
     (runs, checks)."""
     import hashlib
 
@@ -2657,7 +2661,8 @@ def _image_inputs(fa, sw, tmp: str, ckpt: str):
     for name, image in (("sd_sdedit_jpeg_bf16", "photo_420_restart.jpg"),
                         ("sd_sdedit_webp_bf16", "photo_alpha.webp"),
                         ("sd_sdedit_jpeg_tiff_bf16", "photo_jpeg_ycbcr.tif"),
-                        ("sd_sdedit_psd_bf16", "photo_packbits.psd")):
+                        ("sd_sdedit_psd_bf16", "photo_packbits.psd"),
+                        ("sd_sdedit_dds_bf16", "photo_dxt1.dds")):
         argv = ["--model_id", SD_MODEL_ID, "--init_im", os.path.join(d, image),
                 "--target_prompt", "a photo of a cat", "--num_diffusion_steps", str(IMG_STEPS),
                 "--tstart", str(IMG_TSTART), "--seed", "0", "--weights_dir", ckpt,

@@ -10,11 +10,13 @@ the new inputs of the card's image phase, on the CPU.
   text in front of a TGA (passed on to TGA where the IM header breaks off,
   read as IM where it holds); TGAs that PCX's accept test takes (PIL's PCX
   opener fails on one, reads another); an empty ICO and CUR directory
-  passed on to TGA; a 16-bit PSD and plain noise, which nothing opens
-  ("cannot identify image file"); PAM, which keeps its Netpbm message.
-- Formats PIL opens and the port does not read (IPTC, PCD, and the MPEG,
-  BUFR, GRIB and HDF5 stubs PIL cannot load either): named as PIL names
-  them, and refused naming them.
+  passed on to TGA; a 16-bit PSD, PNGs with a bad CRC or chunk name before
+  their image data, and plain noise, which nothing opens ("cannot
+  identify image file"); PAM, which keeps its Netpbm message.
+- Formats PIL opens and the port does not read (the MPEG, BUFR, GRIB and
+  HDF5 stubs PIL cannot load either): named as PIL names them, and refused
+  naming them; IPTC and PCD, refused until the port read them, now read
+  as PIL reads them.
 - The port's ``load_image`` against the JAX ``load_image`` (PIL) on one
   committed file of each new format, exactly, as
   ``test_torch_image_formats.py`` compares them.
@@ -65,7 +67,7 @@ def test_openers_are_pils_fresh_order():
 
 def test_committed_inputs_open_as_pil_opens_them():
     names = sorted(n for n in os.listdir(DATA) if n != "sha256.json")
-    assert len(names) == 32
+    assert len(names) == 40
     for name in names:
         path = os.path.join(DATA, name)
         assert port_format(path) == pil_format(path) is not None, name
@@ -95,6 +97,10 @@ def _ambiguous():
     cur = b"\0\0\2\0\0\0" + _tga(b"")[6:]
     psd16 = (b"8BPS\0\1" + bytes(6) + struct.pack(">HIIHH", 3, 2, 2, 16, 3) + bytes(12)
              + b"\0\0" + bytes(24))
+    png = bytearray(open(os.path.join(DATA, "adam7_rgb16.png"), "rb").read())
+    bad_crc, bad_name = bytearray(png), bytearray(png)
+    bad_crc[29] ^= 1  # the IHDR's CRC
+    bad_name[12:16] = b"IH R"
     return {"MSP, bad checksum, PCD marker": (bad_msp, "PCD"),
             "IM text that breaks off, then a TGA": (im_then_tga, "TGA"),
             "IM text that holds, in a TGA's ID field": (im_that_holds, "IM"),
@@ -103,6 +109,8 @@ def _ambiguous():
             "ICO with no entries, a TGA header": (ico, "TGA"),
             "CUR with no entries, a TGA header": (cur, "TGA"),
             "16-bit PSD": (psd16, None),
+            "PNG with a bad IHDR CRC": (bytes(bad_crc), None),
+            "PNG whose first chunk name is not a name": (bytes(bad_name), None),
             "noise": (bytes(rng.integers(0, 256, 300).astype(np.uint8)), None),
             "SGI of two channels": (sgi(0, 1, 3, 2, 2, 2, bytes(8)), None)}
 
@@ -139,7 +147,7 @@ def _iptc() -> bytes:
 
 
 NOT_YET = {"IPTC": _iptc(),
-           "PCD": bytes(2048) + b"PCD_" + bytes(1600),
+           "PCD": bytes(2048) + b"PCD_" + bytes(95 * 2048 - 4) + bytes(range(256)) * 2304,
            "MPEG": b"\0\0\1\xb3\x04\x00\x30" + bytes(20),
            "BUFR": b"BUFR" + bytes(60),
            "GRIB": b"GRIB\0\0\0\1" + bytes(60),
@@ -150,6 +158,9 @@ NOT_YET = {"IPTC": _iptc(),
 def test_formats_not_read_yet_are_named(tmp_path, fmt):
     path = put(str(tmp_path / "f"), NOT_YET[fmt])
     assert pil_format(path) == fmt == port_format(path)
+    if fmt in ("IPTC", "PCD"):  # read since the port reads them
+        assert same_or_both_fail(path) == "equal"
+        return
     with pytest.raises(ValueError, match=f"{fmt} image, a format the port does not read yet"):
         tio.read_image(path)
 

@@ -330,7 +330,10 @@ LOAD_INPUTS = {"cmyk_tiff": "cmyk_lzw.tif", "ycbcr_tiff": "ycbcr_422_deflate.tif
                "signed_tiff": "int16_signed.tif", "jpeg_in_tiff": "photo_jpeg_ycbcr.tif",
                "bigtiff": "bigtiff_deflate.tif", "animated_webp": "animated.webp",
                "netpbm": "photo_16bit.ppm", "tga": "rle_bottom_up.tga", "ico": "icon.ico",
-               "lossless_jpeg": "lossless_pred6.jpg", "arithmetic_jpeg": "arith_progressive.jpg"}
+               "lossless_jpeg": "lossless_pred6.jpg", "arithmetic_jpeg": "arith_progressive.jpg",
+               "flc": "photo_brun.flc", "pcd": "photo_turned.pcd", "iptc": "photo_jpeg.iim",
+               "dds_dxt1": "photo_dxt1.dds", "dds_bc7": "bc7_mode6.dds", "blp": "photo_jpeg.blp",
+               "ftex": "photo_dxt1.ftc", "icns": "icon_it32.icns"}
 
 
 @pytest.mark.parametrize("fmt", ["png16", "adam7", "jpeg420", "jpeg444_grey"] + list(LOAD_INPUTS))
@@ -435,6 +438,19 @@ RASTER_INPUTS = {
     "pages.dcx": "DCX, two 8-bit PCX pages of 96 x 64, the first read",
 }
 CHIP_INPUTS.update(RASTER_INPUTS)
+# the FLI, PCD, IPTC, ICNS (test_torch_image_fli_pcd_iptc_icns.py) and texture
+# (test_torch_image_textures.py) inputs
+CHIP_INPUTS.update({
+    "photo_brun.flc": "FLC, 320 x 200, 256 colours: a BRUN first frame, then an LC delta frame",
+    "photo_turned.pcd": "Photo CD base image, 768 x 512, orientation 1 (read as 512 x 768)",
+    "photo_jpeg.iim": "IPTC/NAA L record holding a 160 x 120 RGB JPEG over two (8, 10) fields",
+    "icon_it32.icns": "ICNS: a 128 x 128 it32 run-length entry with its t8mk mask (the one "
+                      "read), 16 x 16 PNG entries at scales 1 and 2",
+    "photo_dxt1.dds": "DDS, 512 x 384 photo saved by PIL as DXT1 (BC1)",
+    "bc7_mode6.dds": "DDS DX10 BC7 (UNORM_SRGB), 256 x 128: mode-6 blocks of a photo, then rows "
+                     "of random blocks of every mode",
+    "photo_jpeg.blp": "BLP1 JPEG, 256 x 192, a shared JPEG header and the first mipmap",
+    "photo_dxt1.ftc": "FTEX, 128 x 96 DXT1 (PIL's encoder)"})
 
 
 def make_chip_inputs(d: str) -> dict:
@@ -453,8 +469,12 @@ def make_chip_inputs(d: str) -> dict:
     _make_other_inputs(d)
     _make_new_inputs(d)
     from test_torch_image_dispatch import make_raster_inputs
+    from test_torch_image_fli_pcd_iptc_icns import make_fli_pcd_iptc_icns_inputs
+    from test_torch_image_textures import make_texture_inputs
 
     make_raster_inputs(d)
+    make_fli_pcd_iptc_icns_inputs(d)
+    make_texture_inputs(d)
     out = {}
     for name, what in CHIP_INPUTS.items():
         px = _pil(os.path.join(d, name))

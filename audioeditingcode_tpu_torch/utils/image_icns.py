@@ -10,10 +10,11 @@ scale) of those present, compared as tuples, and reads every type of that
 size in this order, the later overriding the earlier:
 
 - PNG or JPEG 2000 entries (ic10, ic09, ic14, ic08, ic13, ic07, icp6,
-  ic12, icp5, ic11, icp4): a PNG goes through ``image_io.decode_png`` at
-  its own size (one of those PIL allows for the file's sizes); a JPEG 2000
-  one raises, as the port does not read JPEG 2000 yet; anything else
-  raises, as PIL fails ("Unsupported icon subimage format");
+  ic12, icp5, ic11, icp4): a PNG goes through ``image_io.decode_png``, a
+  JPEG 2000 one (a JP2 file or a raw codestream, only the entry's own
+  bytes) through ``image_jpeg2000.decode_jpeg2000``, each at its own size,
+  which must be one PIL allows for the file's sizes; anything else raises,
+  as PIL fails ("Unsupported icon subimage format");
 - packed RGB (it32 after a 4-byte zero signature, ih32, il32, is32): a
   block of exactly 3 x size x size bytes is raw RGB; otherwise each of R,
   G and B in turn is run-length coded (a byte b >= 128: the next byte
@@ -106,21 +107,24 @@ def _rgb32(data: bytes, start: int, length: int, side: int, path: str) -> np.nda
     return out.T.reshape(side, side, 3)
 
 
-def _png_or_jp2(data: bytes, start: int, sizes, path: str) -> np.ndarray:
+def _png_or_jp2(data: bytes, start: int, length: int, sizes, path: str) -> np.ndarray:
+    """PIL's ``read_png_or_jpeg2000`` and the size its ``load`` then sets."""
     from .image_io import _SIGNATURE, decode_png
+    from .image_jpeg2000 import JP2_SIGNATURE, decode_jpeg2000
 
     sig = data[start:start + 12]
     if sig.startswith(_SIGNATURE):
-        rgb = decode_png(data[start:], path)
-        h, w = rgb.shape[:2]
-        check_size(w, h, path)
-        if not any(s[0] * s[2] // w == s[1] * s[2] / h for s in sizes):
-            raise ValueError(f"{path}: ICNS PNG entry of {w} x {h}, not one of the allowed sizes "
-                             f"of this image (PIL fails on it)")
-        return rgb
-    if sig.startswith(_JP2) or sig == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a":
-        raise ValueError(f"{path}: ICNS entry in JPEG 2000, a format the port does not read yet")
-    raise ValueError(f"{path}: unsupported ICNS subimage format (PIL fails on it)")
+        rgb, kind = decode_png(data[start:], path), "PNG"
+    elif sig.startswith(_JP2) or sig == JP2_SIGNATURE:
+        rgb, kind = decode_jpeg2000(data[start:start + length], path), "JPEG 2000"
+    else:
+        raise ValueError(f"{path}: unsupported ICNS subimage format (PIL fails on it)")
+    h, w = rgb.shape[:2]
+    check_size(w, h, path)
+    if not any(s[0] * s[2] // w == s[1] * s[2] / h for s in sizes):
+        raise ValueError(f"{path}: ICNS {kind} entry of {w} x {h}, not one of the allowed sizes "
+                         f"of this image (PIL fails on it)")
+    return rgb
 
 
 def decode_icns(data: bytes, path: str) -> np.ndarray:
@@ -138,7 +142,7 @@ def decode_icns(data: bytes, path: str) -> np.ndarray:
             continue
         start, length = blocks[kind]
         if reader == _PNG:
-            channels["RGBA"] = _png_or_jp2(data, start, head["sizes"], path)
+            channels["RGBA"] = _png_or_jp2(data, start, length, head["sizes"], path)
         elif reader == "mask":
             if len(data) < start + side * side:
                 raise ValueError(f"{path}: ICNS mask cut short (PIL fails on it)")

@@ -154,7 +154,8 @@ OPENERS: Tuple[Tuple[str, Accept, Callable[[bytes, str], None]], ...] = (
      _module_open("image_gbr")),
     ("GRIB", lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1, _takes),
     ("HDF5", _starts(b"\x89HDF\r\n\x1a\n"), _takes),
-    ("JPEG2000", _starts(b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), _takes),
+    ("JPEG2000", _starts(b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"),
+     _module_open("image_jpeg2000")),
     ("ICNS", _starts(b"icns"), _module_open("image_icns")),
     ("ICO", _starts(b"\0\0\1\0"), _module_open("image_ico", "open_entry")),
     ("IM", None, _module_open("image_im")),

@@ -17,7 +17,8 @@ and ``struct``. Every decoder gives the pixels of PIL 12.1's
   ``image_pixar``, ``image_mcidas``, ``image_gbr``, ``image_xvthumb``,
   ``image_imt``, ``image_fits``, ``image_fli``, ``image_pcd``,
   ``image_iptc``, ``image_dds``, ``image_ftex`` and ``image_blp`` with
-  ``image_bcn``, ``image_icns``), each bit-equal to PIL's
+  ``image_bcn``, ``image_icns``, ``image_jpeg2000`` with ``image_j2k_t1``
+  and ``image_j2k_dwt``), each bit-equal to PIL's
   ``convert("RGB")`` on what it reads; a format the port does not read, or
   a file PIL cannot identify, raises a ``ValueError`` that names it.
   ``decode_image`` does the same on a file's bytes (each module's
@@ -116,10 +117,10 @@ _READERS = {"PNG": ("image_io", "decode_png"), "JPEG": ("image_io", "decode_jpeg
 _READERS.update({name: (f"image_{name.lower()}", f"decode_{name.lower()}") for name in (
     "GIF", "BMP", "TIFF", "ICO", "TGA", "QOI", "PCX", "SGI", "PSD", "SUN", "MSP", "XBM", "XPM",
     "IM", "SPIDER", "PIXAR", "MCIDAS", "GBR", "XVThumb", "IMT", "FITS", "FLI", "PCD", "IPTC",
-    "DDS", "FTEX", "BLP", "ICNS")})
+    "DDS", "FTEX", "BLP", "ICNS", "JPEG2000")})
 READ_FORMATS = ("PNG, JPEG, GIF, BMP, DIB, TIFF, WebP, Netpbm, ICO, CUR, TGA, QOI, PCX, DCX, "
                 "SGI, PSD, SUN, MSP, XBM, XPM, IM, SPIDER, PIXAR, McIdas, GBR, XV thumbnails, "
-                "IMT, FITS, FLI, PCD, IPTC, DDS, FTEX, BLP and ICNS")
+                "IMT, FITS, FLI, PCD, IPTC, DDS, FTEX, BLP, ICNS and JPEG 2000")
 
 
 def format_name(path: str) -> str:

@@ -63,8 +63,8 @@ prints no result):
    each launch 24 times per DiT forward, on the 3xTF32 routes in float32
    and on the tensor-core routes in bfloat16.
 5. AudioLDM-s PC editing through the port's CLIs on phase 3's clip: PC
-   extraction in float32 (200 steps, 2 PCs, 50 power iterations at each of
-   the two window steps 100 and 99), then its application in bfloat16 along
+   extraction in float32 (200 steps, 2 PCs, 50 power iterations at the one
+   window step 100), then its application in bfloat16 along
    both PCs at amount 0 and at amount 2 (each amount-2 wav must differ from
    the amount-0 wav of its PC, and the two PCs' wavs from each other), and
    in float32 along PC 1 at amount 0, which must give back the extraction's
@@ -156,11 +156,13 @@ prints no result):
    QOI, an RLE Sun raster with a colour map, an MSP version 2, an XBM, an
    XPM, a palette IM, an FLC with a BRUN first frame, a turned Photo CD
    base image, an IPTC record holding a JPEG, an ICNS with an it32 entry,
-   a 512 x 384 DXT1 DDS, a BC7 DDS, a BLP1 JPEG and a DXT1 FTEX) decoded
+   a 512 x 384 DXT1 DDS, a BC7 DDS, a BLP1 JPEG, a DXT1 FTEX, a 512 x 384
+   9/7 JPEG 2000 photo, a tiled RPCL 5/3 raw codestream and a hand-built
+   sYCC 4:2:0 JPEG 2000 with an odd origin) decoded
    by the port's readers to the sha256 of PIL's decode
    (tests/data/images/sha256.json), each decode's seconds printed, and
    bfloat16 SD SDEdits at 512 px from the JPEG, from the WebP, from the
-   JPEG-in-TIFF, from the PSD and from the DXT1 DDS.
+   JPEG-in-TIFF, from the PSD, from the DXT1 DDS and from the 9/7 JPEG 2000.
 11. the edit server (serve.py) on 127.0.0.1 over HTTP at 50 steps in
    bfloat16: AudioLDM-s (/healthz, three edits, two concurrent requests
    each bit-equal to the same request alone, a response bit-equal to
@@ -407,7 +409,9 @@ PROBE_CARD_CPU_MAX = {"unet": 0.0215, "dit": 0.0775}
 PC_N_EVS, PC_ITERS = 2, 50
 # (Stable Audio at 50 steps and one window step, 25: the cut that made
 # room for phases 10 and 11; in PRs 9-12, 100 steps and two window steps)
-PCS = {MODEL_ID: (STEPS, 100, 98), SA_MODEL_ID: (SA_STEPS // 2, 25, 24)}
+# (AudioLDM-s at one window step, 100: the cut that made room for phase
+# 10's JPEG 2000 SDEdit; two window steps, 100 and 99, before)
+PCS = {MODEL_ID: (STEPS, 100, 99), SA_MODEL_ID: (SA_STEPS // 2, 25, 24)}
 # (name, flags): the same on both models, in this order
 PC_APPLICATIONS = [
     ("apply_bf16_amount0", ["--evs", "1", "2", "--amount", "0", "--dtype", "bfloat16"]),
@@ -416,7 +420,7 @@ PC_APPLICATIONS = [
 ]
 # The float32 amount-0 application against the extraction's drift-free wav,
 # bound fixed before the first run: 33 LSB of the int16 wav (1e-3 of full
-# scale). Amount 0 redoes the two window steps from their own x0 prediction,
+# scale). Amount 0 redoes the window steps from their own x0 prediction,
 # which changes the latent by float32 roundoff only (~1e-7 relative; the
 # CPU test measures <= 1e-5 after the tiny model's remaining steps); every
 # other step runs the same kernels on the same inputs. Only an application
@@ -2633,9 +2637,9 @@ def _image_inputs(fa, sw, tmp: str, ckpt: str):
     """The committed inputs of tests/data/images decoded by the port's
     readers, each to the sha256 of PIL's decode, with its seconds; then a
     bfloat16 SD SDEdit at 512 px from the JPEG, one from the lossy WebP with
-    alpha, one from the JPEG-in-TIFF, one from the PackBits PSD and one from
-    the DXT1 DDS (a 512 x 384 photo as a texture tool saves it). Returns
-    (runs, checks)."""
+    alpha, one from the JPEG-in-TIFF, one from the PackBits PSD, one from
+    the DXT1 DDS (a 512 x 384 photo as a texture tool saves it) and one from
+    the 9/7 JPEG 2000 photo. Returns (runs, checks)."""
     import hashlib
 
     from audioeditingcode_tpu_torch.cli.images import sdedit_main
@@ -2662,7 +2666,8 @@ def _image_inputs(fa, sw, tmp: str, ckpt: str):
                         ("sd_sdedit_webp_bf16", "photo_alpha.webp"),
                         ("sd_sdedit_jpeg_tiff_bf16", "photo_jpeg_ycbcr.tif"),
                         ("sd_sdedit_psd_bf16", "photo_packbits.psd"),
-                        ("sd_sdedit_dds_bf16", "photo_dxt1.dds")):
+                        ("sd_sdedit_dds_bf16", "photo_dxt1.dds"),
+                        ("sd_sdedit_jpeg2000_bf16", "photo_97.jp2")):
         argv = ["--model_id", SD_MODEL_ID, "--init_im", os.path.join(d, image),
                 "--target_prompt", "a photo of a cat", "--num_diffusion_steps", str(IMG_STEPS),
                 "--tstart", str(IMG_TSTART), "--seed", "0", "--weights_dir", ckpt,

@@ -14,8 +14,8 @@ ICO opener's pass-on (utils/image_ico.py::open_entry), against PIL 12.1's
   and as a band; the failures PIL has.
 - ICNS: PNG entries as PIL writes them, packed ``it32``, ``is32``,
   ``il32`` and ``ih32`` entries, raw and run-length coded, with masks,
-  the entry PIL picks among several; a JPEG 2000 entry raises naming the
-  format; broken channels and masks fail as in PIL.
+  the entry PIL picks among several; a JPEG 2000 entry (read since the port
+  reads JPEG 2000); broken channels and masks fail as in PIL.
 - ICO: an entry whose load PIL takes for "not this format" passes the
   file on: to TGA (which PIL opens and fails to load, as the port does)
   or to PCD (which both read).
@@ -340,14 +340,13 @@ def test_icns_entries_as_pil_reads_them(tmp_path):
 
 
 def test_icns_jpeg2000_entry_raises_by_name(tmp_path):
+    """A JPEG 2000 entry, refused until the port read JPEG 2000, now reads
+    as PIL reads it (more in test_torch_image_jpeg2000_streams.py)."""
     j2k = io.BytesIO()
     Image.fromarray(_pattern(32, 32, seed=29)).save(j2k, "JPEG2000")
     path = put(str(tmp_path / "f.icns"), icns([(b"is32", packed(_pattern(16, 16))),
                                                (b"icp5", j2k.getvalue())]))
-    Image.open(path).convert("RGB")  # PIL reads it
-    with pytest.raises(ValueError, match="ICNS entry in JPEG 2000, a format the port does not "
-                                         "read yet"):
-        tio.read_image(path)
+    check(path, "ICNS")
 
 
 # ------------------------------------------------------- ICO pass-on

@@ -333,7 +333,8 @@ LOAD_INPUTS = {"cmyk_tiff": "cmyk_lzw.tif", "ycbcr_tiff": "ycbcr_422_deflate.tif
                "lossless_jpeg": "lossless_pred6.jpg", "arithmetic_jpeg": "arith_progressive.jpg",
                "flc": "photo_brun.flc", "pcd": "photo_turned.pcd", "iptc": "photo_jpeg.iim",
                "dds_dxt1": "photo_dxt1.dds", "dds_bc7": "bc7_mode6.dds", "blp": "photo_jpeg.blp",
-               "ftex": "photo_dxt1.ftc", "icns": "icon_it32.icns"}
+               "ftex": "photo_dxt1.ftc", "icns": "icon_it32.icns", "jpeg2000_97": "photo_97.jp2",
+               "j2k_53": "tiled_rpcl_53.j2k", "jpeg2000_sycc": "sycc420_origin.jp2"}
 
 
 @pytest.mark.parametrize("fmt", ["png16", "adam7", "jpeg420", "jpeg444_grey"] + list(LOAD_INPUTS))
@@ -451,6 +452,13 @@ CHIP_INPUTS.update({
                      "of random blocks of every mode",
     "photo_jpeg.blp": "BLP1 JPEG, 256 x 192, a shared JPEG header and the first mipmap",
     "photo_dxt1.ftc": "FTEX, 128 x 96 DXT1 (PIL's encoder)"})
+# the JPEG 2000 inputs (test_torch_image_jpeg2000.py)
+CHIP_INPUTS.update({
+    "photo_97.jp2": "JPEG 2000 JP2, 512 x 384 RGB photo, 9/7 at rate 20 (PIL's writer)",
+    "tiled_rpcl_53.j2k": "raw J2K codestream, 160 x 120 RGB, 5/3 lossless, 64 x 48 tiles, RPCL, "
+                         "32 x 32 precincts, 4 resolutions (PIL's writer)",
+    "sycc420_origin.jp2": "JPEG 2000 JP2 by the tests' encoder: sYCC 4:2:0, 80 x 60 at image "
+                          "origin (5, 4), 40 x 32 tiles at (1, 2), BYPASS and VSC code-blocks"})
 
 
 def make_chip_inputs(d: str) -> dict:
@@ -470,11 +478,13 @@ def make_chip_inputs(d: str) -> dict:
     _make_new_inputs(d)
     from test_torch_image_dispatch import make_raster_inputs
     from test_torch_image_fli_pcd_iptc_icns import make_fli_pcd_iptc_icns_inputs
+    from test_torch_image_jpeg2000 import make_jpeg2000_inputs
     from test_torch_image_textures import make_texture_inputs
 
     make_raster_inputs(d)
     make_fli_pcd_iptc_icns_inputs(d)
     make_texture_inputs(d)
+    make_jpeg2000_inputs(d)
     out = {}
     for name, what in CHIP_INPUTS.items():
         px = _pil(os.path.join(d, name))

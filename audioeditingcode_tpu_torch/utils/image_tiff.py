@@ -10,11 +10,17 @@ PIL fails on a big-endian one, ``MM\\0+``, and so the port raises):
 - compression none (1; PIL's own raw decoder), PackBits (32773), LZW (5:
   most significant bit first with libtiff's "early change", or the old
   least-significant-bit-first codes libtiff still reads, told apart by
-  their first two bytes as libtiff does), Deflate (8, 32946) and JPEG (7,
-  below); LZW and Deflate with predictor 1, 2 (horizontal differencing per
-  sample, 16- and 32-bit samples in the file's byte order) or 3 (libtiff's
-  floating-point byte planes), which libtiff does not apply to PackBits,
-  nor PIL to uncompressed data;
+  their first two bytes as libtiff does), Deflate (8, 32946), LZMA (34925:
+  an xz stream a strip, by the standard ``lzma`` module), Zstandard
+  (50000: a frame a strip, by ``image_zstd``), JPEG (7, below), the CCITT
+  fax codings at 1 bit a sample (2 RLE, 32771 RLEW, 3 Group 3 1-D and 2-D,
+  4 Group 4, by ``image_ccitt`` as libtiff decodes them; other bit depths
+  raise, as libtiff refuses them) and ThunderScan (32809, 4-bit strips, as
+  libtiff's Thunder decoder); LZW, Deflate, LZMA and Zstandard with
+  predictor 1, 2 (horizontal differencing per sample, 16- and 32-bit
+  samples in the file's byte order) or 3 (libtiff's floating-point byte
+  planes), which libtiff does not apply to PackBits, nor PIL to
+  uncompressed data;
 - strips, or tiles cut at the image's edge; planar configuration 1
   (chunky) or 2 (one plane per sample) where PIL reads it right: 8-bit
   RGB, RGBA, CMYK and CIELab, compressed 16-bit RGB, RGBA and CMYK,
@@ -99,13 +105,14 @@ misreads it, taking the pixels in file order as an image of the swapped
 size. Old-style JPEG (compression 6) whose JPEGInterchangeFormat stream
 covers the image, or with baseline tables in tags and one strip, reads as
 libtiff's OJPEG codec decodes it (``_old_jpeg``). Other old-style JPEG
-(several strips of tables-in-tags data, lossless processes), the other
-compressions (CCITT, LZMA,
-Zstandard, WebP, ...), 64-bit and other sample formats, and the other
-photometric interpretations (transparency mask, ICCLab, ITULab, LogLuv)
-raise a ``ValueError`` that names them; so do a file that ends before a
-strip or tile, and compressed data that decodes to less than its strip or
-tile.
+(several strips of tables-in-tags data, lossless processes), the
+compressions PIL fails on (WebP: its libtiff is built without it; SGILog
+and SGILog24: libtiff decodes them only for the LogL and LogLuv
+photometrics, for which PIL has no mode) and other unknown ones, 64-bit
+and other sample formats, and the other photometric interpretations
+(transparency mask, ICCLab, ITULab, LogL, LogLuv) raise a ``ValueError``
+that names them; so do a file that ends before a strip or tile, and
+compressed data that decodes to less than its strip or tile.
 """
 
 from __future__ import annotations
@@ -116,15 +123,23 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from . import image_lab
+from . import image_ccitt, image_lab, image_zstd
 from .image_io import _samples as _unpack
 from .image_io import cmyk_to_rgb, decode_jpeg
 
-_PHOTOMETRIC = {4: "transparency-mask", 9: "ICCLab", 10: "ITULab", 32844: "LogL",
-                32845: "LogLuv"}
-_COMPRESSION = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 32771: "RLE 16-bit",
-                32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24", 34925: "LZMA",
-                50000: "Zstandard", 50001: "WebP"}
+_PHOTOMETRIC = {4: "transparency-mask", 9: "ICCLab", 10: "ITULab",
+                32844: "LogL (PIL has no mode for it)", 32845: "LogLuv (PIL has no mode for it)"}
+_COMPRESSION = {
+    34676: "SGILog: libtiff decodes it only for the LogL and LogLuv photometrics, for which "
+           "PIL has no mode, and so PIL fails on every such file",
+    34677: "SGILog24: libtiff decodes it only for the LogLuv photometric, for which PIL has no "
+           "mode, and so PIL fails on every such file",
+    50001: "WebP: PIL's libtiff is built without WebP support (WEBP compression support is not "
+           "configured), and so PIL fails on every such file"}
+_FAX = (2, 3, 4, 32771)
+# ThunderScan's 2- and 3-bit deltas (tif_thunder.c); 2 and 4 skip a pixel
+_DELTA2 = (0, 1, None, -1)
+_DELTA3 = (0, 1, 2, 3, None, -3, -2, -1)
 # bytes of each TIFF field type, and its struct code (RATIONAL and SRATIONAL
 # give pairs, read as float32 quotients as libtiff does)
 _TYPES = {1: (1, "B"), 2: (1, "B"), 3: (2, "H"), 4: (4, "I"), 5: (8, "I"), 6: (1, "b"),
@@ -272,6 +287,103 @@ def _inflate(src: bytes, size: int) -> bytes:
         raise ValueError(f"corrupt TIFF Deflate data: {e}") from None
 
 
+def _unxz(src: bytes, size: int, path: str) -> bytes:
+    """libtiff's LZMA codec: an xz stream, read until ``size`` bytes came
+    out. libtiff stops there, and takes what came out before an error found
+    in the same call (a bad check, data after the strip's): so where the
+    whole stream fails, it is read again a byte at a time, and the strip
+    fails only where it comes out short. Damage that shows only in the
+    range coder's check at the end of the last chunk, after all the
+    strip's bytes, still raises here (Python's lzma module drops those
+    bytes with the error) where libtiff takes them."""
+    try:
+        import lzma
+    except ImportError:
+        raise ValueError(f"{path}: LZMA TIFF, and this Python has no lzma module (_lzma) to "
+                         f"read it") from None
+    try:
+        out = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(src, size)
+    except lzma.LZMAError as e:
+        error = e
+    else:
+        if len(out) < size:
+            raise ValueError(f"{path}: truncated TIFF LZMA data: a strip or tile gives "
+                             f"{len(out)} of {size} bytes")
+        return out
+    d, out = lzma.LZMADecompressor(lzma.FORMAT_XZ), bytearray()
+    try:
+        for i in range(len(src)):
+            out += d.decompress(src[i:i + 1], size - len(out))
+            if len(out) >= size:
+                return bytes(out)
+    except lzma.LZMAError:
+        pass
+    raise ValueError(f"{path}: corrupt TIFF LZMA data: {error}")
+
+
+def _thunderscan(src: bytes, rows: int, width: int, path: str) -> bytes:
+    """libtiff's ThunderScan decoder (``ThunderDecode``): rows of 4-bit
+    pixels from runs of the last pixel, 2- and 3-bit deltas from it, and
+    raw values; a row that gets fewer or more pixels than the image is
+    wide fails the strip."""
+    stride = (width + 1) // 2
+    out = bytearray()
+    bp = 0
+    for y in range(rows):
+        row = bytearray(stride)
+        op = last = npx = 0
+
+        def put(v):
+            nonlocal op, last, npx
+            last = v & 15
+            if npx < width:
+                if npx & 1:
+                    row[op] |= last
+                    op += 1
+                else:
+                    row[op] = last << 4
+                npx += 1
+
+        while bp < len(src) and npx < width:
+            n = src[bp]
+            bp += 1
+            code = n & 0xC0
+            if code == 0x00:  # a run of the last pixel, n long
+                if npx & 1:
+                    row[op] |= last
+                    last = row[op]
+                    op += 1
+                    npx += 1
+                    n -= 1
+                else:
+                    last |= last << 4
+                npx += n
+                if npx <= width:  # a run past the row is not written (and fails the row)
+                    while n > 0:
+                        row[op] = last
+                        op += 1
+                        n -= 2
+                if n == -1:
+                    op -= 1
+                    row[op] &= 0xF0
+                last &= 15
+            elif code == 0x40:
+                for d in ((n >> 4) & 3, (n >> 2) & 3, n & 3):
+                    if _DELTA2[d] is not None:
+                        put(last + _DELTA2[d])
+            elif code == 0x80:
+                for d in ((n >> 3) & 7, n & 7):
+                    if _DELTA3[d] is not None:
+                        put(last + _DELTA3[d])
+            else:
+                put(n)
+        if npx != width:
+            raise ValueError(f"{path}: corrupt ThunderScan data: row {y} of a strip has {npx} "
+                             f"pixels, not {width} (libtiff fails the strip, and PIL with it)")
+        out += row
+    return bytes(out)
+
+
 def _samples(raw: bytes, rows: int, cols: int, spp: int, bits: int, order: str,
              predictor: int, fmt: int) -> np.ndarray:
     """A strip's or tile's bytes -> (rows, cols, spp) samples (int64, or
@@ -413,12 +525,19 @@ def decode_tiff(data: bytes, path: str) -> np.ndarray:
         orient = tags.get(274, (1,))[0]
         return np.ascontiguousarray(_ORIENT[orient](rgb)) if orient in _ORIENT else rgb
     if comp in _COMPRESSION:
-        raise ValueError(f"{path}: {_COMPRESSION[comp]} TIFF (compression {comp}) is not read "
-                         f"by the port")
-    if comp not in (1, 5, 7, 8, 32773, 32946):
+        raise ValueError(f"{path}: TIFF compression {comp}, {_COMPRESSION[comp]}")
+    if comp not in (1, 5, 7, 8, 32773, 32809, 32946, 34925, 50000) + _FAX:
         raise ValueError(f"{path}: TIFF compression {comp} is not read by the port")
     kind, photo, bits, spp, fmt = _mode(tags, order, comp, path)
-    predictor = tags.get(317, (1,))[0] if comp in (5, 8, 32946) else 1
+    if comp in _FAX and tags.get(258, (1,))[0] != 1:
+        raise ValueError(f"{path}: CCITT fax TIFF at {tags.get(258)} bits a sample: libtiff "
+                         f"fails on it (Bits/sample must be 1 for Group 3/4 encoding/decoding), "
+                         f"and so does PIL")
+    if comp == 32809 and (bits != 4 or 324 in tags):
+        raise ValueError(f"{path}: ThunderScan TIFF at {bits} bits a sample or in tiles: "
+                         f"libtiff's Thunder decoder reads only 4-bit strips (PIL fails on the "
+                         f"other bit depths)")
+    predictor = tags.get(317, (1,))[0] if comp in (5, 8, 32946, 34925, 50000) else 1
     if predictor not in (1, 2, 3) or (predictor == 2 and bits not in (8, 16, 32)) or (
             predictor == 3 and (fmt != 3 or order == ">")):
         raise ValueError(f"{path}: TIFF predictor {predictor} at {bits} bits is not read")
@@ -483,6 +602,7 @@ def decode_tiff(data: bytes, path: str) -> np.ndarray:
                          f"{cols * rows} blocks")
     tables = bytes(tags.get(347, ()))
     reverse = tags.get(266, (1,))[0] == 2 and comp != 7
+    fax = image_ccitt.decoder(bw, comp, tags) if comp in _FAX else None
     px = np.zeros((height, width, spp), np.float32 if fmt == 3 else np.int64)
     k = 0
     for plane in range(spp if planar == 2 else 1):
@@ -517,6 +637,17 @@ def decode_tiff(data: bytes, path: str) -> np.ndarray:
                     raw = _lzw(src, need)
                 elif comp == 32773:
                     raw = _packbits(src, need)
+                elif comp == 34925:
+                    raw = _unxz(src, need, path)
+                elif comp == 50000:
+                    try:
+                        raw = image_zstd.decompress(src, need)
+                    except ValueError as e:
+                        raise ValueError(f"{path}: TIFF {e}") from None
+                elif fax is not None:
+                    raw = image_ccitt.decode_block(fax, src, block_rows, off, path)
+                elif comp == 32809:
+                    raw = _thunderscan(src, block_rows, bw, path)
                 else:
                     raw = _inflate(src, need)
                 if len(raw) < need:

@@ -157,8 +157,10 @@ prints no result):
    XPM, a palette IM, an FLC with a BRUN first frame, a turned Photo CD
    base image, an IPTC record holding a JPEG, an ICNS with an it32 entry,
    a 512 x 384 DXT1 DDS, a BC7 DDS, a BLP1 JPEG, a DXT1 FTEX, a 512 x 384
-   9/7 JPEG 2000 photo, a tiled RPCL 5/3 raw codestream and a hand-built
-   sYCC 4:2:0 JPEG 2000 with an odd origin) decoded
+   9/7 JPEG 2000 photo, a tiled RPCL 5/3 raw codestream, a hand-built
+   sYCC 4:2:0 JPEG 2000 with an odd origin, 1728 x 2200 fax pages in
+   CCITT Group 4 and 2-D Group 3, 512 x 384 Zstandard (predictor 2) and
+   LZMA TIFF photos and a GZIP_1 tile-compressed FITS) decoded
    by the port's readers to the sha256 of PIL's decode
    (tests/data/images/sha256.json), each decode's seconds printed, and
    bfloat16 SD SDEdits at 512 px from the JPEG, from the WebP, from the

@@ -7,11 +7,17 @@ imports, and its command line.
   accounting onto the full-size port module, built on ``meta``: every
   parameter must be filled, with its shape, and every tensor used or
   dropped by name.
-- The converter and the image decoders import with jax, flax,
-  transformers, safetensors, PIL and the JAX package blocked.
+- The converter and the image decoders import, and read a JPEG, the
+  Zstandard, LZMA, Group 4 and GZIP_1 FITS inputs, with jax, flax,
+  transformers, safetensors, PIL, zstandard and the JAX package blocked.
 - ``python -m audioeditingcode_tpu_torch.cli.convert_checkpoint``, then
   ``cli/run.py --device cpu --weights_dir`` on test/tiny-audioldm, gives
-  the wav of the same edit from the JAX tool's directory, bit for bit."""
+  the wav of the same edit from the JAX tool's directory, bit for bit.
+  Both edits run with the thread counts fixed (``PINNED_THREADS``): by
+  default torch takes one thread per CPU the process may use at its
+  start, and the edit's float sums, split by thread, then move a few
+  hundred samples of the wav by 1-2 LSB between two runs that start with
+  different CPUs free."""
 
 import os
 import re
@@ -80,7 +86,7 @@ def test_manifest_maps_strictly_onto_the_port_module(model_id, name):
 _BLOCKER = """
 import importlib.abc, sys
 BLOCKED = {"jax", "jaxlib", "flax", "transformers", "safetensors", "PIL", "tokenizers",
-           "audioeditingcode_tpu", "tools"}
+           "zstandard", "audioeditingcode_tpu", "tools"}
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -93,17 +99,30 @@ def test_converter_and_image_decoders_import_without_jax_pil_or_transformers():
     code = _BLOCKER + """
 import audioeditingcode_tpu_torch.cli.convert_checkpoint as c
 import audioeditingcode_tpu_torch.models.convert
+import audioeditingcode_tpu_torch.utils.image_ccitt
 import audioeditingcode_tpu_torch.utils.image_io as io
-img = io.read_image(sys.argv[1])
-assert img.shape == (384, 512, 3), img.shape
+import audioeditingcode_tpu_torch.utils.image_zstd
+for path, shape in zip(sys.argv[1::2], sys.argv[2::2]):
+    img = io.read_image(path)
+    assert img.shape == tuple(int(n) for n in shape.split(",")), (path, img.shape)
 print("ok", sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED))
 """
-    jpeg = os.path.join(REPO, "tests", "data", "images", "photo_420_restart.jpg")
-    out = subprocess.run([sys.executable, "-c", code, jpeg], cwd=REPO, capture_output=True,
+    images = os.path.join(REPO, "tests", "data", "images")
+    args = []
+    for name, shape in (("photo_420_restart.jpg", "384,512,3"),
+                        ("photo_zstd_pred2.tif", "384,512,3"), ("photo_lzma.tif", "384,512,3"),
+                        ("page_g4.tif", "2200,1728,3"), ("tiles_gzip1.fits", "120,160,3")):
+        args += [os.path.join(images, name), shape]
+    out = subprocess.run([sys.executable, "-c", code] + args, cwd=REPO, capture_output=True,
                          text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip() == "ok []"
+
+
+# one fixed split of the CPU edit's sums, whatever the host's load
+PINNED_THREADS = {"OMP_NUM_THREADS": "2", "MKL_NUM_THREADS": "2", "OMP_DYNAMIC": "FALSE",
+                  "MKL_DYNAMIC": "FALSE"}
 
 
 def _wav(results):
@@ -122,7 +141,7 @@ def test_cli_converts_and_the_edit_matches_the_jax_converted_one(tmp_path):
     model_id = "test/tiny-audioldm"
     src = build_source_checkpoint(model_id, str(tmp_path / "src"))
     jax_convert(model_id, src, str(tmp_path / "jax"))
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, **PINNED_THREADS)
     conv = subprocess.run([sys.executable, "-m", "audioeditingcode_tpu_torch.cli.convert_checkpoint",
                            "--model_id", model_id, "--src", src, "--out",
                            str(tmp_path / "port")], cwd=REPO, env=env, capture_output=True,

@@ -452,6 +452,16 @@ CHIP_INPUTS.update({
                      "of random blocks of every mode",
     "photo_jpeg.blp": "BLP1 JPEG, 256 x 192, a shared JPEG header and the first mipmap",
     "photo_dxt1.ftc": "FTEX, 128 x 96 DXT1 (PIL's encoder)"})
+# the fax, LZMA, Zstandard and GZIP_1 FITS inputs (test_torch_image_tiff_fax.py,
+# test_torch_image_tiff_lzma_zstd.py)
+CHIP_INPUTS.update({
+    "page_g4.tif": "TIFF, CCITT Group 4, a 1728 x 2200 fax page (PIL's writer)",
+    "page_g3_2d.tif": "TIFF, CCITT Group 3 2-D with EOL fill bits, a 1728 x 2200 fax page in "
+                      "strips of 256 rows (PIL's writer)",
+    "photo_zstd_pred2.tif": "TIFF, 512 x 384 RGB photo, Zstandard, predictor 2 (PIL's writer)",
+    "photo_lzma.tif": "TIFF, 512 x 384 RGB photo, LZMA (PIL's writer)",
+    "tiles_gzip1.fits": "FITS, a 160 x 120 tile-compressed GZIP_1 image of ZBITPIX 16, a gzip "
+                        "member a row"})
 # the JPEG 2000 inputs (test_torch_image_jpeg2000.py)
 CHIP_INPUTS.update({
     "photo_97.jp2": "JPEG 2000 JP2, 512 x 384 RGB photo, 9/7 at rate 20 (PIL's writer)",
@@ -480,11 +490,15 @@ def make_chip_inputs(d: str) -> dict:
     from test_torch_image_fli_pcd_iptc_icns import make_fli_pcd_iptc_icns_inputs
     from test_torch_image_jpeg2000 import make_jpeg2000_inputs
     from test_torch_image_textures import make_texture_inputs
+    from test_torch_image_tiff_fax import make_fax_inputs
+    from test_torch_image_tiff_lzma_zstd import make_compression_inputs
 
     make_raster_inputs(d)
     make_fli_pcd_iptc_icns_inputs(d)
     make_texture_inputs(d)
     make_jpeg2000_inputs(d)
+    make_fax_inputs(d)
+    make_compression_inputs(d)
     out = {}
     for name, what in CHIP_INPUTS.items():
         px = _pil(os.path.join(d, name))

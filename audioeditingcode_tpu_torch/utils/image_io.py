@@ -47,8 +47,9 @@ and ``struct``. Every decoder gives the pixels of PIL 12.1's
   sampling (1x1, 2x1, 2x2, ...), restart intervals, tables anywhere before
   their scan, one or several scans. It follows libjpeg-turbo's defaults,
   which PIL's decoder keeps: the integer "islow" IDCT of ``jidctint.c``
-  (its constants, its pass-1 and pass-2 rounding and descale, and the
-  range-limit table), fancy (triangle) upsampling of 2x1, 1x2 and 2x2
+  (its constants, its pass-1 and pass-2 rounding and descale) as its x86
+  SIMD version computes it, with 16-bit lanes that wrap and saturate where
+  corrupt or zero-filled data leaves 16 bits, fancy (triangle) upsampling of 2x1, 1x2 and 2x2
   chroma with the edge samples repeated (box replication where a
   downsampled width is 2 or less, and for other ratios), and the
   fixed-point YCbCr -> RGB tables of ``jdcolor.c``. The colour space is
@@ -76,8 +77,10 @@ and ``struct``. Every decoder gives the pixels of PIL 12.1's
   and arithmetic-coded ones (SOF9, SOF10, ``image_jpeg_arith``, with the
   DAC segment's conditioning) fill the same planes or coefficients;
   ``decode_jpeg`` takes a stream's bytes with a colour space from the
-  caller (JPEG-in-TIFF). Hierarchical frames, arithmetic-coded lossless
-  (SOF11) and 12-bit samples raise a ``ValueError`` that names them, as
+  caller (JPEG-in-TIFF; there also 12-bit sequential frames, tables kept
+  across a file's streams and data that ends early, as libtiff hands them
+  to libjpeg). Hierarchical frames, arithmetic-coded lossless (SOF11) and
+  12-bit samples in a JPEG file raise a ``ValueError`` that names them, as
   PIL fails on them.
 - ``write_png``: 8-bit greyscale, RGB or RGBA, filter 0, zlib level 6.
 - ``resize_rgb``: PIL's default ``Image.resize`` filter for RGB (bicubic,
@@ -423,12 +426,12 @@ def _natural_order() -> np.ndarray:
 
 
 _ZIGZAG = _natural_order()
-# jidctint.c's fixed-point constants (CONST_BITS 13) and its descale shifts
-_CONST_BITS, _PASS1_BITS = 13, 2
-# the post-IDCT range-limit table of jdmaster.c, indexed by the descaled
-# value & 1023: x + 128 clamped to [0, 255] for x in [-512, 511]
-_IDCT_LIMIT = np.concatenate([np.arange(128, 256), np.full(384, 255), np.zeros(384),
-                              np.arange(0, 128)]).astype(np.uint8)
+# jidctint.c's fixed-point constants (CONST_BITS 13)
+_CONST_BITS = 13
+# the post-IDCT range-limit table of jdmaster.c at 12 bits, indexed by the
+# descaled value & 16383: x + 2048 clamped to [0, 4095] for x in [-8192, 8191]
+_IDCT_LIMIT_12 = np.concatenate([np.arange(2048, 4096), np.full(6144, 4095), np.zeros(6144),
+                                 np.arange(0, 2048)]).astype(np.uint16)
 _SOF_NAMES = {0xC3: "lossless JPEG (SOF3)",
               0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical progressive JPEG (SOF6)",
               0xC7: "hierarchical lossless JPEG (SOF7)",
@@ -474,12 +477,18 @@ def _peek16(segment: bytes) -> List[int]:
         -1).tolist()
 
 
-def _decode_blocks(w16: List[int], slots, coefs: List[List[int]], preds: List[int]) -> None:
+def _decode_blocks(w16: List[int], slots, coefs: List[List[int]], preds: List[int],
+                   per_mcu: int = 0, nbits: int = 0) -> None:
     """Huffman-decode the blocks ``slots`` ((component, first index in its
     zigzag coefficient list, DC table, AC table) each) from one
-    entropy-coded segment, DC predictions in ``preds``."""
+    entropy-coded segment, DC predictions in ``preds``. With ``per_mcu``,
+    libjpeg's reading of a segment of ``nbits`` bits that ends early: the
+    MCU that runs past them is decoded from zero bits, the MCUs after it in
+    the segment are left zero."""
     p = 0
-    for ci, base, dc, ac in slots:
+    for i, (ci, base, dc, ac) in enumerate(slots):
+        if per_mcu and i % per_mcu == 0 and p > nbits:
+            return
         out = coefs[ci]
         e = dc[w16[p]]
         if not e:
@@ -637,16 +646,23 @@ def _ac_refine(w16: List[int], slots, coefs: List[List[int]], ss: int, se: int,
             eobrun -= 1
 
 
-def _idct_1d(x: List[np.ndarray], shift: int) -> List[np.ndarray]:
-    """jidctint.c's 1-D pass on the 8 inputs, each descaled by ``shift``."""
+def _wrap16(v: np.ndarray) -> np.ndarray:
+    return ((v + 32768) & 65535) - 32768
+
+
+def _idct_1d(x: List[np.ndarray], shift: int, simd: bool = False) -> List[np.ndarray]:
+    """jidctint.c's 1-D pass on the 8 inputs, each descaled by ``shift``;
+    ``simd``: as libjpeg-turbo's x86 SIMD version, whose sums x0 +- x4,
+    x7 + x3 and x5 + x1 are 16-bit and wrap."""
+    w = _wrap16 if simd else (lambda v: v)
     z1 = (x[2] + x[6]) * 4433
     tmp2 = z1 - x[6] * 15137
     tmp3 = z1 + x[2] * 6270
-    tmp0 = (x[0] + x[4]) << _CONST_BITS
-    tmp1 = (x[0] - x[4]) << _CONST_BITS
+    tmp0 = w(x[0] + x[4]) << _CONST_BITS
+    tmp1 = w(x[0] - x[4]) << _CONST_BITS
     t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
     a0, a1, a2, a3 = x[7], x[5], x[3], x[1]
-    z1, z2, z3, z4 = a0 + a3, a1 + a2, a0 + a2, a1 + a3
+    z1, z2, z3, z4 = a0 + a3, a1 + a2, w(a0 + a2), w(a1 + a3)
     z5 = (z3 + z4) * 9633
     a0, a1, a2, a3 = a0 * 2446, a1 * 16819, a2 * 25172, a3 * 12299
     z1, z2 = z1 * -7373, z2 * -20995
@@ -657,14 +673,35 @@ def _idct_1d(x: List[np.ndarray], shift: int) -> List[np.ndarray]:
                                           t13 - a0, t12 - a1, t11 - a2, t10 - a3)]
 
 
-def _idct_islow(coefs: np.ndarray, quant: np.ndarray) -> np.ndarray:
+def _idct_islow(coefs: np.ndarray, quant: np.ndarray, bits: int = 8) -> np.ndarray:
     """libjpeg's ``jpeg_idct_islow`` of (N, 64) natural-order coefficients
-    with their quantization table: (N, 8, 8) uint8 samples."""
+    with their quantization table: (N, 8, 8) samples, uint8 at 8 bits (as
+    libjpeg-turbo's x86 SIMD computes it), uint16 at 12 (``jidctint.c`` in
+    libjpeg-turbo's 12-bit build: PASS1_BITS 1, its range-limit table)."""
     c = (coefs.astype(np.int64) * quant.astype(np.int64)).reshape(-1, 8, 8)
-    ws = _idct_1d([c[:, r, :] for r in range(8)], _CONST_BITS - _PASS1_BITS)  # columns
-    ws = np.stack(ws, axis=1)  # (N, row, col)
-    out = _idct_1d([ws[:, :, k] for k in range(8)], _CONST_BITS + _PASS1_BITS + 3)
-    return _IDCT_LIMIT[np.stack(out, axis=2) & 1023]
+    if bits == 8:
+        return _idct_islow_simd(c)
+    ws = np.stack(_idct_1d([c[:, r, :] for r in range(8)], _CONST_BITS - 1), axis=1)
+    out = _idct_1d([ws[:, :, k] for k in range(8)], _CONST_BITS + 1 + 3)
+    return _IDCT_LIMIT_12[np.stack(out, axis=2) & 16383]
+
+
+def _idct_islow_simd(c: np.ndarray) -> np.ndarray:
+    """libjpeg-turbo's x86 SIMD ``jsimd_idct_islow`` (the one its 8-bit
+    build runs) of (N, 8, 8) dequantized coefficients: ``jidctint.c``'s
+    arithmetic, which it equals wherever no value leaves 16 bits, with the
+    SIMD's 16-bit lanes where one does (corrupt or zero-filled data): the
+    dequantized coefficients and the sums of ``_idct_1d`` wrap, each pass
+    saturates its output to 16 bits and the samples to [0, 255] (no
+    range-limit table), and a block whose rows 1-7 are zero takes its
+    columns as row 0 shifted by PASS1_BITS (2) in 16 bits."""
+    c = _wrap16(c)
+    ws = np.stack(_idct_1d([c[:, r, :] for r in range(8)], _CONST_BITS - 2, True), axis=1)
+    ws = np.clip(ws, -32768, 32767)
+    dc_only = ~c[:, 1:, :].any(axis=(1, 2))
+    ws[dc_only] = _wrap16(c[dc_only, :1, :] << 2)
+    out = _idct_1d([ws[:, :, k] for k in range(8)], _CONST_BITS + 2 + 3, True)
+    return (np.clip(np.stack(out, axis=2), -128, 127) + 128).astype(np.uint8)
 
 
 def _fancy_h2(p: np.ndarray, near: int, far: int, scale: int) -> np.ndarray:
@@ -768,7 +805,8 @@ def decode_jpeg_file(data: bytes, path: str) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes, path: str, space: Optional[str] = None, tables: bytes = b"",
-                sampling=None, cmyk: bool = False) -> np.ndarray:
+                sampling=None, cmyk: bool = False, precision: int = 8,
+                persist: Optional[tuple] = None, lenient: bool = False) -> np.ndarray:
     """A JPEG stream as (H, W, 3) uint8 RGB. ``space`` None takes the colour
     space from libjpeg's guess, as for a JPEG file; a caller that knows it
     (libtiff passes the TIFF photometric to libjpeg) gives "ycc" (YCbCr,
@@ -780,12 +818,26 @@ def decode_jpeg(data: bytes, path: str, space: Optional[str] = None, tables: byt
     caller requires ("any": any), the others' being 1x1, as libtiff
     requires of a strip's stream. ``cmyk`` takes four components as CMYK
     whatever the Adobe transform says (PIL's JPEG colour space ``CMYK``,
-    which BLP's reader sets: no YCCK conversion)."""
-    qt: Dict[int, np.ndarray] = {}
-    huff: Dict[Tuple[int, int], List[int]] = {}
+    which BLP's reader sets: no YCCK conversion). ``precision`` 12 takes
+    12-bit Huffman-coded sequential frames instead of 8-bit ones (libtiff's
+    12-bit JPEG-in-TIFF, ``space`` "planes": uint16 samples), decoded as
+    libjpeg-turbo's 12-bit build does (its ``jidctint.c`` with PASS1_BITS
+    1, samples limited to [0, 4095] around 2048). ``persist``, a
+    (quantization, Huffman) pair of dicts, keeps the tables across calls,
+    as one libjpeg decompressor keeps them across the streams it reads
+    (libtiff's strips and tiles). ``lenient`` reads a sequential Huffman
+    scan whose data ends before its last MCU, or before the end of a
+    restart interval, as libjpeg-turbo does where its caller lets it go on
+    past its warnings (libtiff, which inserts an EOI where a strip's data
+    ends): the MCU that runs out is decoded from zero bits, the MCUs after
+    it up to the next restart marker are left zero (uniform grey)."""
+    qt: Dict[int, np.ndarray]
+    huff: Dict[Tuple[int, int], List[int]]
+    qt, huff = persist if persist is not None else ({}, {})
     if tables:
-        _jpeg_segments(tables, path, qt, huff, {})
-    frame, coefs, jfif, adobe, eoi = _jpeg_segments(data, path, qt, huff, {})
+        _jpeg_segments(tables, path, qt, huff, {}, precision)
+    frame, coefs, jfif, adobe, eoi = _jpeg_segments(data, path, qt, huff, {}, precision,
+                                                    lenient)
     if frame is None:
         raise ValueError(f"{path}: JPEG without a frame header")
     if sampling is not None:
@@ -803,11 +855,14 @@ def decode_jpeg(data: bytes, path: str, space: Optional[str] = None, tables: byt
 
 
 def _jpeg_segments(data: bytes, path: str, qt: Dict[int, np.ndarray],
-                   huff: Dict[Tuple[int, int], List[int]], cond: dict):
+                   huff: Dict[Tuple[int, int], List[int]], cond: dict, want: int = 8,
+                   lenient: bool = False):
     """Read a JPEG stream's markers and scans into ``qt``, ``huff``, ``cond``
     (the DAC conditioning: (0, table) -> (L, U), (1, table) -> Kx) and the
     coefficients (or, lossless, ``frame["samples"]``): (frame or None,
-    coefficients, JFIF marker seen, Adobe transform or None, EOI reached)."""
+    coefficients, JFIF marker seen, Adobe transform or None, EOI reached).
+    ``want`` is the sample precision the caller takes, ``lenient`` whether
+    a scan may end early (see ``decode_jpeg``)."""
     from . import image_jpeg_lossless
 
     frame = None
@@ -847,9 +902,13 @@ def _jpeg_segments(data: bytes, path: str, qt: Dict[int, np.ndarray],
                 cond[(tc, tb)] = (cs & 15, cs >> 4) if tc == 0 else cs
         if marker in (0xC0, 0xC1, 0xC2) or marker in _SOF_READ:
             precision, height, width, n = struct.unpack(">BHHB", seg[:6])
-            if precision != 8:
+            if precision != want and want != 8:  # libtiff: "Improper JPEG data precision"
+                raise ValueError(f"{path}: {precision}-bit JPEG data in a {want}-bit "
+                                 f"JPEG-in-TIFF: libtiff fails on it")
+            if precision != want or (want == 12 and marker not in (0xC0, 0xC1)):
                 raise ValueError(f"{path}: {precision}-bit JPEG is not read by the port "
-                                 f"(8-bit samples only)")
+                                 f"(8-bit samples only, and 12-bit Huffman-coded sequential "
+                                 f"frames in TIFF)")
             if n not in (1, 3, 4):
                 raise ValueError(f"{path}: JPEG with {n} components is not read by the port")
             if height == 0 or width == 0:
@@ -904,7 +963,8 @@ def _jpeg_segments(data: bytes, path: str, qt: Dict[int, np.ndarray],
                     frame, seg, [p.replace(b"\xff\x00", b"\xff") for p in parts], huff,
                     restart, _peek16)
             else:
-                _decode_scan(frame, seg, data[pos:end], qt, huff, restart, coefs, cond)
+                _decode_scan(frame, seg, data[pos:end], qt, huff, restart, coefs, cond,
+                             lenient)
             pos = end
     return frame, coefs, jfif, adobe, eoi
 
@@ -928,9 +988,11 @@ def _smoothing_ok(frame: dict) -> bool:
 
 
 def _decode_scan(frame: dict, header: bytes, scan: bytes, qt, huff, restart: int,
-                 coefs: List[List[int]], cond: Optional[dict] = None) -> None:
+                 coefs: List[List[int]], cond: Optional[dict] = None,
+                 lenient: bool = False) -> None:
     """Huffman- or arithmetic-decode one scan into ``coefs`` (each component's
-    blocks, zigzag order, in the padded MCU grid)."""
+    blocks, zigzag order, in the padded MCU grid); ``lenient``: see
+    ``decode_jpeg``."""
     comps = frame["comps"]
     ids = [c[0] for c in comps]
     n = header[0]
@@ -995,7 +1057,17 @@ def _decode_scan(frame: dict, header: bytes, scan: bytes, qt, huff, restart: int
     chunk = restart * per_mcu if restart else len(slots)
     for i in range(0, len(slots), chunk):
         seg = segments[i // chunk] if i // chunk < len(segments) else b""
-        w16, part = _peek16(seg.replace(b"\xff\x00", b"\xff")), slots[i:i + chunk]
+        seg = seg.replace(b"\xff\x00", b"\xff")
+        w16, part = _peek16(seg), slots[i:i + chunk]
+        if lenient and not progressive:  # zero bits past the segment, as libjpeg reads on
+            if i // chunk >= len(segments):  # past the data's end: libjpeg leaves them zero
+                continue
+            try:
+                _decode_blocks(w16, part, coefs, [0] * len(comps), per_mcu, 8 * len(seg))
+            except IndexError:  # an MCU ran past the padding: enough zero bits for it
+                _decode_blocks(_peek16(seg + bytes(256 * per_mcu)), part, coefs,
+                               [0] * len(comps), per_mcu, 8 * len(seg))
+            continue
         try:  # DC predictions and end-of-band runs start from 0 after each restart
             if not progressive:
                 _decode_blocks(w16, part, coefs, [0] * len(comps))
@@ -1033,7 +1105,7 @@ def _jpeg_pixels(frame: dict, coefs: List[List[int]], jfif: bool, adobe,
             bh, bw = _ceil_div(dh, 8), _ceil_div(dw, 8)
             grid[:bh, :bw] = image_jpeg_smooth.smooth(grid.copy(), bh, bw, v, quant,
                                                       frame["coef_bits"][ci][:10])
-        blocks = _idct_islow(nat, quant).reshape(mcuy * v, mcux * h, 8, 8)
+        blocks = _idct_islow(nat, quant, frame["precision"]).reshape(mcuy * v, mcux * h, 8, 8)
         plane = blocks.transpose(0, 2, 1, 3).reshape(mcuy * v * 8, mcux * h * 8)
         if space == "replicated":  # libtiff's data units: chroma repeated, not filtered
             if hmax % h or vmax % v:
@@ -1043,7 +1115,8 @@ def _jpeg_pixels(frame: dict, coefs: List[List[int]], jfif: bool, adobe,
         else:
             planes.append(_upsample(plane[:dh, :dw], h, v, hmax, vmax)[:height, :width])
     if space in ("planes", "replicated"):
-        return np.stack([p.astype(np.uint8) for p in planes], axis=-1)
+        dtype = np.uint8 if frame["precision"] == 8 else np.uint16
+        return np.stack([p.astype(dtype) for p in planes], axis=-1)
     if space is not None:  # "ycc"
         if len(planes) != 3:
             raise ValueError(f"YCbCr JPEG data with {len(planes)} components")

@@ -106,8 +106,12 @@ def inverse_dwt(tile: np.ndarray, res: List[Tuple[int, int, int, int]],
 
 
 def inverse_rct(y: np.ndarray, u: np.ndarray, v: np.ndarray):
-    g = y - ((u + v) >> 2)
-    return v + g, g, u + g
+    """``opj_mct_decode`` in its int32 arithmetic, which wraps."""
+    def w(x):
+        return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+    g = w(y - (w(u + v) >> 2))
+    return w(v + g), g, w(u + g)
 
 
 def inverse_ict(y: np.ndarray, u: np.ndarray, v: np.ndarray):

@@ -15,8 +15,9 @@ through OpenJPEG 2.5.4 at full resolution with every quality layer.
 - The decode is OpenJPEG's: the JP2 boxes as ``jp2.c`` reads them (the
   colour space from ``colr``: 16 sRGB, 17 grey, 18 sYCC, 24 eYCC, 12 CMYK;
   any other, an ICC profile or none leaves it unspecified), the main header (SIZ, COD, COC, QCD, QCC, RGN,
-  POC, PPM, TLM, PLM, CRG, COM; unknown markers skipped as ``read_unk``
-  does), tile-parts (SOT, with a tile split over several in order; COD,
+  POC, PPM, TLM, PLM, CRG, COM, and Part 2's MCT, MCC, MCO and CBD, which
+  set DC level shifts and component depths and run no transform:
+  ``_read_mco``; unknown markers skipped as ``read_unk`` does), tile-parts (SOT, with a tile split over several in order; COD,
   COC, QCD, QCC, RGN, POC, PPT, PLT and COM in their headers; SOD), tier-2
   (``tier2``: the five progression orders and POC, precincts, the two tag
   trees, pass counts, Lblock, segment lengths, SOP/EPH, packed headers
@@ -24,7 +25,8 @@ through OpenJPEG 2.5.4 at full resolution with every quality layer.
   integer half; 9/7: float32 times half the step 2**(prec - e) (1 +
   m / 2048) as OpenJPEG computes it; the scalar-derived steps of each
   level as ``j2k.c`` derives them), the inverse transforms
-  (``image_j2k_dwt``), RCT or ICT where COD asks for it, and the DC level
+  (``image_j2k_dwt``), RCT or ICT where COD asks for it (run on the bits
+  of a component of the other wavelet, as OpenJPEG does), and the DC level
   shift (9/7: rounded half to even, as ``lrintf``) clamped to the
   component's range. Where OpenJPEG fails (strict mode: a code-block
   segment past the data, a marker out of place, a bad SIZ), so does this,
@@ -332,6 +334,7 @@ class _Tccp:
         self.numgbits = 0
         self.steps = [(0, 0)] * 97
         self.roishift = 0
+        self.dc_shift = None  # set by an MCO marker; None: the SIZ default
 
     def copy(self) -> "_Tccp":
         c = _Tccp()
@@ -353,12 +356,20 @@ class _Tcp:
         self.ppt: Dict[int, bytes] = {}
         self.parts: List[bytes] = []
         self.nparts = 0
+        # Part 2's MCT records [index, array type, element type, data] and MCC
+        # records [index, components, decorrelation record, offset record]
+        self.mct_records: List[list] = []
+        self.mcc_records: List[list] = []
 
     def copy(self) -> "_Tcp":
         t = _Tcp(0)
         t.csty, t.prg, t.numlayers, t.mct = self.csty, self.prg, self.numlayers, self.mct
         t.tccps = [c.copy() for c in self.tccps]
         t.pocs = list(self.pocs)
+        new = {id(r): list(r) for r in self.mct_records}
+        t.mct_records = list(new.values())
+        t.mcc_records = [[i, n, d and new[id(d)], o and new[id(o)]]
+                         for i, n, d, o in self.mcc_records]
         return t
 
 
@@ -456,7 +467,8 @@ class _Codestream:
                 raise _Fail(f"Invalid values for comp = {i}: dx={dx} dy={dy}")
             if prec > 31:
                 raise _Fail(f"component of {prec} bits (OpenJPEG supports up to 31)")
-            self.comps.append({"prec": prec, "sgnd": sgnd, "dx": dx, "dy": dy})
+            self.comps.append({"prec": prec, "sgnd": sgnd, "dx": dx, "dy": dy,
+                               "shift": 0 if sgnd else 1 << (prec - 1)})
         self.tw = -(-(x1 - tx0) // tdx)
         self.th = -(-(y1 - ty0) // tdy)
         if self.tw * self.th > 65535:
@@ -610,9 +622,20 @@ class _Codestream:
             if b[0] in tcp.ppt:
                 raise _Fail(f"Zppt {b[0]} already read")
             tcp.ppt[b[0]] = b[1:]
-        elif name in ("MCT", "MCC", "MCO", "CBD"):
-            raise ValueError("JPEG 2000 Part 2 multiple component transform, which the port "
-                             "does not read")
+        elif name == "MCT":
+            _read_mct(b, tcp)
+        elif name == "MCC":
+            _read_mcc(b, tcp)
+        elif name == "MCO":
+            _read_mco(b, tcp, self.ncomp)
+        elif name == "CBD":
+            if len(b) != self.ncomp + 2 or (b[0] << 8 | b[1]) != self.ncomp:
+                raise _Fail("Error reading CBD marker")
+            for comp, depth in zip(self.comps, b[2:]):
+                comp["sgnd"], comp["prec"] = depth >> 7, (depth & 0x7F) + 1
+                if comp["prec"] > 31:
+                    raise _Fail(f"component of {comp['prec']} bits in CBD (OpenJPEG supports "
+                                f"up to 31)")
 
     def _merge_ppm(self) -> bytes:
         """``opj_j2k_merge_ppm``: the packet headers without their Nppm
@@ -1216,33 +1239,155 @@ def _decode_tile(cs: _Codestream, t: int, ppm: Optional[list], spans: Optional[l
     if tcp.mct and cs.ncomp >= 3:
         if out[0].shape != out[1].shape or out[0].shape != out[2].shape:
             raise _Fail("Tiles don't all have the same dimension. Skip the MCT step.")
+        # OpenJPEG runs the transform of component 0's wavelet on the three
+        # buffers as they are: a component of the other wavelet enters as the
+        # bits of its samples (float32 taken as int32, or the reverse) and
+        # leaves as the bits of the transform's output
+        floats = [o.dtype == np.float32 for o in out[:3]]
         if tcp.tccps[0].qmfbid == 1:
-            if out[1].dtype != np.int64 or out[2].dtype != np.int64:
-                raise ValueError("JPEG 2000 with a reversible transform on component 0 and an "
-                                 "irreversible one on another under MCT, which the port does "
-                                 "not read")
-            out[0], out[1], out[2] = inverse_rct(out[0], out[1], out[2])
+            y, u, v = (o.view(np.int32).astype(np.int64) if f else o
+                       for o, f in zip(out[:3], floats))
+            out[:3] = [c.astype(np.int32).view(np.float32) if f else c
+                       for c, f in zip(inverse_rct(y, u, v), floats)]
         else:
-            if out[1].dtype != np.float32 or out[2].dtype != np.float32:
-                raise ValueError("JPEG 2000 with an irreversible transform on component 0 and "
-                                 "a reversible one on another under MCT, which the port does "
-                                 "not read")
-            out[0], out[1], out[2] = inverse_ict(out[0], out[1], out[2])
+            y, u, v = (o if f else o.astype(np.int32).view(np.float32)
+                       for o, f in zip(out[:3], floats))
+            out[:3] = [c if f else c.view(np.int32).astype(np.int64)
+                       for c, f in zip(inverse_ict(y, u, v), floats)]
     shifted = []
     for c, comp in enumerate(comps):
         prec, sgnd = comp["prec"], comp["sgnd"]
         lo, hi = (-(1 << (prec - 1)), (1 << (prec - 1)) - 1) if sgnd else (0, (1 << prec) - 1)
-        shift = 0 if sgnd else 1 << (prec - 1)
+        shift = tcp.tccps[c].dc_shift
+        shift = comp["shift"] if shift is None else shift
         v = out[c]
-        if v.dtype == np.float32:
+        if v.dtype == np.float32:  # lrintf of NaN is the least long
             big = v > np.float32(2 ** 31 - 1)
-            small = v < np.float32(-2 ** 31)
+            small = (v < np.float32(-2 ** 31)) | np.isnan(v)
             r = np.rint(np.where(big | small, 0, v)).astype(np.int64)
             v = np.where(big, hi, np.where(small, lo, np.clip(r + shift, lo, hi)))
-        else:
-            v = np.clip(v + shift, lo, hi)
+        else:  # an int32 sum
+            v = np.clip(((v + shift + (1 << 31)) & 0xFFFFFFFF) - (1 << 31), lo, hi)
         shifted.append(v.astype(np.int64))
     return tile, shifted
+
+
+# ------------------------------------------------ Part 2 component transforms
+# OpenJPEG 2.5.4 reads Part 2's MCT, MCC and MCO markers (``j2k.c``) but
+# applies no custom transform: a COD asking for one (MCT 2) fails before it.
+# What the markers do is the DC level shift: an MCO zeroes every component's
+# and its stage's MCC sets them from its offset array.
+_MCT_SIZES = (2, 4, 4, 8)  # int16, int32, float32, float64
+
+
+def _read_mct(b: bytes, tcp: _Tcp) -> None:
+    """``opj_j2k_read_mct``: one record of one segment, by its index."""
+    if len(b) < 2:
+        raise _Fail("Error reading MCT marker")
+    if b[0] or b[1]:  # Zmct: records spanning segments are skipped
+        return
+    if len(b) <= 6:
+        raise _Fail("Error reading MCT marker")
+    imct, ymct = (b[2] << 8) | b[3], (b[4] << 8) | b[5]
+    rec = next((r for r in tcp.mct_records if r[0] == imct & 0xFF), None)
+    if rec is None:
+        rec = [0, 0, 0, None]
+        tcp.mct_records.append(rec)
+    rec[:] = [imct & 0xFF, (imct >> 8) & 3, (imct >> 10) & 3, None]
+    if not ymct:
+        rec[3] = b[6:]
+
+
+def _read_mcc(b: bytes, tcp: _Tcp) -> None:
+    """``opj_j2k_read_mcc``: one collection of array-based decorrelation,
+    its components in order in and out, its MCT records by index; anything
+    else is skipped (OpenJPEG warns)."""
+    if len(b) < 2:
+        raise _Fail("Error reading MCC marker")
+    if b[0] or b[1]:  # Zmcc: records spanning segments
+        return
+    if len(b) < 7:
+        raise _Fail("Error reading MCC marker")
+    if (b[3] << 8 | b[4]) or (b[5] << 8 | b[6]) > 1:  # Ymcc, more than one collection
+        return
+    rec, pos, left = [b[2], 0, None, None], 7, len(b) - 7
+
+    def components(first: bool) -> bool:
+        """Read Nmcc and Cmcc (``first``), or Mmcc and Wmcc: False where
+        OpenJPEG skips the segment."""
+        nonlocal pos, left
+        n = (b[pos] << 8) | b[pos + 1]
+        pos += 2
+        size, n = 1 + (n >> 15), n & 0x7FFF
+        if first:
+            rec[1] = n
+        elif n != rec[1]:
+            return False
+        if left < size * n + (2 if first else 3):
+            raise _Fail("Error reading MCC marker")
+        left -= size * n + (2 if first else 3)
+        order = [int.from_bytes(b[pos + size * j:pos + size * (j + 1)], "big")
+                 for j in range(n)]
+        pos += size * n
+        return order == list(range(n))
+
+    for _ in range(b[5] << 8 | b[6]):
+        if left < 3:
+            raise _Fail("Error reading MCC marker")
+        if b[pos] != 1:  # Xmcc: not array-based decorrelation
+            return
+        pos += 1
+        left -= 3
+        if not components(True) or not components(False):
+            return
+        t = int.from_bytes(b[pos:pos + 3], "big")
+        pos += 3
+        for slot, i in ((2, t & 0xFF), (3, (t >> 8) & 0xFF)):
+            if i:
+                rec[slot] = next((r for r in tcp.mct_records if r[0] == i), None)
+                if rec[slot] is None:
+                    raise _Fail("Error reading MCC marker")
+    if left:
+        raise _Fail("Error reading MCC marker")
+    old = next((r for r in tcp.mcc_records if r[0] == rec[0]), None)
+    if old is not None:
+        old[:] = rec
+    else:
+        tcp.mcc_records.append(rec)
+
+
+def _read_mco(b: bytes, tcp: _Tcp, ncomp: int) -> None:
+    """``opj_j2k_read_mco`` and ``opj_j2k_add_mct``: one stage; its MCC is
+    looked up, as OpenJPEG's loop does, in the first record only."""
+    if not b:
+        raise _Fail("Error reading MCO marker")
+    if b[0] > 1:
+        return
+    if len(b) != b[0] + 1:
+        raise _Fail("Error reading MCO marker")
+    for tccp in tcp.tccps:
+        tccp.dc_shift = 0
+    if not b[0] or not tcp.mcc_records or tcp.mcc_records[0][0] != b[1]:
+        return
+    _, n, deco, offsets = tcp.mcc_records[0]
+    if n != ncomp:
+        return
+    for rec, count in ((deco, n * n), (offsets, n)):
+        if rec is not None and len(rec[3] or b"") != _MCT_SIZES[rec[2]] * count:
+            raise _Fail("Error reading MCO marker")
+    if offsets is not None:
+        kind = ">" + "Hifd"[offsets[2]]
+        for tccp, v in zip(tcp.tccps, np.frombuffer(offsets[3], kind)):
+            tccp.dc_shift = _to_int32(v, offsets[2])
+
+
+def _to_int32(v, element_type: int) -> int:
+    """OpenJPEG's ``(OPJ_INT32)`` of an offset read as uint16, uint32,
+    float32 or float64: C's truncation, x86's 0x80000000 out of range."""
+    if element_type < 2:
+        return int(np.int64(v).astype(np.uint32).astype(np.int32))
+    f = float(v)
+    return int(f) if f == f and -2.0 ** 31 < f < 2.0 ** 31 else -(1 << 31)
 
 
 # -------------------------------------------------------------- PIL's unpack

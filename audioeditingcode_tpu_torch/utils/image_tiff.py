@@ -93,7 +93,14 @@ where the tag is absent and the stream says otherwise: libtiff reads the
 tag from the stream) for YCbCr and 1x1 for the rest, the others' 1x1; a
 stream larger than its strip or tile raises, but a last strip's stream
 that runs past the image, which libtiff cuts to the image; tiles are cut
-at the image's edge.
+at the image's edge. In planes each plane's strips or tiles are
+one-component streams. 12-bit greyscale goes through libtiff's 12-bit
+codec, whose samples PIL unpacks as ``I;12`` (other 12-bit kinds PIL has
+no mode for). One libjpeg decompressor reads a file's streams in PIL's
+order (a row of strips or tiles at a time, each plane's in turn), so the
+tables a stream defines stay for the streams after it; and a stream that
+runs out reads as libjpeg reads it past its warnings
+(``decode_jpeg(lenient=True)``).
 
 The Orientation tag (274) is applied as PIL 12.1 applies it on load
 (``ImageOps.exif_transpose``: 2 mirrors, 3 turns 180 degrees, 4 flips,
@@ -103,20 +110,25 @@ strip or tile covers the image, in a mode PIL maps straight into memory
 (L, P, RGBA, CMYK, I;16, I;16B read as stored), raises: PIL
 misreads it, taking the pixels in file order as an image of the swapped
 size. Old-style JPEG (compression 6) whose JPEGInterchangeFormat stream
-covers the image, or with baseline tables in tags and one strip, reads as
-libtiff's OJPEG codec decodes it (``_old_jpeg``). Other old-style JPEG
-(several strips of tables-in-tags data, lossless processes), the
+covers the image, or with baseline tables in tags and one strip or
+several (``_old_jpeg_stream``), reads as libtiff's OJPEG codec decodes it
+(``_old_jpeg``). Other old-style JPEG (several tiles of tables-in-tags
+data, several strips big-endian or holding restart markers of their own,
+lossless processes), the
 compressions PIL fails on (WebP: its libtiff is built without it; SGILog
 and SGILog24: libtiff decodes them only for the LogL and LogLuv
 photometrics, for which PIL has no mode) and other unknown ones, 64-bit
 and other sample formats, and the other photometric interpretations
 (transparency mask, ICCLab, ITULab, LogL, LogLuv) raise a ``ValueError``
 that names them; so do a file that ends before a strip or tile, and
-compressed data that decodes to less than its strip or tile.
+compressed data that decodes to less than its strip or tile, but YCbCr,
+which PIL reads through libtiff's RGBA interface: it draws the bytes
+decoded, zero after them.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 from typing import Dict, Tuple
@@ -146,6 +158,7 @@ _TYPES = {1: (1, "B"), 2: (1, "B"), 3: (2, "H"), 4: (4, "I"), 5: (8, "I"), 6: (1
           7: (1, "B"), 8: (2, "h"), 9: (4, "i"), 10: (8, "i"), 11: (4, "f"), 12: (8, "d"),
           13: (4, "I"), 16: (8, "Q"), 17: (8, "q"), 18: (8, "Q")}
 _CLEAR, _EOI = 256, 257
+_RST = re.compile(rb"\xff[\xd0-\xd7]")  # a JPEG restart marker
 # ImageOps.exif_transpose on (H, W, C) arrays
 _ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
            5: lambda a: a.transpose(1, 0, 2), 6: lambda a: np.rot90(a, -1),
@@ -264,12 +277,16 @@ def _lzw(src: bytes, size: int) -> bytes:
 
 
 def _packbits(src: bytes, size: int) -> bytes:
+    """libtiff's PackBits decoder, to at most ``size`` bytes: a literal run
+    or a repeat that the data cuts short ends it, without its bytes."""
     out = bytearray()
     pos, n = 0, len(src)
     while pos < n and len(out) < size:
         h = src[pos]
         pos += 1
         if h < 128:  # h + 1 literal bytes
+            if pos + min(h + 1, size - len(out)) > n:
+                break
             out += src[pos:pos + h + 1]
             pos += h + 1
         elif h > 128:  # the next byte 257 - h times
@@ -521,7 +538,7 @@ def decode_tiff(data: bytes, path: str) -> np.ndarray:
     width, height = tags[256][0], tags[257][0]
     comp = tags.get(259, (1,))[0]
     if comp == 6:
-        rgb = _old_jpeg(data, tags, width, height, path)
+        rgb = _old_jpeg(data, tags, width, height, path, order)
         orient = tags.get(274, (1,))[0]
         return np.ascontiguousarray(_ORIENT[orient](rgb)) if orient in _ORIENT else rgb
     if comp in _COMPRESSION:
@@ -552,9 +569,8 @@ def decode_tiff(data: bytes, path: str) -> np.ndarray:
         raise ValueError(f"{path}: YCbCr TIFF with subsampling {sub} and planar "
                          f"configuration {planar}: libtiff's RGBA interface, which PIL reads "
                          f"it with, fails on it")
-    if comp == 7 and (bits != 8 or planar == 2):
-        raise ValueError(f"{path}: JPEG-in-TIFF at {bits} bits or in planes is not read by the "
-                         f"port")
+    if comp == 7 and bits not in (8, 12):  # 12 bits: greyscale only, as PIL's modes
+        raise ValueError(f"{path}: JPEG-in-TIFF at {bits} bits is not read by the port")
     if planar == 2 and spp == 1 and comp == 1 and not (
             (bits == 8 and photo != 0 and kind in ("grey", "P")) or (bits == 1 and photo == 1)
             or (kind in ("F", "I") and bits == 32 and order == "<")):
@@ -591,6 +607,10 @@ def decode_tiff(data: bytes, path: str) -> np.ndarray:
     else:
         raise ValueError(f"{path}: TIFF without strip or tile offsets")
     per_plane = 1 if planar == 1 else spp
+    if comp == 7 and bits == 12 and bw % 2:
+        raise ValueError(f"{path}: 12-bit JPEG-in-TIFF {bw} samples wide: libtiff's 12-bit "
+                         f"codec packs samples in pairs and leaves the last of a row "
+                         f"unwritten, so PIL shows memory it never set")
     cols, rows = -(-width // bw), -(-height // bh)
     orient = tags.get(274, (1,))[0]
     if orient in (5, 6, 7, 8) and comp == 1 and cols * rows == 1 and (
@@ -604,23 +624,28 @@ def decode_tiff(data: bytes, path: str) -> np.ndarray:
     reverse = tags.get(266, (1,))[0] == 2 and comp != 7
     fax = image_ccitt.decoder(bw, comp, tags) if comp in _FAX else None
     px = np.zeros((height, width, spp), np.float32 if fmt == 3 else np.int64)
-    k = 0
-    for plane in range(spp if planar == 2 else 1):
-        for by in range(rows):
-            for bx in range(cols):
+    # PIL reads the blocks a row of strips or tiles at a time, each plane's
+    # block in turn, through one libjpeg decompressor for JPEG: the tables a
+    # stream defines stay for the streams read after it
+    jpeg_tables = ({}, {})
+    for by in range(rows):
+        for bx in range(cols):
+            for plane in range(spp if planar == 2 else 1):
+                k = (plane * rows + by) * cols + bx
                 off = offsets[k]
                 n = counts[k] if counts else len(data) - off
-                k += 1
                 y0, x0 = by * bh, bx * bw
                 h, w = min(bh, height - y0), min(bw, width - x0)
                 block_rows = bh if tiled else h
                 src = data[off:off + n]
                 if reverse:
                     src = src.translate(_REVERSED)
-                if comp == 7:
-                    block = _jpeg_block(src, tables, kind, block_rows, bw,
-                                        not tiled and by == rows - 1, tags, path)
-                    px[y0:y0 + h, x0:x0 + w] = block[:h, :w]
+                if comp == 7:  # in planes, each plane's streams have one component
+                    block = _jpeg_block(src, b"" if k else tables, jpeg_tables,
+                                        kind if planar == 1 else "plane", block_rows, bw,
+                                        not tiled and by == rows - 1, tags, path, bits)
+                    sl = slice(plane, plane + 1) if planar == 2 else slice(None)
+                    px[y0:y0 + h, x0:x0 + w, sl] = block[:h, :w]
                     continue
                 if kind == "YCbCr" and planar == 1:  # data units: hs x vs Y, then Cb, Cr
                     hs, vs = sub
@@ -650,22 +675,25 @@ def decode_tiff(data: bytes, path: str) -> np.ndarray:
                     raw = _thunderscan(src, block_rows, bw, path)
                 else:
                     raw = _inflate(src, need)
-                if len(raw) < need:
+                # libtiff's RGBA interface, which PIL reads YCbCr with, draws a
+                # block that decodes short from a zeroed buffer, no predictor
+                short = len(raw) < need
+                if short and kind != "YCbCr":
                     raise ValueError(f"{path}: truncated TIFF data: a strip or tile gives "
                                      f"{len(raw)} of {need} bytes")
+                raw = raw[:need] + bytes(max(0, need - len(raw)))
                 if kind == "YCbCr" and planar == 1:
-                    raw = raw[:need]
-                    if predictor == 2:  # libtiff's rows: scanlines, or 3 x a tile's width
+                    if predictor == 2 and not short:  # over scanlines, or 3 x a tile's width
                         raw = _hor_acc8(raw, 3 * bw if tiled else row_bytes // vs)
                     block = _ycbcr_units(raw, urows, bw, w if tiled else bw, sub)
                 else:
                     block = _samples(raw, block_rows, bw, spp // per_plane, bits, order,
-                                     predictor, fmt)
+                                     1 if short else predictor, fmt)
                 sl = slice(plane, plane + 1) if planar == 2 else slice(None)
                 px[y0:y0 + h, x0:x0 + w, sl] = block[:h, :w]
     if kind == "LAB" and planar == 2:  # PIL's A and B band unpackers flip the sign bit
         px[:, :, 1:] ^= 128
-    if comp == 7 and kind == "YCbCr":
+    if comp == 7 and kind == "YCbCr" and planar == 1:
         rgb = px.astype(np.uint8)
     else:
         rgb = _to_rgb(px, kind, photo, bits, tags, path)
@@ -673,7 +701,8 @@ def decode_tiff(data: bytes, path: str) -> np.ndarray:
         np.ascontiguousarray(rgb)
 
 
-def _old_jpeg(data: bytes, tags, width: int, height: int, path: str) -> np.ndarray:
+def _old_jpeg(data: bytes, tags, width: int, height: int, path: str,
+              order: str = "<") -> np.ndarray:
     """Old-style JPEG-in-TIFF (compression 6) with a JPEGInterchangeFormat
     stream (tag 513) of the whole image, or baseline tables in tags and one
     strip, as libtiff's OJPEG codec and PIL read it: PIL takes the
@@ -689,9 +718,10 @@ def _old_jpeg(data: bytes, tags, width: int, height: int, path: str) -> np.ndarr
         off = tags[513][0]
         stream = data[off:off + tags[514][0]] if 514 in tags else data[off:]
     else:
-        stream = _old_jpeg_stream(data, tags, width, height, spp, path)
+        stream = _old_jpeg_stream(data, tags, width, height, spp, path, order)
     # libtiff's OJPEG codec fails on one component sampled other than 1x1
-    planes = decode_jpeg(stream, path, "replicated", sampling=(1, 1) if spp == 1 else None)
+    planes = decode_jpeg(stream, path, "replicated", sampling=(1, 1) if spp == 1 else None,
+                         lenient=True)
     if planes.shape[:2] != (height, width) or planes.shape[2] != spp:
         raise ValueError(f"{path}: old-style JPEG stream of {planes.shape} for a "
                          f"{width} x {height} TIFF of {spp} samples")
@@ -700,20 +730,27 @@ def _old_jpeg(data: bytes, tags, width: int, height: int, path: str) -> np.ndarr
     return _ycbcr_to_rgb(planes.astype(np.int64), tags, path)
 
 
-def _old_jpeg_stream(data: bytes, tags, width: int, height: int, spp: int, path: str) -> bytes:
+def _old_jpeg_stream(data: bytes, tags, width: int, height: int, spp: int, path: str,
+                     order: str = "<") -> bytes:
     """The baseline JPEG stream of an old-style JPEG-in-TIFF whose tables
     are in tags (JPEGQTables 519, JPEGDCTables 520, JPEGACTables 521; the
-    i-th of each for component i) and whose one strip or tile holds the
+    i-th of each for component i) and whose strips, or one tile, hold the
     entropy-coded data: the first component sampled by YCbCrSubsampling
-    (2x2 where the tag is absent), the others 1x1."""
+    (2x2 where the tag is absent), the others 1x1. As libtiff's OJPEG codec
+    builds it: the strips' data one after the other with an RST marker
+    between two strips (RST0, RST1, ... RST7, RST0, ...) and, where the
+    strips are fewer rows than the image, a restart interval of one strip's
+    MCUs whatever JPEGRestartInterval says (a strip whose rows are not a
+    whole number of MCU rows fails in libtiff, and in PIL); one strip takes
+    JPEGRestartInterval (515) as its restart interval."""
     if tags.get(512, (1,))[0] != 1 or not all(t in tags for t in (519, 520, 521)):
         raise ValueError(f"{path}: old-style JPEG-in-TIFF without a JPEGInterchangeFormat "
                          f"stream or baseline tables in tags is not read by the port")
     offsets = tags.get(273) or tags.get(324)
     counts = tags.get(279) or tags.get(325)
-    if not offsets or len(offsets) != 1:
+    if not offsets or (273 not in tags and len(offsets) != 1):
         raise ValueError(f"{path}: old-style JPEG-in-TIFF with its tables in tags and "
-                         f"{len(offsets or ())} strips or tiles is not read by the port")
+                         f"{len(offsets or ())} tiles is not read by the port")
 
     def segment(marker: int, body: bytes) -> bytes:
         return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
@@ -729,23 +766,48 @@ def _old_jpeg_stream(data: bytes, tags, width: int, height: int, spp: int, path:
         out += segment(0xC4, bytes([0x10 | i]) + ac)
     comps = b"".join(bytes([i + 1, (hs << 4 | vs) if i == 0 else 0x11, i]) for i in range(spp))
     out += segment(0xC0, struct.pack(">BHHB", 8, height, width, spp) + comps)
-    if tags.get(515, (0,))[0]:
-        out += segment(0xDD, struct.pack(">H", tags[515][0]))
+    restart = tags.get(515, (0,))[0]
+    rows = tags.get(278, (height,))[0] if 273 in tags else height
+    if rows < height:
+        if rows % (8 * vs):
+            raise ValueError(f"{path}: old-style JPEG-in-TIFF in strips of {rows} rows, not a "
+                             f"whole number of {8 * vs}-row MCU rows: libtiff fails on it "
+                             f"(Incompatible vertical subsampling and image strip/tile "
+                             f"length), and so does PIL")
+        restart = -(-width // (8 * hs)) * (rows // (8 * vs))
+    if restart:
+        out += segment(0xDD, struct.pack(">H", restart))
     out += segment(0xDA, bytes([spp]) + b"".join(bytes([i + 1, i << 4 | i])
                                                  for i in range(spp)) + b"\x00\x3f\x00")
-    n = counts[0] if counts else len(data) - offsets[0]
-    return out + data[offsets[0]:offsets[0] + n] + b"\xff\xd9"
+    n_strips = -(-height // rows)
+    if n_strips > 1 and order == ">":
+        raise ValueError(f"{path}: big-endian old-style JPEG-in-TIFF with its tables in tags "
+                         f"over {n_strips} strips: PIL reads the strips after the first "
+                         f"otherwise than in the same file little-endian, which the port does "
+                         f"not follow")
+    for i, off in enumerate(offsets[:n_strips]):
+        n = counts[i] if counts and i < len(counts) else len(data) - off
+        if n_strips > 1 and _RST.search(data, off, off + n):
+            raise ValueError(f"{path}: old-style JPEG-in-TIFF strip {i} holds restart markers "
+                             f"of its own, beside those libtiff puts between strips: libjpeg "
+                             f"resynchronises on them, which the port does not follow")
+        out += data[off:off + n] + (bytes([0xFF, 0xD0 + i % 8]) if i < n_strips - 1 else b"")
+    return out + b"\xff\xd9"
 
 
-def _jpeg_block(src: bytes, tables: bytes, kind: str, rows: int, cols: int, last_strip: bool,
-                tags, path: str) -> np.ndarray:
+def _jpeg_block(src: bytes, tables: bytes, persist, kind: str, rows: int, cols: int,
+                last_strip: bool, tags, path: str, bits: int = 8) -> np.ndarray:
     """One strip's or tile's JPEG stream, as libtiff's JPEG codec hands it to
-    PIL: (rows, cols, C) samples, YCbCr already RGB."""
+    PIL: (rows, cols, C) samples, YCbCr already RGB; at 12 bits libtiff's
+    12-bit JPEG codec, whose samples PIL unpacks as ``I;12``. ``persist``
+    holds the tables of the JPEGTables stream and the blocks read before."""
     if kind == "YCbCr":
         sampling = tuple(tags[530][:2]) if 530 in tags else None
-        block = decode_jpeg(src, path, "ycc", tables, sampling=sampling or "any")
+        block = decode_jpeg(src, path, "ycc", tables, sampling=sampling or "any",
+                            persist=persist, lenient=True)
     else:
-        block = decode_jpeg(src, path, "planes", tables, sampling=(1, 1))
+        block = decode_jpeg(src, path, "planes", tables, sampling=(1, 1), precision=bits,
+                            persist=persist, lenient=True)
     h, w = block.shape[:2]
     if last_strip and w == cols and h > rows:
         block = block[:rows]  # libtiff cuts a last strip's stream to the image

@@ -160,7 +160,10 @@ prints no result):
    9/7 JPEG 2000 photo, a tiled RPCL 5/3 raw codestream, a hand-built
    sYCC 4:2:0 JPEG 2000 with an odd origin, 1728 x 2200 fax pages in
    CCITT Group 4 and 2-D Group 3, 512 x 384 Zstandard (predictor 2) and
-   LZMA TIFF photos and a GZIP_1 tile-compressed FITS) decoded
+   LZMA TIFF photos, a GZIP_1 tile-compressed FITS, a planar JPEG-in-TIFF,
+   a 12-bit greyscale JPEG-in-TIFF, an old-style JPEG-in-TIFF over strips,
+   cut-short LZW and JPEG YCbCr TIFFs, a JPEG 2000 codestream with Part 2
+   MCT/MCC/MCO markers and a simple-filter lossy WebP) decoded
    by the port's readers to the sha256 of PIL's decode
    (tests/data/images/sha256.json), each decode's seconds printed, and
    bfloat16 SD SDEdits at 512 px from the JPEG, from the WebP, from the
@@ -179,12 +182,13 @@ prints no result):
    each against the unsharded kernel (bit-equal expected) and its plain
    version.
 12. the --sp 1 rehearsal of sequence parallelism: phase 4's float32 Stable
-   Audio selfcheck through ``cli/run.py --sp 1``, in a real NCCL process
-   group of one: B1 launched 24 times per forward at (2, 1032, 24, 64)
-   against (2, 1032, 12, 64) with kv_len 1025, B3 24 times, the selfcheck
-   within 1 dB of phase 4's. (NCCL takes one rank per card: groups of
-   several ranks run on the CPU tests' gloo ranks and on machines with as
-   many cards.)
+   Audio selfcheck and edit at 20 + 10 steps (100 + 50 until PR 24) through
+   ``cli/run.py --sp 1``, in a real NCCL process group of one: B1 launched
+   24 times per forward at (2, 1032, 24, 64) against (2, 1032, 12, 64) with
+   kv_len 1025, B3 24 times, the selfcheck within 1 dB of the one without
+   --sp, the edited latent within 1e-3 of the edit without --sp. (NCCL
+   takes one rank per card: groups of several ranks run on the CPU tests'
+   gloo ranks and on machines with as many cards.)
 13. the eval tower: a seeded CLAP checkpoint at transformers' default
    audio and text geometry (HTSAT-base, RoBERTa-base, projection 512) in
    the layout ClapModel.from_pretrained reads, written by the port's
@@ -511,7 +515,8 @@ SERVE_EDITS = [  # (name, request fields beside the clip and prompts)
 SP_WAYS = (1, 2, 4)
 TP_WAYS = (2, 4)
 DIT_TOKENS = 1025
-# the --sp 1 rehearsal's selfcheck against phase 4's float32 selfcheck
+# the --sp 1 rehearsal's selfcheck against the same float32 selfcheck
+# without --sp
 SP1_SNR_MAX_DB = 1.0
 # the --sp 1 float32 edit against the same edit without --sp: max relative
 # error of the edited latent (bound fixed before the first run). B1 and B3
@@ -1346,9 +1351,11 @@ def write_clip(path: str, seconds: float = 10.0, sr: int = 16000, channels: int 
     wavfile.write(path, sr, (wave * 32767).astype(np.int16))
 
 
-def edit_argv(model_id: str, clip: str, results_path: str) -> list:
-    """The port CLI's arguments for the main-path edit of ``clip`` with ``model_id``."""
+def edit_argv(model_id: str, clip: str, results_path: str, depth=None) -> list:
+    """The port CLI's arguments for the main-path edit of ``clip`` with
+    ``model_id``; ``depth`` (steps, tstart) in place of the model's."""
     steps, tstart, target, _ = EDITS[model_id]
+    steps, tstart = depth or (steps, tstart)
     return ["--model_id", model_id, "--init_aud", clip,
             "--source_prompt", "a sine tone", "--target_prompt", target,
             "--cfg_src", "3", "--cfg_tar", "12",
@@ -2991,29 +2998,32 @@ def phase12_shards(fa, sw) -> dict:
     return out
 
 
-def phase12_sp1(fa, sw, tmp: str, phase4_snr: float) -> dict:
+def phase12_sp1(fa, sw, tmp: str) -> dict:
     """The --sp 1 rehearsal through cli/run.py, inside a real NCCL process
     group of one: the DiT's 1025 tokens padded to 1032, B1 on the sp route
     (K/V all-gathered, kv_len 1025) and B3 on 2 x 1032 rows, 24 launches each
-    per forward. Phase 4's float32 selfcheck with --sp 1, within
-    SP1_SNR_MAX_DB of phase 4's; then phase 4's float32 edit with the target
-    prompt (host rotary + B1), without --sp and with --sp 1, the edited
-    latents (the decoder's input, by a spy) within SP1_LATENT_MAX_REL of
-    each other: a selfcheck reconstructs its start for any deterministic
-    denoiser, so only the edit can tell a wrong sp route."""
+    per forward. Phase 4's float32 selfcheck and edit with the target prompt
+    (host rotary + B1), at 20 + 10 steps (100 + 50 until PR 24): the
+    selfcheck with --sp 1 within SP1_SNR_MAX_DB of the one without; the edit
+    without --sp and with --sp 1, the edited latents (the decoder's input,
+    by a spy) within SP1_LATENT_MAX_REL of each other: a selfcheck
+    reconstructs its start for any deterministic denoiser, so only the edit
+    can tell a wrong sp route."""
     from audioeditingcode_tpu_torch.cli.run import main as run_edit
     from audioeditingcode_tpu_torch.models.pipeline1d import StableAudioPipeline
 
     clip = os.path.join(tmp, "clip44k.wav")
     padded = -(-DIT_TOKENS // 8) * 8
-    forwards = SA_STEPS + SA_TSTART
+    forwards = SHORT_STEPS + SHORT_TSTART
     sp_shapes = {((2, padded, 24, 64), (2, padded, 12, 64), DIT_TOKENS):
                  SA_CALLS_PER_FORWARD * forwards}
     latents, runs, wavs = {}, {}, {}
     real_decode = StableAudioPipeline.vae_decode
-    for name, extra in (("sp1_selfcheck", ["--selfcheck", "--sp", "1"]), ("edit", []),
+    for name, extra in (("selfcheck", ["--selfcheck"]),
+                        ("sp1_selfcheck", ["--selfcheck", "--sp", "1"]), ("edit", []),
                         ("sp1_edit", ["--sp", "1"])):
-        argv = edit_argv(SA_MODEL_ID, clip, os.path.join(tmp, "sa_" + name)) + extra
+        argv = edit_argv(SA_MODEL_ID, clip, os.path.join(tmp, "sa_" + name),
+                         (SHORT_STEPS, SHORT_TSTART)) + extra
 
         def spy(pipe, z, name=name):
             latents[name] = z.detach().clone()
@@ -3037,9 +3047,9 @@ def phase12_sp1(fa, sw, tmp: str, phase4_snr: float) -> dict:
             raise AssertionError(f"phase12 {name}: B1 shapes {shapes}, mesh {rec['mesh']}; "
                                  f"expected {sp_shapes}")
         runs[name] = run
-    snr = runs["sp1_selfcheck"]["selfcheck_snr_db"]
-    if not abs(snr - phase4_snr) <= SP1_SNR_MAX_DB:
-        raise AssertionError(f"phase12 sp1: selfcheck {snr} dB, phase 4's {phase4_snr} dB")
+    snr, plain = (runs[n]["selfcheck_snr_db"] for n in ("sp1_selfcheck", "selfcheck"))
+    if not abs(snr - plain) <= SP1_SNR_MAX_DB:
+        raise AssertionError(f"phase12 sp1: selfcheck {snr} dB, {plain} dB without --sp")
     err = _max_rel(latents["sp1_edit"], latents["edit"])
     lsb = int(np.abs(wavs["sp1_edit"] - wavs["edit"]).max())
     runs["sp1_edit"].update(latent_max_rel_err=err, wav_max_lsb_from_edit=lsb)
@@ -3415,8 +3425,7 @@ def main() -> int:
         runs["phase10"], p10_checks = timed("phase10", phase10_images, fa, sw, tmp, sd["dir"])
         runs["phase11"], p11_checks = timed("phase11", phase11_serve, fa, sw, tmp)
         shards = timed("phase12a", phase12_shards, fa, sw)
-        runs["parallel"] = timed("phase12", phase12_sp1, fa, sw, tmp,
-                                 runs["stable_audio"]["selfcheck"]["selfcheck_snr_db"])
+        runs["parallel"] = timed("phase12", phase12_sp1, fa, sw, tmp)
         evals = timed("phase13", phase13_evals, tmp)
     log(f"[setup] seeded weights and checkpoint reads reused: {setup_cache}")
     if "--profile" in sys.argv[1:]:

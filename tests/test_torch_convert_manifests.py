@@ -111,7 +111,10 @@ print("ok", sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED))
     args = []
     for name, shape in (("photo_420_restart.jpg", "384,512,3"),
                         ("photo_zstd_pred2.tif", "384,512,3"), ("photo_lzma.tif", "384,512,3"),
-                        ("page_g4.tif", "2200,1728,3"), ("tiles_gzip1.fits", "120,160,3")):
+                        ("page_g4.tif", "2200,1728,3"), ("tiles_gzip1.fits", "120,160,3"),
+                        ("planar_jpeg_rgba.tif", "192,256,3"),
+                        ("jpeg12_grey_strips.tif", "120,160,3"),
+                        ("part2_mco_offsets.j2k", "120,160,3")):
         args += [os.path.join(images, name), shape]
     out = subprocess.run([sys.executable, "-c", code] + args, cwd=REPO, capture_output=True,
                          text=True, timeout=300,

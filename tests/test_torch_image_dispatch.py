@@ -35,7 +35,7 @@ from PIL import Image
 
 from audioeditingcode_tpu_torch.utils import image_io as tio
 from audioeditingcode_tpu_torch.utils.image_identify import OPENERS
-from test_torch_image_formats import DATA, RASTER_INPUTS, _pattern
+from test_torch_image_formats import CHIP_INPUTS, DATA, RASTER_INPUTS, _pattern
 from test_torch_image_raster import (FRESH, both_fail, msp2, msp_row, pcx, pcx_rle, put,
                                      same_or_both_fail, sgi, sgi_rle, sun, sun_rle, xbm, xpm)
 
@@ -67,7 +67,7 @@ def test_openers_are_pils_fresh_order():
 
 def test_committed_inputs_open_as_pil_opens_them():
     names = sorted(n for n in os.listdir(DATA) if n != "sha256.json")
-    assert len(names) == 48
+    assert names == sorted(CHIP_INPUTS) and len(names) == 55
     for name in names:
         path = os.path.join(DATA, name)
         assert port_format(path) == pil_format(path) is not None, name

@@ -469,6 +469,25 @@ CHIP_INPUTS.update({
                          "32 x 32 precincts, 4 resolutions (PIL's writer)",
     "sycc420_origin.jp2": "JPEG 2000 JP2 by the tests' encoder: sYCC 4:2:0, 80 x 60 at image "
                           "origin (5, 4), 40 x 32 tiles at (1, 2), BYPASS and VSC code-blocks"})
+# JPEG-in-TIFF in planes, at 12 bits and old-style over strips, cut-short
+# TIFF, Part 2 JPEG 2000 markers, WebP's simple filter (test_torch_image_
+# tiff_jpeg_kinds.py, _tiff_cut.py, _jpeg2000_part2.py, _webp_filter.py)
+CHIP_INPUTS.update({
+    "planar_jpeg_rgba.tif": "JPEG-in-TIFF in planes, 256 x 192 RGBA, 64 x 64 tiles, quality "
+                            "80 (PIL's libtiff)",
+    "jpeg12_grey_strips.tif": "12-bit greyscale JPEG-in-TIFF, 160 x 120 in strips of 32 rows "
+                              "spliced from libtiff's single-strip files",
+    "old_jpeg_strips_420.tif": "old-style JPEG-in-TIFF, 200 x 150 YCbCr 4:2:0, tables in "
+                               "tags, a strip an MCU row",
+    "ycbcr_lzw_cut.tif": "TIFF, 200 x 150 YCbCr 2 x 2 data units, LZW, strips of 16 rows, the "
+                         "fourth strip cut to half its bytes",
+    "ycbcr_jpeg_cut.tif": "JPEG-in-TIFF, 256 x 192 YCbCr 4:2:0 in 64 x 64 tiles, restart "
+                          "markers, every tile's stream cut to 60 % of its bytes",
+    "part2_mco_offsets.j2k": "raw J2K codestream, 160 x 120 RGB, 9/7, with Part 2 MCT (a "
+                             "float32 matrix, int32 offsets), MCC and MCO markers (PIL's "
+                             "writer, markers put in)",
+    "photo_simple_filter.webp": "lossy WebP, 256 x 192 photo, quality 80, the simple loop "
+                                "filter at strength 60 (PIL's libwebp, filter_type 0)"})
 
 
 def make_chip_inputs(d: str) -> dict:
@@ -499,6 +518,15 @@ def make_chip_inputs(d: str) -> dict:
     make_jpeg2000_inputs(d)
     make_fax_inputs(d)
     make_compression_inputs(d)
+    from test_torch_image_jpeg2000_part2 import make_part2_inputs
+    from test_torch_image_tiff_cut import make_cut_inputs
+    from test_torch_image_tiff_jpeg_kinds import make_jpeg_kind_inputs
+    from test_torch_image_webp_filter import make_webp_filter_inputs
+
+    make_jpeg_kind_inputs(d)
+    make_cut_inputs(d)
+    make_part2_inputs(d)
+    make_webp_filter_inputs(d)
     out = {}
     for name, what in CHIP_INPUTS.items():
         px = _pil(os.path.join(d, name))

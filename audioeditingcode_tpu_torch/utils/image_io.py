@@ -93,6 +93,7 @@ and ``struct``. Every decoder gives the pixels of PIL 12.1's
 
 from __future__ import annotations
 
+import functools
 import math
 import re
 import struct
@@ -100,6 +101,8 @@ import zlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from .image_jpeg_stream import STD_HUFFMAN, Source, Truncated, intervals
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_SIGNATURE = b"\xff\xd8\xff"
@@ -442,124 +445,151 @@ _SOF_NAMES = {0xC3: "lossless JPEG (SOF3)",
               0xCF: "arithmetic-coded hierarchical JPEG (SOF15)"}
 # the frames read besides SOF0-SOF2: lossless Huffman, arithmetic-coded
 _SOF_READ = (0xC3, 0xC9, 0xCA)
-_SCAN_END = re.compile(rb"\xff[^\x00\xd0-\xd7\xff]")
-_RESTART = re.compile(rb"\xff+[\xd0-\xd7]")
+# libjpeg's limit on the blocks of one MCU (D_MAX_BLOCKS_IN_MCU)
+_MAX_BLOCKS_IN_MCU = 10
+# the bits one block's Huffman codes can take at most, past the data too:
+# 64 codes of up to 17 bits (a code no table entry starts) and 15 more
+_BLOCK_BITS = 2048
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
+@functools.lru_cache(maxsize=64)
 def _huffman_lut(counts: bytes, symbols: bytes) -> List[int]:
     """A 65536-entry table of a DHT table: the 16 bits that start with a
-    code -> (code length << 8) | symbol; 0 where no code starts."""
-    if sum(counts) > len(symbols):
-        raise ValueError("truncated JPEG data: a Huffman table ends before its symbols")
+    code -> (code length << 8) | symbol; 0 where no code starts (libjpeg
+    then takes 17 bits and the value 0: ``JWRN_HUFF_BAD_CODE``). As
+    ``jpeg_make_d_derived_tbl``, a table whose codes of some length end on
+    the all-ones code, or run past it, is refused."""
     lut = np.zeros(1 << 16, np.int64)
     code, k = 0, 0
     for length in range(1, 17):
         for _ in range(counts[length - 1]):
-            if code >= 1 << length:
-                raise ValueError("JPEG Huffman table with more codes than fit")
             lo = code << (16 - length)
             lut[lo:lo + (1 << (16 - length))] = (length << 8) | symbols[k]
             code, k = code + 1, k + 1
+        if k and code >= 1 << length:
+            raise ValueError("corrupt JPEG data: a Huffman table with more codes than fit "
+                             "(JERR_BAD_HUFF_TABLE)")
         code <<= 1
+        if k == len(symbols):
+            break
     return lut.tolist()
 
 
-def _peek16(segment: bytes) -> List[int]:
+def _peek16(segment: bytes, pad: int = 4) -> List[int]:
     """The 16 bits that start at every bit of ``segment`` (stuffed zero
-    bytes removed), zero bits past its end, as libjpeg reads them."""
-    b = np.frombuffer(segment + b"\x00" * 4, np.uint8).astype(np.uint32)
+    bytes removed), then zero bits for ``pad`` bytes, as libjpeg reads on
+    past a marker."""
+    b = np.frombuffer(segment + bytes(max(pad, 3)), np.uint8).astype(np.uint32)
     v24 = (b[:-2] << 16) | (b[1:-1] << 8) | b[2:]
     return ((v24[:, None] >> np.arange(8, 0, -1, dtype=np.uint32)) & 0xFFFF).reshape(
         -1).tolist()
 
 
-def _decode_blocks(w16: List[int], slots, coefs: List[List[int]], preds: List[int],
-                   per_mcu: int = 0, nbits: int = 0) -> None:
+def _decode_blocks(w16: List[int], slots, coefs: List[List[int]], nbits: int,
+                   per_mcu: int) -> Tuple[int, bool]:
     """Huffman-decode the blocks ``slots`` ((component, first index in its
-    zigzag coefficient list, DC table, AC table) each) from one
-    entropy-coded segment, DC predictions in ``preds``. With ``per_mcu``,
-    libjpeg's reading of a segment of ``nbits`` bits that ends early: the
-    MCU that runs past them is decoded from zero bits, the MCUs after it in
-    the segment are left zero."""
+    zigzag coefficient list, DC table, AC table) each) of one restart
+    interval from its ``nbits`` bits of data, DC predictions from 0, as
+    libjpeg's ``decode_mcu``: a code no entry starts is 17 bits and the
+    value 0, a run past coefficient 63 writes coefficient 63, and an MCU
+    that begins past the data is left as it is, and so is every one after
+    it. Returns (the MCUs decoded, whether the last of them ran past the
+    data)."""
+    preds = [0] * len(coefs)
     p = 0
     for i, (ci, base, dc, ac) in enumerate(slots):
-        if per_mcu and i % per_mcu == 0 and p > nbits:
-            return
+        if p > nbits and i % per_mcu == 0:
+            return i // per_mcu, True
         out = coefs[ci]
         e = dc[w16[p]]
-        if not e:
-            raise ValueError("corrupt JPEG data: no Huffman code for a DC value")
-        p += e >> 8
-        s = e & 15
-        if s:
-            v = w16[p] >> (16 - s)
-            p += s
-            if v < 1 << (s - 1):
-                v += 1 - (1 << s)
-            preds[ci] += v
+        if e:
+            p += e >> 8
+            s = e & 15
+            if s:
+                v = w16[p] >> (16 - s)
+                p += s
+                if v < 1 << (s - 1):
+                    v += 1 - (1 << s)
+                preds[ci] += v
+        else:
+            p += 17
         out[base] = preds[ci]
         k = 1
         while k < 64:
             e = ac[w16[p]]
             if not e:
-                raise ValueError("corrupt JPEG data: no Huffman code for an AC value")
+                p += 17
+                break
             p += e >> 8
             r, s = (e >> 4) & 15, e & 15
             if s:
                 k += r
-                if k > 63:
-                    raise ValueError("corrupt JPEG data: AC run past the block")
                 v = w16[p] >> (16 - s)
                 p += s
                 if v < 1 << (s - 1):
                     v += 1 - (1 << s)
-                out[base + k] = v
+                out[base + (k if k < 64 else 63)] = v
                 k += 1
             elif r == 15:
                 k += 16
             else:
                 break
+    return len(slots) // per_mcu, p > nbits
 
 
-def _dc_first(w16: List[int], slots, coefs: List[List[int]], preds: List[int], al: int) -> None:
+def _dc_first(w16: List[int], slots, coefs: List[List[int]], nbits: int, per_mcu: int,
+              al: int) -> Tuple[int, bool]:
     """A progressive DC first scan: each block's DC difference, the
-    prediction shifted left by ``al`` (``decode_mcu_DC_first``)."""
+    prediction shifted left by ``al`` and kept to 16 bits
+    (``decode_mcu_DC_first``); past the data as ``_decode_blocks``."""
+    preds = [0] * len(coefs)
     p = 0
-    for ci, base, dc, _ in slots:
+    for i, (ci, base, dc, _) in enumerate(slots):
+        if p > nbits and i % per_mcu == 0:
+            return i // per_mcu, True
         e = dc[w16[p]]
-        if not e:
-            raise ValueError("corrupt JPEG data: no Huffman code for a DC value")
-        p += e >> 8
-        s = e & 15
-        if s:
-            v = w16[p] >> (16 - s)
-            p += s
-            if v < 1 << (s - 1):
-                v += 1 - (1 << s)
-            preds[ci] += v
-        coefs[ci][base] = preds[ci] << al
+        if e:
+            p += e >> 8
+            s = e & 15
+            if s:
+                v = w16[p] >> (16 - s)
+                p += s
+                if v < 1 << (s - 1):
+                    v += 1 - (1 << s)
+                preds[ci] += v
+        else:
+            p += 17
+        coefs[ci][base] = (((preds[ci] << al) + 32768) & 65535) - 32768
+    return len(slots) // per_mcu, p > nbits
 
 
-def _dc_refine(w16: List[int], slots, coefs: List[List[int]], al: int) -> None:
+def _dc_refine(w16: List[int], slots, coefs: List[List[int]], nbits: int, per_mcu: int,
+               al: int) -> Tuple[int, bool]:
     """A progressive DC refinement scan: one bit per block, OR-ed in at
-    ``al`` (``decode_mcu_DC_refine``)."""
+    ``al`` (``decode_mcu_DC_refine``; zero bits past the data change
+    nothing)."""
     bit = 1 << al
-    for p, (ci, base, _, _) in enumerate(slots):
+    for p, (ci, base, _, _) in enumerate(slots[:nbits]):
         if w16[p] >> 15:
             coefs[ci][base] |= bit
+    n = len(slots) // per_mcu
+    return min(n, nbits // per_mcu + 1), len(slots) > nbits
 
 
-def _ac_first(w16: List[int], slots, coefs: List[List[int]], ss: int, se: int,
-              al: int) -> None:
+def _ac_first(w16: List[int], slots, coefs: List[List[int]], nbits: int, ss: int, se: int,
+              al: int) -> Tuple[int, bool]:
     """A progressive AC first scan of band ``ss``..``se`` (one component):
     run/size codes, values shifted left by ``al``, and end-of-band runs
-    that skip whole blocks (``decode_mcu_AC_first``)."""
+    that skip whole blocks (``decode_mcu_AC_first``); a run past ``se``
+    writes the coefficient it reaches (63 past the block)."""
     p = eobrun = 0
-    for ci, base, _, ac in slots:
+    for i, (ci, base, _, ac) in enumerate(slots):
+        if p > nbits:
+            return i, True
         if eobrun:
             eobrun -= 1
             continue
@@ -567,19 +597,21 @@ def _ac_first(w16: List[int], slots, coefs: List[List[int]], ss: int, se: int,
         k = ss
         while k <= se:
             e = ac[w16[p]]
-            if not e:
-                raise ValueError("corrupt JPEG data: no Huffman code for an AC value")
+            if not e:  # a bad code: the value 0, an end of band here
+                p += 17
+                break
             p += e >> 8
             r, s = (e >> 4) & 15, e & 15
             if s:
                 k += r
-                if k > se:
-                    raise ValueError("corrupt JPEG data: AC run past the band")
                 v = w16[p] >> (16 - s)
                 p += s
                 if v < 1 << (s - 1):
                     v += 1 - (1 << s)
-                out[base + k] = v << al
+                v <<= al
+                if s + al > 15:
+                    v = ((v + 32768) & 65535) - 32768
+                out[base + (k if k < 64 else 63)] = v
                 k += 1
             elif r == 15:
                 k += 16
@@ -590,25 +622,27 @@ def _ac_first(w16: List[int], slots, coefs: List[List[int]], ss: int, se: int,
                     p += r
                 eobrun -= 1
                 break
+    return len(slots), p > nbits
 
 
-def _ac_refine(w16: List[int], slots, coefs: List[List[int]], ss: int, se: int,
-               al: int) -> None:
+def _ac_refine(w16: List[int], slots, coefs: List[List[int]], nbits: int, ss: int, se: int,
+               al: int) -> Tuple[int, bool]:
     """A progressive AC refinement scan of band ``ss``..``se``: a
     correction bit for each coefficient that is already non-zero, and each
-    new coefficient (+-1 at ``al``) placed past its run of zero ones
+    new coefficient (+-1 at ``al``) placed past its run of zero ones, or on
+    the coefficient after the band where the run goes past it
     (``decode_mcu_AC_refine``)."""
     p1, m1 = 1 << al, -1 << al
     p = eobrun = 0
-    for ci, base, _, ac in slots:
+    for i, (ci, base, _, ac) in enumerate(slots):
+        if p > nbits:
+            return i, True
         out = coefs[ci]
         k = ss
         if not eobrun:
             while k <= se:
                 e = ac[w16[p]]
-                if not e:
-                    raise ValueError("corrupt JPEG data: no Huffman code for an AC value")
-                p += e >> 8
+                p += e >> 8 if e else 17
                 r, s = (e >> 4) & 15, e & 15
                 if s:
                     s = p1 if w16[p] >> 15 else m1
@@ -631,9 +665,7 @@ def _ac_refine(w16: List[int], slots, coefs: List[List[int]], ss: int, se: int,
                         r -= 1
                     k += 1
                 if s:
-                    if k > se:
-                        raise ValueError("corrupt JPEG data: AC run past the band")
-                    out[base + k] = s
+                    out[base + (k if k < 64 else 63)] = s
                 k += 1
         if eobrun:
             while k <= se:  # the rest of an end-of-band block: corrections only
@@ -644,6 +676,7 @@ def _ac_refine(w16: List[int], slots, coefs: List[List[int]], ss: int, se: int,
                     p += 1
                 k += 1
             eobrun -= 1
+    return len(slots), p > nbits
 
 
 def _wrap16(v: np.ndarray) -> np.ndarray:
@@ -806,7 +839,7 @@ def decode_jpeg_file(data: bytes, path: str) -> np.ndarray:
 
 def decode_jpeg(data: bytes, path: str, space: Optional[str] = None, tables: bytes = b"",
                 sampling=None, cmyk: bool = False, precision: int = 8,
-                persist: Optional[tuple] = None, lenient: bool = False) -> np.ndarray:
+                persist: Optional[tuple] = None, libtiff: str = "") -> np.ndarray:
     """A JPEG stream as (H, W, 3) uint8 RGB. ``space`` None takes the colour
     space from libjpeg's guess, as for a JPEG file; a caller that knows it
     (libtiff passes the TIFF photometric to libjpeg) gives "ycc" (YCbCr,
@@ -825,19 +858,18 @@ def decode_jpeg(data: bytes, path: str, space: Optional[str] = None, tables: byt
     1, samples limited to [0, 4095] around 2048). ``persist``, a
     (quantization, Huffman) pair of dicts, keeps the tables across calls,
     as one libjpeg decompressor keeps them across the streams it reads
-    (libtiff's strips and tiles). ``lenient`` reads a sequential Huffman
-    scan whose data ends before its last MCU, or before the end of a
-    restart interval, as libjpeg-turbo does where its caller lets it go on
-    past its warnings (libtiff, which inserts an EOI where a strip's data
-    ends): the MCU that runs out is decoded from zero bits, the MCUs after
-    it up to the next restart marker are left zero (uniform grey)."""
+    (libtiff's strips and tiles). ``libtiff`` "jpeg" reads the stream as
+    libtiff's JPEG codec hands it to libjpeg: whole, an EOI marker wherever
+    libjpeg reads past its end; "ojpeg" as its OJPEG codec does, which also
+    fails where libjpeg would resynchronise on a restart marker ("": a
+    file's stream, as PIL hands it over; see ``image_jpeg_stream``). Damaged entropy-coded data reads as libjpeg
+    reads it past its warnings (``_jpeg_segments``)."""
     qt: Dict[int, np.ndarray]
-    huff: Dict[Tuple[int, int], List[int]]
+    huff: Dict[Tuple[int, int], Tuple[bytes, bytes]]
     qt, huff = persist if persist is not None else ({}, {})
     if tables:
-        _jpeg_segments(tables, path, qt, huff, {}, precision)
-    frame, coefs, jfif, adobe, eoi = _jpeg_segments(data, path, qt, huff, {}, precision,
-                                                    lenient)
+        _jpeg_segments(tables, path, qt, huff, precision, "jpeg")
+    frame, coefs, jfif, adobe = _jpeg_segments(data, path, qt, huff, precision, libtiff)
     if frame is None:
         raise ValueError(f"{path}: JPEG without a frame header")
     if sampling is not None:
@@ -847,126 +879,233 @@ def decode_jpeg(data: bytes, path: str, space: Optional[str] = None, tables: byt
             raise ValueError(f"{path}: JPEG sampling factors {factors} where libtiff requires "
                              f"{sampling} for the first component and 1x1 for the others")
     if frame["progressive"]:
-        if not eoi:
-            raise ValueError(f"{path}: truncated JPEG data: the file ends before its EOI "
-                             f"marker")
         frame["smooth"] = _smoothing_ok(frame)
     return _jpeg_pixels(frame, coefs, jfif, adobe, space, cmyk)
 
 
 def _jpeg_segments(data: bytes, path: str, qt: Dict[int, np.ndarray],
-                   huff: Dict[Tuple[int, int], List[int]], cond: dict, want: int = 8,
-                   lenient: bool = False):
-    """Read a JPEG stream's markers and scans into ``qt``, ``huff``, ``cond``
-    (the DAC conditioning: (0, table) -> (L, U), (1, table) -> Kx) and the
-    coefficients (or, lossless, ``frame["samples"]``): (frame or None,
-    coefficients, JFIF marker seen, Adobe transform or None, EOI reached).
-    ``want`` is the sample precision the caller takes, ``lenient`` whether
-    a scan may end early (see ``decode_jpeg``)."""
+                   huff: Dict[Tuple[int, int], Tuple[bytes, bytes]], want: int = 8,
+                   libtiff: str = ""):
+    """Read a JPEG stream's markers and scans as libjpeg's ``read_markers``
+    and input controller read them, into ``qt``, ``huff`` ((class, table)
+    -> (code counts, symbols)) and the coefficients (or, lossless,
+    ``frame["samples"]``): (frame or None, coefficients, JFIF marker seen,
+    Adobe transform or None). ``want`` is the sample precision the caller
+    takes, ``libtiff`` the data source (see ``decode_jpeg``). Each marker
+    segment is checked as libjpeg checks it, and what libjpeg fails on
+    raises. A stream of one scan ends with its last MCU
+    (PIL has every scanline then): what follows may end early, and only a
+    marker libjpeg fails on raises; a stream of several scans reads to its
+    EOI marker (``image_jpeg_stream`` for the data between markers)."""
     from . import image_jpeg_lossless
 
-    frame = None
-    restart, jfif, adobe, eoi = 0, False, None, False
-    coefs: List[List[int]] = []
-    pos = 2
-    while pos < len(data):
-        if data[pos] != 0xFF:
-            raise ValueError(f"{path}: corrupt JPEG: no marker at byte {pos}")
-        while pos < len(data) and data[pos] == 0xFF:
-            pos += 1
-        if pos >= len(data):
-            break
-        marker = data[pos]
-        pos += 1
-        if marker == 0xD9:  # EOI
-            eoi = True
-            break
-        if marker == 0x01 or 0xD0 <= marker <= 0xD8:  # TEM, RSTn, SOI: no length
-            continue
-        if pos + 2 > len(data) or pos + struct.unpack(">H", data[pos:pos + 2])[0] > len(data):
-            raise ValueError(f"{path}: truncated JPEG data: a marker segment ends past the "
-                             f"end of the file")
-        (length,) = struct.unpack(">H", data[pos:pos + 2])
-        seg = data[pos + 2:pos + length]
-        pos += length
-        if marker in _SOF_NAMES and marker not in _SOF_READ:
-            raise ValueError(f"{path}: {_SOF_NAMES[marker]} is not read by the port "
-                             f"(baseline, extended sequential, progressive and lossless "
-                             f"Huffman and sequential and progressive arithmetic-coded JPEG "
-                             f"only)")
-        if marker == 0xCC:  # DAC: conditioning of arithmetic-coding tables
-            for i in range(0, len(seg) - 1, 2):
-                tc, tb, cs = seg[i] >> 4, seg[i] & 15, seg[i + 1]
-                if tc == 0 and (cs & 15) > cs >> 4:
-                    raise ValueError(f"{path}: corrupt JPEG DAC value {cs}")
-                cond[(tc, tb)] = (cs & 15, cs >> 4) if tc == 0 else cs
-        if marker in (0xC0, 0xC1, 0xC2) or marker in _SOF_READ:
-            precision, height, width, n = struct.unpack(">BHHB", seg[:6])
-            if precision != want and want != 8:  # libtiff: "Improper JPEG data precision"
-                raise ValueError(f"{path}: {precision}-bit JPEG data in a {want}-bit "
-                                 f"JPEG-in-TIFF: libtiff fails on it")
-            if precision != want or (want == 12 and marker not in (0xC0, 0xC1)):
-                raise ValueError(f"{path}: {precision}-bit JPEG is not read by the port "
-                                 f"(8-bit samples only, and 12-bit Huffman-coded sequential "
-                                 f"frames in TIFF)")
-            if n not in (1, 3, 4):
-                raise ValueError(f"{path}: JPEG with {n} components is not read by the port")
-            if height == 0 or width == 0:
-                raise ValueError(f"{path}: JPEG with its height in a DNL marker is not read")
-            comps = [(seg[6 + 3 * i], seg[7 + 3 * i] >> 4, seg[7 + 3 * i] & 15, seg[8 + 3 * i])
-                     for i in range(n)]
-            hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
-            mcux, mcuy = _ceil_div(width, 8 * hmax), _ceil_div(height, 8 * vmax)
-            frame = {"width": width, "height": height, "comps": comps, "hmax": hmax,
-                     "vmax": vmax, "mcux": mcux, "mcuy": mcuy, "quant": [None] * n,
-                     "progressive": marker in (0xC2, 0xCA), "arith": marker in (0xC9, 0xCA),
-                     "lossless": marker == 0xC3, "precision": precision, "samples": {},
-                     # the bits each zigzag coefficient has so far (-1: none)
-                     "coef_bits": [[-1] * 64 for _ in range(n)]}
-            coefs = [[0] * (mcuy * v * mcux * h * 64) for _, h, v, _ in comps]
-        elif marker == 0xC4:  # DHT: one or more tables
-            i = 0
-            while i < len(seg):
-                tc, th = seg[i] >> 4, seg[i] & 15
-                counts = seg[i + 1:i + 17]
-                total = sum(counts)
-                huff[(tc, th)] = _huffman_lut(counts, seg[i + 17:i + 17 + total])
-                i += 17 + total
-        elif marker == 0xDB:  # DQT: 8- or 16-bit tables, zigzag order
-            i = 0
-            while i < len(seg):
-                pq, tq = seg[i] >> 4, seg[i] & 15
-                size = 128 if pq else 64
-                vals = np.frombuffer(seg[i + 1:i + 1 + size], ">u2" if pq else np.uint8)
-                table = np.zeros(64, np.int64)
-                table[_ZIGZAG] = vals
-                qt[tq] = table
-                i += 1 + size
-        elif marker == 0xDD:
-            (restart,) = struct.unpack(">H", seg[:2])
-        elif marker == 0xE0 and seg.startswith(b"JFIF\x00") and length >= 16:
-            jfif = True
-        elif marker == 0xEE and seg.startswith(b"Adobe") and length >= 14:
-            adobe = seg[11]
-        elif marker == 0xDA:
-            if frame is None:
-                raise ValueError(f"{path}: JPEG scan before its frame header")
-            end = _SCAN_END.search(data, pos)
-            if end is None and frame["arith"]:  # libjpeg reads on into the marker
-                raise ValueError(f"{path}: truncated JPEG data: an arithmetic-coded scan runs "
-                                 f"to the end of the file")
-            end = len(data) if end is None else end.start()
-            if frame["lossless"]:
-                scan = data[pos:end]
-                parts = _RESTART.split(scan) if restart else [scan]
-                image_jpeg_lossless.decode_scan(
-                    frame, seg, [p.replace(b"\xff\x00", b"\xff") for p in parts], huff,
-                    restart, _peek16)
+    src = Source(data, 2, bool(libtiff), libtiff != "ojpeg")
+    frame, coefs, cond = None, [], {}
+    restart, jfif, adobe = 0, False, None
+    scans, one_scan, done = 0, False, False
+    try:
+        while True:
+            marker = src.unread or src.next_marker()
+            src.unread = 0
+            if marker == 0xD9:  # EOI
+                if frame is not None and not scans:
+                    raise ValueError("corrupt JPEG data: an EOI marker before any scan "
+                                     "(JERR_SOF_NO_SOS)")
+                break
+            if 0xD0 <= marker <= 0xD7 or marker == 0x01:  # RSTn, TEM: no parameters
+                continue
+            if marker == 0xD8:
+                raise ValueError("corrupt JPEG data: a second SOI marker (JERR_SOI_DUPLICATE)")
+            if marker in _SOF_NAMES and marker not in _SOF_READ or marker == 0xC8:
+                raise ValueError(f"{_SOF_NAMES.get(marker, 'a JPG marker')} is not read by the "
+                                 f"port (baseline, extended sequential, progressive and "
+                                 f"lossless Huffman and sequential and progressive "
+                                 f"arithmetic-coded JPEG only)")
+            if marker in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
+                if frame is not None:
+                    raise ValueError("corrupt JPEG data: a second frame header "
+                                     "(JERR_SOF_DUPLICATE)")
+                frame, coefs = _read_sof(src, marker, want)
+            elif marker == 0xC4:
+                _read_dht(src, huff)
+            elif marker == 0xDB:
+                _read_dqt(src, qt)
+            elif marker == 0xCC:
+                _read_dac(src, cond)
+            elif marker == 0xDD:
+                if src.u16() != 4:
+                    raise ValueError("corrupt JPEG data: a DRI segment of the wrong length")
+                restart = src.u16()
+            elif 0xE0 <= marker <= 0xEF or marker in (0xFE, 0xDC):  # APPn, COM, DNL
+                length = src.u16() - 2
+                if marker in (0xE0, 0xEE) and length > 0:  # the first 14 bytes looked at
+                    body = bytes(src.byte() for _ in range(min(length, 14)))
+                    length -= len(body)
+                    if not scans and marker == 0xE0:
+                        jfif |= len(body) == 14 and body.startswith(b"JFIF\x00")
+                    elif not scans and len(body) >= 12 and body.startswith(b"Adobe"):
+                        adobe = body[11]
+                src.skip(length)
+            elif marker == 0xDA:
+                if frame is None:
+                    raise ValueError(f"{path}: JPEG scan before its frame header")
+                if one_scan:
+                    raise ValueError("corrupt JPEG data: a second scan in a one-scan image "
+                                     "(JERR_EOI_EXPECTED)")
+                scans += 1
+                frame["scans"] = scans
+                members, ss, se, ah, al = _read_sos(src, frame)
+                if scans == 1:
+                    one_scan = not frame["progressive"] and len(members) == len(frame["comps"])
+                    if not frame["progressive"] and not frame["lossless"]:
+                        for key, table in STD_HUFFMAN.items():  # std_huff_tables
+                            huff.setdefault(key, table)
+                if frame["lossless"]:
+                    image_jpeg_lossless.decode_scan(frame, src, members, ss, se, ah, al, huff,
+                                                    restart, _peek16, _huffman_table)
+                else:
+                    _decode_scan(frame, src, members, ss, se, ah, al, qt, huff, restart, coefs,
+                                 cond)
+                if one_scan and src.at_end:
+                    raise ValueError(f"{path}: JPEG data that runs to the end of the file "
+                                     f"without a marker after it: PIL reads it only where "
+                                     f"libjpeg's bit reader needs no byte past the end, "
+                                     f"which the port does not follow")
+                done = one_scan
             else:
-                _decode_scan(frame, seg, data[pos:end], qt, huff, restart, coefs, cond,
-                             lenient)
-            pos = end
-    return frame, coefs, jfif, adobe, eoi
+                raise ValueError(f"corrupt JPEG data: marker 0x{marker:02X}, which libjpeg "
+                                 f"does not know (JERR_UNKNOWN_MARKER)")
+    except Truncated:
+        if not done:
+            raise ValueError(f"{path}: truncated JPEG data: the file ends where libjpeg reads "
+                             f"on (PIL: image file is truncated)") from None
+    return frame, coefs, jfif, adobe
+
+
+def _read_sof(src: Source, marker: int, want: int):
+    """``get_sof``: the frame, and each component's zero coefficients."""
+    length = src.u16()
+    precision, height, width, n = src.byte(), src.u16(), src.u16(), src.byte()
+    if height == 0 or width == 0 or n == 0:
+        raise ValueError("JPEG with its height in a DNL marker, or no width or components, "
+                         "is not read (JERR_EMPTY_IMAGE)")
+    if length != 8 + 3 * n:
+        raise ValueError("corrupt JPEG data: a frame header of the wrong length")
+    comps = []
+    for _ in range(n):
+        cid, hv, tq = src.byte(), src.byte(), src.byte()
+        comps.append((cid, hv >> 4, hv & 15, tq))
+    if precision != want and want != 8:  # libtiff: "Improper JPEG data precision"
+        raise ValueError(f"{precision}-bit JPEG data in a {want}-bit JPEG-in-TIFF: libtiff "
+                         f"fails on it")
+    if precision != want or (want == 12 and marker not in (0xC0, 0xC1)):
+        raise ValueError(f"{precision}-bit JPEG is not read by the port (8-bit samples only, "
+                         f"and 12-bit Huffman-coded sequential frames in TIFF)")
+    if n not in (1, 3, 4):
+        raise ValueError(f"JPEG with {n} components is not read by the port")
+    hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+    mcux, mcuy = _ceil_div(width, 8 * hmax), _ceil_div(height, 8 * vmax)
+    frame = {"width": width, "height": height, "comps": comps, "hmax": hmax,
+             "vmax": vmax, "mcux": mcux, "mcuy": mcuy, "quant": [None] * n,
+             "progressive": marker in (0xC2, 0xCA), "arith": marker in (0xC9, 0xCA),
+             "lossless": marker == 0xC3, "precision": precision, "samples": {},
+             # the bits each zigzag coefficient has so far (-1: none), and
+             # what they were before the component's last scan
+             "coef_bits": [[-1] * 64 for _ in range(n)], "prev_bits": [[0] * 64 for _ in range(n)]}
+    return frame, [[0] * (mcuy * v * mcux * h * 64) for _, h, v, _ in comps]
+
+
+def _read_dht(src: Source, huff) -> None:
+    """``get_dht``: one or more tables, kept as their counts and symbols."""
+    length = src.u16() - 2
+    while length > 16:
+        index = src.byte()
+        counts = bytes(src.byte() for _ in range(16))
+        length -= 17
+        total = sum(counts)
+        if total > 256 or total > length:
+            raise ValueError("corrupt JPEG data: a Huffman table longer than its segment "
+                             "(JERR_BAD_HUFF_TABLE)")
+        symbols = bytes(src.byte() for _ in range(total))
+        length -= total
+        if index & ~0x13:
+            raise ValueError(f"corrupt JPEG data: Huffman table index 0x{index:02X} "
+                             f"(JERR_DHT_INDEX)")
+        huff[(index >> 4, index & 15)] = (counts, symbols)
+    if length:
+        raise ValueError("corrupt JPEG data: a DHT segment of the wrong length")
+
+
+def _read_dqt(src: Source, qt) -> None:
+    """``get_dqt``: 8- or 16-bit tables of 64 values, zigzag order."""
+    length = src.u16() - 2
+    while length > 0:
+        n = src.byte()
+        prec, n = n >> 4, n & 15
+        if n >= 4:
+            raise ValueError(f"corrupt JPEG data: quantization table {n} (JERR_DQT_INDEX)")
+        vals = [src.u16() if prec else src.byte() for _ in range(64)]
+        table = np.zeros(64, np.int64)
+        table[_ZIGZAG] = vals
+        qt[n] = table
+        length -= 65 + (64 if prec else 0)
+    if length:
+        raise ValueError("corrupt JPEG data: a DQT segment of the wrong length")
+
+
+def _read_dac(src: Source, cond: dict) -> None:
+    """``get_dac``: the arithmetic-coding conditioning, (0, table) -> (L, U)
+    and (1, table) -> Kx."""
+    length = src.u16() - 2
+    while length > 0:
+        index, val = src.byte(), src.byte()
+        length -= 2
+        if index >= 32:
+            raise ValueError(f"corrupt JPEG data: DAC index {index} (JERR_DAC_INDEX)")
+        if index >= 16:
+            cond[(1, index - 16)] = val
+        else:
+            if (val & 15) > val >> 4:
+                raise ValueError(f"corrupt JPEG DAC value {val}")
+            cond[(0, index)] = (val & 15, val >> 4)
+    if length:
+        raise ValueError("corrupt JPEG data: a DAC segment of the wrong length")
+
+
+def _read_sos(src: Source, frame: dict):
+    """``get_sos``: the scan's components ((index, DC table, AC table) each,
+    found as libjpeg finds them) and Ss, Se, Ah, Al."""
+    length, n = src.u16(), src.byte()
+    if length != 2 * n + 6 or not 1 <= n <= 4:
+        raise ValueError("corrupt JPEG data: a scan header of the wrong length")
+    ids = [c[0] for c in frame["comps"]][:4]
+    slot: List[Optional[int]] = [None] * 4  # cur_comp_info, by scan position
+    members = []
+    for i in range(n):
+        cid, tables = src.byte(), src.byte()
+        # libjpeg looks for the id among the components whose index is a free
+        # scan position, then refuses one the scan already has
+        ci = next((c for c, x in enumerate(ids) if x == cid and slot[c] is None), None)
+        if ci is None or ci in slot[:i]:
+            raise ValueError(f"corrupt JPEG data: scan component id {cid} "
+                             f"(JERR_BAD_COMPONENT_ID)")
+        slot[i] = ci
+        members.append((ci, tables >> 4, tables & 15))
+    ss, se, a = src.byte(), src.byte(), src.byte()
+    return members, ss, se, a >> 4, a & 15
+
+
+def _huffman_table(huff, cls: int, th: int, lossless: bool = False) -> List[int]:
+    """``jpeg_make_d_derived_tbl``: table ``th`` of class ``cls``, checked."""
+    table = huff.get((cls, th))
+    if table is None:
+        raise ValueError(f"corrupt JPEG data: a scan uses Huffman table {th}, which the "
+                         f"stream does not define (JERR_NO_HUFF_TABLE)")
+    counts, symbols = table
+    if cls == 0 and max(symbols, default=0) > (16 if lossless else 15):
+        raise ValueError("corrupt JPEG data: a DC Huffman table with a symbol past 15 "
+                         "(JERR_BAD_HUFF_TABLE)")
+    return _huffman_lut(counts, symbols)
 
 
 # zigzag positions of the coefficients libjpeg's block smoothing estimates
@@ -987,100 +1126,101 @@ def _smoothing_ok(frame: dict) -> bool:
     return any(bits[k] != 0 for bits in frame["coef_bits"] for k in _SMOOTHED)
 
 
-def _decode_scan(frame: dict, header: bytes, scan: bytes, qt, huff, restart: int,
-                 coefs: List[List[int]], cond: Optional[dict] = None,
-                 lenient: bool = False) -> None:
+def _decode_scan(frame: dict, src: Source, members, ss: int, se: int, ah: int, al: int, qt,
+                 huff, restart: int, coefs: List[List[int]], cond: dict) -> None:
     """Huffman- or arithmetic-decode one scan into ``coefs`` (each component's
-    blocks, zigzag order, in the padded MCU grid); ``lenient``: see
-    ``decode_jpeg``."""
+    blocks, zigzag order, in the padded MCU grid), set up as libjpeg's
+    ``start_input_pass`` sets it up, and checked as it checks it."""
+    from . import image_jpeg_arith
+
     comps = frame["comps"]
-    ids = [c[0] for c in comps]
-    n = header[0]
-    if len(header) < 4 + 2 * n:
-        raise ValueError("corrupt JPEG data: a scan header shorter than its component count")
-    ss, se, ah, al = header[1 + 2 * n], header[2 + 2 * n], header[3 + 2 * n] >> 4, \
-        header[3 + 2 * n] & 15
+    n = len(members)
     progressive = frame["progressive"]
     if progressive and (ss > se or se > 63 or al > 13 or (ah and al != ah - 1)
                         or (ss == 0 and se != 0) or (ss and n != 1)):
         raise ValueError(f"corrupt JPEG data: invalid progressive scan Ss={ss} Se={se} "
                          f"Ah={ah} Al={al} over {n} components")
+    mcux, mcuy = frame["mcux"], frame["mcuy"]
+    if n == 1:  # non-interleaved: the component's own blocks, row by row
+        ci, dct, act = members[0]
+        _, h, v, _ = comps[ci]
+        bw = _ceil_div(_ceil_div(frame["width"] * h, frame["hmax"]), 8)
+        bh = _ceil_div(_ceil_div(frame["height"] * v, frame["vmax"]), 8)
+        per_mcu, grid = 1, [(ci, by * mcux * h + bx, dct, act)
+                            for by in range(bh) for bx in range(bw)]
+        row_of = lambda mcu: mcu // bw // v  # noqa: E731  the MCU's iMCU row
+    else:
+        per_mcu = sum(comps[ci][1] * comps[ci][2] for ci, _, _ in members)
+        if per_mcu > _MAX_BLOCKS_IN_MCU:
+            raise ValueError(f"corrupt JPEG data: {per_mcu} blocks in an MCU "
+                             f"(JERR_BAD_MCU_SIZE)")
+        grid = [(ci, (my * v + yy) * mcux * h + mx * h + xx, dct, act)
+                for my in range(mcuy) for mx in range(mcux)
+                for ci, dct, act in members for h, v in [comps[ci][1:3]]
+                for yy in range(v) for xx in range(h)]
+        row_of = lambda mcu: mcu // mcux  # noqa: E731
+    for ci, _, _ in members:
+        if frame["quant"][ci] is None:  # latched at the component's first scan
+            frame["quant"][ci] = qt.get(comps[ci][3])
+            if frame["quant"][ci] is None:
+                raise ValueError("JPEG component with no quantization table "
+                                 "(JERR_NO_QUANT_TABLE)")
+        if progressive:
+            bits, prev = frame["coef_bits"][ci], frame["prev_bits"][ci]
+            for k in range(min(ss, 1), max(se, 9) + 1):
+                prev[k] = bits[k] if frame["scans"] > 1 else 0
+            for k in range(ss, se + 1):
+                bits[k] = al
+    if frame["arith"]:  # the tables' numbers: statistics bins and DAC conditioning
+        if any(t >= 16 for _, d, a in members for t in (d, a)):
+            raise ValueError("corrupt JPEG data: arithmetic-coding table past 15 "
+                             "(JERR_NO_ARITH_TABLE)")
+        slots = [(ci, base * 64, dct, act) for ci, base, dct, act in grid]
+        image_jpeg_arith.decode_scan(frame, src, members, restart, per_mcu, slots, coefs,
+                                     ss, se, ah, al, cond)
+        return
     # the tables the scan needs: both in a sequential scan; DC in a DC first
     # scan, none in a DC refinement, AC in an AC scan
     need_dc = not progressive or (ss == 0 and ah == 0)
     need_ac = not progressive or ss > 0
-    members = []
-    for i in range(n):
-        cid, tables = header[1 + 2 * i], header[2 + 2 * i]
-        ci = ids.index(cid)
-        if frame["arith"]:  # the tables' numbers: statistics bins and DAC conditioning
-            dc, ac = tables >> 4, tables & 15
-        else:
-            dc, ac = huff.get((0, tables >> 4)), huff.get((1, tables & 15))
-            if (need_dc and dc is None) or (need_ac and ac is None):
-                raise ValueError("JPEG scan uses a Huffman table it does not define")
-        members.append((ci, dc, ac))
-        if frame["quant"][ci] is None:  # latched at the component's first scan
-            frame["quant"][ci] = qt.get(comps[ci][3])
-        if progressive:
-            bits = frame["coef_bits"][ci]
-            for k in range(ss, se + 1):
-                bits[k] = al
-    mcux, mcuy = frame["mcux"], frame["mcuy"]
-    slots = []
-    if n == 1:  # non-interleaved: the component's own blocks, row by row
-        ci, dc, ac = members[0]
-        _, h, v, _ = comps[ci]
-        bw = _ceil_div(_ceil_div(frame["width"] * h, frame["hmax"]), 8)
-        bh = _ceil_div(_ceil_div(frame["height"] * v, frame["vmax"]), 8)
-        stride = mcux * h
-        slots = [(ci, (by * stride + bx) * 64, dc, ac) for by in range(bh) for bx in range(bw)]
-        per_mcu = 1
+    luts = {}
+    for _, dct, act in members:
+        if need_dc:
+            luts[(0, dct)] = _huffman_table(huff, 0, dct)
+        if need_ac:
+            luts[(1, act)] = _huffman_table(huff, 1, act)
+    slots = [(ci, base * 64, luts.get((0, dct)), luts.get((1, act)))
+             for ci, base, dct, act in grid]
+    if not progressive:
+        def run(w16, part, nbits):
+            return _decode_blocks(w16, part, coefs, nbits, per_mcu)
+    elif ss == 0 and ah == 0:
+        def run(w16, part, nbits):
+            return _dc_first(w16, part, coefs, nbits, per_mcu, al)
+    elif ss == 0:
+        def run(w16, part, nbits):
+            return _dc_refine(w16, part, coefs, nbits, per_mcu, al)
+    elif ah == 0:
+        def run(w16, part, nbits):
+            return _ac_first(w16, part, coefs, nbits, ss, se, al)
     else:
-        per_mcu = sum(comps[ci][1] * comps[ci][2] for ci, _, _ in members)
-        for my in range(mcuy):
-            for mx in range(mcux):
-                for ci, dc, ac in members:
-                    _, h, v, _ = comps[ci]
-                    stride = mcux * h
-                    for yy in range(v):
-                        for xx in range(h):
-                            slots.append((ci, ((my * v + yy) * stride + mx * h + xx) * 64,
-                                          dc, ac))
-    segments = _RESTART.split(scan) if restart else [scan]
-    if frame["arith"]:
-        from . import image_jpeg_arith
+        def run(w16, part, nbits):
+            return _ac_refine(w16, part, coefs, nbits, ss, se, al)
+    refine = progressive and ss and ah
 
-        image_jpeg_arith.decode_scan(frame, members, segments, restart, per_mcu, slots, coefs,
-                                     ss, se, ah, al, cond or {})
-        return
-    chunk = restart * per_mcu if restart else len(slots)
-    for i in range(0, len(slots), chunk):
-        seg = segments[i // chunk] if i // chunk < len(segments) else b""
-        seg = seg.replace(b"\xff\x00", b"\xff")
-        w16, part = _peek16(seg), slots[i:i + chunk]
-        if lenient and not progressive:  # zero bits past the segment, as libjpeg reads on
-            if i // chunk >= len(segments):  # past the data's end: libjpeg leaves them zero
-                continue
-            try:
-                _decode_blocks(w16, part, coefs, [0] * len(comps), per_mcu, 8 * len(seg))
-            except IndexError:  # an MCU ran past the padding: enough zero bits for it
-                _decode_blocks(_peek16(seg + bytes(256 * per_mcu)), part, coefs,
-                               [0] * len(comps), per_mcu, 8 * len(seg))
-            continue
-        try:  # DC predictions and end-of-band runs start from 0 after each restart
-            if not progressive:
-                _decode_blocks(w16, part, coefs, [0] * len(comps))
-            elif ss == 0 and ah == 0:
-                _dc_first(w16, part, coefs, [0] * len(comps), al)
-            elif ss == 0:
-                _dc_refine(w16, part, coefs, al)
-            elif ah == 0:
-                _ac_first(w16, part, coefs, ss, se, al)
-            else:
-                _ac_refine(w16, part, coefs, ss, se, al)
-        except IndexError:
-            raise ValueError("truncated JPEG data: the scan ends early") from None
+    def decode(first: int, count: int, data: bytes):
+        part = slots[first * per_mcu:(first + count) * per_mcu]
+        saved = [coefs[ci][b:b + 64] for ci, b, _, _ in part] if refine else None
+        try:
+            return run(_peek16(data), part, 8 * len(data))
+        except IndexError:  # the last MCU ran on past the data: more zero bits for it
+            for (ci, b, _, _), block in zip(part, saved or ()):
+                coefs[ci][b:b + 64] = block
+            return run(_peek16(data, _BLOCK_BITS // 8 * per_mcu + 4), part, 8 * len(data))
+
+    good: List[int] = []
+    intervals(src, restart, len(slots) // per_mcu, decode, good)
+    frame["good_row"] = row_of(good[0])
 
 
 def _jpeg_pixels(frame: dict, coefs: List[List[int]], jfif: bool, adobe,
@@ -1096,15 +1236,24 @@ def _jpeg_pixels(frame: dict, coefs: List[List[int]], jfif: bool, adobe,
         quant = frame["quant"][ci]
         if quant is None:
             raise ValueError("JPEG component with no scan or no quantization table")
-        zz = np.asarray(coefs[ci], np.int64).reshape(-1, 64)
+        zz = _wrap16(np.asarray(coefs[ci], np.int64).reshape(-1, 64))  # JCOEF
         nat = np.empty_like(zz)
         nat[:, _ZIGZAG] = zz
         dh, dw = _ceil_div(height * v, vmax), _ceil_div(width * h, hmax)
         if frame.get("smooth"):  # the component's own blocks, not the MCU padding
             grid = nat.reshape(mcuy * v, mcux * h, 64)
             bh, bw = _ceil_div(dh, 8), _ceil_div(dw, 8)
-            grid[:bh, :bw] = image_jpeg_smooth.smooth(grid.copy(), bh, bw, v, quant,
-                                                      frame["coef_bits"][ci][:10])
+            bits = frame["coef_bits"][ci][:10]
+            smoothed = image_jpeg_smooth.smooth(grid.copy(), bh, bw, v, quant, bits)
+            # iMCU rows past the last scan's last good one take the bits as
+            # they were before that scan (last_good_iMCU_row)
+            cut = (frame["good_row"] + 1) * v
+            if cut < bh:
+                prev = bits[:1] + (frame["prev_bits"][ci][1:10] if frame["scans"] > 1
+                                   else [-1] * 9)
+                smoothed[cut:] = image_jpeg_smooth.smooth(grid.copy(), bh, bw, v, quant,
+                                                          prev)[cut:]
+            grid[:bh, :bw] = smoothed
         blocks = _idct_islow(nat, quant, frame["precision"]).reshape(mcuy * v, mcux * h, 8, 8)
         plane = blocks.transpose(0, 2, 1, 3).reshape(mcuy * v * 8, mcux * h * 8)
         if space == "replicated":  # libtiff's data units: chroma repeated, not filtered

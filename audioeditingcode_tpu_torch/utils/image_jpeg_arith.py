@@ -3,8 +3,8 @@
 3.1's ``jdarith.c`` runs it, standard library only.
 
 - ``_Decoder.bit``: ``arith_decode``, its 16-bit A register and the C
-  register fed a byte at a time (a stuffed 0xFF 0x00 is 0xFF, zeros past
-  the segment's end), and the 113-state probability estimator of Table
+  register fed a byte at a time (a stuffed 0xFF 0x00 is 0xFF; at a marker,
+  zeros), and the 113-state probability estimator of Table
   D.2 plus libjpeg's fixed state 113 for the 0.5 decisions (signs and DC
   refinement bits); each statistics bin holds its state and its MPS.
 - Sequential and progressive scans as ``decode_mcu``,
@@ -16,12 +16,19 @@
   refinement's correction bits where a coefficient is already non-zero and
   new +-1 coefficients past them.
 - Each scan and each restart interval starts with zeroed statistics, DC
-  predictions and contexts, and a fresh decoder.
+  predictions and contexts, and a fresh decoder; restart markers are read
+  by number (``image_jpeg_stream.Source.restart``). A magnitude or a run
+  past the block or band (damaged data) sets libjpeg's ``ct = -1``: the
+  block keeps what it has, and nothing more is decoded up to the next
+  restart marker. Past the 64 KiB PIL has handed libjpeg, the decoder
+  fails, as libjpeg's does (it cannot wait for more data).
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
+
+from .image_jpeg_stream import Source
 
 # (Qe << 16) | (next MPS << 8) | (switch << 7) | next LPS, T.81 Table D.2,
 # then state 113: the fixed 0.5 estimate
@@ -54,15 +61,35 @@ ARITAB = tuple((_QE[i] << 16) | (_NMPS[i] << 8) | ((i in _SWITCH) << 7) | _NLPS[
 DC_BINS, AC_BINS, FIXED = 64, 256, 113
 
 
-class _Decoder:
-    """``arith_decode`` over one entropy-coded segment (stuffing removed)."""
+class _Overflow(Exception):
+    """A magnitude or a run past the block: libjpeg sets ``ct = -1`` and
+    decodes nothing more up to the next restart marker."""
 
-    def __init__(self, data: bytes):
-        self.data = data
-        self.pos = 0
+
+class _Decoder:
+    """``arith_decode`` over the stream from the source's position: its
+    bytes as ``get_byte`` takes them (a stuffed 0xFF 0x00 is 0xFF; at a
+    marker, which it keeps unread, and past it, zeros)."""
+
+    def __init__(self, src: Source):
+        self.src = src
         self.c = 0
         self.a = 0
         self.ct = -16
+
+    def _byte(self) -> int:
+        src = self.src
+        if src.unread:
+            return 0
+        d = src.byte()
+        if d != 0xFF:
+            return d
+        while d == 0xFF:
+            d = src.byte()
+        if d == 0:
+            return 0xFF
+        src.unread = d
+        return 0
 
     def bit(self, st: List[int], i: int) -> int:
         """Decode one decision with statistics bin ``st[i]``."""
@@ -70,11 +97,7 @@ class _Decoder:
         while a < 0x8000:
             ct -= 1
             if ct < 0:
-                if self.pos < len(self.data):
-                    c = (c << 8) | self.data[self.pos]
-                    self.pos += 1
-                else:
-                    c <<= 8
+                c = (c << 8) | self._byte()
                 ct += 8
                 if ct < 0:
                     ct += 1
@@ -116,7 +139,7 @@ def _magnitude(dec: _Decoder, st: List[int], i: int, x: int) -> int:
         while dec.bit(st, i):
             m <<= 1
             if m == 0x8000:
-                raise ValueError("corrupt JPEG data: arithmetic magnitude overflow")
+                raise _Overflow
             i += 1
     v = m
     i += 14
@@ -143,7 +166,7 @@ def _dc_diff(dec: _Decoder, st: List[int], ctx: List[int], ci: int,
         while dec.bit(st, i):
             m <<= 1
             if m == 0x8000:
-                raise ValueError("corrupt JPEG data: arithmetic magnitude overflow")
+                raise _Overflow
             i += 1
     low, up = lu
     if m < (1 << low) >> 1:
@@ -171,73 +194,95 @@ def _ac_value(dec: _Decoder, st: List[int], i: int, k: int, kx: int,
     return -v if sign else v
 
 
-def decode_scan(frame: dict, members, segments: List[bytes], restart: int, per_mcu: int,
-                slots, coefs: List[List[int]], ss: int, se: int, ah: int, al: int,
+def _wrap(v: int) -> int:
+    return ((v + 32768) & 65535) - 32768
+
+
+def decode_scan(frame: dict, src: Source, members, restart: int, per_mcu: int, slots,
+                coefs: List[List[int]], ss: int, se: int, ah: int, al: int,
                 cond: Dict[Tuple[int, int], object]) -> None:
-    """Decode one arithmetic-coded scan into ``coefs`` (zigzag order).
-    ``slots``: the scan's blocks, (component, first coefficient index, DC
-    table, AC table) each, in MCU order; ``members``: its components."""
+    """Decode one arithmetic-coded scan from ``src`` into ``coefs`` (zigzag
+    order). ``slots``: the scan's blocks, (component, first coefficient
+    index, DC table, AC table) each, in MCU order; ``members``: its
+    components. Restart markers are read as libjpeg reads them
+    (``Source.restart``), and libjpeg's arithmetic decoder cannot wait for
+    data (``Source.arith``)."""
     progressive = frame["progressive"]
     natural_se = se if progressive else 63
     chunk = restart * per_mcu if restart else len(slots)
-    for n, start in enumerate(range(0, len(slots), chunk)):
-        dec = _Decoder(segments[n].replace(b"\xff\x00", b"\xff") if n < len(segments) else b"")
-        dc_stats = {t: [0] * DC_BINS for _, t, _ in members}
-        ac_stats = {t: [0] * AC_BINS for _, _, t in members}
-        fixed = [FIXED]
-        last = [0] * len(frame["comps"])
-        ctx = [0] * len(frame["comps"])
-        for ci, base, dct, act in slots[start:start + chunk]:
-            out = coefs[ci]
-            if not progressive or (ss == 0 and ah == 0):  # DC (first)
-                d = _dc_diff(dec, dc_stats[dct], ctx, ci, cond.get((0, dct), (0, 1)))
-                last[ci] = (last[ci] + d) & 0xFFFF
-                v = last[ci] - 0x10000 if last[ci] >= 0x8000 else last[ci]
-                out[base] = v << al if progressive else v
-                if progressive:
-                    continue
-            elif ss == 0:  # DC refinement: the next bit, at a fixed estimate
-                if dec.bit(fixed, 0):
-                    out[base] |= 1 << al
+    src.arith = True
+    try:
+        for n, start in enumerate(range(0, len(slots), chunk)):
+            if n:
+                src.restart((n - 1) & 7)
+            try:
+                _interval(_Decoder(src), frame, members, slots[start:start + chunk], coefs,
+                          progressive, natural_se, ss, se, ah, al, cond)
+            except _Overflow:
+                pass
+    finally:
+        src.arith = False
+
+
+def _interval(dec: _Decoder, frame: dict, members, slots, coefs: List[List[int]],
+              progressive: bool, natural_se: int, ss: int, se: int, ah: int, al: int,
+              cond) -> None:
+    """One restart interval's blocks, from zeroed statistics, DC predictions
+    and contexts."""
+    dc_stats = {t: [0] * DC_BINS for _, t, _ in members}
+    ac_stats = {t: [0] * AC_BINS for _, _, t in members}
+    fixed = [FIXED]
+    last = [0] * len(frame["comps"])
+    ctx = [0] * len(frame["comps"])
+    for ci, base, dct, act in slots:
+        out = coefs[ci]
+        if not progressive or (ss == 0 and ah == 0):  # DC (first)
+            d = _dc_diff(dec, dc_stats[dct], ctx, ci, cond.get((0, dct), (0, 1)))
+            last[ci] = (last[ci] + d) & 0xFFFF
+            out[base] = _wrap(last[ci] << al) if progressive else _wrap(last[ci])
+            if progressive:
                 continue
-            st = ac_stats[act]
-            kx = cond.get((1, act), 5)
-            if not progressive or ah == 0:  # AC (first)
-                k = 1 if not progressive else ss
-                while k <= natural_se:
-                    i = 3 * (k - 1)
-                    if dec.bit(st, i):  # end of block
-                        break
-                    while not dec.bit(st, i + 1):
-                        i += 3
-                        k += 1
-                        if k > natural_se:
-                            raise ValueError("corrupt JPEG data: arithmetic AC run past the "
-                                             "block")
-                    v = _ac_value(dec, st, i + 2, k, kx, fixed)
-                    out[base + k] = v * (1 << al) if progressive else v
-                    k += 1
-                continue
-            p1, m1 = 1 << al, -1 << al  # AC refinement
-            kex = se
-            while kex > 0 and not out[base + kex]:
-                kex -= 1
-            k = ss
-            while k <= se:
+        elif ss == 0:  # DC refinement: the next bit, at a fixed estimate
+            if dec.bit(fixed, 0):
+                out[base] |= 1 << al
+            continue
+        st = ac_stats[act]
+        kx = cond.get((1, act), 5)
+        if not progressive or ah == 0:  # AC (first)
+            k = 1 if not progressive else ss
+            while k <= natural_se:
                 i = 3 * (k - 1)
-                if k > kex and dec.bit(st, i):
+                if dec.bit(st, i):  # end of block
                     break
-                while True:
-                    c = out[base + k]
-                    if c:
-                        if dec.bit(st, i + 2):
-                            out[base + k] = c + (m1 if c < 0 else p1)
-                        break
-                    if dec.bit(st, i + 1):
-                        out[base + k] = m1 if dec.bit(fixed, 0) else p1
-                        break
+                while not dec.bit(st, i + 1):
                     i += 3
                     k += 1
-                    if k > se:
-                        raise ValueError("corrupt JPEG data: arithmetic AC run past the band")
+                    if k > natural_se:
+                        raise _Overflow
+                v = _ac_value(dec, st, i + 2, k, kx, fixed)
+                out[base + k] = _wrap(v << al) if progressive else v
                 k += 1
+            continue
+        p1, m1 = 1 << al, -1 << al  # AC refinement
+        kex = se
+        while kex > 0 and not out[base + kex]:
+            kex -= 1
+        k = ss
+        while k <= se:
+            i = 3 * (k - 1)
+            if k > kex and dec.bit(st, i):
+                break
+            while True:
+                c = out[base + k]
+                if c:
+                    if dec.bit(st, i + 2):
+                        out[base + k] = c + (m1 if c < 0 else p1)
+                    break
+                if dec.bit(st, i + 1):
+                    out[base + k] = m1 if dec.bit(fixed, 0) else p1
+                    break
+                i += 3
+                k += 1
+                if k > se:
+                    raise _Overflow
+            k += 1

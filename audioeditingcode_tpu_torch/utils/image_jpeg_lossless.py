@@ -30,16 +30,20 @@ from typing import List
 
 import numpy as np
 
+from .image_jpeg_stream import Source, intervals
 
-def _diffs(w16: List[int], tables: List[List[int]], count: int) -> List[int]:
-    """``count`` sample differences, the i-th with table ``tables[i % n]``."""
+
+def _diffs(w16: List[int], tables: List[List[int]], count: int, p: int):
+    """``count`` sample differences from bit ``p`` on, the i-th with table
+    ``tables[i % n]`` (a code no entry starts: 17 bits, the difference 0),
+    and the bit after them."""
     n = len(tables)
     out = [0] * count
-    p = 0
     for i in range(count):
         e = tables[i % n][w16[p]]
         if not e:
-            raise ValueError("corrupt JPEG data: no Huffman code for a lossless difference")
+            p += 17
+            continue
         p += e >> 8
         s = e & 255
         if s == 16:
@@ -52,7 +56,7 @@ def _diffs(w16: List[int], tables: List[List[int]], count: int) -> List[int]:
         else:
             v = 0
         out[i] = v
-    return out
+    return out, p
 
 
 def _undifference(diff: np.ndarray, prev: np.ndarray, first: bool, predictor: int,
@@ -85,25 +89,22 @@ def _undifference(diff: np.ndarray, prev: np.ndarray, first: bool, predictor: in
     return np.asarray(out, np.int64)
 
 
-def decode_scan(frame: dict, header: bytes, segments: List[bytes], huff, restart: int,
-                peek16) -> None:
-    """Decode one lossless scan into ``frame["samples"]`` (each component's
-    (height, width) int64 samples at its own size)."""
+def decode_scan(frame: dict, src: Source, members, predictor: int, se: int, ah: int, pt: int,
+                huff, restart: int, peek16, table) -> None:
+    """Decode one lossless scan from ``src`` into ``frame["samples"]`` (each
+    component's (height, width) int64 samples at its own size); ``members``
+    (component, DC table, AC table) each, ``table(huff, 0, number, True)``
+    a DC table's lookup. Restart markers and data that runs out are read
+    as ``image_jpeg_stream.intervals`` reads them, a row of MCUs at a time
+    (``decode_mcus``): the row that runs out is decoded from zero bits, the
+    rows after it up to the next restart marker get zero differences and
+    restart the prediction (``CENTERJSAMPLE``)."""
     comps = frame["comps"]
-    ids = [c[0] for c in comps]
-    n = header[0]
-    predictor, se = header[1 + 2 * n], header[2 + 2 * n]
-    ah, pt = header[3 + 2 * n] >> 4, header[3 + 2 * n] & 15
+    n = len(members)
     if not 1 <= predictor <= 7 or se != 0 or ah != 0 or pt >= frame["precision"]:
         raise ValueError(f"corrupt JPEG data: lossless scan with predictor {predictor}, Se {se}, "
                          f"Ah {ah}, Pt {pt}")
-    members = []
-    for i in range(n):
-        ci = ids.index(header[1 + 2 * i])
-        table = huff.get((0, header[2 + 2 * i] >> 4))
-        if table is None:
-            raise ValueError("JPEG scan uses a Huffman table it does not define")
-        members.append((ci, table))
+    tables = {ci: table(huff, 0, dct, True) for ci, dct, _ in members}
     width, height, hmax, vmax = frame["width"], frame["height"], frame["hmax"], frame["vmax"]
     if n == 1:
         ci = members[0][0]
@@ -112,39 +113,52 @@ def decode_scan(frame: dict, header: bytes, segments: List[bytes], huff, restart
         layout = [(ci, 0, 0, 1, 1)]
     else:
         mcux, mcuy = -(-width // hmax), -(-height // vmax)
-        layout = [(ci, yy, xx, comps[ci][2], comps[ci][1]) for ci, _ in members
+        layout = [(ci, yy, xx, comps[ci][2], comps[ci][1]) for ci, _, _ in members
                   for yy in range(comps[ci][2]) for xx in range(comps[ci][1])]
-    tables = [dict(members)[ci] for ci, _, _, _, _ in layout]
+    order = [tables[ci] for ci, _, _, _, _ in layout]
     per_mcu = len(layout)
     if restart and restart % mcux:
         raise ValueError(f"lossless JPEG restart interval {restart} is not a whole number of "
                          f"MCU rows of {mcux} (libjpeg fails on it)")
     rows_per_interval = restart // mcux if restart else mcuy
     grids = {ci: np.zeros((mcuy * vv, mcux * hh), np.int64) for ci, _, _, vv, hh in layout}
-    for k, seg in enumerate(segments):
-        r0 = k * rows_per_interval
-        if r0 >= mcuy:
-            break
-        nrows = min(rows_per_interval, mcuy - r0)
+    decoded = np.zeros(mcuy, bool)
+
+    def rows(first: int, count: int, data: bytes, pad: int = 4):
+        w16, nbits, p = peek16(data, pad), 8 * len(data), 0
+        r0 = first // mcux
+        for r in range(count // mcux):
+            if p > nbits:
+                return r * mcux, True
+            d, p = _diffs(w16, order, mcux * per_mcu, p)
+            d = np.asarray(d, np.int64).reshape(mcux, per_mcu)
+            for j, (ci, yy, xx, vv, hh) in enumerate(layout):
+                grids[ci][(r0 + r) * vv + yy, xx::hh][:mcux] = d[:, j]
+            decoded[r0 + r] = True
+        return count, p > nbits
+
+    def decode(first: int, count: int, data: bytes):
         try:
-            d = _diffs(peek16(seg), tables, nrows * mcux * per_mcu)
-        except IndexError:
-            raise ValueError("truncated JPEG data: the scan ends early") from None
-        d = np.asarray(d, np.int64).reshape(nrows, mcux, per_mcu)
-        for j, (ci, yy, xx, vv, hh) in enumerate(layout):
-            grids[ci][(r0 * vv + yy)::vv, xx::hh][:nrows, :mcux] = d[:, :, j]
-    if len(segments) * rows_per_interval < mcuy:
-        raise ValueError("truncated JPEG data: the scan ends before its last restart interval")
+            return rows(first, count, data)
+        except IndexError:  # the row that runs out: zero bits enough for any
+            return rows(first, count, data, 5 * mcux * per_mcu + 4)
+
+    intervals(src, restart, mcux * mcuy, decode)
+    # the prediction restarts at the scan's first row, at each restart
+    # marker, and at each row left undecoded
+    fresh = ~decoded
+    fresh[::rows_per_interval] = True
     initial = 1 << (frame["precision"] - pt - 1)
     for ci in grids:
         _, h, v, _ = comps[ci]
+        vv = v if n > 1 else 1
         cw, chh = -(-width * h // hmax), -(-height * v // vmax)
         g = grids[ci]
-        rows_per_restart = rows_per_interval * (v if n > 1 else 1)
         out = np.zeros((chh, cw), np.int64)
         prev = None
         for y in range(chh):
-            prev = _undifference(g[y, :cw], prev, y % rows_per_restart == 0, predictor, initial)
+            prev = _undifference(g[y, :cw], prev, y % vv == 0 and fresh[y // vv], predictor,
+                                 initial)
             out[y] = prev
         frame["samples"][ci] = (out << pt) & 255
 

@@ -99,8 +99,8 @@ codec, whose samples PIL unpacks as ``I;12`` (other 12-bit kinds PIL has
 no mode for). One libjpeg decompressor reads a file's streams in PIL's
 order (a row of strips or tiles at a time, each plane's in turn), so the
 tables a stream defines stay for the streams after it; and a stream that
-runs out reads as libjpeg reads it past its warnings
-(``decode_jpeg(lenient=True)``).
+runs out, or is damaged, reads as libjpeg reads it past its warnings
+(``decode_jpeg(libtiff="jpeg")``).
 
 The Orientation tag (274) is applied as PIL 12.1 applies it on load
 (``ImageOps.exif_transpose``: 2 mirrors, 3 turns 180 degrees, 4 flips,
@@ -113,7 +113,7 @@ size. Old-style JPEG (compression 6) whose JPEGInterchangeFormat stream
 covers the image, or with baseline tables in tags and one strip or
 several (``_old_jpeg_stream``), reads as libtiff's OJPEG codec decodes it
 (``_old_jpeg``). Other old-style JPEG (several tiles of tables-in-tags
-data, several strips big-endian or holding restart markers of their own,
+data, several strips big-endian or whose restart markers come out of turn,
 lossless processes), the
 compressions PIL fails on (WebP: its libtiff is built without it; SGILog
 and SGILog24: libtiff decodes them only for the LogL and LogLuv
@@ -128,7 +128,6 @@ decoded, zero after them.
 
 from __future__ import annotations
 
-import re
 import struct
 import zlib
 from typing import Dict, Tuple
@@ -158,7 +157,6 @@ _TYPES = {1: (1, "B"), 2: (1, "B"), 3: (2, "H"), 4: (4, "I"), 5: (8, "I"), 6: (1
           7: (1, "B"), 8: (2, "h"), 9: (4, "i"), 10: (8, "i"), 11: (4, "f"), 12: (8, "d"),
           13: (4, "I"), 16: (8, "Q"), 17: (8, "q"), 18: (8, "Q")}
 _CLEAR, _EOI = 256, 257
-_RST = re.compile(rb"\xff[\xd0-\xd7]")  # a JPEG restart marker
 # ImageOps.exif_transpose on (H, W, C) arrays
 _ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
            5: lambda a: a.transpose(1, 0, 2), 6: lambda a: np.rot90(a, -1),
@@ -485,8 +483,10 @@ def _mode(tags, order: str, comp: int, path: str) -> Tuple[str, int, int, int, i
         else:
             ok = bps == (16,) * spp and ((spp == 3 and not extra)
                                          or (spp == 4 and extra in ((), (0,), (1,), (2,))))
-        if ok:
-            kind = "RGBa" if extra[:1] == (1,) else "RGB"
+        if ok:  # in planes, compressed, PIL takes an unnamed fourth sample as associated alpha
+            assoc = spp == 4 and not extra and bits == 8 and comp != 1 and tags.get(
+                284, (1,))[0] == 2
+            kind = "RGBa" if extra[:1] == (1,) or assoc else "RGB"
     elif photo == 3:
         if (bps in ((1,), (2,), (4,), (8,)) and not extra) or (bps == (8, 8)
                                                                and extra in ((0,), (2,))):
@@ -581,8 +581,10 @@ def decode_tiff(data: bytes, path: str) -> np.ndarray:
     if planar == 2 and spp > 1 and kind not in ("YCbCr", "CMYK", "LAB"):
         # compressed: PIL fails on extra samples in strips, reads them in tiles
         if (comp == 1 and (bits != 8 or kind != "RGB" or extra not in ((), (2,)))) or (
-                comp != 1 and not tiled and (spp > 4 or extra == (0,) or (spp == 4 and not extra))
-        ) or (comp != 1 and tiled and ((spp == 4 and not extra) or (kind, extra) == ("P", (0,)))):
+                comp != 1 and not tiled and (spp > 4 or extra == (0,) or (
+                    spp == 4 and not extra and kind != "RGBa"))
+        ) or (comp != 1 and tiled and ((spp == 4 and not extra and kind != "RGBa")
+                                       or (kind, extra) == ("P", (0,)))):
             raise ValueError(f"{path}: planar TIFF with {spp} samples of {bits} bits, extra "
                              f"samples {extra} and compression {comp}: PIL fails on it or "
                              f"mis-reads it, and the port does not read it")
@@ -721,7 +723,7 @@ def _old_jpeg(data: bytes, tags, width: int, height: int, path: str,
         stream = _old_jpeg_stream(data, tags, width, height, spp, path, order)
     # libtiff's OJPEG codec fails on one component sampled other than 1x1
     planes = decode_jpeg(stream, path, "replicated", sampling=(1, 1) if spp == 1 else None,
-                         lenient=True)
+                         libtiff="ojpeg")
     if planes.shape[:2] != (height, width) or planes.shape[2] != spp:
         raise ValueError(f"{path}: old-style JPEG stream of {planes.shape} for a "
                          f"{width} x {height} TIFF of {spp} samples")
@@ -787,10 +789,6 @@ def _old_jpeg_stream(data: bytes, tags, width: int, height: int, spp: int, path:
                          f"not follow")
     for i, off in enumerate(offsets[:n_strips]):
         n = counts[i] if counts and i < len(counts) else len(data) - off
-        if n_strips > 1 and _RST.search(data, off, off + n):
-            raise ValueError(f"{path}: old-style JPEG-in-TIFF strip {i} holds restart markers "
-                             f"of its own, beside those libtiff puts between strips: libjpeg "
-                             f"resynchronises on them, which the port does not follow")
         out += data[off:off + n] + (bytes([0xFF, 0xD0 + i % 8]) if i < n_strips - 1 else b"")
     return out + b"\xff\xd9"
 
@@ -804,10 +802,10 @@ def _jpeg_block(src: bytes, tables: bytes, persist, kind: str, rows: int, cols: 
     if kind == "YCbCr":
         sampling = tuple(tags[530][:2]) if 530 in tags else None
         block = decode_jpeg(src, path, "ycc", tables, sampling=sampling or "any",
-                            persist=persist, lenient=True)
+                            persist=persist, libtiff="jpeg")
     else:
         block = decode_jpeg(src, path, "planes", tables, sampling=(1, 1), precision=bits,
-                            persist=persist, lenient=True)
+                            persist=persist, libtiff="jpeg")
     h, w = block.shape[:2]
     if last_strip and w == cols and h > rows:
         block = block[:rows]  # libtiff cuts a last strip's stream to the image

@@ -6,14 +6,15 @@ test_torch_image_tiff.py, each against PIL's
   libtiff (tests/pil_libs.py): every plane's strips or tiles one-component
   JPEG streams sharing JPEGTables, read as the other planar files are (the
   same refusals where PIL fails or misreads: an unspecified extra sample in
-  strips, four samples without ExtraSamples, YCbCr subsampled in planes);
+  strips, YCbCr subsampled in planes; four samples without ExtraSamples
+  read as PIL reads them, the fourth an associated alpha);
 - 12-bit greyscale, written by libtiff's 12-bit JPEG codec (optimised
   Huffman tables in the strip's stream, 16-bit quantisation tables at low
   quality), which PIL opens as ``I;16`` from libtiff's packed ``I;12``
   samples: one strip, and strips spliced from single-strip files.
   libtiff's own several-strip (or several-tile) 12-bit files are corrupt
   past the first block (it leaves the later ones' optimised tables out); PIL shows
-  libjpeg's recovery and the port raises. Streams libtiff does not write,
+  libjpeg's recovery and so does the port. Streams libtiff does not write,
   made here (restart intervals, SOF0, 16-bit tables). An odd width: libtiff
   leaves a row's last sample unwritten, PIL shows stale memory, the port
   raises. 12-bit RGB and a stand-alone 12-bit JPEG fail in PIL and raise;
@@ -22,8 +23,9 @@ test_torch_image_tiff.py, each against PIL's
   markers into strips, as libtiff's OJPEG codec joins them (an RST marker
   between strips, a restart interval of a strip's MCUs), strips shorter
   than their interval (libjpeg reads zero bits, then leaves grey), and
-  the refusals: strips not a whole number of MCU rows (libtiff fails),
-  strips holding restart markers of their own (libjpeg resynchronises).
+  strips holding restart markers of their own, and the refusals: strips
+  not a whole number of MCU rows (libtiff fails), restart markers out of
+  turn (libtiff's OJPEG source fails on libjpeg's resynchronisation).
 
 Files libtiff writes are deterministic, so ``make_jpeg_kind_inputs`` writes
 three of them for the card (tests/test_torch_image_formats.py)."""
@@ -90,8 +92,8 @@ def test_planar_jpeg_refusals(tmp_path, tile):
     """An unspecified extra sample in strips: PIL fails (decoder error -2)
     and the port raises; in tiles both read it. Four samples without
     ExtraSamples: PIL divides the colour by the fourth sample as by an
-    associated alpha, which the port does not follow. YCbCr subsampled in
-    planes: libtiff's RGBA interface fails, and so does PIL."""
+    associated alpha, and so does the port. YCbCr subsampled in planes:
+    libtiff's RGBA interface fails, and so does PIL."""
     path = str(tmp_path / "r.tif")
     tiff_write(path, _extra(IMG), 2, planar=2, rows=16, tile=tile, extra=(0,))
     if tile:
@@ -99,8 +101,7 @@ def test_planar_jpeg_refusals(tmp_path, tile):
     else:
         _both_raise(path)
     tiff_write(path, _extra(IMG), 2, planar=2, rows=16, tile=tile)
-    with pytest.raises(ValueError, match=r"planar TIFF with 4 samples of 8 bits, extra samples"):
-        tio.read_image(path)
+    _check(path)
     assoc = tiff_write(str(tmp_path / "a.tif"), _extra(IMG), 2, planar=2, rows=16, tile=tile,
                        extra=(1,))
     np.testing.assert_array_equal(_pil(path), _pil(assoc))
@@ -258,14 +259,14 @@ def test_12_bit_streams_libtiff_does_not_write(tmp_path):
 def test_12_bit_refusals(tmp_path):
     """libtiff's own several-strip 12-bit file: PIL reads the later strips
     with the first strip's optimised Huffman tables, and libjpeg's recovery
-    from the codes they lack; the port raises. 12-bit RGB: PIL cannot
+    from the codes they lack (17 bits and the value 0 each), and so does
+    the port. 12-bit RGB: PIL cannot
     identify it. A stand-alone 12-bit JPEG (the strip's stream with its
     tables): PIL cannot identify it either."""
     path = tiff_write(str(tmp_path / "m.tif"), NOISE, 1, bits=12, rows=16, quality=75)
     got = np.asarray(Image.open(path), np.int64)
     assert np.abs(got[:16] - NOISE[:16]).mean() < 40 < np.abs(got[16:] - NOISE[16:]).mean()
-    with pytest.raises(ValueError, match="corrupt JPEG data"):
-        tio.read_image(path)
+    _check(path)
     rgb = tiff_write(str(tmp_path / "c.tif"), np.stack([RAMP] * 3, -1), 2, bits=12)
     with pytest.raises(ValueError, match="PIL has no mode for it"):
         tio.read_image(rgb)
@@ -374,20 +375,27 @@ def test_old_jpeg_in_strips_matches_pil(tmp_path, sub):
 
 
 def test_old_jpeg_in_strips_refusals(tmp_path):
-    """Strips not a whole number of MCU rows: libtiff fails, and PIL. A
-    strip holding restart markers of its own: PIL reads it through
-    libjpeg's resynchronisation, which the port does not follow. The same
-    strips big-endian: PIL reads the strips after the first otherwise than
-    little-endian."""
+    """Strips not a whole number of MCU rows: libtiff fails, and PIL.
+    Strips holding restart markers of their own: libjpeg takes a marker
+    that comes in turn, and both read them alike; where one does not,
+    libtiff's OJPEG data source fails on libjpeg's resynchronisation, and
+    PIL shows the last strip's memory (it fails where that is not the last
+    strip) while the port raises. The same strips big-endian: PIL reads the
+    strips after the first otherwise than little-endian."""
     path = old_jpeg_strips(str(tmp_path / "r.tif"), IMG, 2, rows=8)
     with pytest.raises(ValueError, match="Incompatible vertical subsampling"):
         tio.read_image(path)
     with pytest.raises(Exception):
         _pil(path)
     path = old_jpeg_strips(str(tmp_path / "k.tif"), IMG, 2, strip_mcu_rows=2, own_markers=True)
+    _check(path)
+    _check(old_jpeg_strips(str(tmp_path / "k.tif"), IMG, 0, strip_mcu_rows=3, own_markers=True))
+    path = old_jpeg_strips(str(tmp_path / "k.tif"), IMG, 0, strip_mcu_rows=2, own_markers=True)
     _pil(path)
-    with pytest.raises(ValueError, match="holds restart markers of its own"):
+    with pytest.raises(ValueError, match="fails on libjpeg's resynchronisation"):
         tio.read_image(path)
+    _both_raise(old_jpeg_strips(str(tmp_path / "k.tif"), _pattern(64, 64, noise=0.2), 0,
+                                strip_mcu_rows=2, own_markers=True))
     little = _pil(old_jpeg_strips(str(tmp_path / "l.tif"), IMG, 0))
     path = old_jpeg_strips(str(tmp_path / "b.tif"), IMG, 0, order=">")
     assert (_pil(path) != little).any(axis=2)[8:].any() and (_pil(path) == little)[:8].all()

@@ -893,10 +893,10 @@ def _jpeg_segments(data: bytes, path: str, qt: Dict[int, np.ndarray],
     Adobe transform or None). ``want`` is the sample precision the caller
     takes, ``libtiff`` the data source (see ``decode_jpeg``). Each marker
     segment is checked as libjpeg checks it, and what libjpeg fails on
-    raises. A stream of one scan ends with its last MCU
-    (PIL has every scanline then): what follows may end early, and only a
-    marker libjpeg fails on raises; a stream of several scans reads to its
-    EOI marker (``image_jpeg_stream`` for the data between markers)."""
+    raises. A stream of one scan ends with its last MCU (PIL has every
+    scanline then): what follows may end early, and only a marker libjpeg
+    fails on raises (libtiff reads nothing after it); a stream of several
+    scans reads to its EOI marker (``image_jpeg_stream`` for the data between markers)."""
     from . import image_jpeg_lossless
 
     src = Source(data, 2, bool(libtiff), libtiff != "ojpeg")
@@ -972,6 +972,8 @@ def _jpeg_segments(data: bytes, path: str, qt: Dict[int, np.ndarray],
                                      f"libjpeg's bit reader needs no byte past the end, "
                                      f"which the port does not follow")
                 done = one_scan
+                if done and libtiff:  # libtiff reads no further (nor fails) past the scanlines
+                    break
             else:
                 raise ValueError(f"corrupt JPEG data: marker 0x{marker:02X}, which libjpeg "
                                  f"does not know (JERR_UNKNOWN_MARKER)")
@@ -1178,6 +1180,7 @@ def _decode_scan(frame: dict, src: Source, members, ss: int, se: int, ah: int, a
         slots = [(ci, base * 64, dct, act) for ci, base, dct, act in grid]
         image_jpeg_arith.decode_scan(frame, src, members, restart, per_mcu, slots, coefs,
                                      ss, se, ah, al, cond)
+        frame["good_row"] = mcuy  # the arithmetic decoder never runs out of data
         return
     # the tables the scan needs: both in a sequential scan; DC in a DC first
     # scan, none in a DC refinement, AC in an AC scan
@@ -1219,7 +1222,13 @@ def _decode_scan(frame: dict, src: Source, members, ss: int, se: int, ah: int, a
             return run(_peek16(data, _BLOCK_BITS // 8 * per_mcu + 4), part, 8 * len(data))
 
     good: List[int] = []
+    src.ff_run = False
     intervals(src, restart, len(slots) // per_mcu, decode, good)
+    if src.ff_run and not progressive and not restart:
+        raise ValueError("corrupt JPEG data: sequential Huffman data without restart markers "
+                         "that holds FF FF 00: libjpeg-turbo's fast decoder takes it for a "
+                         "marker and its slow one for an FF byte, and a block may keep what "
+                         "each wrote, which the port does not follow")
     frame["good_row"] = row_of(good[0])
 
 

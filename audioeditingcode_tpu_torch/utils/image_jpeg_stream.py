@@ -41,6 +41,8 @@ CHUNK = 65536
 # a marker: FF bytes, then a byte that is neither 00 (stuffing) nor FF
 MARKER = re.compile(rb"\xff+[^\x00\xff]")
 STUFFED = re.compile(rb"\xff+\x00")
+# FF bytes then 00: one FF to libjpeg's bit reader, a marker to its fast path
+_FF_RUN = re.compile(rb"\xff\xff+\x00")
 _EOI = b"\xff\xd9"
 _AC_LUMA = bytes.fromhex(
     "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718"
@@ -80,6 +82,7 @@ class Source:
         self.top = float("inf") if eoi_pad else min(self.n, CHUNK)
         self.arith = False
         self.at_end = False  # a scan's data ran to the end of the file
+        self.ff_run = False  # a scan's data holds FF FF ... 00
 
     def _reach(self, p: int) -> None:
         """Byte ``p`` as PIL's reads make it available to libjpeg."""
@@ -143,6 +146,7 @@ class Source:
             self.pos, self.at_end = self.n, True
             return seg
         seg = STUFFED.sub(b"\xff", self.data[self.pos:m.start()])
+        self.ff_run = self.ff_run or _FF_RUN.search(self.data, self.pos, m.start()) is not None
         self.pos = m.end()
         self.unread = self.data[m.end() - 1]
         return seg

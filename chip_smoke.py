@@ -163,11 +163,15 @@ prints no result):
    LZMA TIFF photos, a GZIP_1 tile-compressed FITS, a planar JPEG-in-TIFF,
    a 12-bit greyscale JPEG-in-TIFF, an old-style JPEG-in-TIFF over strips,
    cut-short LZW and JPEG YCbCr TIFFs, a JPEG 2000 codestream with Part 2
-   MCT/MCC/MCO markers and a simple-filter lossy WebP) decoded
+   MCT/MCC/MCO markers, a simple-filter lossy WebP, and damaged JPEG data:
+   the restart JPEG with RST3 renumbered RST4 and with a restart marker
+   deleted, and a byte XOR-ed in the progressive, the arithmetic-coded,
+   the lossless JPEG and a JPEG-in-TIFF tile) decoded
    by the port's readers to the sha256 of PIL's decode
    (tests/data/images/sha256.json), each decode's seconds printed, and
-   bfloat16 SD SDEdits at 512 px from the JPEG, from the WebP, from the
-   JPEG-in-TIFF, from the PSD, from the DXT1 DDS and from the 9/7 JPEG 2000.
+   bfloat16 SD SDEdits at 512 px from the JPEG with RST3 renumbered, from
+   the WebP, from the JPEG-in-TIFF, from the PSD, from the DXT1 DDS and
+   from the 9/7 JPEG 2000.
 11. the edit server (serve.py) on 127.0.0.1 over HTTP at 50 steps in
    bfloat16: AudioLDM-s (/healthz, three edits, two concurrent requests
    each bit-equal to the same request alone, a response bit-equal to
@@ -2645,7 +2649,8 @@ def phase10_images(fa, sw, tmp: str, ckpt: str):
 def _image_inputs(fa, sw, tmp: str, ckpt: str):
     """The committed inputs of tests/data/images decoded by the port's
     readers, each to the sha256 of PIL's decode, with its seconds; then a
-    bfloat16 SD SDEdit at 512 px from the JPEG, one from the lossy WebP with
+    bfloat16 SD SDEdit at 512 px from the JPEG whose RST3 is renumbered
+    RST4 (damaged data, read as libjpeg reads it), one from the lossy WebP with
     alpha, one from the JPEG-in-TIFF, one from the PackBits PSD, one from
     the DXT1 DDS (a 512 x 384 photo as a texture tool saves it) and one from
     the 9/7 JPEG 2000 photo. Returns (runs, checks)."""
@@ -2671,7 +2676,7 @@ def _image_inputs(fa, sw, tmp: str, ckpt: str):
                                  f"decode is {rec['sha256']} {rec['shape']}")
     runs = {}
     checks["decode_s_all"] = sum(c["decode_s"] for c in checks.values())
-    for name, image in (("sd_sdedit_jpeg_bf16", "photo_420_restart.jpg"),
+    for name, image in (("sd_sdedit_jpeg_bf16", "photo_420_restart_rst4.jpg"),
                         ("sd_sdedit_webp_bf16", "photo_alpha.webp"),
                         ("sd_sdedit_jpeg_tiff_bf16", "photo_jpeg_ycbcr.tif"),
                         ("sd_sdedit_psd_bf16", "photo_packbits.psd"),

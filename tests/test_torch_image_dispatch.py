@@ -67,7 +67,7 @@ def test_openers_are_pils_fresh_order():
 
 def test_committed_inputs_open_as_pil_opens_them():
     names = sorted(n for n in os.listdir(DATA) if n != "sha256.json")
-    assert names == sorted(CHIP_INPUTS) and len(names) == 55
+    assert names == sorted(CHIP_INPUTS) and len(names) == 61
     for name in names:
         path = os.path.join(DATA, name)
         assert port_format(path) == pil_format(path) is not None, name

@@ -488,6 +488,18 @@ CHIP_INPUTS.update({
                              "writer, markers put in)",
     "photo_simple_filter.webp": "lossy WebP, 256 x 192 photo, quality 80, the simple loop "
                                 "filter at strength 60 (PIL's libwebp, filter_type 0)"})
+# damaged JPEG data: a renumbered and a deleted restart marker, a byte
+# XOR-ed in a progressive, an arithmetic-coded, a lossless JPEG and a
+# JPEG-in-TIFF tile (test_torch_image_jpeg_damage.py)
+CHIP_INPUTS.update({
+    "photo_420_restart_rst4.jpg": "photo_420_restart.jpg with RST3 renumbered RST4",
+    "photo_420_restart_no_rst.jpg": "photo_420_restart.jpg with its fourth restart marker "
+                                    "deleted",
+    "photo_progressive_422_hit.jpg": "photo_progressive_422.jpg with a byte of an AC scan "
+                                     "XOR-ed",
+    "arith_progressive_hit.jpg": "arith_progressive.jpg with a byte of its data XOR-ed",
+    "lossless_pred6_hit.jpg": "lossless_pred6.jpg with a byte of its data XOR-ed",
+    "photo_jpeg_ycbcr_hit.tif": "photo_jpeg_ycbcr.tif with a byte of its second tile XOR-ed"})
 
 
 def make_chip_inputs(d: str) -> dict:
@@ -527,6 +539,9 @@ def make_chip_inputs(d: str) -> dict:
     make_cut_inputs(d)
     make_part2_inputs(d)
     make_webp_filter_inputs(d)
+    from test_torch_image_jpeg_damage import make_damage_inputs
+
+    make_damage_inputs(d)
     out = {}
     for name, what in CHIP_INPUTS.items():
         px = _pil(os.path.join(d, name))

@@ -102,7 +102,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .image_jpeg_stream import STD_HUFFMAN, Source, Truncated, intervals
+from .image_jpeg_stream import CHUNK, STD_HUFFMAN, Source, Truncated, intervals
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_SIGNATURE = b"\xff\xd8\xff"
@@ -962,15 +962,11 @@ def _jpeg_segments(data: bytes, path: str, qt: Dict[int, np.ndarray],
                             huff.setdefault(key, table)
                 if frame["lossless"]:
                     image_jpeg_lossless.decode_scan(frame, src, members, ss, se, ah, al, huff,
-                                                    restart, _peek16, _huffman_table)
+                                                    restart, _peek16, _huffman_table,
+                                                    _exact_bits)
                 else:
                     _decode_scan(frame, src, members, ss, se, ah, al, qt, huff, restart, coefs,
                                  cond)
-                if one_scan and src.at_end:
-                    raise ValueError(f"{path}: JPEG data that runs to the end of the file "
-                                     f"without a marker after it: PIL reads it only where "
-                                     f"libjpeg's bit reader needs no byte past the end, "
-                                     f"which the port does not follow")
                 done = one_scan
                 if done and libtiff:  # libtiff reads no further (nor fails) past the scanlines
                     break
@@ -1097,6 +1093,17 @@ def _read_sos(src: Source, frame: dict):
     return members, ss, se, a >> 4, a & 15
 
 
+def _exact_bits(src: Source, pad: int):
+    """``image_jpeg_exact.Bits`` over the segment ``src`` last read, zero
+    bits for ``pad`` bytes past it."""
+    from . import image_jpeg_exact
+
+    start, end, marker_end = src.span
+    top = len(src.data) if src.eoi_pad else min(src.n, CHUNK * ((start - 1) // CHUNK + 1))
+    return image_jpeg_exact.Bits(src.data[start:end], start, marker_end, top,
+                                 len(src.data) if src.eoi_pad else src.n, pad, _peek16)
+
+
 def _huffman_table(huff, cls: int, th: int, lossless: bool = False) -> List[int]:
     """``jpeg_make_d_derived_tbl``: table ``th`` of class ``cls``, checked."""
     table = huff.get((cls, th))
@@ -1133,7 +1140,7 @@ def _decode_scan(frame: dict, src: Source, members, ss: int, se: int, ah: int, a
     """Huffman- or arithmetic-decode one scan into ``coefs`` (each component's
     blocks, zigzag order, in the padded MCU grid), set up as libjpeg's
     ``start_input_pass`` sets it up, and checked as it checks it."""
-    from . import image_jpeg_arith
+    from . import image_jpeg_arith, image_jpeg_exact
 
     comps = frame["comps"]
     n = len(members)
@@ -1213,6 +1220,9 @@ def _decode_scan(frame: dict, src: Source, members, ss: int, se: int, ah: int, a
 
     def decode(first: int, count: int, data: bytes):
         part = slots[first * per_mcu:(first + count) * per_mcu]
+        if not progressive and src.span and (src.at_end or (src.ff_run and not restart)):
+            bits = _exact_bits(src, _BLOCK_BITS // 8 * per_mcu + 8)
+            return image_jpeg_exact.sequential(bits, part, coefs, per_mcu, not restart)
         saved = [coefs[ci][b:b + 64] for ci, b, _, _ in part] if refine else None
         try:
             return run(_peek16(data), part, 8 * len(data))
@@ -1222,13 +1232,7 @@ def _decode_scan(frame: dict, src: Source, members, ss: int, se: int, ah: int, a
             return run(_peek16(data, _BLOCK_BITS // 8 * per_mcu + 4), part, 8 * len(data))
 
     good: List[int] = []
-    src.ff_run = False
     intervals(src, restart, len(slots) // per_mcu, decode, good)
-    if src.ff_run and not progressive and not restart:
-        raise ValueError("corrupt JPEG data: sequential Huffman data without restart markers "
-                         "that holds FF FF 00: libjpeg-turbo's fast decoder takes it for a "
-                         "marker and its slow one for an FF byte, and a block may keep what "
-                         "each wrote, which the port does not follow")
     frame["good_row"] = row_of(good[0])
 
 

@@ -30,6 +30,7 @@ from typing import List
 
 import numpy as np
 
+from . import image_jpeg_exact
 from .image_jpeg_stream import Source, intervals
 
 
@@ -90,11 +91,12 @@ def _undifference(diff: np.ndarray, prev: np.ndarray, first: bool, predictor: in
 
 
 def decode_scan(frame: dict, src: Source, members, predictor: int, se: int, ah: int, pt: int,
-                huff, restart: int, peek16, table) -> None:
+                huff, restart: int, peek16, table, exact_bits) -> None:
     """Decode one lossless scan from ``src`` into ``frame["samples"]`` (each
     component's (height, width) int64 samples at its own size); ``members``
     (component, DC table, AC table) each, ``table(huff, 0, number, True)``
-    a DC table's lookup. Restart markers and data that runs out are read
+    a DC table's lookup, ``exact_bits(src, pad)`` an ``image_jpeg_exact.Bits``
+    over the segment last read. Restart markers and data that runs out are read
     as ``image_jpeg_stream.intervals`` reads them, a row of MCUs at a time
     (``decode_mcus``): the row that runs out is decoded from zero bits, the
     rows after it up to the next restart marker get zero differences and
@@ -138,6 +140,17 @@ def decode_scan(frame: dict, src: Source, members, predictor: int, se: int, ah: 
         return count, p > nbits
 
     def decode(first: int, count: int, data: bytes):
+        if src.span and src.at_end:  # where the fills fall decides: byte for byte
+            d = image_jpeg_exact.lossless(exact_bits(src, 5 * mcux * per_mcu), order,
+                                          count // mcux, mcux * per_mcu)
+            r0, done = first // mcux, len(d) // (mcux * per_mcu)
+            for r in range(done):
+                row = np.asarray(d[r * mcux * per_mcu:(r + 1) * mcux * per_mcu],
+                                 np.int64).reshape(mcux, per_mcu)
+                for j, (ci, yy, xx, vv, hh) in enumerate(layout):
+                    grids[ci][(r0 + r) * vv + yy, xx::hh][:mcux] = row[:, j]
+                decoded[r0 + r] = True
+            return done * mcux, False
         try:
             return rows(first, count, data)
         except IndexError:  # the row that runs out: zero bits enough for any

@@ -26,7 +26,8 @@ libtiff 4.7 hand them to it, for the JPEG decoders of ``image_io``,
   out-of-data flag (``insufficient_data``) that the MCU which runs past the
   data sets and that leaves every MCU after it in the interval undecoded,
   reset at a restart marker but where the resynchronisation left the
-  reader at a marker.
+  reader at a marker. ``Source.span`` tells the decoders where the data
+  lies, for the two cases ``image_jpeg_exact`` reads byte for byte.
 - ``STD_HUFFMAN``: the tables of T.81 K.3 that libjpeg's Huffman decoders
   take for tables 0 and 1 where the stream defines none (``std_huff_tables``).
 """
@@ -82,7 +83,10 @@ class Source:
         self.top = float("inf") if eoi_pad else min(self.n, CHUNK)
         self.arith = False
         self.at_end = False  # a scan's data ran to the end of the file
-        self.ff_run = False  # a scan's data holds FF FF ... 00
+        # the last segment's (start, end, end of its marker or None), None
+        # where the interval had no data; whether it holds FF FF ... 00
+        self.span: Optional[Tuple[int, int, Optional[int]]] = None
+        self.ff_run = False
 
     def _reach(self, p: int) -> None:
         """Byte ``p`` as PIL's reads make it available to libjpeg."""
@@ -140,13 +144,15 @@ class Source:
         end, but an FF and the FF bytes after it that end the file (a
         marker or stuffing cut short)."""
         m = MARKER.search(self.data, self.pos)
+        end = self.n if m is None else m.start()
+        self.span = (self.pos, end, None if m is None else m.end())
+        self.ff_run = _FF_RUN.search(self.data, self.pos, end) is not None
         if m is None:
-            end = len(self.data.rstrip(b"\xff")) if self.data.endswith(b"\xff") else self.n
-            seg = STUFFED.sub(b"\xff", self.data[self.pos:max(end, self.pos)])
+            cut = len(self.data.rstrip(b"\xff")) if self.data.endswith(b"\xff") else self.n
+            seg = STUFFED.sub(b"\xff", self.data[self.pos:max(cut, self.pos)])
             self.pos, self.at_end = self.n, True
             return seg
         seg = STUFFED.sub(b"\xff", self.data[self.pos:m.start()])
-        self.ff_run = self.ff_run or _FF_RUN.search(self.data, self.pos, m.start()) is not None
         self.pos = m.end()
         self.unread = self.data[m.end() - 1]
         return seg
@@ -205,7 +211,7 @@ def intervals(src: Source, restart: int, total: int,
         elif not insufficient:
             last_good = 0
         if src.unread or insufficient:  # at a marker: no data for this interval
-            data = b""
+            data, src.span = b"", None
         else:
             data = src.segment()
         if insufficient:

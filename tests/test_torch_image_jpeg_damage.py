@@ -13,7 +13,9 @@ the port, or raise where PIL raises:
   it is due, a restart marker deleted, bytes put in before one;
 - data that runs out: a file cut and closed with EOI reads (the MCU that
   runs out from zero bits, the rest of its interval grey); cut with no EOI
-  it raises in both;
+  it raises in both; one whose data runs to the end of the file reads or
+  raises as the fills of libjpeg's bit reader fall; FF FF 00 in data
+  without restart markers, which libjpeg's fast reader takes for a marker;
 - a bad DC and a bad AC Huffman code (17 bits, the value 0), a run past
   coefficient 63 and a run past a progressive band's Se, built by hand;
 - damage in each progressive scan kind, in an arithmetic-coded stream and
@@ -46,8 +48,8 @@ RESTART = os.path.join(DATA, "photo_420_restart.jpg")
 DAMAGED = [n for n in CHIP_INPUTS
            if n.endswith(("_rst4.jpg", "_no_rst.jpg", "_hit.jpg", "_hit.tif"))]
 RST3 = 13686  # the code byte of the fourth restart marker (RST3) of RESTART
-# refusals ROADMAP item 19 lists: where the port raises and PIL may read
-NAMED = ("holds FF FF 00", "without a marker after it", "resynchronisation")
+# the refusal ROADMAP item 19 lists: where the port raises and PIL may read
+NAMED = ("resynchronisation",)
 
 
 def pil_bytes(data: bytes):
@@ -132,6 +134,53 @@ def test_cut_files(name):
     cut = data[:int(len(data) * 0.6)]
     assert outcome(cut + b"\xff\xd9") == "equal"
     assert outcome(cut) == "both raise"
+
+
+@pytest.mark.parametrize("name", ["baseline", "restart", "lossless_pred6.jpg"])
+def test_data_that_runs_to_the_end_of_the_file(name):
+    """EOI lost, FF or bytes after the data, the last bytes cut: PIL reads
+    such a one-scan file only where no fill of libjpeg's bit reader needs
+    a byte past the end (each fill loads until 57 bits are left), and
+    raises "image file is truncated" where one does; so does the port
+    (``image_jpeg_exact``), and both outcomes occur."""
+    if name.endswith(".jpg"):
+        with open(os.path.join(DATA, name), "rb") as f:
+            data = f.read()
+    else:
+        buf = io.BytesIO()
+        Image.fromarray(_pattern(120, 160, noise=0.1, seed=5)).save(
+            buf, "JPEG", quality=85, restart_marker_rows=int(name == "restart"))
+        data = buf.getvalue()
+    body = data[:-2]
+    seen = {outcome(body + tail) for tail in (b"", b"\xff", b"\xfe\xd9", b"\xff\xd0")}
+    seen |= {outcome(body[:-k]) for k in (1, 3)}
+    seen |= {outcome(body + bytes(range(1, k + 1))) for k in range(1, 12)}
+    assert seen == {"equal", "both raise"}
+
+
+@pytest.mark.parametrize("size", ["small", "past_64k"])
+def test_ff_ff_00_in_data_without_restarts(size):
+    """FF FF 00 in sequential data without restart markers: one FF byte to
+    libjpeg's slow reader, a marker to its fast one, which runs where 512
+    bytes a block are left in what PIL has handed over (64 KiB at a time)
+    and gives the MCU up to the slow one, which decodes it over what the
+    fast one wrote. An FF put before FF 00 near the start, the end and the
+    64 KiB edges of the file."""
+    shape, kw = {"small": ((120, 160), dict(quality=85, subsampling=0)),
+                 "past_64k": ((300, 400), dict(quality=95))}[size]
+    buf = io.BytesIO()
+    Image.fromarray(_pattern(*shape, noise=0.3, seed=3)).save(buf, "JPEG", **kw)
+    data = buf.getvalue()
+    start = data.index(b"\xff\xda") + 20
+    stuffed = [i for i in range(start, len(data) - 1) if data[i:i + 2] == b"\xff\x00"]
+    places = stuffed[:2] + stuffed[-2:] + [min(stuffed, key=lambda i: abs(i - edge))
+                                           for edge in range(65536, len(data), 65536)]
+    changed = 0
+    for i in places:
+        damaged = data[:i - 1] + b"\xff" + data[i:]
+        assert outcome(damaged) == "equal"
+        changed += int((pil_bytes(damaged) != pil_bytes(data[:i - 1] + b"\x00" + data[i:])).any())
+    assert changed
 
 
 # ---------------------------------------------- codes built by hand

@@ -79,7 +79,11 @@ and ``struct``. Every decoder gives the pixels of PIL 12.1's
   ``decode_jpeg`` takes a stream's bytes with a colour space from the
   caller (JPEG-in-TIFF; there also 12-bit sequential frames, tables kept
   across a file's streams and data that ends early, as libtiff hands them
-  to libjpeg). Hierarchical frames, arithmetic-coded lossless (SOF11) and
+  to libjpeg). Damaged entropy-coded data reads as libjpeg-turbo reads it
+  under PIL (``image_jpeg_stream``: markers, restart resynchronisation,
+  data that runs out, PIL's 64 KiB reads; ``image_jpeg_exact``: its bit
+  reader byte for byte where that shows; bad codes, runs past the block).
+  Hierarchical frames, arithmetic-coded lossless (SOF11) and
   12-bit samples in a JPEG file raise a ``ValueError`` that names them, as
   PIL fails on them.
 - ``write_png``: 8-bit greyscale, RGB or RGBA, filter 0, zlib level 6.
@@ -457,7 +461,7 @@ def _ceil_div(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def _huffman_lut(counts: bytes, symbols: bytes) -> List[int]:
+def _huffman_lut(counts: bytes, symbols: bytes) -> Tuple[int, ...]:
     """A 65536-entry table of a DHT table: the 16 bits that start with a
     code -> (code length << 8) | symbol; 0 where no code starts (libjpeg
     then takes 17 bits and the value 0: ``JWRN_HUFF_BAD_CODE``). As
@@ -476,7 +480,7 @@ def _huffman_lut(counts: bytes, symbols: bytes) -> List[int]:
         code <<= 1
         if k == len(symbols):
             break
-    return lut.tolist()
+    return tuple(lut.tolist())
 
 
 def _peek16(segment: bytes, pad: int = 4) -> List[int]:
@@ -862,8 +866,9 @@ def decode_jpeg(data: bytes, path: str, space: Optional[str] = None, tables: byt
     libtiff's JPEG codec hands it to libjpeg: whole, an EOI marker wherever
     libjpeg reads past its end; "ojpeg" as its OJPEG codec does, which also
     fails where libjpeg would resynchronise on a restart marker ("": a
-    file's stream, as PIL hands it over; see ``image_jpeg_stream``). Damaged entropy-coded data reads as libjpeg
-    reads it past its warnings (``_jpeg_segments``)."""
+    file's stream, as PIL hands it over; see ``image_jpeg_stream``).
+    Damaged entropy-coded data reads as libjpeg reads it past its warnings
+    (``_jpeg_segments``)."""
     qt: Dict[int, np.ndarray]
     huff: Dict[Tuple[int, int], Tuple[bytes, bytes]]
     qt, huff = persist if persist is not None else ({}, {})
@@ -1104,7 +1109,7 @@ def _exact_bits(src: Source, pad: int):
                                  len(src.data) if src.eoi_pad else src.n, pad, _peek16)
 
 
-def _huffman_table(huff, cls: int, th: int, lossless: bool = False) -> List[int]:
+def _huffman_table(huff, cls: int, th: int, lossless: bool = False) -> Tuple[int, ...]:
     """``jpeg_make_d_derived_tbl``: table ``th`` of class ``cls``, checked."""
     table = huff.get((cls, th))
     if table is None:
@@ -1231,9 +1236,7 @@ def _decode_scan(frame: dict, src: Source, members, ss: int, se: int, ah: int, a
                 coefs[ci][b:b + 64] = block
             return run(_peek16(data, _BLOCK_BITS // 8 * per_mcu + 4), part, 8 * len(data))
 
-    good: List[int] = []
-    intervals(src, restart, len(slots) // per_mcu, decode, good)
-    frame["good_row"] = row_of(good[0])
+    frame["good_row"] = row_of(intervals(src, restart, len(slots) // per_mcu, decode))
 
 
 def _jpeg_pixels(frame: dict, coefs: List[List[int]], jfif: bool, adobe,

@@ -187,13 +187,12 @@ class Source:
 
 
 def intervals(src: Source, restart: int, total: int,
-              decode: Callable[[int, int, bytes], Tuple[int, bool]],
-              good: Optional[list] = None) -> None:
+              decode: Callable[[int, int, bytes], Tuple[int, bool]]) -> int:
     """Walk a Huffman-coded scan of ``total`` MCUs in restart intervals of
     ``restart`` MCUs (0: one interval). ``decode(first, count, data)``
     decodes the interval's MCUs from its data (zero bits past its end) and
     returns how many it decoded before one started past the data, and
-    whether the last one ran past it. ``good``, where given, gets libjpeg's
+    whether the last one ran past it. Returns libjpeg's
     ``last_good_iMCU_row`` as an MCU index: the last MCU that began with the
     out-of-data flag clear (looked at before the restart marker is read)."""
     insufficient = False
@@ -223,5 +222,4 @@ def intervals(src: Source, restart: int, total: int,
         if src.at_end and (insufficient or first + count < total):
             raise Truncated  # the bit reader, or the next restart, waits past the end
         first += count
-    if good is not None:
-        good.append(last_good)
+    return last_good

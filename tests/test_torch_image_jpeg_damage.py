@@ -313,6 +313,17 @@ def test_damaged_arithmetic_streams(case):
     assert "equal" in seen
 
 
+def test_arithmetic_scan_past_64_kib():
+    """PIL hands libjpeg 64 KiB at a time, and libjpeg's arithmetic decoder
+    cannot wait for more: a scan within the first 64 KiB reads, one that
+    runs past them fails in both (JERR_CANT_SUSPEND)."""
+    img = _pattern(256, 320, noise=0.25, seed=2)
+    small, big = arith_jpeg(img, quality=80), arith_jpeg(img, quality=85)
+    assert len(small) < 65536 < len(big)
+    assert outcome(small) == "equal"
+    assert outcome(big) == "both raise"
+
+
 @pytest.mark.parametrize("interleaved", [True, False])
 def test_damaged_lossless_streams(interleaved):
     """Lossless scans with a restart every two rows: a bad code is the

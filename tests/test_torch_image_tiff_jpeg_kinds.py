@@ -117,6 +117,20 @@ def test_planar_jpeg_refusals(tmp_path, tile):
         _pil(path)
 
 
+@pytest.mark.parametrize("comp", [7, 5, 8], ids=["jpeg", "lzw", "deflate"])
+@pytest.mark.parametrize("tile", [None, (16, 32)], ids=["strips", "tiles"])
+def test_planar_four_samples_without_extrasamples(tmp_path, comp, tile):
+    """Four 8-bit RGB samples in planes, compressed, no ExtraSamples: PIL
+    reads the fourth as an associated alpha (the file reads as the same one
+    with ExtraSamples 1), and so does the port."""
+    path = tiff_write(str(tmp_path / "n.tif"), _extra(IMG), 2, comp=comp, planar=2, rows=16,
+                      tile=tile)
+    assoc = tiff_write(str(tmp_path / "a.tif"), _extra(IMG), 2, comp=comp, planar=2, rows=16,
+                       tile=tile, extra=(1,))
+    np.testing.assert_array_equal(_pil(path), _pil(assoc))
+    _check(path)
+
+
 def _planar_blocks(img):
     """Each plane's strips of 16 rows as whole one-component JPEG streams."""
     blocks = []

@@ -157,21 +157,23 @@ def decode_scan(frame: dict, src: Source, members, predictor: int, se: int, ah: 
             return rows(first, count, data, 5 * mcux * per_mcu + 4)
 
     intervals(src, restart, mcux * mcuy, decode)
-    # the prediction restarts at the scan's first row, at each restart
-    # marker, and at each row left undecoded
+    # the prediction restarts (start_pass) at the scan's first row, at each
+    # restart marker and at each row left undecoded; libjpeg undifferences
+    # an iMCU row (v sample rows) after decoding all its MCU rows, so a
+    # restart anywhere in it restarts the prediction at its first row
     fresh = ~decoded
     fresh[::rows_per_interval] = True
     initial = 1 << (frame["precision"] - pt - 1)
     for ci in grids:
         _, h, v, _ = comps[ci]
-        vv = v if n > 1 else 1
+        per_row = v if n > 1 else 1  # sample rows in an MCU row
         cw, chh = -(-width * h // hmax), -(-height * v // vmax)
         g = grids[ci]
         out = np.zeros((chh, cw), np.int64)
         prev = None
         for y in range(chh):
-            prev = _undifference(g[y, :cw], prev, y % vv == 0 and fresh[y // vv], predictor,
-                                 initial)
+            first = y % v == 0 and fresh[y // per_row:(y + v - 1) // per_row + 1].any()
+            prev = _undifference(g[y, :cw], prev, first, predictor, initial)
             out[y] = prev
         frame["samples"][ci] = (out << pt) & 255
 

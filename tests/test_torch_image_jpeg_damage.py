@@ -342,6 +342,28 @@ def test_damaged_lossless_streams(interleaved):
     assert "equal" in seen
 
 
+@pytest.mark.parametrize("sampling", [(1, 2), (2, 2)])
+def test_lossless_restart_inside_an_imcu_row(sampling):
+    """A scan of one component sampled v = 2 with a restart every 1 or 3
+    rows: libjpeg undifferences an iMCU row (two rows) after decoding both,
+    so a restart at its second row restarts the prediction at its first.
+    The port restarted it at the row itself (1 x 2 sampling: 952 and 1219
+    of 1920 pixels off PIL at 1 and 3 rows, silently). Then the same files
+    damaged."""
+    img = _pattern(40, 48, noise=0.1, seed=9)
+    rng = np.random.default_rng(13)
+    for rows in (1, 3):
+        data = lossless_jpeg([img[:, :, c] for c in range(3)],
+                             [sampling, (1, 1), (1, 1)], 4, restart_rows=rows,
+                             interleaved=False)
+        assert outcome(data) == "equal"
+        start = data.index(b"\xff\xda")
+        for _ in range(4):
+            pos = int(rng.integers(start, len(data) - 2))
+            outcome(data[:pos] + bytes([data[pos] ^ int(rng.integers(1, 256))])
+                    + data[pos + 1:])
+
+
 def test_damaged_jpeg_in_tiff_tiles():
     """libtiff hands libjpeg each strip or tile whole and an EOI past its end."""
     with open(os.path.join(DATA, "photo_jpeg_ycbcr.tif"), "rb") as f:

@@ -1,0 +1,7 @@
+"""attn_roofline_pct.pcx (%), kernels: B1's share of its roofline in PC extraction."""
+
+from pbharness import readers
+
+
+def read(ctx):
+    return readers.roofline_pct(ctx, "B1")

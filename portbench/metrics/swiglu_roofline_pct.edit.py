@@ -1,0 +1,7 @@
+"""swiglu_roofline_pct.edit (%), kernels: B3's share of its roofline in an edit."""
+
+from pbharness import readers
+
+
+def read(ctx):
+    return readers.roofline_pct(ctx, "B3")
